@@ -1,0 +1,437 @@
+"""Plan compiler and plan executor for bitmap expressions (PyTorch/CUDA).
+
+Counterpart of featurebase_tpu/executor/plan.py.  ``PlanCompiler`` (own
+copy, reference executor.go:679-846 executeCall) compiles a PQL bitmap call
+tree into an IR over stacked shard tiles:
+
+    leaves:  each distinct data source (a field row, a BSI group, the
+             existence row, an embedded const row) becomes one input tensor
+             of shape (S, W) or (S, D+2, W) — all shards batched on axis 0.
+    params:  BSI predicate literals, as host bit vectors (encode_pred).
+
+``PlanExecutor`` gathers the leaves from the fragments' host masters into
+generation-keyed device caches (uploads through pinned host buffers), lowers
+the IR to a register program over leaf planes (``lower_ir``: BSI
+comparators unroll with their predicate bits resolved, a Shift subtree is
+evaluated first and enters as a leaf) and runs it with kernel A
+(ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
+per-shard counts for Count.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
+                                               BSI_SIGN_ROW, WORDS_PER_ROW)
+from featurebase_tpu_torch.model.field import TYPE_TIME, Field
+from featurebase_tpu_torch.model.index import Index
+from featurebase_tpu_torch.model.row import Row, host_words
+from featurebase_tpu_torch.model.view import VIEW_STANDARD, view_bsi_group
+from featurebase_tpu_torch.ops import bitwise as bw
+from featurebase_tpu_torch.ops import bsi_traced as bst
+from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.pql.ast import Call, Condition
+
+
+class PlanError(Exception):
+    pass
+
+
+class _Leaf:
+    """A data source to gather: kind in {row, bsi, existence, const, full}."""
+
+    __slots__ = ("kind", "field", "views", "row", "depth", "const_row")
+
+    def __init__(self, kind: str, field: Optional[str] = None,
+                 views: Tuple[str, ...] = (), row: int = 0, depth: int = 0,
+                 const_row: Optional[Row] = None):
+        self.kind = kind
+        self.field = field
+        self.views = views
+        self.row = row
+        self.depth = depth
+        self.const_row = const_row
+
+    def cache_key(self):
+        return (self.kind, self.field, self.views, self.row, self.depth)
+
+
+# IR node: (op, *operands) where operands are node tuples / leaf ids / statics
+class BitmapPlan:
+    """Compiled plan: IR tree + leaves + dynamic params."""
+
+    def __init__(self, ir, leaves: List[_Leaf], params: List[np.ndarray],
+                 key: tuple):
+        self.ir = ir
+        self.leaves = leaves
+        self.params = params
+        self.key = key  # structural key for the jit cache
+
+
+class PlanCompiler:
+    """Compiles a PQL bitmap call tree against an index's schema."""
+
+    def __init__(self, index: Index):
+        self.index = index
+        self.leaves: List[_Leaf] = []
+        self.params: List[np.ndarray] = []
+        self._leaf_ids: Dict[tuple, int] = {}
+
+    def _add_leaf(self, leaf: _Leaf) -> int:
+        k = leaf.cache_key()
+        if leaf.kind != "const" and k in self._leaf_ids:
+            return self._leaf_ids[k]
+        idx = len(self.leaves)
+        self.leaves.append(leaf)
+        if leaf.kind != "const":
+            self._leaf_ids[k] = idx
+        return idx
+
+    def _add_param(self, arr: np.ndarray) -> int:
+        self.params.append(arr)
+        return len(self.params) - 1
+
+    def compile(self, call: Call) -> BitmapPlan:
+        ir = self._node(call)
+        return BitmapPlan(ir, self.leaves, self.params, _ir_key(ir))
+
+    # -- tree walk ----------------------------------------------------------
+
+    def _node(self, call: Call):
+        name = call.name
+        if name in ("Row", "Range"):
+            return self._row_node(call)
+        if name == "Union":
+            if not call.children:  # Union() is the empty row
+                return ("leaf", self._add_leaf(
+                    _Leaf("const", const_row=Row())))
+            return ("or",) + tuple(self._node(c) for c in call.children)
+        if name == "Intersect":
+            if not call.children:
+                raise PlanError("Intersect requires children")
+            return ("and",) + tuple(self._node(c) for c in call.children)
+        if name == "Difference":
+            return ("andnot",) + tuple(self._node(c) for c in call.children)
+        if name == "Xor":
+            if not call.children:
+                return ("leaf", self._add_leaf(
+                    _Leaf("const", const_row=Row())))
+            return ("xor",) + tuple(self._node(c) for c in call.children)
+        if name == "Not":
+            ex = ("leaf", self._add_leaf(_Leaf("existence")))
+            return ("andnot", ex, self._node(call.children[0]))
+        if name == "All":
+            return ("leaf", self._add_leaf(_Leaf("existence")))
+        if name == "Shift":
+            n = int(call.args.get("n", 1))
+            return ("shift", n, self._node(call.children[0]))
+        if name == "ConstRow":
+            cols = [c for c in call.args.get("columns", [])
+                    if isinstance(c, int)]
+            return ("leaf", self._add_leaf(
+                _Leaf("const", const_row=Row.from_columns(cols))))
+        if name == "Precomputed":
+            return ("leaf", self._add_leaf(
+                _Leaf("const", const_row=call.args["_row"])))
+        raise PlanError(f"not plannable: {name}")
+
+    def _row_node(self, call: Call):
+        fld, val = call.field_arg()
+        if fld is None:
+            raise PlanError("Row() requires a field argument")
+        f = self.index.field(fld)
+        if f is None:
+            raise PlanError(f"field not found: {fld}")
+        if isinstance(val, Condition) or f.is_bsi():
+            cond = val if isinstance(val, Condition) else Condition("==", val)
+            return self._bsi_node(f, cond)
+        if val is None:
+            raise PlanError("Row(f=null) not plannable")  # falls back
+        row_id = int(val)
+        from_t, to_t = call.args.get("from"), call.args.get("to")
+        views: Tuple[str, ...] = (VIEW_STANDARD,)
+        if f.options.type == TYPE_TIME and (from_t or to_t):
+            from datetime import datetime
+
+            from featurebase_tpu_torch.model.timequantum import parse_time
+            lo = parse_time(from_t) if from_t else datetime(1, 1, 1)
+            hi = parse_time(to_t) if to_t else datetime(9999, 1, 1)
+            views = tuple(f.views_for_range(lo, hi))
+        return ("leaf", self._add_leaf(_Leaf("row", field=fld, views=views,
+                                             row=row_id)))
+
+    def _bsi_node(self, f: Field, cond: Condition):
+        depth = max(f.bit_depth, 1)
+        leaf = ("leaf", self._add_leaf(_Leaf("bsi", field=f.name,
+                                             depth=depth)))
+        op, v = cond.op, cond.value
+
+        def enc(x):
+            return f.encode_value(x) - f.base
+
+        if op == "!=" and v is None:
+            return ("bsi_notnull", leaf)
+        if op == "==" and v is None:
+            ex = ("leaf", self._add_leaf(_Leaf("existence")))
+            return ("bsi_null", ex, leaf)
+        if op == "betw":
+            lo, hi = v
+            lo_i = enc(lo) + (1 if cond.lo_strict else 0)
+            hi_i = enc(hi) - (1 if cond.hi_strict else 0)
+            lo_b, lo_n = bst.encode_pred(lo_i, depth)
+            hi_b, hi_n = bst.encode_pred(hi_i, depth)
+            p = self._add_param(lo_b)
+            self._add_param(np.asarray(lo_n))
+            self._add_param(hi_b)
+            self._add_param(np.asarray(hi_n))
+            return ("bsi_betw", depth, p, leaf)
+        pred = enc(v)
+        bits, negf = bst.encode_pred(pred, depth)
+        p = self._add_param(bits)
+        self._add_param(np.asarray(negf))
+        opmap = {"==": "bsi_eq", "!=": "bsi_neq", "<": "bsi_lt",
+                 "<=": "bsi_lte", ">": "bsi_gt", ">=": "bsi_gte"}
+        if op not in opmap:
+            raise PlanError(f"unsupported condition: {op}")
+        return (opmap[op], depth, p, leaf)
+
+
+def _ir_key(ir) -> tuple:
+    """Structural key: drops nothing (params are referenced by index; leaf
+    ids and depths are structural)."""
+    return ir if not isinstance(ir, tuple) else tuple(
+        _ir_key(x) if isinstance(x, tuple) else x for x in ir)
+
+
+# ---------------------------------------------------------------------------
+# Lowering of compiled IR to a kernel-A program
+# ---------------------------------------------------------------------------
+
+_SET_OPS = {"or": ck.OP_OR, "and": ck.OP_AND, "xor": ck.OP_XOR,
+            "andnot": ck.OP_ANDNOT}
+
+
+def lower_ir(ir, leaves: List[torch.Tensor], params: List[np.ndarray],
+             S: int, shift_words: Callable[[tuple], torch.Tensor]
+             ) -> ck.Program:
+    """Lower an IR tree over stacked leaves ((S, W) or (S, D+2, W) int32) to
+    a register program.  `shift_words(subtree)` evaluates a Shift operand to
+    (S, W) words; the shifted words enter the program as a plane."""
+    pb = ck.ProgramBuilder(S, WORDS_PER_ROW)
+    bsi: Dict[int, bst.BsiPlanes] = {}
+
+    def bsi_planes(leaf_node) -> bst.BsiPlanes:
+        lid = leaf_node[1]
+        if lid not in bsi:
+            bsi[lid] = bst.BsiPlanes(pb, ("leaf", lid), leaves[lid])
+        return bsi[lid]
+
+    def rec(node) -> int:
+        op = node[0]
+        if op == "leaf":
+            return pb.load(pb.plane(("leaf", node[1]), leaves[node[1]]))
+        if op in _SET_OPS:
+            acc = rec(node[1])
+            for sub in node[2:]:
+                r = rec(sub)
+                pb.op(_SET_OPS[op], acc, r, dst=acc)
+                pb.free(r)
+            return acc
+        if op == "shift":
+            shifted = bw.b_shift(shift_words(node[2]), node[1])
+            return pb.load(pb.plane(("shift", id(node)), shifted))
+        if op == "bsi_notnull":
+            return pb.load(bsi_planes(node[1]).exists())
+        if op == "bsi_null":
+            ex = rec(node[1])
+            e = pb.load(bsi_planes(node[2]).exists())
+            pb.op(ck.OP_ANDNOT, ex, e, dst=ex)
+            pb.free(e)
+            return ex
+        depth, p = node[1], node[2]
+        planes = bsi_planes(node[3])
+        if op == "bsi_betw":
+            return bst.lower_between(pb, planes, params[p], params[p + 1],
+                                     params[p + 2], params[p + 3], depth)
+        bits, neg = params[p], int(params[p + 1])
+        if op == "bsi_eq":
+            return bst.lower_eq(pb, planes, bits, neg, depth)
+        if op == "bsi_neq":
+            return bst.lower_neq(pb, planes, bits, neg, depth)
+        if op in ("bsi_lt", "bsi_lte"):
+            return bst.lower_lt(pb, planes, bits, neg, depth,
+                                op == "bsi_lte")
+        if op in ("bsi_gt", "bsi_gte"):
+            return bst.lower_gt(pb, planes, bits, neg, depth,
+                                op == "bsi_gte")
+        raise PlanError(f"bad IR op: {op}")
+
+    return pb.build(rec(ir))
+
+
+# ---------------------------------------------------------------------------
+# Plan execution
+# ---------------------------------------------------------------------------
+
+class PlanExecutor:
+    """Gathers stacked leaves into generation-keyed device caches and runs
+    lowered plans with kernel A."""
+
+    def __init__(self, holder, device: torch.device):
+        self.holder = holder
+        self.device = device
+        self._leaf_cache: Dict[tuple, Tuple[tuple, torch.Tensor]] = {}
+
+    # -- leaf gathering -----------------------------------------------------
+
+    @staticmethod
+    def _pin_diverged(frags) -> bool:
+        """True when an active snapshot pin no longer matches these
+        fragments' live generations: the generation-keyed caches then belong
+        to live readers, so the gather goes uncached through the pin-aware
+        Fragment.host_row (model/snapshot.py)."""
+        from featurebase_tpu_torch.model.snapshot import current_pin
+        pin = current_pin()
+        if pin is None:
+            return False
+        return any(fr is not None and not fr.pin_current(pin)
+                   for fr in frags)
+
+    @staticmethod
+    def _frag(f, view_name, shard):
+        if f is None:
+            return None
+        v = f.view(view_name)
+        return v.fragment(shard) if v else None
+
+    def _gather_leaf(self, index: Index, leaf: _Leaf, shards: List[int]
+                     ) -> torch.Tensor:
+        S = len(shards)
+        if leaf.kind == "const":
+            rows = [leaf.const_row.segments.get(s) for s in shards]
+
+            def fill_const(si, out):
+                if rows[si] is not None:
+                    out[:] = host_words(rows[si])
+            return self._put_lazy((S, WORDS_PER_ROW), fill_const)
+        if leaf.kind == "existence":
+            ef = index.existence_field()
+            if ef is None:
+                raise PlanError("no existence field")
+            frags = [self._frag(ef, VIEW_STANDARD, s) for s in shards]
+            gen = tuple(f.generation if f else -1 for f in frags)
+
+            def fill_ex(si, out):
+                if frags[si] is not None:
+                    out[:] = frags[si].host_row(0)
+            return self._cached_stack(("ex", index.name, tuple(shards)), gen,
+                                      frags, (S, WORDS_PER_ROW), fill_ex)
+        if leaf.kind == "row":
+            f = index.field(leaf.field)
+            frag_sets = [[self._frag(f, vn, s) for vn in leaf.views]
+                         for s in shards]
+            flat = [fr for frs in frag_sets for fr in frs]
+            gen = tuple(fr.generation if fr else -1 for fr in flat)
+
+            def fill_row(si, out):
+                for fr in frag_sets[si]:
+                    if fr is not None:
+                        np.bitwise_or(out, fr.host_row(leaf.row), out=out)
+            ck_ = ("row", index.name, leaf.field, leaf.views, leaf.row,
+                   tuple(shards))
+            return self._cached_stack(ck_, gen, flat, (S, WORDS_PER_ROW),
+                                      fill_row)
+        if leaf.kind == "bsi":
+            f = index.field(leaf.field)
+            frags = [self._frag(f, view_bsi_group(leaf.field), s)
+                     for s in shards]
+            gen = tuple(fr.generation if fr else -1 for fr in frags)
+            D = leaf.depth
+
+            def fill_bsi(si, out):
+                fr = frags[si]
+                if fr is None:
+                    return
+                out[0] = fr.host_row(BSI_EXISTS_ROW)
+                out[1] = fr.host_row(BSI_SIGN_ROW)
+                for d in range(D):
+                    out[2 + d] = fr.host_row(BSI_OFFSET + d)
+            return self._cached_stack(
+                ("bsi", index.name, leaf.field, D, tuple(shards)), gen, frags,
+                (S, D + 2, WORDS_PER_ROW), fill_bsi)
+        raise PlanError(f"bad leaf kind {leaf.kind}")
+
+    def _put_lazy(self, shape, fill_shard) -> torch.Tensor:
+        """Build a stacked (S, ...) tensor shard by shard in a host buffer
+        (pinned when the device is a GPU) and upload it."""
+        buf = torch.zeros(shape, dtype=torch.int32,
+                          pin_memory=self.device.type == "cuda")
+        host = buf.numpy().view(np.uint32)
+        for si in range(shape[0]):
+            fill_shard(si, host[si])
+        return buf.to(self.device, non_blocking=True)
+
+    def _cached_stack(self, key, gen, frags, shape, fill_shard
+                      ) -> torch.Tensor:
+        """Generation-keyed stacked-leaf cache; a pinned read whose pin has
+        diverged from the live fragments gathers uncached."""
+        if self._pin_diverged(frags):
+            return self._put_lazy(shape, fill_shard)
+        hit = self._leaf_cache.get(key)
+        if hit is not None and hit[0] == gen:
+            return hit[1]
+        arr = self._put_lazy(shape, fill_shard)
+        self._leaf_cache[key] = (gen, arr)
+        return arr
+
+    def stacked_field_rows(self, index: Index, fname: str,
+                           views: Tuple[str, ...], row_ids: Tuple[int, ...],
+                           shards: List[int]) -> torch.Tensor:
+        """(S, R, W) stacked tile of the given row ids across shards (views
+        OR-ed, absent rows zero).  Backs TopN (reference: each shard's
+        fragment.rows read, executor.go:4077)."""
+        f = index.field(fname)
+        frag_sets = [[self._frag(f, vn, s) for vn in views] for s in shards]
+        flat = [fr for frs in frag_sets for fr in frs]
+        gen = tuple(fr.generation if fr else -1 for fr in flat)
+
+        def fill_rowset(si, out):
+            for fr in frag_sets[si]:
+                if fr is None:
+                    continue
+                for ri, r in enumerate(row_ids):
+                    if fr.has_row(r):
+                        np.bitwise_or(out[ri], fr.host_row(r), out=out[ri])
+        return self._cached_stack(
+            ("rowset", index.name, fname, views, row_ids, tuple(shards)), gen,
+            flat, (len(shards), len(row_ids), WORDS_PER_ROW), fill_rowset)
+
+    # -- plan execution -----------------------------------------------------
+
+    def _run(self, index: Index, plan: BitmapPlan, shards: List[int],
+             want_words: bool, want_counts: bool):
+        leaves = [self._gather_leaf(index, l, shards) for l in plan.leaves]
+        S = len(shards)
+
+        def shift_words(sub) -> torch.Tensor:
+            words, _ = ck.plan_eval(
+                lower_ir(sub, leaves, plan.params, S, shift_words),
+                want_words=True)
+            return words
+        prog = lower_ir(plan.ir, leaves, plan.params, S, shift_words)
+        return ck.plan_eval(prog, want_words, want_counts)
+
+    def run_bitmap(self, index: Index, plan: BitmapPlan, shards: List[int]
+                   ) -> torch.Tensor:
+        """Stacked (S, W) int32 result words."""
+        words, _ = self._run(index, plan, shards, True, False)
+        return words
+
+    def run_count(self, index: Index, plan: BitmapPlan, shards: List[int]
+                  ) -> int:
+        """Fused plan + popcount: the result words never reach HBM."""
+        _, counts = self._run(index, plan, shards, False, True)
+        return int(counts.sum())

@@ -1,0 +1,366 @@
+"""Field: a typed column of the data model (host masters and write API).
+
+Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
+uses: options, value encoding, views, point and bulk writes and the TopN
+rank cache.  Mirrors reference field.go:73 (Field), field types
+field.go:42-50 and the bsiGroup value encoding (field.go:2394 bsiGroup,
+2412 baseValue).
+
+BSI encoding: int-like values are stored relative to `base` as sign-magnitude
+bit slices in the `bsig_<field>` view — row 0 exists, row 1 sign, row 2+i =
+magnitude bit i (reference fragment.go:62-65).
+"""
+from __future__ import annotations
+
+import threading
+from datetime import datetime
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
+                                               BSI_SIGN_ROW, SHARD_WIDTH)
+from featurebase_tpu_torch.model.timequantum import (parse_time,
+                                                     views_by_time,
+                                                     views_by_time_range)
+from featurebase_tpu_torch.model.view import (VIEW_STANDARD, View,
+                                              view_bsi_group)
+
+# field types (reference field.go:42-50)
+TYPE_SET = "set"
+TYPE_INT = "int"
+TYPE_TIME = "time"
+TYPE_MUTEX = "mutex"
+TYPE_BOOL = "bool"
+TYPE_DECIMAL = "decimal"
+TYPE_TIMESTAMP = "timestamp"
+
+BSI_TYPES = (TYPE_INT, TYPE_DECIMAL, TYPE_TIMESTAMP)
+
+# cache types (reference field.go:2486 CacheType*)
+CACHE_RANKED = "ranked"
+CACHE_LRU = "lru"
+CACHE_NONE = "none"
+
+DEFAULT_CACHE_SIZE = 50000
+
+_EPOCH = datetime(1970, 1, 1)
+
+_TIME_UNIT_NS = {
+    "s": 1_000_000_000, "ms": 1_000_000, "us": 1_000, "µs": 1_000, "ns": 1,
+    "m": 60 * 1_000_000_000, "h": 3600 * 1_000_000_000,
+    "d": 86400 * 1_000_000_000,
+}
+
+
+class FieldOptions:
+    def __init__(self, type: str = TYPE_SET, keys: bool = False,
+                 cache_type: str = CACHE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 min: Optional[int] = None, max: Optional[int] = None,
+                 scale: int = 0, time_unit: str = "s",
+                 time_quantum: str = "", ttl: int = 0,
+                 no_standard_view: bool = False,
+                 foreign_index: str = ""):
+        self.type = type
+        self.keys = keys
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.min = min
+        self.max = max
+        self.scale = scale
+        self.time_unit = time_unit
+        self.time_quantum = time_quantum
+        self.ttl = ttl
+        self.no_standard_view = no_standard_view
+        self.foreign_index = foreign_index
+
+    @classmethod
+    def from_json(cls, d: dict) -> "FieldOptions":
+        return cls(type=d.get("type", TYPE_SET), keys=d.get("keys", False),
+                   cache_type=d.get("cacheType", CACHE_RANKED),
+                   cache_size=d.get("cacheSize", DEFAULT_CACHE_SIZE),
+                   min=d.get("min"), max=d.get("max"),
+                   scale=d.get("scale", 0),
+                   time_unit=d.get("timeUnit", "s"),
+                   time_quantum=d.get("timeQuantum", ""),
+                   ttl=d.get("ttl", 0),
+                   no_standard_view=d.get("noStandardView", False),
+                   foreign_index=d.get("foreignIndex", ""))
+
+
+class Field:
+    def __init__(self, index: str, name: str, options: FieldOptions):
+        self.index = index
+        self.name = name
+        self.options = options
+        self._lock = threading.RLock()
+        self.views: Dict[str, View] = {}
+        # TopN rank cache: (shard, views) -> (generations, {row: count})
+        # (reference: cache.go:25 rankCache; exact counts per shard keyed by
+        # fragment generation, honoring cache_type/cache_size)
+        self._topn_cache: Dict = {}
+        # dynamic bit depth for BSI fields (grows with observed magnitudes)
+        self.bit_depth = self._initial_depth() if self.is_bsi() else 0
+        # base for value encoding (reference field.go:2412 baseValue)
+        self.base = self._compute_base()
+
+    # -- type helpers -------------------------------------------------------
+
+    def is_bsi(self) -> bool:
+        return self.options.type in BSI_TYPES
+
+    def _compute_base(self) -> int:
+        o = self.options
+        if not self.is_bsi() or o.min is None or o.max is None:
+            return 0
+        if o.min > 0:
+            return o.min
+        if o.max < 0:
+            return o.max
+        return 0
+
+    def _initial_depth(self) -> int:
+        o = self.options
+        if o.min is None or o.max is None:
+            return 1
+        base = self._compute_base()
+        mag = max(abs(int(o.min) - base), abs(int(o.max) - base))
+        return max(1, mag.bit_length())
+
+    # -- value encoding (field-level units -> stored BSI int) ---------------
+
+    def encode_value(self, v) -> int:
+        o = self.options
+        if o.type == TYPE_DECIMAL:
+            if isinstance(v, str):
+                v = float(v)
+            if isinstance(v, float):
+                v = round(v * (10 ** o.scale))
+            elif isinstance(v, int):
+                v = v * (10 ** o.scale)
+            return int(v)
+        if o.type == TYPE_TIMESTAMP:
+            if isinstance(v, (int, np.integer)):
+                return int(v)
+            t = parse_time(v)
+            ns = int((t - _EPOCH).total_seconds() * 1e9)
+            return ns // _TIME_UNIT_NS.get(o.time_unit, 1_000_000_000)
+        return int(v)
+
+    # -- views --------------------------------------------------------------
+
+    def view(self, name: str) -> Optional[View]:
+        return self.views.get(name)
+
+    def create_view_if_not_exists(self, name: str) -> View:
+        with self._lock:
+            v = self.views.get(name)
+            if v is None:
+                v = View(self.index, self.name, name)
+                self.views[name] = v
+            return v
+
+    def bsi_view(self) -> View:
+        return self.create_view_if_not_exists(view_bsi_group(self.name))
+
+    def standard_view(self) -> View:
+        return self.create_view_if_not_exists(VIEW_STANDARD)
+
+    def available_shards(self) -> List[int]:
+        shards = set()
+        for v in self.views.values():
+            shards.update(v.available_shards())
+        return sorted(shards)
+
+    # -- bit-level writes (set/mutex/bool/time) -----------------------------
+
+    def set_bit(self, row: int, col: int, timestamp=None) -> bool:
+        """Reference field.SetBit field.go:1301."""
+        o = self.options
+        shard = col >> 20
+        if o.type in (TYPE_MUTEX, TYPE_BOOL):
+            self._clear_mutex_col(col, keep_row=row)
+        if o.type == TYPE_TIME:
+            views = [] if o.no_standard_view else [VIEW_STANDARD]
+            if timestamp is not None:
+                views.extend(views_by_time(VIEW_STANDARD,
+                                           parse_time(timestamp),
+                                           o.time_quantum))
+            changed = False
+            for vn in views:
+                frag = self.create_view_if_not_exists(vn) \
+                    .create_fragment_if_not_exists(shard)
+                if frag.set_bit(row, col):
+                    changed = True
+                    self._topn_cache_adjust(shard, vn, row, +1)
+            return changed
+        frag = self.standard_view().create_fragment_if_not_exists(shard)
+        out = frag.set_bit(row, col)
+        if out:
+            self._topn_cache_adjust(shard, VIEW_STANDARD, row, +1)
+        return out
+
+    def _topn_cache_adjust(self, shard: int, view_name: str, row: int,
+                           delta: int):
+        """Incremental rank-cache maintenance for single-bit writes
+        (reference: cache.go:130).  The entry is updated only when the
+        current generations equal the cached ones plus exactly this write's
+        seqlock bump; otherwise it drops."""
+        for key in list(self._topn_cache):
+            kshard, names = key
+            if kshard != shard or view_name not in names:
+                continue
+            if names != (view_name,):
+                self._topn_cache.pop(key, None)
+                continue
+            entry = self._topn_cache.get(key)
+            if entry is None:
+                continue
+            old_gens, counts = entry
+            cur = tuple(fr.generation for vn in names
+                        if (vv := self.views.get(vn)) is not None
+                        and (fr := vv.fragments.get(shard)) is not None)
+            if (len(cur) != len(old_gens)
+                    or sum(c - o for c, o in zip(cur, old_gens)) != 2
+                    or any(c - o not in (0, 2)
+                           for c, o in zip(cur, old_gens))):
+                self._topn_cache.pop(key, None)
+                continue
+            new_counts = dict(counts)
+            new_counts[row] = new_counts.get(row, 0) + delta
+            if new_counts[row] <= 0:
+                new_counts.pop(row)
+            if len(new_counts) > self.options.cache_size:
+                self._topn_cache.pop(key, None)
+                continue
+            self._topn_cache[key] = (cur, new_counts)
+
+    def _clear_mutex_col(self, col: int, keep_row: Optional[int] = None):
+        """Mutex invariant: at most one row set per column (reference
+        fragment.go:1787 bulkImportMutex)."""
+        v = self.views.get(VIEW_STANDARD)
+        frag = v.fragment(col >> 20) if v is not None else None
+        if frag is None:
+            return
+        for r in list(frag.row_ids()):
+            r = int(r)
+            if r != keep_row and frag.get_bit(r, col):
+                frag.clear_bit(r, col)
+
+    # -- bulk imports -------------------------------------------------------
+
+    def _check_value_range(self, stored_with_base) -> None:
+        """Writes outside the configured [min, max] are rejected
+        (reference: fragment.go:615 setValue range errors)."""
+        o = self.options
+        if o.min is not None and stored_with_base < self.encode_value(o.min):
+            raise ValueError(
+                f"value {stored_with_base} below field minimum {o.min}")
+        if o.max is not None and stored_with_base > self.encode_value(o.max):
+            raise ValueError(
+                f"value {stored_with_base} above field maximum {o.max}")
+
+    def import_bits(self, rows: np.ndarray, cols: np.ndarray,
+                    timestamps=None, clear: bool = False):
+        """Bulk set-bit import (reference fragment.bulkImport:1498; mutex
+        variant 1787; time-view fan-out field.Import field.go:1662)."""
+        from featurebase_tpu_torch.ops.bitwise import cols_to_words
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        o = self.options
+        shards = cols >> 20
+        for s in np.unique(shards):
+            m = shards == s
+            r, c = rows[m], cols[m] % SHARD_WIDTH
+            frag = self.standard_view().create_fragment_if_not_exists(int(s))
+            if o.type in (TYPE_MUTEX, TYPE_BOOL) and not clear:
+                # clear the imported columns across all rows first
+                frag.clear_columns(cols_to_words(np.unique(c)))
+            frag.import_bits(r, c, clear=clear)
+            if o.type == TYPE_TIME and timestamps is not None:
+                ts = np.asarray(timestamps)[m]
+                per_t = [views_by_time(VIEW_STANDARD, parse_time(t),
+                                       o.time_quantum) for t in ts]
+                for vn in {v for vs in per_t for v in vs}:
+                    tf = self.create_view_if_not_exists(vn) \
+                        .create_fragment_if_not_exists(int(s))
+                    sel = np.array([vn in vs for vs in per_t])
+                    tf.import_bits(r[sel], c[sel], clear=clear)
+
+    def encode_values_vec(self, values) -> np.ndarray:
+        """Vectorized encode_value over a batch."""
+        o = self.options
+        arr = np.asarray(values)
+        if arr.dtype.kind in "iu":
+            if o.type == TYPE_DECIMAL:
+                return arr.astype(np.int64) * (10 ** o.scale)
+            return arr.astype(np.int64)
+        if arr.dtype.kind == "f" and o.type == TYPE_DECIMAL:
+            return np.round(arr * (10 ** o.scale)).astype(np.int64)
+        return np.array([self.encode_value(v) for v in values],
+                        dtype=np.int64)
+
+    @staticmethod
+    def _bsi_delta(c, v, mg, depth: int) -> np.ndarray:
+        """(depth+2, W) delta tile for one shard's BSI import (host
+        scatter)."""
+        wi = (c >> 5).astype(np.int64)
+        bv = (np.uint32(1) << (c & 31).astype(np.uint32))
+        delta = np.zeros((depth + 2, SHARD_WIDTH // 32), dtype=np.uint32)
+        np.bitwise_or.at(delta[0], wi, bv)                    # exists
+        np.bitwise_or.at(delta[1], wi,
+                         bv * (v < 0).astype(np.uint32))      # sign
+        for i in range(depth):
+            np.bitwise_or.at(delta[2 + i], wi,
+                             bv * ((mg >> np.uint64(i)) &
+                                   np.uint64(1)).astype(np.uint32))
+        return delta
+
+    def import_values(self, cols: np.ndarray, values):
+        """Bulk BSI import (reference fragment.importValue:1947): one
+        word-index scatter builds a (depth+2, W) delta tile per shard, which
+        lands in the fragment in one locked OR after the imported columns
+        are cleared."""
+        cols = np.asarray(cols, dtype=np.int64)
+        encoded = self.encode_values_vec(values)
+        o = self.options
+        if encoded.size and (o.min is not None or o.max is not None):
+            self._check_value_range(int(encoded.min()))
+            self._check_value_range(int(encoded.max()))
+        stored = encoded - self.base
+        mags = np.abs(stored)
+        depth = max(self.bit_depth,
+                    int(mags.max()).bit_length() if mags.size else 1, 1)
+        self.bit_depth = depth
+        shards = cols >> 20
+        for s in np.unique(shards):
+            m = shards == s
+            frag = self.bsi_view().create_fragment_if_not_exists(int(s))
+            delta = self._bsi_delta(cols[m] % SHARD_WIDTH, stored[m],
+                                    mags[m].astype(np.uint64), depth)
+            frag.clear_columns(delta[0])
+            frag.merge_rows_delta(
+                [BSI_EXISTS_ROW, BSI_SIGN_ROW] +
+                [BSI_OFFSET + i for i in range(depth)], delta)
+
+    # -- views for a time range --------------------------------------------
+
+    def views_for_range(self, from_t, to_t) -> List[str]:
+        from featurebase_tpu_torch.model.timequantum import view_time_range
+        lo, hi = parse_time(from_t), parse_time(to_t)
+        # clamp open-ended bounds to the hull of existing time views
+        starts, ends = [], []
+        for vn in self.views:
+            rng = view_time_range(vn)
+            if rng is not None:
+                starts.append(rng[0])
+                ends.append(rng[1])
+        if not starts:
+            return []
+        lo = max(lo, min(starts))
+        hi = min(hi, max(ends))
+        if lo >= hi:
+            return []
+        return views_by_time_range(VIEW_STANDARD, lo, hi,
+                                   self.options.time_quantum)

@@ -1,0 +1,131 @@
+"""Index (table) and Holder (root registry).
+
+Own copy of featurebase_tpu/model/index.py trimmed to the port's slice
+(reference index.go:27 Index, holder.go:58 Holder): fields, translate
+stores, existence tracking and schema apply.
+"""
+from __future__ import annotations
+
+import threading
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from featurebase_tpu_torch.model.field import TYPE_SET, Field, FieldOptions
+from featurebase_tpu_torch.storage.translate import (FieldTranslateStore,
+                                                     IndexTranslateStore)
+
+# reference: index.go existenceFieldName = "_exists"
+EXISTENCE_FIELD = "_exists"
+
+
+class IndexOptions:
+    def __init__(self, keys: bool = False, track_existence: bool = True):
+        self.keys = keys
+        self.track_existence = track_existence
+
+    @classmethod
+    def from_json(cls, d: dict) -> "IndexOptions":
+        return cls(keys=d.get("keys", False),
+                   track_existence=d.get("trackExistence", True))
+
+
+class Index:
+    def __init__(self, name: str, options: Optional[IndexOptions] = None):
+        self.name = name
+        self.options = options or IndexOptions()
+        self._lock = threading.RLock()
+        self.fields: Dict[str, Field] = {}
+        self.translate_store = IndexTranslateStore(name)
+        self.field_translate_stores: Dict[str, FieldTranslateStore] = {}
+        if self.options.track_existence:
+            self.fields[EXISTENCE_FIELD] = Field(
+                name, EXISTENCE_FIELD,
+                FieldOptions(type=TYPE_SET, cache_type="none"))
+
+    # -- fields --------------------------------------------------------------
+
+    def create_field(self, name: str, options: Optional[FieldOptions] = None,
+                     if_not_exists: bool = False) -> Field:
+        with self._lock:
+            if name in self.fields:
+                if if_not_exists:
+                    return self.fields[name]
+                raise ValueError(f"field already exists: {name}")
+            f = Field(self.name, name, options or FieldOptions())
+            self.fields[name] = f
+            if f.options.keys:
+                self.field_translate_stores[name] = FieldTranslateStore(
+                    self.name, name)
+            return f
+
+    def field(self, name: str) -> Optional[Field]:
+        return self.fields.get(name)
+
+    def existence_field(self) -> Optional[Field]:
+        return self.fields.get(EXISTENCE_FIELD)
+
+    # -- existence maintenance (reference: fragment importExistenceColumns) --
+
+    def mark_exists(self, cols: np.ndarray):
+        if not self.options.track_existence:
+            return
+        cols = np.asarray(cols, dtype=np.int64)
+        if cols.size:
+            self.existence_field().import_bits(
+                np.zeros(cols.size, dtype=np.int64), cols)
+
+    def available_shards(self) -> List[int]:
+        """Union of shards across fields (reference index.go:498)."""
+        shards = set()
+        for f in self.fields.values():
+            shards.update(f.available_shards())
+        return sorted(shards)
+
+    def row_translation(self, field: str) -> Optional[FieldTranslateStore]:
+        return self.field_translate_stores.get(field)
+
+    def iter_fragments(self):
+        """Yields ((field, view, shard), fragment) for every fragment
+        (snapshot pin capture)."""
+        for fname, f in list(self.fields.items()):
+            for vname, v in list(f.views.items()):
+                for shard, frag in list(v.fragments.items()):
+                    yield (fname, vname, shard), frag
+
+
+class Holder:
+    """Root object owning all indexes (reference holder.go:58)."""
+
+    def __init__(self, path: str = ""):
+        self.path = path
+        self._lock = threading.RLock()
+        self.indexes: Dict[str, Index] = {}
+
+    def create_index(self, name: str, options: Optional[IndexOptions] = None,
+                     if_not_exists: bool = False) -> Index:
+        with self._lock:
+            if name in self.indexes:
+                if if_not_exists:
+                    return self.indexes[name]
+                raise ValueError(f"index already exists: {name}")
+            idx = Index(name, options)
+            self.indexes[name] = idx
+            return idx
+
+    def index(self, name: str) -> Optional[Index]:
+        return self.indexes.get(name)
+
+    def apply_schema(self, schema: list):
+        """Create indexes/fields from a schema document (reference
+        holder.go:836 applySchema)."""
+        for idx_info in schema:
+            idx = self.create_index(
+                idx_info["name"],
+                IndexOptions.from_json(idx_info.get("options", {})),
+                if_not_exists=True)
+            for f_info in idx_info.get("fields", []):
+                idx.create_field(
+                    f_info["name"],
+                    FieldOptions.from_json(f_info.get("options", {})),
+                    if_not_exists=True)

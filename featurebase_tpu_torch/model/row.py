@@ -1,0 +1,74 @@
+"""Row: a query-result bitmap over the full column space, segmented by shard.
+
+Counterpart of featurebase_tpu/model/row.py (reference row.go:15 Row,
+row.go:511 RowSegment).  Each segment is a (WORDS_PER_ROW,) int32 torch
+tensor on the executor's device; ``columns()`` and ``count()`` decode
+through host numpy.
+"""
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional
+
+import numpy as np
+import torch
+
+from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+from featurebase_tpu_torch.ops import bitwise as bw
+
+
+def host_words(seg: torch.Tensor) -> np.ndarray:
+    """uint32 host copy of int32 device words."""
+    return seg.cpu().numpy().view(np.uint32)
+
+
+class Row:
+    __slots__ = ("segments", "keys")
+
+    def __init__(self, segments: Optional[Dict[int, torch.Tensor]] = None,
+                 keys: Optional[List[str]] = None):
+        # shard -> (W,) int32 tensor
+        self.segments: Dict[int, torch.Tensor] = segments or {}
+        self.keys = keys  # set after key translation of results
+
+    @classmethod
+    def from_columns(cls, cols: Iterable[int]) -> "Row":
+        """Host (CPU) segments for the given absolute column ids."""
+        cols = np.asarray(list(cols) if not isinstance(cols, np.ndarray)
+                          else cols, dtype=np.int64)
+        segs: Dict[int, torch.Tensor] = {}
+        if cols.size:
+            shards = cols >> 20
+            for s in np.unique(shards):
+                words = bw.cols_to_words(cols[shards == s] % SHARD_WIDTH)
+                segs[int(s)] = torch.from_numpy(words.view(np.int32))
+        return cls(segs)
+
+    def _host(self) -> np.ndarray:
+        """(n_segments, W) uint32 host words in shard order (one copy)."""
+        return host_words(torch.stack([self.segments[s]
+                                       for s in sorted(self.segments)]))
+
+    def count(self) -> int:
+        if not self.segments:
+            return 0
+        return int(np.bitwise_count(self._host()).sum())
+
+    def columns(self) -> np.ndarray:
+        """Sorted absolute column ids (host decode)."""
+        if not self.segments:
+            return np.empty(0, dtype=np.uint64)
+        host = self._host()
+        return np.concatenate([
+            bw.words_to_cols(host[i], base=s * SHARD_WIDTH)
+            for i, s in enumerate(sorted(self.segments))])
+
+    def __eq__(self, other):
+        if not isinstance(other, Row):
+            return NotImplemented
+        return np.array_equal(self.columns(), other.columns())
+
+    def __repr__(self):
+        cols = self.columns()
+        preview = ", ".join(str(int(c)) for c in cols[:8])
+        return (f"Row<{cols.size} cols: "
+                f"[{preview}{'...' if cols.size > 8 else ''}]>")
