@@ -8,7 +8,8 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one status line each; any failure raises and exits nonzero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build of every CUDA source with nvcc (sm_90a), timed, with the ptxas
-     register/shared-memory report;
+     register/shared-memory report; cuobjdump's SASS of each tuning kernel
+     must keep the 16-byte loads of its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
      slice's shapes, on random words from a numpy seed: exact equality;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
@@ -21,14 +22,27 @@ Phases, one status line each; any failure raises and exits nonzero:
      equal to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)) and TopN(f, n=5); both kernels'
      launch counters must rise; TopN's per-shard branch must give the
-     stacked answers; p50 latency per query.
+     stacked answers; p50 latency per query;
+  6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
+     versions on the card at every launch shape, on the harness's 256 MB
+     streams and on smaller ones, with a nonzero and a wrapping acc: exact
+     equality mod 2^32;
+  7. the tuning harness (featurebase_tpu_torch.tools.tune_count_kernel):
+     its default variant list through `measure`, 256 MB a stream, launch
+     counters reset before and read after (each tuning kernel must run),
+     the two-stream read ceiling beside the copy ceiling; then each tuning
+     kernel at its best shape timed like phase 4, at 256 MB and at the
+     slice's (S, W) beside plan_eval's AND;
+  8. no process started by the run is left running.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits nonzero at once.
 """
 from __future__ import annotations
 
 import argparse
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -68,6 +82,15 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def child_pids() -> list:
+    """Processes started by this one that still run (Linux /proc)."""
+    pids = []
+    for path in glob.glob("/proc/self/task/*/children"):
+        with open(path) as fh:
+            pids += [int(p) for p in fh.read().split()]
+    return pids
 
 
 # -- timing -------------------------------------------------------------------
@@ -112,7 +135,9 @@ def kernel_device_ms(fn, reps: int) -> dict:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    names = ("plan_eval_kernel", "row_counts_kernel", "Memset")
+    names = ("plan_eval_kernel", "row_counts_kernel", "tune_ceiling_kernel",
+             "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
+             "tune_csa_partial_kernel", "Memset", "Memcpy")
     return {next((n for n in names if n in ev.key), ev.key[:60]):
             ev.device_time_total / ev.count / 1e3
             for ev in prof.key_averages()
@@ -236,7 +261,7 @@ def kernel_times(timer: Timer, inputs) -> dict:
             (S * R * W + (0 if f is None else S * W)) * 4 + S * R * 8)
     for name, r in out.items():
         say("kernel_time", kernel=name, **r)
-    return out
+    return out, copy_bps
 
 
 def build_table(n_shards: int, seed: int = 0):
@@ -275,6 +300,124 @@ def canon(result):
     if isinstance(result, PairsField):
         return ("pairs", [(p.id, p.count) for p in result.pairs])
     return ("value", int(result))
+
+
+def sass_loads(source: str) -> dict:
+    """16-byte global loads (LDG.E.128) in the SASS of each kernel of a built
+    source, by kernel symbol, from cuobjdump."""
+    from featurebase_tpu_torch.ops import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path(source)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    loads, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            loads[fn] = 0
+        elif fn is not None and "LDG.E.128" in ln:
+            loads[fn] += 1
+    return loads
+
+
+def tune_sass_check() -> dict:
+    """Every tuning kernel at every (T, V) keeps at least the 2 x V 16-byte
+    loads of its main loop: a load whose word were never used would be
+    dropped by the compiler, and the ceiling would not be one."""
+    from featurebase_tpu_torch.ops import tune_kernels as tk
+    loads = sass_loads(tk.SOURCE)
+    out = {}
+    for name in tk.KERNELS:
+        for t, v in tk.SHAPES:
+            sym = f"{name}_kernelILi{t}ELi{v}EE"
+            got = [n for fn, n in loads.items() if sym in fn]
+            if len(got) != 1 or got[0] < 2 * v:
+                raise AssertionError(f"{name} {t}x{v}: LDG.E.128 counts "
+                                     f"{got}, want one kernel with >= {2 * v}")
+            out[f"{name}/{t}x{v}"] = got[0]
+    say("tune_sass", ldg_e_128=out)
+    return out
+
+
+def tune_parity(cases: dict) -> dict:
+    """Phase 6: each tuning kernel at every launch shape against its plain
+    version, with a nonzero and a wrapping acc, on each case's two streams:
+    the harness's 256 MB, the slice's (S, W) words, an odd size (the < 4
+    words after the last 16-byte load) and a size under one block step."""
+    from featurebase_tpu_torch.ops import tune_kernels as tk
+    accs = (12345, (1 << 31) - 5)   # the second wraps past 2^31
+    errs = {}
+    for name, kernel in tk.KERNELS.items():
+        err = 0
+        for case, (x, y) in cases.items():
+            for acc_v in accs:
+                acc = torch.tensor([[acc_v]], dtype=torch.int32,
+                                   device="cuda")
+                want = tk.PLAIN[name](x, y, acc)
+                for t, v in tk.SHAPES:
+                    err = max(err, require_equal(
+                        f"{name} {t}x{v} {case} acc={acc_v}",
+                        kernel(x, y, acc, threads=t, vec=v), want))
+        errs[name] = err
+    torch.cuda.synchronize()
+    say("tune_parity", ok=True, shapes=[f"{t}x{v}" for t, v in tk.SHAPES],
+        sizes={c: int(x.numel()) for c, (x, _) in cases.items()},
+        accs=list(accs))
+    return errs
+
+
+def tune_phase(timer: Timer, big, small, copy_bps: float, and_time: dict):
+    """Phase 7: the tuning harness's default list on `big` (its 256 MB
+    streams), then each tuning kernel at its best shape timed on `big` and
+    on `small`, the slice's (S, W) words, beside plan_eval's AND."""
+    from featurebase_tpu_torch.ops import tune_kernels as tk
+    from featurebase_tpu_torch.tools import tune_count_kernel as harness
+    tk.reset_launches()
+    lines = [harness.measure(v, "cuda", big) for v in harness.DEFAULT]
+    launches = tk.launches()
+    for ln in lines:
+        say("tune_variant", **ln, copy_ceiling_gb_per_s=copy_bps / 1e9)
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"kernel {k} was not launched by the "
+                                 "tuning harness")
+    by_name = {ln["variant"]: ln for ln in lines}
+    say("read_ceilings", copy_gb_per_s=copy_bps / 1e9,
+        two_stream_read_gb_per_s=by_name["ceiling_dma"]["gb_per_s"],
+        launches=launches)
+    # each kernel at its best shape in the list, timed at the slice's size
+    best = {}
+    for ln in lines:
+        k = ln["kernel"]
+        if k in tk.KERNELS and (k not in best
+                                or ln["gb_per_s"] > best[k]["gb_per_s"]):
+            best[k] = ln
+    acc = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    times = {"harness": {}, "slice": {}}
+    for size, (x, y) in (("harness", big), ("slice", small)):
+        nbytes = 2 * x.numel() * 4 + 8   # both streams and acc in, one out
+        for name, ln in best.items():
+            kernel, t, v = tk.KERNELS[name], ln["threads"], ln["vec"]
+            fn = (lambda kernel=kernel, t=t, v=v, x=x, y=y:
+                  kernel(x, y, acc, threads=t, vec=v))
+            plain = (lambda name=name, x=x, y=y: tk.PLAIN[name](x, y, acc))
+            times[size][name] = r = dict(
+                shape=f"{t}x{v}", words=x.numel(), ms=timer(fn),
+                plain_ms=timer(plain),
+                device_ms=kernel_device_ms(fn, timer.reps), bytes=nbytes,
+                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                copy_ceiling_ms=nbytes / copy_bps * 1e3,
+                harness_gb_per_s=ln["gb_per_s"])
+            say("kernel_time", kernel=f"{name}/{t}x{v}/{size}", **r)
+    at_slice = times["slice"]
+    partials = ("tune_direct_partial", "tune_csa_partial")
+    say("tune_vs_plan_eval", words=small[0].numel(),
+        plan_eval_and_ms=and_time["ms"],
+        plan_eval_and_device_ms=and_time["device_ms"],
+        csa_scalar_ms=at_slice["tune_csa_scalar"]["ms"],
+        best_partial=min(partials, key=lambda k: at_slice[k]["ms"]),
+        partial_ms=min(at_slice[k]["ms"] for k in partials))
+    return launches, times["harness"]
 
 
 def slice_phase(n_shards: int, reps: int) -> dict:
@@ -365,33 +508,66 @@ def main() -> int:
         return 2
     from featurebase_tpu_torch.ops import build
     from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import tune_kernels as tk
+    from featurebase_tpu_torch.tools import tune_count_kernel as harness
 
     card = card_line()
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    build.build([ck.SOURCE])
+    build.build([ck.SOURCE, tk.SOURCE])
     say("build", seconds=time.perf_counter() - t0,
-        ptxas=[ln for ln in build.build_log.get(ck.SOURCE, "").splitlines()
-               if "registers" in ln or "Compiling entry" in ln])
+        ptxas={src: [ln for ln in build.build_log.get(src, "").splitlines()
+                     if "registers" in ln or "Compiling entry" in ln]
+               for src in (ck.SOURCE, tk.SOURCE)})
+    tune_sass_check()
 
     S, depth, R = args.shards, 14, 8
     errs, inputs = kernel_parity(S, depth, R)
-    times = kernel_times(Timer(args.reps), inputs)
+    timer = Timer(args.reps)
+    times, copy_bps = kernel_times(timer, inputs)
+    small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs
     launches = slice_phase(args.shards, args.reps)
+    big = harness.make_inputs(harness.CUDA_BYTES, torch.device("cuda"))
+    errs.update(tune_parity({
+        "harness": big, "SxW": small,
+        "odd": tuple(x[:1000003] for x in small),
+        "tiny": tuple(x[:37] for x in small)}))
+    tune_launches, tune_times = tune_phase(timer, big, small, copy_bps,
+                                           times["plan_eval/and_count"])
+    del big
+    left = child_pids()
+    say("processes", children_left=left)
+    if left:
+        raise AssertionError(f"processes {left} started by this run are "
+                             "still running")
 
     kernels = []
     for name, key, replaces in (
             ("plan_eval", "plan_eval/bsi_gt_count",
              "featurebase_tpu/ops/pallas_kernels.py:135"),
             ("row_counts", "row_counts/filtered",
-             "featurebase_tpu/ops/pallas_kernels.py:172")):
+             "featurebase_tpu/ops/pallas_kernels.py:172, "
+             "featurebase_tpu/ops/pallas_kernels.py:203")):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "featurebase_tpu_torch/csrc/bitmap_kernels.cu",
             "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": "bytes", "library_ms": None})
+    for name, replaces in (
+            ("tune_ceiling", "tools/tune_count_kernel.py:85"),
+            ("tune_csa_scalar", "tools/tune_count_kernel.py:121"),
+            ("tune_direct_partial", "tools/tune_count_kernel.py:140"),
+            ("tune_csa_partial", "tools/tune_count_kernel.py:140")):
+        t = tune_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "featurebase_tpu_torch/csrc/tune_count.cu",
+            "replaces": replaces, "launches": tune_launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
