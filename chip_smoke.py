@@ -7,22 +7,36 @@ Run from the repository root on a machine with one CUDA card:
 
 Phases, one status line each; any failure raises and exits nonzero:
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build of every CUDA source with nvcc (sm_90a), timed, with the ptxas
-     register/shared-memory report; cuobjdump's SASS of each tuning kernel
+  2. build of every CUDA source with nvcc (sm_90a), and of kernel A's two
+     ablation builds, all at once, timed, with the ptxas
+     register/stack/spill report of each kernel (it fails if plan_eval_kernel
+     spills or keeps a stack frame); cuobjdump's SASS of each tuning kernel
      must keep the 16-byte loads of its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
-     slice's shapes, on random words from a numpy seed: exact equality;
+     slice's shapes, on random words from a numpy seed: exact equality.
+     Kernel A on every program shape the main path makes: AND, BSI `>`,
+     `between` at depth 14 and at depth 32 (34 planes, 16 shards), word
+     mode, a program of every opcode, the flat S = 1 count_and over 2^22
+     words, and the 1,000,003-word scalar path; and in each of its forms
+     (register file 2, 4 or 12; staged or scalar);
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
      beside the bytes bound at 3.35 TB/s, the measured device-to-device
-     copy ceiling and the plain version's time;
+     copy ceiling and the plain version's time; kernel A's cases must run
+     its form (staged by TMA, or scalar for the irregular cases), and a
+     count case with a Memset fails; then kernel A's staged cases under
+     the two ablation builds, one without its copies and one without its
+     program;
   5. the slice: a --shards table (625,000 records per shard; set fields f
      and g, int field v in [-1000, 10000]) built through the port's import
      API, the query mix run through Executor(holder) on cuda, every answer
      equal to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)) and TopN(f, n=5); both kernels'
-     launch counters must rise; TopN's per-shard branch must give the
-     stacked answers; p50 latency per query;
+     launch counters must rise (plan_eval 16 times a pass of the full mix);
+     TopN's per-shard branch must give the stacked answers; p50 latency per
+     query; then a pass under torch.profiler, each query labelled: kernel
+     A and kernel B device time and the device-busy share of each query and
+     of the pass, and every launch the profiler could not link;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -138,10 +152,22 @@ def kernel_device_ms(fn, reps: int) -> dict:
     names = ("plan_eval_kernel", "row_counts_kernel", "tune_ceiling_kernel",
              "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
              "tune_csa_partial_kernel", "Memset", "Memcpy")
-    return {next((n for n in names if n in ev.key), ev.key[:60]):
-            ev.device_time_total / ev.count / 1e3
-            for ev in prof.key_averages()
-            if ev.device_time_total > 0 and "FillFunc" not in ev.key}
+
+    def short(key: str) -> str:
+        """A kernel's name with its template arguments (kernel A's form)."""
+        for n in names:
+            i = key.find(n)
+            if i >= 0:
+                j = key.find(">", i) if key[i + len(n):].startswith("<") \
+                    else -1
+                return key[i:j + 1] if j > 0 else n
+        return key[:60]
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total > 0 and "FillFunc" not in ev.key:
+            k = short(ev.key)
+            out[k] = out.get(k, 0.0) + ev.device_time_total / ev.count / 1e3
+    return out
 
 
 def rand_words(rng, shape) -> torch.Tensor:
@@ -160,11 +186,55 @@ def bsi_gt_program(bsi: torch.Tensor, pred: int):
     return pb.build(r)
 
 
+def between_program(bsi: torch.Tensor, lo: int, hi: int):
+    """lo <= v <= hi, as Row(lo - 1 < v < hi + 1) lowers."""
+    from featurebase_tpu_torch.ops import bsi_traced as bst
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    depth = bsi.shape[1] - 2
+    pb = ck.ProgramBuilder(bsi.shape[0], bsi.shape[2])
+    lb, ln = bst.encode_pred(lo, depth)
+    hb, hn = bst.encode_pred(hi, depth)
+    r = bst.lower_between(pb, bst.BsiPlanes(pb, "v", bsi), lb, int(ln), hb,
+                          int(hn), depth)
+    return pb.build(r)
+
+
 def and_program(a: torch.Tensor, b: torch.Tensor):
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     pb = ck.ProgramBuilder(*a.shape)
     r = pb.op(ck.OP_AND, pb.load(pb.plane(0, a)), pb.load(pb.plane(1, b)))
     return pb.build(r)
+
+
+def word_program(a: torch.Tensor):
+    """One load, as Row(f=3) runs in word mode."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    pb = ck.ProgramBuilder(*a.shape)
+    return pb.build(pb.load(pb.plane(0, a)))
+
+
+def every_op_program(a: torch.Tensor, b: torch.Tensor, bsi: torch.Tensor):
+    """One program that runs every opcode, OP_BSI in each mode."""
+    from featurebase_tpu_torch.ops import bsi_traced as bst
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    depth = bsi.shape[1] - 2
+    pb = ck.ProgramBuilder(*a.shape)
+    ra, rb = pb.load(pb.plane("a", a)), pb.load(pb.plane("b", b))
+    planes = bst.BsiPlanes(pb, "v", bsi)
+    acc = pb.op(ck.OP_AND, ra, rb)
+    pb.op(ck.OP_OR, acc, pb.op(ck.OP_XOR, ra, rb), dst=acc)
+    pb.op(ck.OP_ANDNOT, acc, pb.op(ck.OP_NOT, rb), dst=acc)
+    pb.op(ck.OP_XOR, acc, pb.const(True), dst=acc)
+    pb.op(ck.OP_OR, acc, pb.const(False), dst=acc)
+    for pred, mode, eq in ((4321, ck.MODE_EQ, False), (777, ck.MODE_LT, True),
+                           (9000, ck.MODE_GT, False),
+                           ((1 << 20), ck.MODE_LT, False)):
+        side = pb.load(planes.exists())
+        bits, _ = bst.encode_pred(pred, depth)
+        pb.bsi(side, planes.slices(depth), depth, mode, bits, eq)
+        pb.op(ck.OP_XOR, acc, side, dst=acc)
+        pb.free(side)
+    return pb.build(acc)
 
 
 def max_err(x: torch.Tensor, y: torch.Tensor) -> int:
@@ -186,6 +256,42 @@ def require_equal(what: str, x: torch.Tensor, y: torch.Tensor) -> int:
 
 # -- phases -------------------------------------------------------------------
 
+def wide_program(planes):
+    """Every plane loaded before any is combined: as many live registers as
+    planes (6 or more take the 12-register file)."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    pb = ck.ProgramBuilder(*planes[0].shape)
+    regs = [pb.load(pb.plane(i, p)) for i, p in enumerate(planes)]
+    acc = regs[0]
+    for r in regs[1:]:
+        pb.op(ck.OP_XOR, acc, r, dst=acc)
+    return pb.build(acc)
+
+
+def plan_eval_cases(S: int, depth: int, a, b, bsi, bsi32, flat) -> dict:
+    """Every program shape the main path gives kernel A, at the slice's
+    sizes, and every form of the kernel (register file 2, 4 or 12; 8, 4 or
+    1 words a thread a step): name -> (program, want_words, want_counts)."""
+    odd = bsi[:, :, 1:]   # W - 1 words at a 4-byte offset: the scalar path
+    return {
+        "and_count": (and_program(a, b), False, True),
+        "bsi_gt_count": (bsi_gt_program(bsi, 5000), False, True),
+        "between_count": (between_program(bsi, 1, 99), False, True),
+        "between32_count": (between_program(bsi32, -12345, (1 << 32) - 7),
+                            False, True),
+        "flat_count_and": (and_program(*flat), False, True),
+        "row_words": (word_program(a), True, False),
+        "every_op": (every_op_program(a, b, bsi), True, True),
+        "four_planes": (wide_program([a, b, bsi[:, 2], bsi[:, 3]]), True,
+                        True),
+        "wide_tree": (wide_program([bsi[:, j] for j in range(6)]), True,
+                      True),
+        "scalar_between": (between_program(odd, 1, 99), True, True),
+        "scalar_wide_tree": (wide_program([odd[:, j] for j in range(6)]),
+                             True, True),
+    }
+
+
 def kernel_parity(S: int, depth: int, R: int):
     """Phase 3: exact kernel-vs-plain parity at the slice's shapes."""
     from featurebase_tpu_torch.ops import bitwise as bw
@@ -194,10 +300,12 @@ def kernel_parity(S: int, depth: int, R: int):
     rng = np.random.default_rng(7)
     a, b = rand_words(rng, (S, W)), rand_words(rng, (S, W))
     bsi = rand_words(rng, (S, depth + 2, W))
+    bsi32 = rand_words(rng, (16, 34, W))
+    flat = (rand_words(rng, (1, 1 << 22)), rand_words(rng, (1, 1 << 22)))
     tile, filt = rand_words(rng, (S, R, W)), rand_words(rng, (S, W))
+    cases = plan_eval_cases(S, depth, a, b, bsi, bsi32, flat)
     errs_a, errs_b = [], []
-    for name, prog in (("and", and_program(a, b)),
-                       ("bsi_gt", bsi_gt_program(bsi, 5000))):
+    for name, (prog, _, _) in cases.items():
         kw, kc = ck.plan_eval(prog, True, True)
         pw, pc = ck.plan_eval_plain(prog, True, True)
         errs_a.append(require_equal(f"plan_eval {name} words", kw, pw))
@@ -206,6 +314,10 @@ def kernel_parity(S: int, depth: int, R: int):
     errs_a.append(require_equal(
         "count_and with acc", bw.count_and(a, b, acc),
         ck.popcount_words(a & b).sum() + 12345))
+    x, y = (t.reshape(-1) for t in flat)
+    errs_a.append(require_equal(
+        "count_and flat 2^22", bw.count_and(x, y),
+        ck.popcount_words(x & y).sum()))
     odd = a.reshape(-1)[: 1000003]   # irregular size: the scalar path
     errs_a.append(require_equal(
         "count_and odd size", bw.count_and(odd, odd.flip(0)),
@@ -218,11 +330,16 @@ def kernel_parity(S: int, depth: int, R: int):
     torch.cuda.synchronize()
     errs = {"plan_eval": max(errs_a), "row_counts": max(errs_b)}
     say("kernel_parity", ok=True, shapes={"S": S, "W": W, "R": R,
-                                          "bsi_planes": depth + 2},
-        checks=["plan_eval and (words, counts)", "plan_eval bsi_gt",
-                "count_and + acc", "count_and odd size",
-                "row_counts S/1 x filtered/unfiltered"])
-    return errs, dict(a=a, b=b, bsi=bsi, tile=tile, filt=filt)
+                                          "bsi_planes": depth + 2,
+                                          "between32": [16, 34, W],
+                                          "flat_words": 1 << 22},
+        checks=[f"plan_eval {n} (words, counts)" for n in cases]
+        + ["count_and + acc", "count_and flat 2^22",
+           "count_and odd size (scalar path)",
+           "row_counts S/1 x filtered/unfiltered"],
+        instr_words={n: len(c[0].instrs) for n, c in cases.items()},
+        plan_eval_forms=ck.plan_eval_config())
+    return errs, dict(cases=cases, tile=tile, filt=filt, a=a, b=b)
 
 
 def kernel_times(timer: Timer, inputs) -> dict:
@@ -234,14 +351,8 @@ def kernel_times(timer: Timer, inputs) -> dict:
     copy_bps = 2 * big.numel() * 4 / (copy_ms / 1e3)
     say("copy_ceiling", bytes=2 * big.numel() * 4, ms=copy_ms,
         gb_per_s=copy_bps / 1e9)
-    a, b, bsi = inputs["a"], inputs["b"], inputs["bsi"]
     tile, filt = inputs["tile"], inputs["filt"]
     S, R, W = tile.shape
-    gt = bsi_gt_program(bsi, 5000)
-    cases = {
-        "plan_eval/and_count": (and_program(a, b), 2),
-        "plan_eval/bsi_gt_count": (gt, len(gt.planes)),
-    }
     out = {}
     def measure(fn, plain, nbytes):
         return dict(ms=timer(fn), plain_ms=timer(plain),
@@ -249,10 +360,23 @@ def kernel_times(timer: Timer, inputs) -> dict:
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     copy_ceiling_ms=nbytes / copy_bps * 1e3)
 
-    for name, (prog, nplanes) in cases.items():
-        out[name] = measure(lambda: ck.plan_eval(prog, False, True),
-                            lambda: ck.plan_eval_plain(prog, False, True),
-                            nplanes * S * W * 4 + S * 8)
+    for name, (prog, ww, wc) in inputs["cases"].items():
+        s, w = prog.S, prog.W
+        nbytes = (len(prog.planes) * s * w * 4 + (s * w * 4 if ww else 0)
+                  + (s * 8 if wc else 0))
+        r = out[f"plan_eval/{name}"] = measure(
+            lambda: ck.plan_eval(prog, ww, wc),
+            lambda: ck.plan_eval_plain(prog, ww, wc), nbytes)
+        r.update(planes=len(prog.planes), shape=[s, w])
+        kinds = [k for k in r["device_ms"] if k.startswith("plan_eval")]
+        scalar = any("false" in k or "(bool)0" in k for k in kinds)
+        if not kinds or scalar != name.startswith("scalar"):
+            raise AssertionError(f"plan_eval {name}: the kernel ran in the "
+                                 f"wrong form: {r['device_ms']}")
+        if wc and "Memset" in r["device_ms"]:
+            raise AssertionError(f"plan_eval {name}: a Memset runs beside the "
+                                 "kernel; a Count must be one device "
+                                 "operation")
     for name, f in (("row_counts/unfiltered", None),
                     ("row_counts/filtered", filt)):
         out[name] = measure(
@@ -262,6 +386,35 @@ def kernel_times(timer: Timer, inputs) -> dict:
     for name, r in out.items():
         say("kernel_time", kernel=name, **r)
     return out, copy_bps
+
+
+# Builds of kernel A for the ablation: without its copies (the program
+# runs on stale tiles), and without its program (the copies and a count of
+# plane 0).
+ABLATIONS = {"copy_only": ("-DFB_ABLATE_COMPUTE",),
+             "compute_only": ("-DFB_ABLATE_COPY",)}
+
+
+def ablation(inputs, reps: int) -> dict:
+    """Phase 4b: each staged kernel-A case's device time under the ablation
+    builds beside the kernel's own: where a launch's time goes.  (The
+    scalar form has no copies to drop.)"""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    real, out = ck._lib, {}
+    try:
+        for name, flags in (("kernel", ()), *ABLATIONS.items()):
+            ck._lib = lambda flags=flags: real(flags)
+            for case, (prog, ww, wc) in inputs["cases"].items():
+                if case.startswith("scalar"):
+                    continue
+                dev = kernel_device_ms(lambda: ck.plan_eval(prog, ww, wc),
+                                       reps)
+                out.setdefault(case, {})[name] = sum(
+                    v for k, v in dev.items() if k.startswith("plan_eval"))
+    finally:
+        ck._lib = real
+    say("ablation", device_ms=out)
+    return out
 
 
 def build_table(n_shards: int, seed: int = 0):
@@ -300,6 +453,32 @@ def canon(result):
     if isinstance(result, PairsField):
         return ("pairs", [(p.id, p.count) for p in result.pairs])
     return ("value", int(result))
+
+
+def ptxas_report(log: str) -> dict:
+    """Registers, stack frame and spill bytes of each kernel in an nvcc
+    -Xptxas -v log, by demangled-enough name (entry symbol)."""
+    import re
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+        elif fn is None:
+            continue
+        elif "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[fn].update(stack_bytes=nums[0], spill_stores=nums[1],
+                           spill_loads=nums[2])
+        elif "Used" in ln and "registers" in ln:
+            out[fn]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 ln).group(1))
+    named = {}
+    for sym, r in out.items():
+        m = re.search(r"\d+([a-z_]+_kernel)(I.*?E)?Ev", sym)
+        named[f"{m.group(1)}{m.group(2) or ''}" if m else sym] = r
+    return named
 
 
 def sass_loads(source: str) -> dict:
@@ -451,6 +630,9 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
+    if len(queries) == len(QUERIES) and launches["plan_eval"] != 16:
+        raise AssertionError(f"plan_eval launched {launches['plan_eval']} "
+                             "times in one pass of the mix, not 16")
     cpu = Executor(holder, device="cpu")
     for q in queries:
         want = run(cpu, q)
@@ -482,20 +664,82 @@ def slice_phase(n_shards: int, reps: int) -> dict:
             raise AssertionError(f"{q}: per-shard TopN {got} != stacked "
                                  f"{answers[q]}")
     say("topn_per_shard", equal_to_stacked=topn)
-    latency = {}
-    for q in queries:
-        times = []
-        for _ in range(reps):
-            rank_cache.clear()
-            t0 = time.perf_counter()
-            result = gpu.execute("bench", q)[0]
-            if isinstance(result, Row):
-                result.columns()   # the decode a caller needs, no list
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        latency[q] = float(np.median(times))
+    def timed(q) -> float:
+        """One query as a caller runs it, to the synchronised answer (ms)."""
+        rank_cache.clear()
+        t0 = time.perf_counter()
+        result = gpu.execute("bench", q)[0]
+        if isinstance(result, Row):
+            result.columns()   # the decode a caller needs, no list
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    latency = {q: float(np.median([timed(q) for _ in range(reps)]))
+               for q in queries}
     say("latency_p50_ms", **latency)
+    query_profile(queries, timed, latency)
     return launches
+
+
+def query_profile(queries, timed, latency) -> dict:
+    """The query mix under one torch.profiler window, each query under a
+    record_function label: a warm-up pass, then the measured pass.  Device
+    work belongs to a query through the profiler's launch correlation (the
+    runtime call under its label), not through device timestamps, which do
+    not line up with the host's.  Per query:
+    kernel A, kernel B and all device time, the busy share of its label's
+    span (it ends in a synchronize), and the kernels the profiler linked
+    against the launch counters; then the pass's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    counted = {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i, q in enumerate(queries):
+            with record_function(f"warm:{i}"):
+                timed(q)
+        for i, q in enumerate(queries):
+            before = ck.launches()
+            with record_function(f"query:{i}"):
+                timed(q)
+            after = ck.launches()
+            counted[q] = {k: after[k] - before[k] for k in after}
+
+    # A device event and the runtime call that launched it (cudaLaunchKernel,
+    # cudaMemcpyAsync, ...) share a correlation id; the call lies in its
+    # query's label span on the host clock.
+    events = list(prof.events())
+    labels = {int(e.name.split(":")[1]): e.time_range for e in events
+              if e.name.startswith("query:")
+              and e.device_type == DeviceType.CPU}   # not the device's copy
+    calls = {e.id: e.time_range.start for e in events
+             if e.device_type == DeviceType.CPU and e.name.startswith("cu")}
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and e.id in calls]
+    per, dev_total, span_total = {}, 0.0, 0.0
+    for i, q in enumerate(queries):
+        span = labels[i]
+        ks = [e for e in device if span.start <= calls[e.id] <= span.end]
+        a = [e.time_range.elapsed_us() for e in ks
+             if "plan_eval_kernel" in e.name]
+        b = [e.time_range.elapsed_us() for e in ks
+             if "row_counts_kernel" in e.name]
+        busy = sum(e.time_range.elapsed_us() for e in ks)
+        span_us = span.elapsed_us()
+        per[q] = dict(
+            p50_ms=latency[q], span_ms=span_us / 1e3, kernel_a_us=sum(a),
+            kernel_b_us=sum(b), device_us=busy, busy_share=busy / span_us,
+            kernels_seen={"plan_eval": len(a), "row_counts": len(b)},
+            launches=counted[q])
+        dev_total += busy
+        span_total += span_us
+    missed = {q: r["launches"] for q, r in per.items()
+              if r["kernels_seen"] != r["launches"]}
+    say("query_profile", queries=per, pass_span_ms=span_total / 1e3,
+        pass_device_ms=dev_total / 1e3, pass_busy_share=dev_total / span_total,
+        launches_not_linked_by_profiler=missed)
+    return per
 
 
 def main() -> int:
@@ -515,17 +759,26 @@ def main() -> int:
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    build.build([ck.SOURCE, tk.SOURCE])
-    say("build", seconds=time.perf_counter() - t0,
-        ptxas={src: [ln for ln in build.build_log.get(src, "").splitlines()
-                     if "registers" in ln or "Compiling entry" in ln]
-               for src in (ck.SOURCE, tk.SOURCE)})
+    builds = [(ck.SOURCE, ()), (tk.SOURCE, ()),
+              *((ck.SOURCE, f) for f in ABLATIONS.values())]
+    procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
+    for src, f, proc in procs:
+        build.finish(src, proc, f)
+    report = {src: ptxas_report(build.build_log.get(src, ""))
+              for src in (ck.SOURCE, tk.SOURCE)}
+    say("build", seconds=time.perf_counter() - t0, ptxas=report)
+    for fn, r in report[ck.SOURCE].items():
+        if "plan_eval_kernel" in fn and (r["spill_stores"] or r["spill_loads"]
+                                         or r["stack_bytes"]):
+            raise AssertionError(f"ptxas spills or keeps a stack frame in "
+                                 f"{fn}: {r}")
     tune_sass_check()
 
     S, depth, R = args.shards, 14, 8
     errs, inputs = kernel_parity(S, depth, R)
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
+    ablation(inputs, args.reps)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs
     launches = slice_phase(args.shards, args.reps)

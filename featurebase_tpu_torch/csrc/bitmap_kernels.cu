@@ -2,23 +2,43 @@
 //
 // Two kernels, each behind a plain C launcher that ops/cuda_kernels.py loads
 // with ctypes.  Launchers take device pointers and the caller's stream,
-// launch, and return cudaGetLastError() (0 on success); they never
-// synchronise and never allocate.
+// launch, and return a cudaError_t (0 on success); they never synchronise
+// and never allocate.
 //
 // plan_eval (kernel A) replaces featurebase_tpu/ops/pallas_kernels.py
 //   count_and_pallas (fused AND + popcount) and, through it, the XLA fusion
 //   of executor/plan.py that evaluates a whole bitmap plan and counts it.
-//   The host lowers a plan to a short register program over leaf "planes"
-//   (each plane an (S, W) int32 array with a shard stride).  Every thread
-//   runs the program over VEC consecutive words of one shard: each leaf word
-//   is read from HBM once, intermediates live in a per-thread register file
-//   in shared memory, and in count mode the result words never reach HBM
-//   (popcount with __popc, warp reduction with __shfl_down_sync, one
-//   64-bit atomicAdd per warp into the shard's counter).
-//   Bound: bytes.  A query reads (planes x S x W x 4) bytes; on an H100 SXM
-//   at 3.35 TB/s an intersect of two rows at S=64 is 16.8 MB, 5.0 us, and a
-//   16-plane BSI comparison 134 MB, 40 us.  The design streams 16-byte loads
-//   (one per plane per thread) with consecutive threads on consecutive words.
+//   The host lowers a plan to a short program over leaf "planes" (each an
+//   (S, W) int32 array with a shard stride): set-algebra instructions over
+//   12 registers, and OP_BSI, which runs a whole unsigned BSI walk
+//   (eq / lt / gt over `depth` magnitude planes, the predicate bits as a
+//   mask in its payload) as one instruction.
+//   Bound: bytes.  A query reads planes x S x W x 4 bytes and, in count
+//   mode, writes S counts: at S = 128, W = 32768 an intersect of two rows
+//   is 33.5 MB (10.0 us at 3.35 TB/s), a 16-plane BSI comparison 268 MB
+//   (80.1 us).  The design keeps HBM busy whatever the program does:
+//   - persistent blocks (two per SM, as the occupancy calculator finds)
+//     walk contiguous runs of (shard, chunk) tiles, shard-major;
+//   - one thread stages each tile with one TMA bulk copy per plane
+//     (cp.async.bulk, global -> shared, completion on an mbarrier) into a
+//     ring of 3 to 8 stages, so the next tiles are in flight while one is
+//     evaluated.  The chunk and the ring's depth are sized per launch from
+//     the plane count, and every plane is copied from HBM once per tile
+//     however many instructions name it.  Thread 0 issues the first tiles'
+//     copies before anything else; later tiles are issued by lane 0 of
+//     each warp in turn;
+//   - each thread evaluates the program on 4 or 8 words a step, reading
+//     planes from the staged tile, with its register file in registers:
+//     branch-free muxes over 2, 4 or 12 registers, the fewest the program
+//     needs (the host renumbers registers; a switch on a register index
+//     compiles to chains of branches).  A BSI walk is a few integer
+//     operations per plane word, one warp-uniform branch per plane;
+//   - counts are summed per (block, shard run) in 64 bits into a scratch
+//     slot; the last block to finish (an atomic ticket it resets) adds the
+//     slots of each shard.  No memset precedes the launch, so a Count is one
+//     device operation, and the integer sums are the same in any order.
+//   Shapes TMA cannot take (W % 4 != 0, a plane or stride not 16-byte
+//   aligned) run the same tiles with scalar loads from global memory.
 //
 // row_counts (kernel B) replaces pallas_kernels.py count_and_rows_pallas and
 //   popcount_rows_pallas: per-row popcount(tile & filter) for an (S, R, W)
@@ -35,16 +55,24 @@
 namespace {
 
 // Program limits (mirrored in ops/cuda_kernels.py); the whole program rides
-// in the kernel's parameter space (< 4 KB), so a launch needs no copy.
-constexpr int kMaxInstr = 640;
+// in the kernel's parameter space (sizeof(Program) < 4 KB), so a launch
+// needs no copy.
+constexpr int kMaxInstr = 640;     // instruction words, BSI payloads included
 constexpr int kMaxPlanes = 48;
 constexpr int kNumRegs = 12;
+constexpr int kMaxDepth = 32;      // BSI magnitude planes in one walk
+constexpr int kChunkQuantum = 128; // words; staged chunks are multiples
 
 // Instruction word: op | dst << 8 | a << 16 | b << 24 (LOAD: a = plane).
+// OP_BSI: dst = walk(register a), followed by two payload words:
+//   mask  bit i = predicate bit of magnitude plane i (i < depth)
+//   info  first plane | depth << 8 | mode << 16 | allow_eq << 18
+//         | top << 19 (predicate bit `depth`, the virtual all-zero plane)
 enum Op : uint32_t {
   OP_LOAD = 0, OP_ZERO = 1, OP_ONES = 2, OP_AND = 3, OP_OR = 4,
-  OP_XOR = 5, OP_ANDNOT = 6, OP_NOT = 7,
+  OP_XOR = 5, OP_ANDNOT = 6, OP_NOT = 7, OP_BSI = 8,
 };
+enum BsiMode : uint32_t { MODE_EQ = 0, MODE_LT = 1, MODE_GT = 2 };
 
 struct Program {
   const int32_t* plane[kMaxPlanes];
@@ -52,86 +80,407 @@ struct Program {
   uint32_t instr[kMaxInstr];
   int n_instr;
   int result;
+  int n_planes;
+};
+static_assert(sizeof(Program) + 128 < 4096, "a program must fit the "
+              "kernel's parameter space beside the other arguments");
+
+// How a launch cuts (S, W) into tiles of `chunk` words of one shard.
+struct Tiling {
+  long long W;
+  long long chunk;        // words per plane per tile
+  long long per_shard;    // tiles per shard
+  long long n_tiles;
+  long long per_block;    // consecutive tiles each block walks
+  int S;
+  int stages;             // tiles in the TMA ring
 };
 
-constexpr int kEvalThreads = 128;
+// Launch shape of kernel A.  (chip_smoke.py --ablate also builds it with
+// FB_ABLATE_COPY, which drops the copies, or FB_ABLATE_COMPUTE, which drops
+// the program: where a launch's time goes.)
+constexpr int kEvalThreads = 256;
+constexpr int kBlocksPerSm = 2;       // the register budget of each thread
+constexpr int kVec = 4;               // words in a thread's 16-byte group
+constexpr int kChunkSteps = 4;        // largest chunk, in steps of a block
+constexpr int kMaxStages = 8;         // depth of the TMA ring
+constexpr int kMinStages = 3;
+constexpr int kStageBytes = 96 * 1024;  // the ring, per block
+constexpr long long kScalarChunk = 8192;
 
-template <int VEC>
-struct Words;
-template <>
-struct Words<4> {
-  static __device__ __forceinline__ uint4 load(const int32_t* p) {
-    return __ldg(reinterpret_cast<const uint4*>(p));
-  }
-  static __device__ __forceinline__ void store(int32_t* p, uint4 v) {
-    *reinterpret_cast<uint4*>(p) = v;
-  }
+// ---- words and the register file ------------------------------------------
+
+template <int V>
+struct Vec {
+  uint32_t w[V];
 };
 
-__device__ __forceinline__ uint32_t apply(uint32_t op, uint32_t x, uint32_t y) {
-  switch (op) {
-    case OP_ZERO: return 0u;
-    case OP_ONES: return 0xFFFFFFFFu;
-    case OP_AND: return x & y;
-    case OP_OR: return x | y;
-    case OP_XOR: return x ^ y;
-    case OP_ANDNOT: return x & ~y;
-    default: return ~x;  // OP_NOT
+template <int V>
+__device__ __forceinline__ Vec<V> splat(uint32_t x) {
+  Vec<V> r;
+#pragma unroll
+  for (int j = 0; j < V; ++j) r.w[j] = x;
+  return r;
+}
+
+// A thread's V words of a step: one word (V = 1), 4 consecutive words
+// (V = 4, 16 bytes), or two such groups `gap` words apart (V = 8; the
+// second only while `two`).  Neighbouring threads read neighbouring 16
+// bytes, so shared-memory reads have no bank conflicts.
+template <int V>
+__device__ __forceinline__ Vec<V> load_words(const uint32_t* p, long long gap,
+                                             bool two) {
+  if constexpr (V == 1) {
+    return Vec<1>{{*p}};
+  } else {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    if constexpr (V == 4) {
+      return Vec<4>{{v.x, v.y, v.z, v.w}};
+    } else {
+      const uint4 u = two ? *reinterpret_cast<const uint4*>(p + gap)
+                          : make_uint4(0u, 0u, 0u, 0u);
+      return Vec<8>{{v.x, v.y, v.z, v.w, u.x, u.y, u.z, u.w}};
+    }
   }
 }
 
-// VEC = 4: 16-byte loads (every plane 16-byte aligned, W % 4 == 0).
-// VEC = 1: scalar fallback for irregular shapes (count_and over odd sizes).
-template <int VEC>
-__global__ void __launch_bounds__(kEvalThreads)
-plan_eval_kernel(const Program p, long long W, int32_t* __restrict__ out,
-                 unsigned long long* __restrict__ counts) {
-  __shared__ uint32_t regs[kNumRegs][VEC][kEvalThreads];
-  const int t = threadIdx.x;
-  const long long s = blockIdx.y;
-  unsigned int pc = 0;
-  for (long long w = ((long long)blockIdx.x * kEvalThreads + t) * VEC; w < W;
-       w += (long long)gridDim.x * kEvalThreads * VEC) {
-    for (int k = 0; k < p.n_instr; ++k) {
-      const uint32_t ins = p.instr[k];
-      const uint32_t op = ins & 0xFF, d = (ins >> 8) & 0xFF;
-      const uint32_t a = (ins >> 16) & 0xFF, b = ins >> 24;
-      if (op == OP_LOAD) {
-        const int32_t* src = p.plane[a] + s * p.stride[a] + w;
-        if constexpr (VEC == 4) {
-          const uint4 v = Words<4>::load(src);
-          regs[d][0][t] = v.x; regs[d][1][t] = v.y;
-          regs[d][2][t] = v.z; regs[d][3][t] = v.w;
-        } else {
-          regs[d][0][t] = (uint32_t)__ldg(src);
-        }
-      } else {
+template <int V>
+__device__ __forceinline__ void store_words(int32_t* p, long long gap,
+                                            bool two, const Vec<V>& r) {
+  if constexpr (V == 1) {
+    *p = (int32_t)r.w[0];
+  } else {
+    *reinterpret_cast<uint4*>(p) = make_uint4(r.w[0], r.w[1], r.w[2], r.w[3]);
+    if constexpr (V == 8) {
+      if (two)
+        *reinterpret_cast<uint4*>(p + gap) =
+            make_uint4(r.w[4], r.w[5], r.w[6], r.w[7]);
+    }
+  }
+}
+
+// A set-algebra opcode over whole vectors; one warp-uniform branch on op.
+template <int V>
+__device__ __forceinline__ Vec<V> apply(uint32_t op, const Vec<V>& x,
+                                        const Vec<V>& y) {
+  Vec<V> r;
+  switch (op) {
+    case OP_ZERO: return splat<V>(0u);
+    case OP_ONES: return splat<V>(0xFFFFFFFFu);
+    case OP_AND:
 #pragma unroll
-        for (int j = 0; j < VEC; ++j)
-          regs[d][j][t] = apply(op, regs[a][j][t], regs[b][j][t]);
+      for (int j = 0; j < V; ++j) r.w[j] = x.w[j] & y.w[j];
+      return r;
+    case OP_OR:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.w[j] = x.w[j] | y.w[j];
+      return r;
+    case OP_XOR:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.w[j] = x.w[j] ^ y.w[j];
+      return r;
+    case OP_ANDNOT:
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.w[j] = x.w[j] & ~y.w[j];
+      return r;
+    default:  // OP_NOT
+#pragma unroll
+      for (int j = 0; j < V; ++j) r.w[j] = ~x.w[j];
+      return r;
+  }
+}
+
+// NR registers of V words, in registers.  A register is named by a
+// warp-uniform program field, so reads and writes are branch-free bitwise
+// muxes over every register (a switch on the index compiles to a chain of
+// branches, dozens per instruction).  A mux costs a word operation per
+// register, so the launcher picks the smallest file that holds the program
+// (ProgramBuilder.build renumbers registers to the fewest).
+template <int V, int NR>
+struct RegFile {
+  Vec<V> r[NR];
+  __device__ __forceinline__ Vec<V> get(uint32_t i) const {
+    Vec<V> x = r[0];
+#pragma unroll
+    for (int k = 1; k < NR; ++k) {
+      const uint32_t m = i == (uint32_t)k ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+      for (int j = 0; j < V; ++j) x.w[j] = (r[k].w[j] & m) | (x.w[j] & ~m);
+    }
+    return x;
+  }
+  __device__ __forceinline__ void set(uint32_t i, const Vec<V>& v) {
+#pragma unroll
+    for (int k = 0; k < NR; ++k) {
+      const uint32_t m = i == (uint32_t)k ? 0xFFFFFFFFu : 0u;
+#pragma unroll
+      for (int j = 0; j < V; ++j) r[k].w[j] = (v.w[j] & m) | (r[k].w[j] & ~m);
+    }
+  }
+};
+
+// The unsigned walk of ops/bsi_traced.py _lower_u from the virtual plane
+// `depth` down to plane 0, for one mode.  Per plane and word: b &= s or
+// b &= ~s by the predicate bit; lt keeps b & ~s where the bit is 1, gt keeps
+// b & s where it is 0.  The bit is warp-uniform: one branch per plane.
+template <int V, uint32_t MODE, class Fetch>
+__device__ __forceinline__ Vec<V> bsi_walk(Vec<V> b, uint32_t mask,
+                                           uint32_t info, Fetch fetch) {
+  const uint32_t first = info & 0xFF, depth = (info >> 8) & 0xFF;
+  Vec<V> keep = splat<V>(0u);
+  if ((info >> 19) & 1) {  // saturated predicate: the virtual plane's bit
+    if (MODE == MODE_LT) keep = b;
+    b = splat<V>(0u);
+  }
+#pragma unroll 4
+  for (int i = (int)depth - 1; i >= 0; --i) {
+    const Vec<V> s = fetch(first + i);
+    if ((mask >> i) & 1) {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (MODE == MODE_LT) keep.w[j] |= b.w[j] & ~s.w[j];
+        b.w[j] &= s.w[j];
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (MODE == MODE_GT) keep.w[j] |= b.w[j] & s.w[j];
+        b.w[j] &= ~s.w[j];
       }
     }
-    uint32_t r[VEC];
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      r[j] = regs[p.result][j][t];
-      pc += __popc(r[j]);
-    }
-    if (out != nullptr) {
-      int32_t* dst = out + s * W + w;
-      if constexpr (VEC == 4)
-        Words<4>::store(dst, make_uint4(r[0], r[1], r[2], r[3]));
-      else
-        dst[0] = (int32_t)r[0];
-    }
   }
-  if (counts != nullptr) {
-    unsigned long long c = pc;
+  if (MODE == MODE_EQ) return b;
+  if ((info >> 18) & 1) {  // allow_eq
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xFFFFFFFFu, c, off);
-    if ((t & 31) == 0 && c != 0) atomicAdd(counts + s, c);
+    for (int j = 0; j < V; ++j) keep.w[j] |= b.w[j];
   }
+  return keep;
 }
+
+// The program's words are read from shared memory, where each block copies
+// them once.
+template <int V, int NR, class Fetch>
+__device__ __forceinline__ Vec<V> run_program(const uint32_t* instr,
+                                              int n_instr, int result,
+                                              RegFile<V, NR>& R, Fetch fetch) {
+  for (int k = 0; k < n_instr; ++k) {
+    const uint32_t ins = instr[k];
+    const uint32_t op = ins & 0xFF, d = (ins >> 8) & 0xFF;
+    const uint32_t a = (ins >> 16) & 0xFF, b = ins >> 24;
+    Vec<V> x;
+    if (op == OP_LOAD) {
+      x = fetch(a);
+    } else if (op == OP_BSI) {
+      const uint32_t mask = instr[k + 1], info = instr[k + 2];
+      const uint32_t mode = (info >> 16) & 3;
+      const Vec<V> side = R.get(a);
+      x = mode == MODE_EQ   ? bsi_walk<V, MODE_EQ>(side, mask, info, fetch)
+          : mode == MODE_LT ? bsi_walk<V, MODE_LT>(side, mask, info, fetch)
+                            : bsi_walk<V, MODE_GT>(side, mask, info, fetch);
+      k += 2;
+    } else {
+      x = apply<V>(op, R.get(a), R.get(b));
+    }
+    R.set(d, x);
+  }
+  return R.get(result);
+}
+
+template <int V>
+__device__ __forceinline__ uint32_t popc(const Vec<V>& x) {
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < V; ++j) c += __popc(x.w[j]);
+  return c;
+}
+
+// ---- TMA bulk copies and mbarriers ----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ---- kernel A ---------------------------------------------------------------
+
+// STAGED: planes come from the TMA ring (W % 4 == 0, planes and strides
+// 16-byte aligned), V = 4 or 8 words a thread a step.  Otherwise: scalar
+// loads from global memory, V = 1.  NR: registers in the file.
+template <bool STAGED, int NR, int V>
+__global__ void __launch_bounds__(kEvalThreads, kBlocksPerSm)
+plan_eval_kernel(const __grid_constant__ Program p, const Tiling g,
+                 int32_t* __restrict__ out,
+                 unsigned long long* __restrict__ counts,
+                 unsigned long long* __restrict__ partials,
+                 unsigned int* __restrict__ ticket) {
+  extern __shared__ __align__(128) uint32_t ring[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ unsigned long long warp_sum[kEvalThreads / 32];
+  __shared__ int last_block;
+  __shared__ uint32_t instr[kMaxInstr];
+  __shared__ const int32_t* plane[kMaxPlanes];
+  __shared__ long long stride[kMaxPlanes];
+  const int tid = threadIdx.x;
+  const long long t_begin = (long long)blockIdx.x * g.per_block;
+  const long long t_end = min(t_begin + g.per_block, g.n_tiles);
+  const int n_local = (int)(t_end - t_begin);
+  const int P = p.n_planes, stages = g.stages;
+  const long long stage_words = (long long)P * g.chunk;
+
+  auto issue = [&](int i, const int32_t* const* src, const long long* str) {
+    // stage local tile i (one thread)
+    const long long t = t_begin + i, s = t / g.per_shard;
+    const long long w0 = (t % g.per_shard) * g.chunk;
+    const uint32_t bytes = (uint32_t)(min(g.chunk, g.W - w0) * 4);
+    const int st = i % stages;
+    const uint32_t bar = smem_addr(&full[st]);
+#ifdef FB_ABLATE_COPY  // measurement only: evaluate stale tiles
+    mbar_expect_tx(bar, 0u);
+    (void)bytes; (void)src; (void)str; (void)s;
+#else
+    mbar_expect_tx(bar, bytes * (uint32_t)P);
+    for (int pl = 0; pl < P; ++pl)
+      bulk_copy(smem_addr(ring + st * stage_words + pl * g.chunk),
+                src[pl] + s * str[pl] + w0, bytes, bar);
+#endif
+  };
+
+  // Thread 0 stages the first tiles before anything else; later, tile i is
+  // staged by lane 0 of warp i % 8, so no one warp waits on every tile's
+  // copies.
+  if (STAGED && tid == 0) {
+    for (int st = 0; st < stages; ++st) mbar_init(smem_addr(&full[st]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < stages && i < n_local; ++i) issue(i, p.plane, p.stride);
+  }
+  constexpr int kWarps = kEvalThreads / 32;
+  const bool issuer = (tid & 31) == 0;
+  for (int k = tid; k < p.n_instr; k += kEvalThreads) instr[k] = p.instr[k];
+  for (int k = tid; k < P; k += kEvalThreads) {
+    plane[k] = p.plane[k];
+    stride[k] = p.stride[k];
+  }
+  __syncthreads();
+
+  RegFile<V, NR> R;
+#pragma unroll
+  for (int k = 0; k < NR; ++k) R.r[k] = splat<V>(0u);
+  unsigned long long run = 0;  // this thread's count in the current shard
+  for (int i = 0; i < n_local; ++i) {
+    const long long t = t_begin + i, s = t / g.per_shard;
+    const long long w0 = (t % g.per_shard) * g.chunk;
+    const long long n = min(g.chunk, g.W - w0);
+    uint32_t pc = 0;
+    if constexpr (STAGED) {
+      const int st = i % stages;
+      mbar_wait(smem_addr(&full[st]), (uint32_t)(i / stages) & 1u);
+      const uint32_t* base = ring + st * stage_words;
+      // a step covers kEvalThreads groups of 4 words, twice at V = 8
+      constexpr long long gap = (long long)kEvalThreads * kVec;
+      for (long long o = tid * kVec; o < n; o += gap * (V / kVec)) {
+        const bool two = o + gap < n;
+        auto fetch = [&](uint32_t pl) {
+          return load_words<V>(base + pl * g.chunk + o, gap, two);
+        };
+#ifdef FB_ABLATE_COMPUTE  // measurement only: no program, plane 0's words
+        const Vec<V> r = fetch(0);
+#else
+        const Vec<V> r = run_program<V, NR>(instr, p.n_instr, p.result, R,
+                                            fetch);
+#endif
+        pc += popc(r);
+        if (out != nullptr) store_words<V>(out + s * g.W + w0 + o, gap, two, r);
+      }
+      __syncthreads();  // every thread is done with stage st
+      if (issuer && (i + stages) % kWarps == tid >> 5 && i + stages < n_local) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        issue(i + stages, plane, stride);
+      }
+    } else {
+      for (long long o = tid; o < n; o += kEvalThreads) {
+        auto fetch = [&](uint32_t pl) {
+          return Vec<1>{{(uint32_t)__ldg(plane[pl] + s * stride[pl] + w0 + o)}};
+        };
+        const Vec<1> r = run_program<1, NR>(instr, p.n_instr, p.result, R,
+                                            fetch);
+        pc += popc(r);
+        if (out != nullptr) out[s * g.W + w0 + o] = (int32_t)r.w[0];
+      }
+    }
+    run += pc;
+    if (counts != nullptr && (t + 1 == t_end || (t + 1) % g.per_shard == 0)) {
+      // end of this block's run of tiles in shard s: one slot, at the
+      // run's first tile
+      unsigned long long c = run;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        c += __shfl_down_sync(0xFFFFFFFFu, c, off);
+      __syncthreads();  // thread 0 has read the last run's warp sums
+      if ((tid & 31) == 0) warp_sum[tid >> 5] = c;
+      __syncthreads();
+      if (tid == 0) {
+        unsigned long long total = 0;
+#pragma unroll
+        for (int w = 0; w < kEvalThreads / 32; ++w) total += warp_sum[w];
+        partials[max(t_begin, s * g.per_shard)] = total;
+      }
+      run = 0;
+    }
+  }
+  if (counts == nullptr) return;
+  if (tid == 0) {
+    // release this block's slots; the last block acquires every block's
+    unsigned int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(ticket) : "memory");
+    last_block = prev == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last_block) return;
+  // A shard's count is the sum of its runs' slots: the slot at its first
+  // tile, and one at each block start inside it.  The sums are of integers,
+  // so the order of the atomics does not change them.
+  for (int s = tid; s < g.S; s += kEvalThreads)
+    counts[s] = __ldcg(partials + (long long)s * g.per_shard);
+  __syncthreads();
+  for (long long b = tid + 1; b < gridDim.x; b += kEvalThreads) {
+    const long long tb = b * g.per_block;
+    if (tb % g.per_shard != 0)
+      atomicAdd(counts + tb / g.per_shard, __ldcg(partials + tb));
+  }
+  if (tid == 0) *ticket = 0;  // ready for the next launch on this stream
+}
+
+// ---- kernel B ---------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
 
@@ -182,62 +531,215 @@ row_counts_kernel(const int32_t* __restrict__ tile,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
+// Same checks as ops/cuda_kernels.py validate().
+bool valid_program(const uint32_t* instr, int n_instr, int result_reg,
+                   int n_planes) {
+  if (n_instr <= 0 || n_instr > kMaxInstr || n_planes < 1 ||
+      n_planes > kMaxPlanes || result_reg < 0 || result_reg >= kNumRegs)
+    return false;
+  for (int k = 0; k < n_instr; ++k) {
+    const uint32_t op = instr[k] & 0xFF, d = (instr[k] >> 8) & 0xFF;
+    const uint32_t a = (instr[k] >> 16) & 0xFF, b = instr[k] >> 24;
+    if (op > OP_BSI || d >= (uint32_t)kNumRegs) return false;
+    if (op == OP_LOAD) {
+      if (a >= (uint32_t)n_planes || b != 0) return false;
+    } else if (op == OP_BSI) {
+      if (k + 2 >= n_instr || a >= (uint32_t)kNumRegs || b != 0) return false;
+      const uint32_t mask = instr[k + 1], info = instr[k + 2];
+      const uint32_t first = info & 0xFF, depth = (info >> 8) & 0xFF;
+      const uint32_t mode = (info >> 16) & 3;
+      if ((info >> 20) != 0 || depth < 1 || depth > (uint32_t)kMaxDepth ||
+          mode > MODE_GT || first + depth > (uint32_t)n_planes ||
+          (depth < 32 && (mask >> depth) != 0))
+        return false;
+      k += 2;
+    } else if (a >= (uint32_t)kNumRegs || b >= (uint32_t)kNumRegs) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// The smallest register file (2, 4 or kNumRegs) that holds every register
+// a valid program names.
+int regs_needed(const uint32_t* instr, int n_instr, int result_reg) {
+  uint32_t top = (uint32_t)result_reg;
+  for (int k = 0; k < n_instr; ++k) {
+    const uint32_t op = instr[k] & 0xFF, d = (instr[k] >> 8) & 0xFF;
+    const uint32_t a = (instr[k] >> 16) & 0xFF, b = instr[k] >> 24;
+    top = d > top ? d : top;
+    if (op != OP_LOAD) top = a > top ? a : top;
+    if (op != OP_LOAD && op != OP_BSI) top = b > top ? b : top;
+    if (op == OP_BSI) k += 2;
+  }
+  return top < 2 ? 2 : top < 4 ? 4 : kNumRegs;
+}
+
+// The forms of kernel A: (staged, register file, words a thread a step).
+using EvalKernel = decltype(&plan_eval_kernel<true, 2, 4>);
+struct Form {
+  EvalKernel kernel;
+  bool staged;
+  int regs, vec;
+};
+constexpr int kForms = 8;
+const Form kFormTable[kForms] = {
+    {plan_eval_kernel<true, 2, 8>, true, 2, 8},
+    {plan_eval_kernel<true, 2, 4>, true, 2, 4},
+    {plan_eval_kernel<true, 4, 8>, true, 4, 8},
+    {plan_eval_kernel<true, 4, 4>, true, 4, 4},
+    {plan_eval_kernel<true, kNumRegs, 4>, true, kNumRegs, 4},
+    {plan_eval_kernel<false, 2, 1>, false, 2, 1},
+    {plan_eval_kernel<false, 4, 1>, false, 4, 1},
+    {plan_eval_kernel<false, kNumRegs, 1>, false, kNumRegs, 1},
+};
+
+// The form for a launch: the smallest register file the program needs, and
+// 8 words a thread a step when a chunk is two steps of the block or more
+// (half the dispatch per word), else 4.
+int pick_form(bool staged, int regs, long long chunk) {
+  const long long step = (long long)kEvalThreads * kVec;
+  const int vec = !staged ? 1 : chunk >= 2 * step ? 8 : kVec;
+  for (int f = 0; f < kForms; ++f) {
+    const Form& x = kFormTable[f];
+    if (x.staged == staged && x.regs == regs && x.vec <= vec) return f;
+  }
+  return -1;
+}
+
+// Per device: SMs and the resident blocks a SM of each form, from the
+// occupancy calculator once the staged forms may use kStageBytes.
+struct DeviceInfo {
+  int sms = 0;
+  int blocks[kForms] = {};
+};
+DeviceInfo g_devices[64];
+
+cudaError_t device_info(DeviceInfo** out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  DeviceInfo& d = g_devices[dev];
+  if (d.sms == 0) {
+    int sms = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    for (int f = 0; f < kForms; ++f) {
+      const Form& x = kFormTable[f];
+      if (x.staged &&
+          ((e = cudaFuncSetAttribute(
+                x.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                kStageBytes)) != cudaSuccess ||
+           (e = cudaFuncSetAttribute(
+                x.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess))
+        return e;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &d.blocks[f], x.kernel, kEvalThreads, x.staged ? kStageBytes : 0);
+      if (e != cudaSuccess) return e;
+      if (d.blocks[f] < 1) return cudaErrorInvalidConfiguration;
+    }
+    d.sms = sms;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-int fb_limits(int* max_instr, int* max_planes, int* num_regs) {
+int fb_limits(int* max_instr, int* max_planes, int* num_regs, int* max_depth,
+              int* chunk_quantum) {
   *max_instr = kMaxInstr;
   *max_planes = kMaxPlanes;
   *num_regs = kNumRegs;
+  *max_depth = kMaxDepth;
+  *chunk_quantum = kChunkQuantum;
   return 0;
 }
 
-// Evaluate a lowered plan over S shards of W words.  out_words ((S, W)
-// int32, contiguous) and/or counts ((S,) int64, zeroed here on the stream)
-// may be null.  planes/strides/instr are host arrays copied into the launch.
+// SMs, and resident blocks a SM of each of kernel A's kForms forms, in the
+// order of kFormTable: staged 2x8, 2x4, 4x8, 4x4, 12x4 (registers x words
+// a thread a step), then scalar with 2, 4 and 12 registers.
+int fb_plan_eval_config(int* sms, int* blocks) {
+  DeviceInfo* info = nullptr;
+  const cudaError_t e = device_info(&info);
+  if (e != cudaSuccess) return (int)e;
+  *sms = info->sms;
+  for (int f = 0; f < kForms; ++f) blocks[f] = info->blocks[f];
+  return 0;
+}
+
+// Evaluate a lowered program over S shards of W words.  out_words ((S, W)
+// int32, contiguous) and/or counts ((S,) int64) may be null.  With counts,
+// partials is scratch of n_partials int64 (S * ceil(W / kChunkQuantum) is
+// always enough; no zeroing) and ticket a uint32 that is 0 before the
+// launch and is 0 again after it.  planes/strides/instr are host arrays
+// copied into the launch.
 int fb_plan_eval(const uint32_t* instr, int n_instr, int result_reg,
                  const void* const* planes, const long long* strides,
                  int n_planes, int S, long long W, void* out_words,
-                 void* counts, void* stream) {
-  if (n_instr <= 0 || n_instr > kMaxInstr || n_planes < 0 ||
-      n_planes > kMaxPlanes || result_reg < 0 || result_reg >= kNumRegs ||
-      S <= 0 || S > 65535 || W <= 0)
+                 void* counts, void* partials, long long n_partials,
+                 void* ticket, void* stream) {
+  if (!valid_program(instr, n_instr, result_reg, n_planes) || S <= 0 ||
+      W <= 0 || (counts != nullptr && (partials == nullptr || ticket == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Program p = {};
-  bool vec4 = (W % 4) == 0 && (out_words == nullptr || aligned16(out_words));
+  bool staged = (W % 4) == 0 && (out_words == nullptr || aligned16(out_words));
   for (int i = 0; i < n_planes; ++i) {
     p.plane[i] = static_cast<const int32_t*>(planes[i]);
     p.stride[i] = strides[i];
-    vec4 = vec4 && aligned16(planes[i]) && (strides[i] % 4) == 0;
+    staged = staged && aligned16(planes[i]) && (strides[i] % 4) == 0;
   }
-  for (int i = 0; i < n_instr; ++i) {
-    const uint32_t op = instr[i] & 0xFF, d = (instr[i] >> 8) & 0xFF;
-    const uint32_t a = (instr[i] >> 16) & 0xFF, b = instr[i] >> 24;
-    if (op > OP_NOT || d >= (uint32_t)kNumRegs ||
-        (op == OP_LOAD ? a >= (uint32_t)n_planes
-                       : (a >= (uint32_t)kNumRegs || b >= (uint32_t)kNumRegs)))
-      return (int)cudaErrorInvalidValue;
-    p.instr[i] = instr[i];
-  }
+  for (int i = 0; i < n_instr; ++i) p.instr[i] = instr[i];
   p.n_instr = n_instr;
   p.result = result_reg;
-  unsigned long long* c = static_cast<unsigned long long*>(counts);
-  if (c != nullptr) {
-    cudaError_t e = cudaMemsetAsync(c, 0, sizeof(unsigned long long) * S, st);
-    if (e != cudaSuccess) return (int)e;
+  p.n_planes = n_planes;
+  const int nr = regs_needed(instr, n_instr, result_reg);
+
+  DeviceInfo* info = nullptr;
+  const cudaError_t e = device_info(&info);
+  if (e != cudaSuccess) return (int)e;
+
+  Tiling g = {};
+  g.W = W;
+  g.S = S;
+  if (staged) {
+    // the largest chunk, up to kChunkSteps steps of the block, that leaves
+    // room for kMinStages tiles of every plane; then as many stages as fit
+    const long long step = (long long)kEvalThreads * kVec * kChunkSteps;
+    const long long w_round =
+        (W + kChunkQuantum - 1) / kChunkQuantum * kChunkQuantum;
+    long long c = kStageBytes / (kMinStages * 4LL * n_planes);
+    c = c < step ? c : step;
+    c -= c % kChunkQuantum;
+    g.chunk = c < w_round ? c : w_round;
+    if (g.chunk < kChunkQuantum) return (int)cudaErrorInvalidValue;
+    const long long fit = kStageBytes / (4LL * n_planes * g.chunk);
+    g.stages = (int)(fit < kMaxStages ? fit : kMaxStages);
+  } else {
+    g.chunk = kScalarChunk;
+    g.stages = 0;
   }
-  const int vec = vec4 ? 4 : 1;
-  const long long per_block = (long long)kEvalThreads * vec;
-  long long bx = (W + per_block - 1) / per_block;
-  if (bx > 0x7FFFFFFFLL) bx = 0x7FFFFFFFLL;  // the grid-stride loop covers the rest
-  dim3 grid((unsigned)bx, (unsigned)S);
+  const int form = pick_form(staged, nr, g.chunk);
+  if (form < 0) return (int)cudaErrorInvalidValue;
+  g.per_shard = (W + g.chunk - 1) / g.chunk;
+  g.n_tiles = g.per_shard * S;
+  if (counts != nullptr && g.n_tiles > n_partials) return (int)cudaErrorInvalidValue;
+  const long long slots = (long long)info->sms * info->blocks[form];
+  g.per_block = (g.n_tiles + slots - 1) / slots;
+  const unsigned grid = (unsigned)((g.n_tiles + g.per_block - 1) / g.per_block);
   int32_t* o = static_cast<int32_t*>(out_words);
-  if (vec4)
-    plan_eval_kernel<4><<<grid, kEvalThreads, 0, st>>>(p, W, o, c);
-  else
-    plan_eval_kernel<1><<<grid, kEvalThreads, 0, st>>>(p, W, o, c);
+  auto* c = static_cast<unsigned long long*>(counts);
+  auto* part = static_cast<unsigned long long*>(partials);
+  auto* tk = static_cast<unsigned int*>(ticket);
+  const size_t smem = staged ? (size_t)g.stages * n_planes * g.chunk * 4 : 0;
+  kFormTable[form].kernel<<<grid, kEvalThreads, smem, st>>>(p, g, o, c, part,
+                                                            tk);
   return (int)cudaGetLastError();
 }
 

@@ -11,9 +11,9 @@ tree into an IR over stacked shard tiles:
 
 ``PlanExecutor`` gathers the leaves from the fragments' host masters into
 generation-keyed device caches (uploads through pinned host buffers), lowers
-the IR to a register program over leaf planes (``lower_ir``: BSI
-comparators unroll with their predicate bits resolved, a Shift subtree is
-evaluated first and enters as a leaf) and runs it with kernel A
+the IR to a register program over leaf planes (``lower_ir``: each BSI
+comparator becomes a sign split and OP_BSI walks with its predicate bits
+in the payload, a Shift subtree is evaluated first and enters as a leaf) and runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
 per-shard counts for Count.
 """

@@ -5,8 +5,9 @@ fragment.go:963-1305 rangeEQ/LT/GT/Between).  There the predicate bits are
 traced so one XLA program serves every literal; here they are host values at
 launch time, so every ``_sel(pred_bits[i], x, y)`` resolves on the host: the
 torch comparators pick the branch in Python, and the ``lower_*`` functions
-unroll each comparator into straight-line steps over BSI planes for kernel A
-(ops/cuda_kernels.py ``plan_eval``).
+turn each comparator into a few kernel-A instructions (ops/cuda_kernels.py
+``plan_eval``): the sign split in set algebra, and each unsigned walk as one
+``OP_BSI`` whose payload holds the predicate bits.
 
 Inputs of the torch comparators:
   slices: (..., D, W) int32 magnitude planes (leading dims = stacked shards)
@@ -149,37 +150,26 @@ class BsiPlanes:
     def slice(self, i: int) -> int:
         return self.row(BSI_OFFSET + i)
 
+    def slices(self, depth: int) -> int:
+        """Id of magnitude slice 0; slices 0 .. depth - 1 get consecutive
+        ids, as one OP_BSI walk names them."""
+        ids = [self.slice(i) for i in range(depth)]
+        if ids != list(range(ids[0], ids[0] + depth)):
+            raise ValueError(f"slices of {self.key!r} are not consecutive "
+                             f"planes: {ids}")
+        return ids[0]
+
+
+_MODES = {"eq": ck.MODE_EQ, "lt": ck.MODE_LT, "gt": ck.MODE_GT}
+
 
 def _lower_u(pb: ck.ProgramBuilder, planes: BsiPlanes, b: int, pred_bits,
              depth: int, mode: str, allow_eq: bool = False) -> int:
     """Unsigned walk from plane `depth` (virtual zero) down to 0 over the
-    side in register `b` (consumed).  mode: 'eq', 'lt' or 'gt'."""
-    keep = None if mode == "eq" else pb.const(False)
-    t = pb.reg() if mode != "eq" else None
-    for i in range(depth, -1, -1):
-        bit = int(pred_bits[i])
-        if i == depth:  # virtual all-zero slice
-            if bit:
-                if mode == "lt":
-                    pb.op(ck.OP_OR, keep, b, dst=keep)
-                pb.emit(ck.OP_ZERO, b)
-            continue
-        s = pb.load(planes.slice(i))
-        if mode == "lt" and bit:
-            pb.op(ck.OP_ANDNOT, b, s, dst=t)
-            pb.op(ck.OP_OR, keep, t, dst=keep)
-        elif mode == "gt" and not bit:
-            pb.op(ck.OP_AND, b, s, dst=t)
-            pb.op(ck.OP_OR, keep, t, dst=keep)
-        pb.op(ck.OP_AND if bit else ck.OP_ANDNOT, b, s, dst=b)
-        pb.free(s)
-    if mode == "eq":
-        return b
-    pb.free(t)
-    if allow_eq:
-        pb.op(ck.OP_OR, keep, b, dst=keep)
-    pb.free(b)
-    return keep
+    side in register `b`, in place: one OP_BSI.  mode: 'eq', 'lt' or
+    'gt'."""
+    return pb.bsi(b, planes.slices(depth), depth, _MODES[mode], pred_bits,
+                  allow_eq)
 
 
 def _lower_sides(pb: ck.ProgramBuilder, planes: BsiPlanes, want: str) -> int:

@@ -14,7 +14,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -42,9 +42,10 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(source: str) -> str:
+def library_path(source: str, flags: Tuple[str, ...] = ()) -> str:
     with open(os.path.join(CSRC, source), "rb") as fh:
-        digest = hashlib.sha1(fh.read() + " ".join(NVCC_FLAGS).encode())
+        digest = hashlib.sha1(fh.read()
+                              + " ".join(NVCC_FLAGS + list(flags)).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:12]}.so")
 
@@ -53,22 +54,25 @@ def _tmp(out: str) -> str:
     return f"{out}.{os.getpid()}.tmp"
 
 
-def compile_source(source: str) -> subprocess.Popen:
-    """Start nvcc for one source into a temporary file; returns the process
-    (chip_smoke.py starts every source's build at once)."""
+def compile_source(source: str, flags: Tuple[str, ...] = ()
+                   ) -> subprocess.Popen:
+    """Start nvcc for one source (with extra `flags`, such as -D macros)
+    into a temporary file; returns the process (chip_smoke.py starts every
+    build at once)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    out = library_path(source)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", _tmp(out),
+    out = library_path(source, flags)
+    cmd = [nvcc_path(), *NVCC_FLAGS, *flags, "-o", _tmp(out),
            os.path.join(CSRC, source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
 
 
-def finish(source: str, proc: subprocess.Popen) -> str:
+def finish(source: str, proc: subprocess.Popen,
+           flags: Tuple[str, ...] = ()) -> str:
     """Wait for an nvcc started by compile_source; raise on failure."""
     log, _ = proc.communicate()
-    build_log[source] = log
-    out = library_path(source)
+    build_log[" ".join((source, *flags))] = log
+    out = library_path(source, flags)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {source} "
                            f"(exit {proc.returncode}):\n{log}")
@@ -76,20 +80,22 @@ def finish(source: str, proc: subprocess.Popen) -> str:
     return out
 
 
-def build(sources: List[str]) -> None:
+def build(sources: List[str], flags: Tuple[str, ...] = ()) -> None:
     """Compile every source not built yet, all nvcc processes at once."""
-    todo = [s for s in sources if not os.path.exists(library_path(s))]
-    procs = [(s, compile_source(s)) for s in todo]
+    todo = [s for s in sources if not os.path.exists(library_path(s, flags))]
+    procs = [(s, compile_source(s, flags)) for s in todo]
     for s, p in procs:
-        finish(s, p)
+        finish(s, p, flags)
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library for `source`, building it on first use."""
+def load(source: str, flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for `source` built with `flags`, building it on
+    first use."""
     with _lock:
-        lib: Optional[ctypes.CDLL] = _loaded.get(source)
+        key = " ".join((source, *flags))
+        lib: Optional[ctypes.CDLL] = _loaded.get(key)
         if lib is None:
-            build([source])
-            lib = ctypes.CDLL(library_path(source))
-            _loaded[source] = lib
+            build([source], flags)
+            lib = ctypes.CDLL(library_path(source, flags))
+            _loaded[key] = lib
         return lib

@@ -4,12 +4,15 @@ Counterpart of featurebase_tpu/ops/pallas_kernels.py.  The three Pallas
 kernels there become two CUDA kernels (csrc/bitmap_kernels.cu, built by
 ops/build.py and loaded with ctypes):
 
-- ``plan_eval`` (kernel A) evaluates a lowered bitmap plan (a short register
-  program over leaf planes, built with ``ProgramBuilder``) and writes the
-  result words, per-shard counts, or both.  It replaces
-  ``count_and_pallas`` (pallas_kernels.py:135-160): ``count_and`` is the
-  program ``[load 0, load 1, and]``.  Bound: bytes — every leaf word is read
-  once and, in count mode, nothing but S counts is written.
+- ``plan_eval`` (kernel A) evaluates a lowered bitmap plan (a short program
+  over leaf planes, built with ``ProgramBuilder``) and writes the result
+  words, per-shard counts, or both.  It replaces ``count_and_pallas``
+  (pallas_kernels.py:135-160): ``count_and`` is the program
+  ``[load 0, load 1, and]``.  A BSI comparison is one ``OP_BSI``
+  instruction that walks the magnitude planes.  ``ProgramBuilder.build``
+  renumbers registers to the fewest, and the kernel picks its smallest
+  register file that holds them.  Bound: bytes — TMA stages each plane of
+  a tile once, and count mode writes nothing but S counts.
 - ``row_counts`` (kernel B) gives per-row popcounts of an (S, R, W) tile,
   optionally ANDed with an (S, W) filter.  It replaces
   ``count_and_rows_pallas`` (:172-195) and ``popcount_rows_pallas``
@@ -24,28 +27,36 @@ kernel launches (never plain calls).
 from __future__ import annotations
 
 import ctypes
+import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 SOURCE = "bitmap_kernels.cu"
 
 # Program limits and opcodes; must match csrc/bitmap_kernels.cu.
-MAX_INSTR = 640
+MAX_INSTR = 640        # instruction words, BSI payloads included
 MAX_PLANES = 48
 NUM_REGS = 12
+MAX_DEPTH = 32         # magnitude planes in one OP_BSI walk
+CHUNK_QUANTUM = 128    # words; the kernel's tiles are multiples of it
 
-OP_LOAD, OP_ZERO, OP_ONES, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_NOT = range(8)
+(OP_LOAD, OP_ZERO, OP_ONES, OP_AND, OP_OR, OP_XOR, OP_ANDNOT, OP_NOT,
+ OP_BSI) = range(9)
+MODE_EQ, MODE_LT, MODE_GT = range(3)
+BSI_WORDS = 3          # OP_BSI and its two payload words
 
 
 class ProgramTooLarge(Exception):
-    """A plan needs more instructions, planes or registers than the kernel
-    holds (MAX_INSTR / MAX_PLANES / NUM_REGS)."""
+    """A plan needs more instruction words, planes or registers than the
+    kernel holds (MAX_INSTR / MAX_PLANES / NUM_REGS)."""
 
 
 class Program:
-    """A lowered plan: instructions over registers, the leaf planes they
-    load ((S, W) int32 views, unit stride along W), and the result register."""
+    """A lowered plan: instruction words over registers, the leaf planes
+    they read ((S, W) int32 views, unit stride along W), and the result
+    register."""
 
     __slots__ = ("instrs", "planes", "result", "S", "W")
 
@@ -56,6 +67,37 @@ class Program:
         self.result = result
         self.S = S
         self.W = W
+
+
+def encode_bsi(first: int, depth: int, mode: int, pred_bits,
+               allow_eq: bool = False) -> Tuple[int, int]:
+    """The two payload words of OP_BSI: a walk over planes first ..
+    first + depth - 1 (magnitude planes 0 .. depth - 1) with predicate bits
+    pred_bits[0 .. depth] (bit `depth` is the virtual all-zero plane)."""
+    bits = [int(x) for x in pred_bits]
+    if not 1 <= depth <= MAX_DEPTH or len(bits) != depth + 1 \
+            or any(x not in (0, 1) for x in bits):
+        raise ValueError(f"a BSI walk takes depth 1..{MAX_DEPTH} and "
+                         f"depth + 1 predicate bits, got depth {depth}, "
+                         f"{len(bits)} bits")
+    if mode not in (MODE_EQ, MODE_LT, MODE_GT):
+        raise ValueError(f"bad BSI mode {mode}")
+    if not 0 <= first or first + depth > MAX_PLANES:
+        raise ValueError(f"BSI planes {first}..{first + depth - 1} out of "
+                         f"range")
+    mask = sum(b << i for i, b in enumerate(bits[:depth]))
+    info = (first | (depth << 8) | (mode << 16) | (int(allow_eq) << 18)
+            | (bits[depth] << 19))
+    return mask, info
+
+
+def decode_bsi(mask: int, info: int) -> Tuple[int, int, int, np.ndarray,
+                                              bool]:
+    """(first, depth, mode, pred_bits, allow_eq) of OP_BSI's payload."""
+    first, depth = info & 0xFF, (info >> 8) & 0xFF
+    bits = [(mask >> i) & 1 for i in range(depth)] + [(info >> 19) & 1]
+    return (first, depth, (info >> 16) & 3, np.array(bits, dtype=np.uint32),
+            bool((info >> 18) & 1))
 
 
 class ProgramBuilder:
@@ -87,10 +129,13 @@ class ProgramBuilder:
     def free(self, *regs: int) -> None:
         self._free.extend(regs)
 
+    def _words(self, *words: int) -> None:
+        if len(self.instrs) + len(words) > MAX_INSTR:
+            raise ProgramTooLarge(f"more than {MAX_INSTR} instruction words")
+        self.instrs.extend(words)
+
     def emit(self, op: int, dst: int, a: int = 0, b: int = 0) -> int:
-        if len(self.instrs) >= MAX_INSTR:
-            raise ProgramTooLarge(f"more than {MAX_INSTR} instructions")
-        self.instrs.append(op | (dst << 8) | (a << 16) | (b << 24))
+        self._words(op | (dst << 8) | (a << 16) | (b << 24))
         return dst
 
     def load(self, plane: int) -> int:
@@ -104,9 +149,101 @@ class ProgramBuilder:
         """dst = a OP b (a fresh register when dst is None)."""
         return self.emit(op, self.reg() if dst is None else dst, a, b)
 
+    def bsi(self, src: int, first: int, depth: int, mode: int, pred_bits,
+            allow_eq: bool = False) -> int:
+        """Register `src` walked in place by one OP_BSI (see encode_bsi)."""
+        mask, info = encode_bsi(first, depth, mode, pred_bits, allow_eq)
+        self._words(OP_BSI | (src << 8) | (src << 16), mask, info)
+        return src
+
     def build(self, result: int) -> Program:
-        return Program(list(self.instrs), list(self.planes), result,
-                       self.S, self.W)
+        instrs, result = compact_registers(self.instrs, result)
+        return Program(instrs, list(self.planes), result, self.S, self.W)
+
+
+def _reads(op: int, a: int, b: int) -> Tuple[int, ...]:
+    """Registers an instruction reads."""
+    if op in (OP_LOAD, OP_ZERO, OP_ONES):
+        return ()
+    if op in (OP_NOT, OP_BSI):
+        return (a,)
+    return (a, b)
+
+
+def compact_registers(instrs: List[int], result: int
+                      ) -> Tuple[List[int], int]:
+    """Renumber registers to the fewest the program needs (a linear scan
+    over exact liveness), so the kernel runs it with the smallest register
+    file.  Fields an opcode does not read become 0.  A program that reads a
+    register before writing it is returned as it is."""
+    steps, k = [], 0
+    while k < len(instrs):
+        w = instrs[k]
+        n = BSI_WORDS if w & 0xFF == OP_BSI else 1
+        steps.append((w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF, w >> 24,
+                      instrs[k + 1:k + n]))
+        k += n
+    cur: Dict[int, int] = {}    # register -> defining step of its value
+    last: Dict[int, int] = {}   # value -> last step that reads it
+    for i, (op, d, a, b, _) in enumerate(steps):
+        for r in _reads(op, a, b):
+            if r not in cur:
+                return list(instrs), result
+            last[cur[r]] = i
+        cur[d] = i
+    if result not in cur:
+        return list(instrs), result
+    last[cur[result]] = len(steps)
+    free = list(range(NUM_REGS))
+    phys: Dict[int, int] = {}
+    cur = {}
+    out: List[int] = []
+    for i, (op, d, a, b, payload) in enumerate(steps):
+        reads = _reads(op, a, b)
+        new = [phys[cur[r]] for r in reads] + [0, 0]
+        for v in {cur[r] for r in reads}:
+            if last[v] == i:
+                heapq.heappush(free, phys[v])
+        phys[i] = reg = heapq.heappop(free)
+        cur[d] = i
+        if i not in last:           # a value nothing reads
+            heapq.heappush(free, reg)
+        na = a if op == OP_LOAD else new[0]
+        out += [op | (reg << 8) | (na << 16) | (new[1] << 24), *payload]
+    return out, phys[cur[result]]
+
+
+def validate(prog: Program) -> None:
+    """Raise ValueError unless the kernel's launcher would take `prog`
+    (the same checks as valid_program in csrc/bitmap_kernels.cu)."""
+    n, npl, ins = len(prog.instrs), len(prog.planes), prog.instrs
+    if not 0 < n <= MAX_INSTR or not 0 < npl <= MAX_PLANES \
+            or not 0 <= prog.result < NUM_REGS:
+        raise ValueError(f"program of {n} words over {npl} planes with "
+                         f"result register {prog.result} is out of bounds")
+    if any(not 0 <= w < 1 << 32 for w in ins):
+        raise ValueError("instruction words are uint32")
+    k = 0
+    while k < n:
+        w = ins[k]
+        op, d, a, b = w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF, w >> 24
+        bad = op > OP_BSI or d >= NUM_REGS
+        if op == OP_LOAD:
+            bad = bad or a >= npl or b != 0
+        elif op == OP_BSI:
+            bad = bad or k + 2 >= n or a >= NUM_REGS or b != 0
+            if not bad:
+                mask, info = ins[k + 1], ins[k + 2]
+                first, depth = info & 0xFF, (info >> 8) & 0xFF
+                bad = (info >> 20 != 0 or not 1 <= depth <= MAX_DEPTH
+                       or (info >> 16) & 3 > MODE_GT or first + depth > npl
+                       or mask >> depth != 0)
+            k += 2
+        else:
+            bad = bad or a >= NUM_REGS or b >= NUM_REGS
+        if bad:
+            raise ValueError(f"bad instruction word {w:#010x} at {k}")
+        k += 1
 
 
 # ---------------------------------------------------------------------------
@@ -123,6 +260,28 @@ def popcount_words(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
 
 
+def bsi_walk_plain(b: torch.Tensor, planes: Sequence[torch.Tensor],
+                   mask: int, info: int) -> torch.Tensor:
+    """OP_BSI over whole tensors: the unsigned walk of ops/bsi_traced.py
+    from the virtual plane `depth` down to plane 0."""
+    first, depth, mode, bits, allow_eq = decode_bsi(mask, info)
+    keep = torch.zeros_like(b)
+    if bits[depth]:
+        if mode == MODE_LT:
+            keep = b
+        b = torch.zeros_like(b)
+    for i in range(depth - 1, -1, -1):
+        s = planes[first + i]
+        if mode == MODE_LT and bits[i]:
+            keep = keep | (b & ~s)
+        elif mode == MODE_GT and not bits[i]:
+            keep = keep | (b & s)
+        b = (b & s) if bits[i] else (b & ~s)
+    if mode == MODE_EQ:
+        return b
+    return keep | b if allow_eq else keep
+
+
 def plan_eval_plain(prog: Program, want_words: bool = True,
                     want_counts: bool = False
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -130,7 +289,9 @@ def plan_eval_plain(prog: Program, want_words: bool = True,
     shape = (prog.S, prog.W)
     dev = prog.planes[0].device if prog.planes else torch.device("cpu")
     regs: List[Optional[torch.Tensor]] = [None] * NUM_REGS
-    for ins in prog.instrs:
+    k = 0
+    while k < len(prog.instrs):
+        ins = prog.instrs[k]
         op, d, a, b = ins & 0xFF, (ins >> 8) & 0xFF, (ins >> 16) & 0xFF, \
             ins >> 24
         if op == OP_LOAD:
@@ -149,8 +310,13 @@ def plan_eval_plain(prog: Program, want_words: bool = True,
             regs[d] = regs[a] & ~regs[b]
         elif op == OP_NOT:
             regs[d] = ~regs[a]
+        elif op == OP_BSI:
+            regs[d] = bsi_walk_plain(regs[a], prog.planes,
+                                     prog.instrs[k + 1], prog.instrs[k + 2])
+            k += 2
         else:
             raise ValueError(f"bad opcode {op}")
+        k += 1
     res = regs[prog.result].contiguous()
     words = res if want_words else None
     counts = popcount_words(res).sum(-1) if want_counts else None
@@ -168,22 +334,26 @@ def row_counts_plain(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _lib() -> ctypes.CDLL:
+def _lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The kernels' library, built with extra nvcc `flags` if any."""
     from featurebase_tpu_torch.ops import build
-    lib = build.load(SOURCE)
+    lib = build.load(SOURCE, flags)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.fb_plan_eval.argtypes = [
             ctypes.POINTER(ctypes.c_uint32), i32, i32, ctypes.POINTER(vp),
-            ctypes.POINTER(i64), i32, i32, i64, vp, vp, vp]
+            ctypes.POINTER(i64), i32, i32, i64, vp, vp, vp, i64, vp, vp]
         lib.fb_plan_eval.restype = i32
+        lib.fb_plan_eval_config.argtypes = [ctypes.POINTER(i32)] * 2
+        lib.fb_plan_eval_config.restype = i32
         lib.fb_row_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
         lib.fb_row_counts.restype = i32
-        lib.fb_limits.argtypes = [ctypes.POINTER(i32)] * 3
+        lib.fb_limits.argtypes = [ctypes.POINTER(i32)] * 5
         lib.fb_limits.restype = i32
-        lim = [i32(), i32(), i32()]
+        lim = [i32() for _ in range(5)]
         lib.fb_limits(*[ctypes.byref(x) for x in lim])
-        if tuple(x.value for x in lim) != (MAX_INSTR, MAX_PLANES, NUM_REGS):
+        if tuple(x.value for x in lim) != (MAX_INSTR, MAX_PLANES, NUM_REGS,
+                                           MAX_DEPTH, CHUNK_QUANTUM):
             raise RuntimeError("kernel limits differ from cuda_kernels.py")
         lib._fb_typed = True
     return lib
@@ -206,6 +376,40 @@ def _is_cpu(tensors: Sequence[torch.Tensor]) -> bool:
     return False
 
 
+# plan_eval's completion ticket per (device, stream): zero between launches,
+# since the last block of each launch resets it; launches on one stream run
+# in order, so they never share it at once.
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    t = _tickets.get((dev.index, stream))
+    if t is None:
+        t = _tickets[(dev.index, stream)] = torch.zeros(
+            1, dtype=torch.int32, device=dev)
+    return t
+
+
+def plan_eval_config(device: Optional[torch.device] = None
+                     ) -> Dict[str, int]:
+    """The card's SMs and how many blocks of each form of kernel A one SM
+    holds (the occupancy calculator's answer, which sizes the grid)."""
+    sms, blocks = ctypes.c_int(), (ctypes.c_int * 8)()
+    with torch.cuda.device(device or torch.device("cuda")):
+        _check(_lib().fb_plan_eval_config(ctypes.byref(sms), blocks),
+               "plan_eval_config")
+    names = [f"staged_{r}x{v}" for r, v in ((2, 8), (2, 4), (4, 8), (4, 4),
+                                            (NUM_REGS, 4))] \
+        + [f"scalar_{r}" for r in (2, 4, NUM_REGS)]
+    return {"sms": sms.value,
+            "blocks_per_sm": dict(zip(names, (b for b in blocks)))}
+
+
+def max_tiles(S: int, W: int) -> int:
+    """Count slots that any launch over (S, W) may need."""
+    return S * -(-W // CHUNK_QUANTUM)
+
+
 def plan_eval(prog: Program, want_words: bool = True,
               want_counts: bool = False
               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -220,23 +424,31 @@ def plan_eval(prog: Program, want_words: bool = True,
                              f"strides {p.stride()}")
     if not prog.planes:
         raise ValueError("a program needs at least one plane to place it")
+    validate(prog)
     if _is_cpu(prog.planes):
         return plan_eval_plain(prog, want_words, want_counts)
     dev = prog.planes[0].device
     words = torch.empty((S, W), dtype=torch.int32, device=dev) \
         if want_words else None
-    counts = torch.empty((S,), dtype=torch.int64, device=dev) \
-        if want_counts else None
+    counts = partials = ticket = None
     n, npl = len(prog.instrs), len(prog.planes)
     instr = (ctypes.c_uint32 * n)(*prog.instrs)
     ptrs = (ctypes.c_void_p * npl)(*[p.data_ptr() for p in prog.planes])
     strides = (ctypes.c_longlong * npl)(*[p.stride(0) for p in prog.planes])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if want_counts:
+            counts = torch.empty((S,), dtype=torch.int64, device=dev)
+            partials = torch.empty((max_tiles(S, W),), dtype=torch.int64,
+                                   device=dev)
+            ticket = _ticket(dev, stream)
         rc = _lib().fb_plan_eval(
             instr, n, prog.result, ptrs, strides, npl, S, W,
             words.data_ptr() if words is not None else None,
-            counts.data_ptr() if counts is not None else None, stream)
+            counts.data_ptr() if counts is not None else None,
+            partials.data_ptr() if partials is not None else None,
+            partials.numel() if partials is not None else 0,
+            ticket.data_ptr() if ticket is not None else None, stream)
     _check(rc, "plan_eval")
     plan_eval.launches += 1
     return words, counts

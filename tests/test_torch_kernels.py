@@ -93,6 +93,54 @@ def test_every_opcode(op, want):
         counts.numpy(), np.bitwise_count(want(a, b)).sum(-1))
 
 
+def _unrolled_walk(pb, b, first, pred_bits, depth, mode, allow_eq):
+    """The walk as set algebra over loaded planes, one plane at a time:
+    what OP_BSI replaces."""
+    keep = pb.const(False)
+    t = pb.reg()
+    if pred_bits[depth]:
+        if mode == ck.MODE_LT:
+            pb.op(ck.OP_OR, keep, b, dst=keep)
+        pb.emit(ck.OP_ZERO, b)
+    for i in range(depth - 1, -1, -1):
+        s = pb.load(first + i)
+        if mode == ck.MODE_LT and pred_bits[i]:
+            pb.op(ck.OP_ANDNOT, b, s, dst=t)
+            pb.op(ck.OP_OR, keep, t, dst=keep)
+        elif mode == ck.MODE_GT and not pred_bits[i]:
+            pb.op(ck.OP_AND, b, s, dst=t)
+            pb.op(ck.OP_OR, keep, t, dst=keep)
+        pb.op(ck.OP_AND if pred_bits[i] else ck.OP_ANDNOT, b, s, dst=b)
+        pb.free(s)
+    if mode == ck.MODE_EQ:
+        return b
+    if allow_eq:
+        pb.op(ck.OP_OR, keep, b, dst=keep)
+    return keep
+
+
+@pytest.mark.parametrize("depth", [1, 5, 14])
+@pytest.mark.parametrize("mode", [ck.MODE_EQ, ck.MODE_LT, ck.MODE_GT])
+@pytest.mark.parametrize("allow_eq", [False, True])
+def test_bsi_opcode_matches_unrolled_set_algebra(depth, mode, allow_eq):
+    rng = np.random.default_rng(depth * 10 + mode)
+    x = t(words(rng, (3, depth + 1, 64)))
+    for pred in (0, 1, (1 << depth) - 2, 1 << depth, 1 << (depth + 3)):
+        bits = [(min(pred, (1 << (depth + 1)) - 1) >> i) & 1
+                for i in range(depth + 1)]
+        got = []
+        for unrolled in (False, True):
+            pb = ck.ProgramBuilder(3, 64)
+            for j in range(depth + 1):
+                pb.plane(j, x[:, j])
+            b = pb.load(0)
+            r = (_unrolled_walk(pb, b, 1, bits, depth, mode, allow_eq)
+                 if unrolled else pb.bsi(b, 1, depth, mode, bits, allow_eq))
+            got.append(ck.plan_eval(pb.build(r), True, True))
+        assert torch.equal(got[0][0], got[1][0]), f"pred={pred}"
+        assert torch.equal(got[0][1], got[1][1]), f"pred={pred}"
+
+
 def test_strided_planes_of_a_stacked_leaf():
     """Planes of an (S, D+2, W) leaf are strided views; the plain version
     and the wrapper's checks take them as they are."""
