@@ -10,33 +10,45 @@ Phases, one status line each; any failure raises and exits nonzero:
   2. build of every CUDA source with nvcc (sm_90a), and of kernel A's two
      ablation builds, all at once, timed, with the ptxas
      register/stack/spill report of each kernel (it fails if plan_eval_kernel
-     spills or keeps a stack frame); cuobjdump's SASS of each tuning kernel
-     must keep the 16-byte loads of its main loop;
+     or a BSI kernel spills or keeps a stack frame); cuobjdump's SASS of
+     each tuning kernel must keep the 16-byte loads of its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
      slice's shapes, on random words from a numpy seed: exact equality.
      Kernel A on every program shape the main path makes: AND, BSI `>`,
      `between` at depth 14 and at depth 32 (34 planes, 16 shards), word
      mode, a program of every opcode, the flat S = 1 count_and over 2^22
      words, and the 1,000,003-word scalar path; and in each of its forms
-     (register file 2, 4 or 12; staged or scalar);
+     (register file 2, 4 or 12; staged or scalar).  Kernels C and D
+     (bsi_sum_planes, bsi_min_max) on random groups at the slice's shape
+     and on encoded values at depths 1, 14, 31, 32 and 63: ties across
+     shards, sign-set zeros, all-negative groups, empty and all-ones
+     filters, an odd W and S = 131 and 7;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
      beside the bytes bound at 3.35 TB/s, the measured device-to-device
-     copy ceiling and the plain version's time; kernel A's cases must run
+     copy ceiling and the plain version's time (kernels C and D at depth
+     14, 128 shards); kernel A's cases must run
      its form (staged by TMA, or scalar for the irregular cases), and a
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
      program;
   5. the slice: a --shards table (625,000 records per shard; set fields f
      and g, int field v in [-1000, 10000]) built through the port's import
-     API, the query mix run through Executor(holder) on cuda, every answer
-     equal to a CPU executor over the same Holder and to a numpy oracle on
-     Count(Intersect), Count(Row(v > 5000)) and TopN(f, n=5); both kernels'
-     launch counters must rise (plan_eval 16 times a pass of the full mix);
+     API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow)
+     run through Executor(holder) on cuda, every answer equal to a CPU
+     executor over the same Holder and to a numpy oracle on
+     Count(Intersect), Count(Row(v > 5000)), TopN(f, n=5), Sum(field=v),
+     Min(field=v) and Max(Row(g=2), field=v); every kernel's launch counter
+     must rise, by PASS_LAUNCHES a pass of the full mix (row_counts three
+     times plus once a shard for each of MinRow and MaxRow);
      TopN's per-shard branch must give the stacked answers; p50 latency per
-     query; then a pass under torch.profiler, each query labelled: kernel
-     A and kernel B device time and the device-busy share of each query and
-     of the pass, and every launch the profiler could not link;
+     query; then a pass under torch.profiler, each query labelled: each
+     kernel's device time and the device-busy share of each query and
+     of the pass, and every launch the profiler could not link; then the
+     residency phase: every device cache dropped, and the whole mix again
+     under a residency budget of half the bytes the first pass left
+     resident, with every answer unchanged, evictions, and the bytes
+     within the budget after each query;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -47,7 +59,8 @@ Phases, one status line each; any failure raises and exits nonzero:
      the two-stream read ceiling beside the copy ceiling; then each tuning
      kernel at its best shape timed like phase 4, at 256 MB and at the
      slice's (S, W) beside plan_eval's AND;
-  8. no process started by the run is left running.
+  8. kernels C and D beside the two-stream read ceiling of phase 7;
+  9. no process started by the run is left running.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits nonzero at once.
 """
@@ -83,7 +96,16 @@ QUERIES = [
     "TopN(f, Row(g=2), n=5)",
     "TopN(f, Row(v > 5000), n=5)",
     "Options(Count(Row(f=1)), shards=[0, 5, 63])",
+    "Sum(field=v)",
+    "Sum(Row(f=1), field=v)",
+    "Min(field=v)",
+    "Max(Row(g=2), field=v)",
+    "Min(Row(v > 5000), field=v)",
+    "MinRow(field=f)",
+    "MaxRow(field=f)",
 ]
+# kernel launches in one pass of the full mix, by kernel
+PASS_LAUNCHES = {"plan_eval": 19, "bsi_sum_planes": 2, "bsi_min_max": 3}
 
 
 def say(phase: str, **kw) -> None:
@@ -149,7 +171,8 @@ def kernel_device_ms(fn, reps: int) -> dict:
             flush.zero_()
             fn()
         torch.cuda.synchronize()
-    names = ("plan_eval_kernel", "row_counts_kernel", "tune_ceiling_kernel",
+    names = ("plan_eval_kernel", "row_counts_kernel", "bsi_sum_planes_kernel",
+             "bsi_min_max_kernel", "tune_ceiling_kernel",
              "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
              "tune_csa_partial_kernel", "Memset", "Memcpy")
 
@@ -383,6 +406,17 @@ def kernel_times(timer: Timer, inputs) -> dict:
             lambda: ck.row_counts(tile, f),
             lambda: ck.row_counts_plain(tile, f),
             (S * R * W + (0 if f is None else S * W)) * 4 + S * R * 8)
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    group, gfilt = inputs["bsi"]
+    gs, planes, gw = group.shape
+    read = (planes + 1) * gs * gw * 4   # the group and the filter, once
+    out["bsi_sum_planes/d14"] = measure(
+        lambda: ck.bsi_sum_planes(group, gfilt),
+        lambda: bsiops.sum_planes_plain(group, gfilt),
+        read + (2 * planes - 3) * 8)
+    out["bsi_min_max/d14"] = measure(
+        lambda: ck.bsi_min_max(group, gfilt),
+        lambda: bsiops.min_max_parts_plain(group, gfilt), read + gs * 64)
     for name, r in out.items():
         say("kernel_time", kernel=name, **r)
     return out, copy_bps
@@ -417,6 +451,112 @@ def ablation(inputs, reps: int) -> dict:
     return out
 
 
+# -- kernels C and D ----------------------------------------------------------
+
+def pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """(S, C) bool columns -> (S, C / 32) int32 words (column c at word
+    c / 32, bit c % 32)."""
+    S, C = bits.shape
+    shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
+    w = (bits.view(S, C // 32, 32).to(torch.int64) << shifts).sum(-1)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32)
+
+
+def encode_group(mag: torch.Tensor, neg: torch.Tensor, ex: torch.Tensor,
+                 depth: int) -> torch.Tensor:
+    """(S, depth + 2, C / 32) BSI group of the present (`ex`) columns with
+    magnitudes `mag` and sign bits `neg` ((S, C) each); a set sign on a
+    zero magnitude is a sign-set zero."""
+    S, C = mag.shape
+    group = torch.empty((S, depth + 2, C // 32), dtype=torch.int32,
+                        device=mag.device)
+    group[:, 0] = pack_bits(ex)
+    group[:, 1] = pack_bits(ex & neg)
+    for d in range(depth):
+        group[:, 2 + d] = pack_bits(ex & (((mag >> d) & 1) == 1))
+    return group
+
+
+def bsi_cases(S: int) -> dict:
+    """The groups kernels C and D are held on: name -> (group, filter).
+    Random words at the slice's shape, and encoded values at depths 1, 14,
+    31, 32 and 63 (the deepest the port's Field allows): ties across
+    shards, sign-set zeros (a set sign on magnitude 0, 1% of columns at the
+    wider depths), every column negative, empty and all-ones filters, an odd
+    W (the scalar form) and S = 131 and 7 (no whole number of tiles per
+    block)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    rng = np.random.default_rng(11)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+
+    def values(shards, W, depth, base_shards=None, neg_p=0.5):
+        """(mag, neg, ex) of shards x 32 W columns; with base_shards, the
+        first base_shards shards repeat (ties across shards)."""
+        n = base_shards or shards
+        C = 32 * W
+        mag = torch.randint(0, 1 << min(depth, 62), (n, C), generator=gen,
+                            device="cuda", dtype=torch.int64)
+        if depth > 62:
+            mag |= torch.randint(0, 2, (n, C), generator=gen, device="cuda",
+                                 dtype=torch.int64) << 62
+        mag = torch.where(rand((n, C)) < 0.01, 0, mag)
+        neg, ex = rand((n, C)) < neg_p, rand((n, C)) < 0.6
+        reps = -(-shards // n)
+        return tuple(x.repeat(reps, 1)[:shards] for x in (mag, neg, ex))
+
+    def filt(shards, W, kind="random"):
+        if kind == "random":
+            return rand_words(rng, (shards, W))
+        return torch.full((shards, W), -1 if kind == "ones" else 0,
+                          dtype=torch.int32, device="cuda")
+
+    W, odd = 32768, 32767
+    cases = {"random_d14": (rand_words(rng, (S, 16, W)), filt(S, W))}
+    mag, neg, ex = values(S, W, 2, base_shards=2)   # magnitudes 0..3
+    cases["ties_d14"] = (encode_group(mag, neg, ex, 14), filt(S, W))
+    for depth in (1, 14, 31, 32, 63):
+        cases[f"values_d{depth}"] = (
+            encode_group(*values(16, W, depth), depth), filt(16, W))
+    mag, neg, ex = values(16, W, 13, neg_p=1.0)
+    cases["all_negative_d14"] = (encode_group(mag, neg, ex, 14),
+                                 filt(16, W, "ones"))
+    cases["empty_filter_d32"] = (encode_group(*values(16, W, 32), 32),
+                                 filt(16, W, "zeros"))
+    cases["ones_filter_d31"] = (encode_group(*values(16, W, 31), 31),
+                                filt(16, W, "ones"))
+    cases["odd_w_s131_d14"] = (rand_words(rng, (131, 16, odd)),
+                               filt(131, odd))
+    cases["odd_w_s7_d32"] = (encode_group(*values(7, odd, 32), 32),
+                             filt(7, odd))
+    return cases
+
+
+def bsi_parity(S: int):
+    """Phase 3b: kernels C and D against their plain versions on the card,
+    exactly, on every case of bsi_cases; returns the errors and the
+    slice-shaped random case for timing."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    cases = bsi_cases(S)
+    errs_c, errs_d, shapes = [], [], {}
+    for name, (group, f) in cases.items():
+        errs_c.append(require_equal(f"bsi_sum_planes {name}",
+                                    ck.bsi_sum_planes(group, f),
+                                    bsiops.sum_planes_plain(group, f)))
+        errs_d.append(require_equal(f"bsi_min_max {name}",
+                                    ck.bsi_min_max(group, f),
+                                    bsiops.min_max_parts_plain(group, f)))
+        shapes[name] = list(group.shape)
+    torch.cuda.synchronize()
+    say("bsi_parity", ok=True, cases=shapes)
+    timing = cases["random_d14"]
+    del cases
+    return {"bsi_sum_planes": max(errs_c), "bsi_min_max": max(errs_d)}, timing
+
+
 def build_table(n_shards: int, seed: int = 0):
     """The slice's table through the port's import API, plus the generating
     arrays for the oracle."""
@@ -446,12 +586,17 @@ def build_table(n_shards: int, seed: int = 0):
 
 def canon(result):
     """Comparable form of a query result."""
-    from featurebase_tpu_torch.executor.results import PairsField
+    from featurebase_tpu_torch.executor.results import (PairField,
+                                                        PairsField, ValCount)
     from featurebase_tpu_torch.model.row import Row
     if isinstance(result, Row):
         return ("row", result.columns().tolist())
     if isinstance(result, PairsField):
         return ("pairs", [(p.id, p.count) for p in result.pairs])
+    if isinstance(result, ValCount):
+        return ("valcount", (result.val, result.count))
+    if isinstance(result, PairField):
+        return ("pair", (result.pair.id, result.pair.count))
     return ("value", int(result))
 
 
@@ -590,13 +735,14 @@ def tune_phase(timer: Timer, big, small, copy_bps: float, and_time: dict):
             say("kernel_time", kernel=f"{name}/{t}x{v}/{size}", **r)
     at_slice = times["slice"]
     partials = ("tune_direct_partial", "tune_csa_partial")
+    read_ceiling = by_name["ceiling_dma"]["gb_per_s"] * 1e9
     say("tune_vs_plan_eval", words=small[0].numel(),
         plan_eval_and_ms=and_time["ms"],
         plan_eval_and_device_ms=and_time["device_ms"],
         csa_scalar_ms=at_slice["tune_csa_scalar"]["ms"],
         best_partial=min(partials, key=lambda k: at_slice[k]["ms"]),
         partial_ms=min(at_slice[k]["ms"] for k in partials))
-    return launches, times["harness"]
+    return launches, times["harness"], read_ceiling
 
 
 def slice_phase(n_shards: int, reps: int) -> dict:
@@ -604,6 +750,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     from featurebase_tpu_torch.executor.executor import Executor
     from featurebase_tpu_torch.model.row import Row
     from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.storage import residency
     t0 = time.perf_counter()
     holder, gen = build_table(n_shards)
     build_s = time.perf_counter() - t0
@@ -625,14 +772,18 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = ck.launches()
-    say("main_path", first_pass_s=first_s, launches=launches)
+    resident = residency.residency().stats()
+    say("main_path", first_pass_s=first_s, launches=launches,
+        residency=resident)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
-    if len(queries) == len(QUERIES) and launches["plan_eval"] != 16:
-        raise AssertionError(f"plan_eval launched {launches['plan_eval']} "
-                             "times in one pass of the mix, not 16")
+    # TopN three times; MinRow and MaxRow once per shard of f
+    want = dict(PASS_LAUNCHES, row_counts=3 + 2 * n_shards)
+    if len(queries) == len(QUERIES) and launches != want:
+        raise AssertionError(f"launches in one pass of the mix {launches} "
+                             f"!= {want}")
     cpu = Executor(holder, device="cpu")
     for q in queries:
         want = run(cpu, q)
@@ -640,10 +791,16 @@ def slice_phase(n_shards: int, reps: int) -> dict:
             raise AssertionError(f"{q}: cuda {answers[q][1]!r:.200} != "
                                  f"cpu {want[1]!r:.200}")
     f, g, v = gen["f"], gen["g"], gen["v"]
+    at_g2 = v[g == 2]
     oracle = {
         "Count(Intersect(Row(f=1), Row(g=2)))":
             ("value", int(((f == 1) & (g == 2)).sum())),
         "Count(Row(v > 5000))": ("value", int((v > 5000).sum())),
+        "Sum(field=v)": ("valcount", (int(v.sum()), int(v.size))),
+        "Min(field=v)": ("valcount", (int(v.min()),
+                                      int((v == v.min()).sum()))),
+        "Max(Row(g=2), field=v)": ("valcount", (
+            int(at_g2.max()), int((at_g2 == at_g2.max()).sum()))),
     }
     top = np.bincount(f, minlength=8)
     order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
@@ -678,7 +835,38 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                for q in queries}
     say("latency_p50_ms", **latency)
     query_profile(queries, timed, latency)
+    residency_phase(holder, queries, answers, run, resident["bytes"] // 2)
     return launches
+
+
+def residency_phase(holder, queries, answers, run, budget: int) -> dict:
+    """Phase 5b: every device cache dropped, then the whole mix again by a
+    fresh executor under a residency budget of about half the bytes the
+    first pass left resident.  Every answer must be unchanged, the LRU must
+    evict, and after each query its bytes must be within the budget (or one
+    entry larger than the budget must be all that is left)."""
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.storage import residency
+    residency.residency().set_budget(0)   # evicts every earlier entry
+    mgr = residency.reset(budget)
+    gpu = Executor(holder)
+    peak = 0
+    for q in queries:
+        got = run(gpu, q)
+        if got != answers[q]:
+            raise AssertionError(f"{q} under a budget of {budget} bytes: "
+                                 f"{got[1]!r:.200} != {answers[q][1]!r:.200}")
+        st = mgr.stats()
+        if st["bytes"] > budget and st["entries"] > 1:
+            raise AssertionError(f"{q}: {st['bytes']} bytes resident over a "
+                                 f"budget of {budget}: {st}")
+        peak = max(peak, st["bytes"])
+    st = mgr.stats()
+    if st["evictions"] == 0:
+        raise AssertionError(f"no eviction under a budget of {budget}: {st}")
+    say("residency", budget=budget, answers_unchanged=True,
+        peak_bytes_after_query=peak, stats=st)
+    return st
 
 
 def query_profile(queries, timed, latency) -> dict:
@@ -721,16 +909,15 @@ def query_profile(queries, timed, latency) -> dict:
     for i, q in enumerate(queries):
         span = labels[i]
         ks = [e for e in device if span.start <= calls[e.id] <= span.end]
-        a = [e.time_range.elapsed_us() for e in ks
-             if "plan_eval_kernel" in e.name]
-        b = [e.time_range.elapsed_us() for e in ks
-             if "row_counts_kernel" in e.name]
+        by_kernel = {k: [e.time_range.elapsed_us() for e in ks
+                         if f"{k}_kernel" in e.name] for k in counted[q]}
         busy = sum(e.time_range.elapsed_us() for e in ks)
         span_us = span.elapsed_us()
         per[q] = dict(
-            p50_ms=latency[q], span_ms=span_us / 1e3, kernel_a_us=sum(a),
-            kernel_b_us=sum(b), device_us=busy, busy_share=busy / span_us,
-            kernels_seen={"plan_eval": len(a), "row_counts": len(b)},
+            p50_ms=latency[q], span_ms=span_us / 1e3,
+            kernel_us={k: sum(v) for k, v in by_kernel.items() if v},
+            device_us=busy, busy_share=busy / span_us,
+            kernels_seen={k: len(v) for k, v in by_kernel.items()},
             launches=counted[q])
         dev_total += busy
         span_total += span_us
@@ -759,23 +946,27 @@ def main() -> int:
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
     t0 = time.perf_counter()
-    builds = [(ck.SOURCE, ()), (tk.SOURCE, ()),
+    builds = [(ck.SOURCE, ()), (ck.BSI_SOURCE, ()), (tk.SOURCE, ()),
               *((ck.SOURCE, f) for f in ABLATIONS.values())]
     procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
     for src, f, proc in procs:
         build.finish(src, proc, f)
     report = {src: ptxas_report(build.build_log.get(src, ""))
-              for src in (ck.SOURCE, tk.SOURCE)}
+              for src in (ck.SOURCE, ck.BSI_SOURCE, tk.SOURCE)}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
-    for fn, r in report[ck.SOURCE].items():
-        if "plan_eval_kernel" in fn and (r["spill_stores"] or r["spill_loads"]
-                                         or r["stack_bytes"]):
-            raise AssertionError(f"ptxas spills or keeps a stack frame in "
-                                 f"{fn}: {r}")
+    for src in (ck.SOURCE, ck.BSI_SOURCE):
+        for fn, r in report[src].items():
+            if ("plan_eval_kernel" in fn or "bsi_" in fn) and (
+                    r["spill_stores"] or r["spill_loads"]
+                    or r["stack_bytes"]):
+                raise AssertionError(f"ptxas spills or keeps a stack frame "
+                                     f"in {fn}: {r}")
     tune_sass_check()
 
     S, depth, R = args.shards, 14, 8
     errs, inputs = kernel_parity(S, depth, R)
+    bsi_errs, inputs["bsi"] = bsi_parity(S)
+    errs.update(bsi_errs)
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
     ablation(inputs, args.reps)
@@ -787,9 +978,14 @@ def main() -> int:
         "harness": big, "SxW": small,
         "odd": tuple(x[:1000003] for x in small),
         "tiny": tuple(x[:37] for x in small)}))
-    tune_launches, tune_times = tune_phase(timer, big, small, copy_bps,
-                                           times["plan_eval/and_count"])
+    tune_launches, tune_times, read_bps = tune_phase(
+        timer, big, small, copy_bps, times["plan_eval/and_count"])
     del big
+    say("bsi_vs_ceilings", read_ceiling_gb_per_s=read_bps / 1e9, kernels={
+        k: dict(ms=times[k]["ms"], device_ms=times[k]["device_ms"],
+                bound_ms=times[k]["bound_ms"],
+                read_ceiling_ms=times[k]["bytes"] / read_bps * 1e3)
+        for k in ("bsi_sum_planes/d14", "bsi_min_max/d14")})
     left = child_pids()
     say("processes", children_left=left)
     if left:
@@ -797,16 +993,20 @@ def main() -> int:
                              "still running")
 
     kernels = []
-    for name, key, replaces in (
-            ("plan_eval", "plan_eval/bsi_gt_count",
+    for name, key, source, replaces in (
+            ("plan_eval", "plan_eval/bsi_gt_count", ck.SOURCE,
              "featurebase_tpu/ops/pallas_kernels.py:135"),
-            ("row_counts", "row_counts/filtered",
+            ("row_counts", "row_counts/filtered", ck.SOURCE,
              "featurebase_tpu/ops/pallas_kernels.py:172, "
-             "featurebase_tpu/ops/pallas_kernels.py:203")):
+             "featurebase_tpu/ops/pallas_kernels.py:203"),
+            ("bsi_sum_planes", "bsi_sum_planes/d14", ck.BSI_SOURCE,
+             "featurebase_tpu/ops/bsi.py:378"),
+            ("bsi_min_max", "bsi_min_max/d14", ck.BSI_SOURCE,
+             "featurebase_tpu/ops/bsi.py:399")):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "featurebase_tpu_torch/csrc/bitmap_kernels.cu",
+            "source": f"featurebase_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],

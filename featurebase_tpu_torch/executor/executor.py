@@ -3,8 +3,14 @@
 Counterpart of featurebase_tpu/executor/executor.py (reference
 executor.go:183 Execute, 679-846 executeCall dispatch).  Ported call
 families: bitmap calls that the plan compiler accepts (Row, Range, Union,
-Intersect, Difference, Xor, Not, All, Shift, ConstRow), Count, TopN/TopK and
-Options(shards=).  Every other family raises NotImplementedError.
+Intersect, Difference, Xor, Not, All, Shift, ConstRow), Count, TopN/TopK,
+Sum, Min/Max, MinRow/MaxRow and Options(shards=).  Every other family, and
+an aggregate filter the plan compiler refuses, raises NotImplementedError.
+
+Kernels by family: bitmap calls, Count and every aggregate filter run
+kernel A (``plan_eval``); TopN and MinRow/MaxRow kernel B (``row_counts``);
+Sum kernel C (``bsi_sum_planes``); Min/Max kernel D (``bsi_min_max``)
+(ops/cuda_kernels.py).
 
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
@@ -14,18 +20,24 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from featurebase_tpu_torch.core.consts import WORDS_PER_ROW
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
-from featurebase_tpu_torch.executor.results import Pair, PairsField
+from featurebase_tpu_torch.executor.results import (Pair, PairField,
+                                                    PairsField, ValCount)
 from featurebase_tpu_torch.model.field import (CACHE_NONE, TYPE_BOOL,
-                                               TYPE_TIME, Field)
+                                               TYPE_DECIMAL, TYPE_TIME,
+                                               TYPE_TIMESTAMP, Field)
 from featurebase_tpu_torch.model.index import Holder, Index
 from featurebase_tpu_torch.model.row import Row
 from featurebase_tpu_torch.model.view import VIEW_STANDARD
 from featurebase_tpu_torch.ops import bitwise as bw
+from featurebase_tpu_torch.ops import bsi as bsiops
+from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.parallel.agg import finalize_sum
 from featurebase_tpu_torch.pql.ast import Call
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
 
@@ -41,9 +53,7 @@ class FieldNotFound(ExecError):
 # call families of featurebase_tpu's executor that this package does not run
 _NOT_PORTED = {
     "Set": "Set", "Clear": "Clear", "ClearRow": "ClearRow", "Store": "Store",
-    "Delete": "Delete", "Sum": "Sum", "Min": "Min/Max", "Max": "Min/Max",
-    "MinRow": "MinRow/MaxRow", "MaxRow": "MinRow/MaxRow",
-    "Percentile": "Percentile", "Var": "Var/Corr", "Corr": "Var/Corr",
+    "Delete": "Delete", "Percentile": "Percentile", "Var": "Var/Corr", "Corr": "Var/Corr",
     "Rows": "Rows", "GroupBy": "GroupBy", "Extract": "Extract",
     "Distinct": "Distinct", "IncludesColumn": "IncludesColumn",
     "FieldValue": "FieldValue", "Sort": "Sort", "UnionRows": "UnionRows",
@@ -105,7 +115,8 @@ class Executor:
 
     def _validate_call(self, index: Index, call: Call):
         """Unknown field names error regardless of data presence."""
-        if call.name in ("Row", "Range", "TopN", "TopK"):
+        if call.name in ("Row", "Range", "Sum", "Min", "Max", "MinRow",
+                         "MaxRow", "TopN", "TopK"):
             fld = call.args.get("_field") or call.args.get("field")
             if fld is None and call.name in ("Row", "Range"):
                 fld, _ = call.field_arg()
@@ -189,6 +200,14 @@ class Executor:
             return self._execute_count(index, call, shards)
         if name in ("TopN", "TopK"):
             return self._execute_topn(index, call, shards)
+        if name == "Sum":
+            return self._execute_sum(index, call, shards)
+        if name in ("Min", "Max"):
+            return self._execute_min_max(index, call, shards,
+                                         is_min=name == "Min")
+        if name in ("MinRow", "MaxRow"):
+            return self._execute_min_max_row(index, call, shards,
+                                             is_min=name == "MinRow")
         if name in _NOT_PORTED:
             raise _not_ported(_NOT_PORTED[name])
         return self._execute_bitmap_call(index, call, shards)
@@ -223,10 +242,13 @@ class Executor:
         stacked = self.plan_executor.run_bitmap(index, plan, shard_list)
         return Row({s: stacked[i] for i, s in enumerate(shard_list)})
 
-    def _mesh_filter(self, index: Index, filt_call: Call, shards: List[int]
-                     ) -> torch.Tensor:
-        """Stacked (S, W) filter words, plan-compiled (the JAX package's
-        mesh-aggregate filter, here on one device)."""
+    def _mesh_filter(self, index: Index, filt_call: Optional[Call],
+                     shards: List[int]) -> torch.Tensor:
+        """Stacked (S, W) filter words (the JAX package's mesh-aggregate
+        filter, here on one device): all ones with no filter, else the
+        plan-compiled filter in word mode."""
+        if filt_call is None:
+            return self.plan_executor.stacked_full(index, shards)
         plan = self._compile(index, filt_call)
         return self.plan_executor.run_bitmap(index, plan, shards)
 
@@ -346,3 +368,112 @@ class Executor:
             else:
                 pc1 = bw.popcount_rows(tile)
             add_shard(shard, srows, pc1.cpu().numpy())
+
+    # ----------------------------------------------------- Sum / Min / Max
+
+    def _agg_inputs(self, index: Index, call: Call):
+        fld = call.args.get("_field") or call.args.get("field")
+        if fld is None:
+            raise ExecError(f"{call.name}() requires a field")
+        f = self._field_or_err(index, fld)
+        filt_call = call.children[0] if call.children else None
+        return f, filt_call
+
+    def _agg_group(self, index: Index, f: Field, filt_call: Optional[Call],
+                   shards: List[int]):
+        """The field's stacked BSI group at max(bit_depth, 1) planes and the
+        stacked filter over `shards`."""
+        filt = self._mesh_filter(index, filt_call, shards)
+        group = self.plan_executor.stacked_bsi(index, f.name,
+                                               max(f.bit_depth, 1), shards)
+        return group, filt
+
+    @staticmethod
+    def _wrap_valcount(f: Field, val: int, count: int) -> ValCount:
+        vc = ValCount(val=val, count=count)
+        if f.options.type == TYPE_DECIMAL:
+            vc.float_val = val / (10 ** f.options.scale)
+            vc.decimal_val = vc.float_val
+        elif f.options.type == TYPE_TIMESTAMP:
+            vc.timestamp_val = val
+        return vc
+
+    def _execute_sum(self, index: Index, call: Call,
+                     shards: Optional[List[int]]) -> ValCount:
+        """Sum (reference executor.go Sum; JAX executor.py:1158): one
+        kernel-C launch over every shard, finished exactly on the host."""
+        f, filt_call = self._agg_inputs(index, call)
+        shard_list = self._shards(index, shards)
+        if not shard_list:
+            return self._wrap_valcount(f, 0, 0)
+        group, filt = self._agg_group(index, f, filt_call, shard_list)
+        D = group.shape[1] - 2
+        parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
+        count = int(parts[2 * D])
+        total = finalize_sum(parts[:D], parts[D:2 * D]) + f.base * count
+        return self._wrap_valcount(f, total, count)
+
+    def _execute_min_max(self, index: Index, call: Call,
+                         shards: Optional[List[int]], is_min: bool
+                         ) -> ValCount:
+        """Min/Max (JAX executor.py:1199): one kernel-D launch over every
+        shard.  Up to depth 31 the answer has min_max_stacked's semantics;
+        deeper, the reference's per-shard min_host/max_host merged with
+        ValCount.smaller/larger (ops/bsi.py)."""
+        f, filt_call = self._agg_inputs(index, call)
+        shard_list = self._shards(index, shards)
+        if not shard_list:
+            return self._wrap_valcount(f, 0, 0)
+        group, filt = self._agg_group(index, f, filt_call, shard_list)
+        parts = ck.bsi_min_max(group, filt).cpu().numpy()
+        if max(f.bit_depth, 1) <= 31:
+            v, c = bsiops.min_max_stacked_finish(parts, is_min)
+            if c == 0:
+                return self._wrap_valcount(f, 0, 0)
+            return self._wrap_valcount(f, v + f.base, c)
+        acc = ValCount()
+        for v, c in bsiops.min_max_per_shard(parts, is_min):
+            if c == 0:
+                continue
+            vc = ValCount(v + f.base, c)
+            acc = acc.smaller(vc) if is_min else acc.larger(vc)
+        return self._wrap_valcount(f, acc.val, acc.count)
+
+    def _execute_min_max_row(self, index: Index, call: Call,
+                             shards: Optional[List[int]], is_min: bool
+                             ) -> PairField:
+        """MinRow/MaxRow (reference executor.go:1604,1643; JAX
+        executor.py:1238): per shard, the row counts of the fragment's
+        device tile with kernel B, unfiltered; the smallest (largest) row
+        with a set bit.  Ties across shards add counts.  The counts of
+        every shard are fetched once, after the loop."""
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        v = f.view(VIEW_STANDARD)
+        per_shard = []
+        for shard in self._shards(index, shards):
+            frag = v.fragment(shard) if v else None
+            if frag is None or frag.num_rows == 0:
+                continue
+            tile = frag.device_tile(self.device)
+            slot_rows = frag.slot_rows()[: tile.shape[0]]
+            per_shard.append((slot_rows, ck.row_counts(tile[None])[0]))
+        counts = torch.cat([c for _, c in per_shard]).cpu().numpy() \
+            if per_shard else None
+        best_row, best_count, at = None, 0, 0
+        for slot_rows, c in per_shard:
+            rows = np.array(slot_rows, dtype=np.int64)
+            cnt = counts[at:at + c.numel()]
+            at += c.numel()
+            nz = cnt > 0
+            if not nz.any():
+                continue
+            cand, ccnt = rows[nz], cnt[nz]
+            pick = int(cand.min()) if is_min else int(cand.max())
+            n = int(ccnt[cand == pick][0])
+            if best_row is None or (is_min and pick < best_row) or \
+                    (not is_min and pick > best_row):
+                best_row, best_count = pick, n
+            elif pick == best_row:
+                best_count += n
+        return PairField(Pair(id=best_row or 0, count=best_count), fld)

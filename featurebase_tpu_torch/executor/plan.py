@@ -10,7 +10,8 @@ tree into an IR over stacked shard tiles:
     params:  BSI predicate literals, as host bit vectors (encode_pred).
 
 ``PlanExecutor`` gathers the leaves from the fragments' host masters into
-generation-keyed device caches (uploads through pinned host buffers), lowers
+generation-keyed device caches (uploads through pinned host buffers; each
+entry registered with the residency LRU of storage/residency.py), lowers
 the IR to a register program over leaf planes (``lower_ir``: each BSI
 comparator becomes a sign split and OP_BSI walks with its predicate bits
 in the payload, a Shift subtree is evaluated first and enters as a leaf) and runs it with kernel A
@@ -317,6 +318,13 @@ class PlanExecutor:
                 if rows[si] is not None:
                     out[:] = host_words(rows[si])
             return self._put_lazy((S, WORDS_PER_ROW), fill_const)
+        if leaf.kind == "full":
+            def fill_full(si, out):
+                out[:] = ~np.uint32(0)
+            # constant content: cached with an empty generation, so an
+            # unfiltered aggregate uploads its all-ones filter once
+            return self._cached_stack(("full", tuple(shards)), (), (),
+                                      (S, WORDS_PER_ROW), fill_full)
         if leaf.kind == "existence":
             ef = index.existence_field()
             if ef is None:
@@ -376,15 +384,22 @@ class PlanExecutor:
 
     def _cached_stack(self, key, gen, frags, shape, fill_shard
                       ) -> torch.Tensor:
-        """Generation-keyed stacked-leaf cache; a pinned read whose pin has
-        diverged from the live fragments gathers uncached."""
+        """Generation-keyed stacked-leaf cache whose entries the residency
+        LRU manages (evicted under memory pressure, rebuilt from the host
+        masters on next use).  A pinned read whose pin has diverged from the
+        live fragments gathers uncached and registers nothing."""
+        from featurebase_tpu_torch.storage.residency import residency
         if self._pin_diverged(frags):
             return self._put_lazy(shape, fill_shard)
+        rkey = ("leaf", id(self), key)
         hit = self._leaf_cache.get(key)
         if hit is not None and hit[0] == gen:
+            residency().touch(rkey)
             return hit[1]
         arr = self._put_lazy(shape, fill_shard)
         self._leaf_cache[key] = (gen, arr)
+        residency().add(rkey, int(np.prod(shape)) * 4,
+                        lambda: self._leaf_cache.pop(key, None))
         return arr
 
     def stacked_field_rows(self, index: Index, fname: str,
@@ -408,6 +423,17 @@ class PlanExecutor:
         return self._cached_stack(
             ("rowset", index.name, fname, views, row_ids, tuple(shards)), gen,
             flat, (len(shards), len(row_ids), WORDS_PER_ROW), fill_rowset)
+
+    def stacked_bsi(self, index: Index, fname: str, depth: int,
+                    shards: List[int]) -> torch.Tensor:
+        """(S, depth + 2, W) stacked BSI group: the same cached leaf that
+        Count's range predicates read."""
+        return self._gather_leaf(index, _Leaf("bsi", field=fname,
+                                              depth=depth), shards)
+
+    def stacked_full(self, index: Index, shards: List[int]) -> torch.Tensor:
+        """(S, W) all-ones filter."""
+        return self._gather_leaf(index, _Leaf("full"), shards)
 
     # -- plan execution -----------------------------------------------------
 

@@ -1,9 +1,60 @@
-"""Query result types for Count and TopN (own copy of
-featurebase_tpu/executor/results.py: Pair and PairsField; reference
-cache.go Pair)."""
+"""Query result types (own copy of featurebase_tpu/executor/results.py:
+ValCount for Sum/Min/Max, Pair and PairsField for TopN, PairField for
+MinRow/MaxRow; reference executor.go ValCount, cache.go Pair)."""
 from __future__ import annotations
 
 from typing import List, Optional
+
+
+class ValCount:
+    """Aggregate result (reference ValCount; Sum/Min/Max)."""
+
+    __slots__ = ("val", "count", "float_val", "decimal_val", "timestamp_val")
+
+    def __init__(self, val: int = 0, count: int = 0,
+                 float_val: Optional[float] = None,
+                 decimal_val=None, timestamp_val=None):
+        self.val = val
+        self.count = count
+        self.float_val = float_val
+        self.decimal_val = decimal_val
+        self.timestamp_val = timestamp_val
+
+    def add(self, other: "ValCount") -> "ValCount":
+        return ValCount(self.val + other.val, self.count + other.count)
+
+    def smaller(self, other: "ValCount") -> "ValCount":
+        """Merge for Min: the smaller value, counts summed on a tie
+        (reference ValCount.Smaller)."""
+        if other.count == 0:
+            return self
+        if self.count == 0 or other.val < self.val:
+            return other
+        if other.val == self.val:
+            return ValCount(self.val, self.count + other.count,
+                            self.float_val, self.decimal_val,
+                            self.timestamp_val)
+        return self
+
+    def larger(self, other: "ValCount") -> "ValCount":
+        if other.count == 0:
+            return self
+        if self.count == 0 or other.val > self.val:
+            return other
+        if other.val == self.val:
+            return ValCount(self.val, self.count + other.count,
+                            self.float_val, self.decimal_val,
+                            self.timestamp_val)
+        return self
+
+    def __eq__(self, other):
+        if isinstance(other, tuple):
+            return (self.val, self.count) == other
+        return (isinstance(other, ValCount) and self.val == other.val
+                and self.count == other.count)
+
+    def __repr__(self):
+        return f"ValCount(val={self.val}, count={self.count})"
 
 
 class Pair:
@@ -35,3 +86,16 @@ class PairsField:
 
     def __repr__(self):
         return f"PairsField({self.field}, {self.pairs})"
+
+
+class PairField:
+    """MinRow/MaxRow result: one (row id, count) pair of a field."""
+
+    __slots__ = ("pair", "field")
+
+    def __init__(self, pair: Pair, field: str):
+        self.pair = pair
+        self.field = field
+
+    def __repr__(self):
+        return f"PairField({self.field}, {self.pair})"

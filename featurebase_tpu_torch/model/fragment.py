@@ -1,11 +1,12 @@
-"""Fragment: one dense bitmap per (field, view, shard), host master only.
+"""Fragment: one dense bitmap per (field, view, shard).
 
-Own copy of featurebase_tpu/model/fragment.py trimmed to the host master:
-row-sparse numpy words (only rows that exist are materialized), the seqlock
-generation that keys the plan executor's device caches, and the MVCC row
-overlay that serves pinned snapshot reads (model/snapshot.py).  The device
-mirror and host spill of the JAX package are not part of the port yet: the
-plan executor (executor/plan.py) uploads stacked leaves from ``host_row``.
+Own copy of featurebase_tpu/model/fragment.py: the host master (row-sparse
+numpy words, only rows that exist are materialized), the seqlock generation
+that keys the plan executor's device caches, the MVCC row overlay that
+serves pinned snapshot reads (model/snapshot.py), and the device mirror of
+all rows (``device_tile``), kept in step through dirty-slot tracking and
+registered with the residency LRU (storage/residency.py).  The host spill
+of the JAX package is not part of the port yet.
 
 Layout per row: SHARD_WIDTH bits as (WORDS_PER_ROW,) uint32 little-endian
 words (see core/consts.py).
@@ -14,13 +15,34 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 
 _INIT_CAP = 4
+
+
+def _canonical(device) -> torch.device:
+    """`device` with its index, so the mirror's device compares equal to
+    the one each caller names ("cuda" and "cuda:0")."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """(R, W) uint32 host rows -> an int32 copy on `device`, through pinned
+    host memory on a GPU (as PlanExecutor._put_lazy uploads)."""
+    src = torch.from_numpy(np.ascontiguousarray(host).view(np.int32))
+    if device.type != "cuda":
+        return src.clone()
+    buf = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
+    buf.copy_(src)
+    return buf.to(device, non_blocking=True)
 
 
 class Fragment:
@@ -35,6 +57,12 @@ class Fragment:
         self._words = np.zeros((_INIT_CAP, WORDS_PER_ROW), dtype=np.uint32)
         self._row_of_slot: List[int] = []
         self._slot_of_row: Dict[int, int] = {}
+        # device mirror: (rows, W) int32 on self._dev_device, or None
+        self._dev: Optional[torch.Tensor] = None
+        self._dev_device: Optional[torch.device] = None
+        self._dev_rows = -1         # number of valid slots on the device
+        self._dirty: set = set()    # slots needing upload
+        self._all_dirty = True
         # Seqlock generation: odd while host words mutate, even otherwise
         # (both transitions under self._lock).
         self.generation = 0
@@ -123,6 +151,10 @@ class Fragment:
     def has_row(self, row: int) -> bool:
         return row in self._slot_of_row
 
+    def slot_rows(self) -> List[int]:
+        """Row ids in slot order, parallel to device_tile()'s leading axis."""
+        return list(self._row_of_slot[: self.num_rows])
+
     def _ensure_slot(self, row: int) -> int:
         slot = self._slot_of_row.get(row)
         if slot is not None:
@@ -133,8 +165,10 @@ class Fragment:
             grown = np.zeros((new_cap, WORDS_PER_ROW), dtype=np.uint32)
             grown[: self._words.shape[0]] = self._words
             self._words = grown
+            self._all_dirty = True
         self._row_of_slot.append(row)
         self._slot_of_row[row] = slot
+        self._dirty.add(slot)
         return slot
 
     def host_row(self, row: int) -> np.ndarray:
@@ -163,6 +197,7 @@ class Fragment:
             with self._mutating():
                 self._cow(slot)
                 self._words[slot, w] = old | b
+            self._dirty.add(slot)
             return True
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -178,6 +213,7 @@ class Fragment:
             with self._mutating():
                 self._cow(slot)
                 self._words[slot, w] = old & ~b
+            self._dirty.add(slot)
             return True
 
     def get_bit(self, row: int, col: int) -> bool:
@@ -217,6 +253,7 @@ class Fragment:
                         np.bitwise_and(tgt, ~mask, out=tgt)
                     else:
                         np.bitwise_or.at(tgt, c >> 5, vals)
+                    self._dirty.add(slot)
 
     def merge_rows_delta(self, rows, delta: np.ndarray):
         """OR a (R, W) delta tile into R rows in ONE lock/seqlock window
@@ -229,6 +266,7 @@ class Fragment:
                 w = self._words
                 for slot, d in zip(slots, delta):
                     np.bitwise_or(w[slot], d, out=w[slot])
+            self._dirty.update(slots)
 
     def clear_columns(self, col_mask: np.ndarray):
         """ANDNOT a dense column mask out of every row."""
@@ -241,6 +279,116 @@ class Fragment:
                     self._cow(slot)
                 np.bitwise_and(self._words[:n], ~col_mask[None, :],
                                out=self._words[:n])
+            self._dirty.update(range(n))
+
+    # -- device mirror ------------------------------------------------------
+    # The mirror is a cache entry in the residency LRU (storage/residency.py,
+    # the RBF page-cache role, reference rbf/db.go:45): a full upload
+    # registers its byte size and may be evicted under memory pressure; the
+    # host master is authoritative, so eviction just drops the reference.
+
+    def _residency_key(self):
+        return ("frag", self.index, self.field, self.view, self.shard,
+                id(self))
+
+    def _evict_device(self):
+        """Drop the device mirror (called by the residency LRU; a query in
+        flight keeps its tensor alive through its local reference)."""
+        self._dev = None
+        self._dev_rows = -1
+        self._all_dirty = True
+
+    def _flush_to_device(self, device: torch.device) -> torch.Tensor:
+        """Bring the mirror up to date on `device`; the caller holds
+        self._lock.  A full upload when slots were added, the mirror was
+        evicted or the device changed; otherwise only the dirty rows, with
+        an out-of-place index_copy, so a tensor already handed to a reader
+        never changes under it."""
+        from featurebase_tpu_torch.storage.residency import residency
+        n = self.num_rows
+        dev = self._dev
+        if n == 0:
+            dev = torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32,
+                              device=device)
+        elif (self._all_dirty or dev is None or dev.shape[0] < n
+              or self._dev_device != device):
+            dev = _upload(self._words[:n], device)
+            residency().add(self._residency_key(), n * WORDS_PER_ROW * 4,
+                            self._evict_device)
+        elif self._dirty:
+            slots = np.array(sorted(self._dirty), dtype=np.int64)
+            dev = dev.index_copy(0, torch.as_tensor(slots, device=device),
+                                 _upload(self._words[slots], device))
+            residency().touch(self._residency_key())
+        self._dev, self._dev_device, self._dev_rows = dev, device, n
+        self._dirty.clear()
+        self._all_dirty = False
+        return dev
+
+    def device_tile(self, device) -> torch.Tensor:
+        """(num_rows, W) int32 tensor of all rows (slot order) on `device`.
+        Under a diverged snapshot pin, an uncached upload of the pinned row
+        states (the generation-keyed mirror belongs to live readers)."""
+        from featurebase_tpu_torch.model.snapshot import current_pin
+        from featurebase_tpu_torch.storage.residency import residency
+        device = _canonical(device)
+        pin = current_pin()
+        with self._lock:
+            # the pin decision is made under the fragment lock: writers
+            # mutate only while holding it, so pin_current here cannot be
+            # invalidated before the flush or cached return below
+            if pin is not None and not self.pin_current(pin):
+                rows = list(self._row_of_slot[: self.num_rows])
+                if not rows:
+                    return torch.zeros((0, WORDS_PER_ROW), dtype=torch.int32,
+                                       device=device)
+                host = np.stack([self._pinned_row(pin, r) for r in rows])
+            else:
+                dev = self._dev
+                if (dev is None or self._all_dirty or self._dirty
+                        or self._dev_rows != self.num_rows
+                        or self._dev_device != device):
+                    return self._flush_to_device(device)
+                residency().touch(self._residency_key())
+                return dev
+        # the pinned build uploads outside the lock: writers are not held
+        # for the transfer
+        return _upload(host, device)
+
+    def device_row(self, row: int, device) -> torch.Tensor:
+        """(W,) int32 device words for one row (zeros if absent)."""
+        slot = self._slot_of_row.get(row)
+        if slot is None:
+            return torch.zeros(WORDS_PER_ROW, dtype=torch.int32,
+                               device=_canonical(device))
+        return self.device_tile(device)[slot]
+
+    def device_rows(self, rows, device):
+        """Device rows for a list of row ids, absent rows as zeros:
+        (tile (len(rows), W) int32, present (len(rows),) bool ndarray)."""
+        from featurebase_tpu_torch.model.snapshot import current_pin
+        device = _canonical(device)
+        pin = current_pin()
+        host = None
+        with self._lock:  # pin decision and slot lookups atomic vs writers
+            present = np.array([self._slot_of_row.get(int(r)) is not None
+                                for r in rows], dtype=bool)
+            if pin is not None and not self.pin_current(pin):
+                host = np.zeros((len(rows), WORDS_PER_ROW), dtype=np.uint32)
+                for i, r in enumerate(rows):
+                    host[i] = self._pinned_row(pin, int(r))
+            else:
+                tile = self.device_tile(device)
+                slots = np.array([self._slot_of_row.get(int(r), 0)
+                                  for r in rows], dtype=np.int64)
+        if host is not None:  # upload outside the lock (see device_tile)
+            return _upload(host, device), present
+        if tile.shape[0] == 0:
+            return torch.zeros((len(rows), WORDS_PER_ROW), dtype=torch.int32,
+                               device=device), present
+        gathered = tile.index_select(0, torch.as_tensor(slots, device=device))
+        mask = torch.as_tensor(present, device=device)[:, None]
+        return torch.where(mask, gathered, 0), present
 
     # -- persistence --------------------------------------------------------
 

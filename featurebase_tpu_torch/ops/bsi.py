@@ -1,0 +1,135 @@
+"""BSI aggregates over a stacked group: the plain PyTorch versions of
+kernels C and D, and their host finishes.
+
+Counterpart of the aggregates of featurebase_tpu/ops/bsi.py:
+``sum_planes_stacked`` (:378), ``min_max_stacked`` (:399) and the per-shard
+descents of ``minmax_parts_kernel`` / ``_descend`` behind ``min_host`` and
+``max_host`` (:200-278).  A stacked group is an (S, D + 2, W) int32 tensor:
+plane 0 exists, plane 1 sign, plane 2 + i magnitude bit i (core/consts.py);
+values are stored relative to the field's base, as sign and magnitude.
+
+- ``sum_planes_plain``: (2D + 1,) int64, the set-bit counts of each plane
+  under the positive columns, then under the negative columns, then of the
+  columns, over every shard, with e = exists & filter (kernel C's output).
+- ``min_max_parts_plain``: (S, 4, 2) int64: per shard the greedy descents
+  pos-min, pos-max, neg-min, neg-max, each as (magnitude, count of the
+  columns at it); a count of 0 means that side of the shard is empty
+  (kernel D's output).
+- ``min_max_stacked_finish`` and ``min_max_per_shard``: the reference
+  executor's two semantics for Min/Max, which it picks by depth
+  (executor/executor.py).
+
+The wrappers ``bsi_sum_planes`` and ``bsi_min_max`` in ops/cuda_kernels.py
+run these on CPU tensors and the kernels on CUDA tensors.
+"""
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from featurebase_tpu_torch.ops.cuda_kernels import popcount_words
+
+POS_MIN, POS_MAX, NEG_MIN, NEG_MAX = range(4)
+# the deepest group: magnitudes of the port's Field are int64
+MAX_DEPTH = 63
+
+
+def _split(group: torch.Tensor, filt: torch.Tensor):
+    e = group[:, 0] & filt
+    sign = group[:, 1]
+    return e, e & ~sign, e & sign
+
+
+def sum_planes_plain(group: torch.Tensor, filt: torch.Tensor
+                     ) -> torch.Tensor:
+    """(S, D + 2, W) group, (S, W) filter -> (2D + 1,) int64: positive
+    plane counts, negative plane counts, the count (sum_planes_stacked,
+    bsi.py:378, in int64)."""
+    D = group.shape[1] - 2
+    e, pos, neg = _split(group, filt)
+    out = torch.empty(2 * D + 1, dtype=torch.int64, device=group.device)
+    for d in range(D):
+        plane = group[:, 2 + d]
+        out[d] = popcount_words(plane & pos).sum()
+        out[D + d] = popcount_words(plane & neg).sum()
+    out[2 * D] = popcount_words(e).sum()
+    return out
+
+
+def _descend(c: torch.Tensor, group: torch.Tensor, maximize: bool
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The greedy descent of bsi.py:252 over each shard's whole row of
+    columns `c` ((S, W)): (magnitude (S,), count of columns at it (S,))."""
+    D = group.shape[1] - 2
+    mag = torch.zeros(c.shape[0], dtype=torch.int64, device=c.device)
+    nonempty = (c != 0).any(1)
+    for d in range(D - 1, -1, -1):
+        plane = group[:, 2 + d]
+        t = c & plane if maximize else c & ~plane
+        hit = (t != 0).any(1)
+        c = torch.where(hit[:, None], t, c)
+        bit = hit if maximize else ~hit & nonempty
+        mag |= bit.to(torch.int64) << d
+    return mag, popcount_words(c).sum(1)
+
+
+def min_max_parts_plain(group: torch.Tensor, filt: torch.Tensor
+                        ) -> torch.Tensor:
+    """(S, D + 2, W) group, (S, W) filter -> (S, 4, 2) int64: per shard
+    (magnitude, count) of the descents pos-min, pos-max, neg-min, neg-max."""
+    _, pos, neg = _split(group, filt)
+    out = torch.empty((group.shape[0], 4, 2), dtype=torch.int64,
+                      device=group.device)
+    for k, (c, maximize) in enumerate(((pos, False), (pos, True),
+                                       (neg, False), (neg, True))):
+        out[:, k, 0], out[:, k, 1] = _descend(c, group, maximize)
+    return out
+
+
+def min_max_stacked_finish(parts: np.ndarray, is_min: bool
+                           ) -> Tuple[int, int]:
+    """(extreme value, count of columns equal to it) over every shard, with
+    min_max_stacked's semantics (bsi.py:399): the values are the signed
+    decodes, so a sign-set column of magnitude 0 is 0 and ties with the
+    positive zeros; (0, 0) when no column matched.  Values are unbased.
+
+    Each shard offers its most negative and its smallest positive value for
+    Min (its largest positive and least negative for Max), with their
+    counts; equal values add their counts."""
+    found = {}
+    for s in range(parts.shape[0]):
+        if is_min:
+            offers = ((-int(parts[s, NEG_MAX, 0]), int(parts[s, NEG_MAX, 1])),
+                      (int(parts[s, POS_MIN, 0]), int(parts[s, POS_MIN, 1])))
+        else:
+            offers = ((int(parts[s, POS_MAX, 0]), int(parts[s, POS_MAX, 1])),
+                      (-int(parts[s, NEG_MIN, 0]), int(parts[s, NEG_MIN, 1])))
+        for v, c in offers:
+            if c:
+                found[v] = found.get(v, 0) + c
+    if not found:
+        return 0, 0
+    best = min(found) if is_min else max(found)
+    return best, found[best]
+
+
+def min_max_per_shard(parts: np.ndarray, is_min: bool
+                      ) -> List[Tuple[int, int]]:
+    """Per shard (value, count) with min_host / max_host's semantics
+    (bsi.py:228-249): Min takes the shard's negatives first when it has
+    any, Max its positives; a sign-set zero is not merged with the shard's
+    positive zeros.  (0, 0) for a shard with no column.  Unbased."""
+    out = []
+    for s in range(parts.shape[0]):
+        has_pos, has_neg = parts[s, POS_MIN, 1] > 0, parts[s, NEG_MIN, 1] > 0
+        if is_min:
+            k, sign = (NEG_MAX, -1) if has_neg else (POS_MIN, 1)
+        else:
+            k, sign = (POS_MAX, 1) if has_pos else (NEG_MIN, -1)
+        if not (has_pos or has_neg):
+            out.append((0, 0))
+        else:
+            out.append((sign * int(parts[s, k, 0]), int(parts[s, k, 1])))
+    return out

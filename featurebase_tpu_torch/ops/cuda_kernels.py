@@ -19,6 +19,19 @@ ops/build.py and loaded with ctypes):
   (:203-222).  Bound: bytes — the tile is read once, the filter once per
   row (mostly from L2).
 
+Two more kernels (csrc/bsi_kernels.cu) have no Pallas original: they are
+the counterparts of XLA programs of featurebase_tpu/ops/bsi.py, whose work
+is popcounts and bit-sliced descents that torch has no op for:
+
+- ``bsi_sum_planes`` (kernel C) replaces ``sum_planes_stacked``
+  (bsi.py:378): Sum's per-plane popcounts over a stacked BSI group under a
+  filter.
+- ``bsi_min_max`` (kernel D) replaces ``min_max_stacked`` (bsi.py:399) and
+  the per-shard descents of ``minmax_parts_kernel`` (:200-278): four greedy
+  descents per shard, without a decode.
+Their plain versions are in ops/bsi.py.  Bound: bytes — each reads the
+group and the filter once.
+
 Words are ``torch.int32`` tensors holding the uint32 bit patterns.  Each
 wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.  ``launches`` on each wrapper counts
@@ -34,6 +47,7 @@ import numpy as np
 import torch
 
 SOURCE = "bitmap_kernels.cu"
+BSI_SOURCE = "bsi_kernels.cu"
 
 # Program limits and opcodes; must match csrc/bitmap_kernels.cu.
 MAX_INSTR = 640        # instruction words, BSI payloads included
@@ -489,10 +503,108 @@ def row_counts(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
 row_counts.launches = 0
 
 
+def _bsi_lib() -> ctypes.CDLL:
+    """Kernels C and D's library, built on first use."""
+    from featurebase_tpu_torch.ops import build
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    lib = build.load(BSI_SOURCE)
+    if not getattr(lib, "_fb_typed", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.fb_bsi_sum_planes, lib.fb_bsi_min_max):
+            fn.argtypes = [vp, vp, i32, i32, i64, vp, vp, i64, vp, vp]
+            fn.restype = i32
+        lib.fb_bsi_limits.argtypes = [ctypes.POINTER(i32)] * 2
+        lib.fb_bsi_limits.restype = i32
+        depth, tile = i32(), i32()
+        lib.fb_bsi_limits(ctypes.byref(depth), ctypes.byref(tile))
+        if depth.value != MAX_DEPTH:
+            raise RuntimeError("kernel depth limit differs from ops/bsi.py")
+        lib._fb_scalar_tile = tile.value
+        lib._fb_typed = True
+    return lib
+
+
+def _bsi_inputs(group: torch.Tensor, filt: torch.Tensor) -> bool:
+    """Check a stacked group and its filter; True when both lie on the
+    CPU."""
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    if group.dtype != torch.int32 or group.dim() != 3 \
+            or not 3 <= group.shape[1] <= MAX_DEPTH + 2 \
+            or group.shape[0] == 0 or group.shape[2] == 0:
+        raise ValueError(f"group must be (S, D + 2, W) int32 with 1 <= D <= "
+                         f"{MAX_DEPTH}, got {tuple(group.shape)} {group.dtype}")
+    S, _, W = group.shape
+    if filt.dtype != torch.int32 or tuple(filt.shape) != (S, W):
+        raise ValueError(f"filter must be ({S}, {W}) int32, got "
+                         f"{tuple(filt.shape)} {filt.dtype}")
+    if _is_cpu([group, filt]):
+        return True
+    if not group.is_contiguous() or not filt.is_contiguous():
+        raise ValueError("the BSI kernels need a contiguous group and filter")
+    return False
+
+
+def _bsi_launch(name: str, group: torch.Tensor, filt: torch.Tensor,
+                out_shape: Tuple[int, ...], slots_per_tile: int
+                ) -> torch.Tensor:
+    lib = _bsi_lib()
+    S, P, W = group.shape
+    dev = group.device
+    tiles = S * -(-W // lib._fb_scalar_tile)   # the most any launch cuts
+    out = torch.empty(out_shape, dtype=torch.int64, device=dev)
+    slots = torch.empty(slots_per_tile * tiles, dtype=torch.int64,
+                        device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(lib, name)(
+            group.data_ptr(), filt.data_ptr(), S, P - 2, W, out.data_ptr(),
+            slots.data_ptr(), slots.numel(), _ticket(dev, stream).data_ptr(),
+            stream)
+    _check(rc, name)
+    return out
+
+
+def bsi_sum_planes(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Kernel C: an (S, D + 2, W) int32 group under an (S, W) int32 filter
+    -> (2D + 1,) int64: each plane's set bits under the positive columns,
+    then under the negative columns, then the count of the columns."""
+    if _bsi_inputs(group, filt):
+        from featurebase_tpu_torch.ops.bsi import sum_planes_plain
+        return sum_planes_plain(group, filt)
+    D = group.shape[1] - 2
+    out = _bsi_launch("fb_bsi_sum_planes", group, filt, (2 * D + 1,),
+                      2 * D + 1)
+    bsi_sum_planes.launches += 1
+    return out
+
+
+bsi_sum_planes.launches = 0
+
+
+def bsi_min_max(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Kernel D: an (S, D + 2, W) int32 group under an (S, W) int32 filter
+    -> (S, 4, 2) int64: per shard the descents pos-min, pos-max, neg-min,
+    neg-max, each as (magnitude, count of the columns at it)."""
+    if _bsi_inputs(group, filt):
+        from featurebase_tpu_torch.ops.bsi import min_max_parts_plain
+        return min_max_parts_plain(group, filt)
+    out = _bsi_launch("fb_bsi_min_max", group, filt,
+                      (group.shape[0], 4, 2), 8)
+    bsi_min_max.launches += 1
+    return out
+
+
+bsi_min_max.launches = 0
+
+
 def reset_launches() -> None:
     plan_eval.launches = 0
     row_counts.launches = 0
+    bsi_sum_planes.launches = 0
+    bsi_min_max.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {"plan_eval": plan_eval.launches, "row_counts": row_counts.launches}
+    return {"plan_eval": plan_eval.launches, "row_counts": row_counts.launches,
+            "bsi_sum_planes": bsi_sum_planes.launches,
+            "bsi_min_max": bsi_min_max.launches}

@@ -150,16 +150,16 @@ def measure(variant: str, device,
     plain = tk.PLAIN.get(kind, tk.count_and_direct_plain)
     if once != _u32(plain(a, b, zero)):
         raise AssertionError(f"{variant}: {once} != plain version")
-    times = {}
-    for k in (k1, k2):
-        best = float("inf")
-        for _ in range(REPS + 1):   # the first run warms up
+    times = {k1: float("inf"), k2: float("inf")}
+    # the two chain lengths in turns, so a change of load on the host falls
+    # on both; the first round warms up
+    for _ in range(REPS + 1):
+        for k in (k1, k2):
             t, out = _chain(fn, a, b, k)
             if out != k * once % (1 << 32):
                 raise AssertionError(f"{variant}: {k} chained launches gave "
                                      f"{out}, not {k} x {once} mod 2^32")
-            best = min(best, t)
-        times[k] = best
+            times[k] = min(times[k], t)
     t_iter = (times[k2] - times[k1]) / (k2 - k1)
     nbytes = 2 * n_use * 4
     bps = nbytes / t_iter

@@ -140,7 +140,8 @@ def test_results_are_port_types(engines):
 
 
 @pytest.mark.parametrize("query,family", [
-    ("Sum(field=v)", "Sum"), ("Min(field=v)", "Min/Max"),
+    ("Percentile(field=v, nth=50)", "Percentile"),
+    ("Extract(All(), Rows(f))", "Extract"),
     ("GroupBy(Rows(f))", "GroupBy"), ("Rows(f)", "Rows"),
     ("Set(5, f=1)", "Set"), ("Count(Distinct(field=v))", "Distinct"),
     ("Count(Row(f=null))", "per-shard bitmap path"),
@@ -181,7 +182,8 @@ def test_cpu_executor_launches_no_kernel(engines):
     _, port_e = engines
     ck.reset_launches()
     port_e.execute("fz", "Count(Row(v > 300)) TopN(f, Row(g=1), n=2)")
-    assert ck.launches() == {"plan_eval": 0, "row_counts": 0}
+    assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
+                             "bsi_sum_planes": 0, "bsi_min_max": 0}
 
 
 def test_port_imports_neither_jax_nor_featurebase_tpu():

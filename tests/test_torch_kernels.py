@@ -193,4 +193,5 @@ def test_cpu_tensors_launch_nothing():
     x = torch.ones((2, 3, 8), dtype=torch.int32)
     tbw.per_shard_row_counts(x)
     tbw.popcount(x)
-    assert ck.launches() == {"plan_eval": 0, "row_counts": 0}
+    assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
+                             "bsi_sum_planes": 0, "bsi_min_max": 0}
