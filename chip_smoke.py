@@ -6,12 +6,14 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py [--shards 128] [--reps 20]
 
 Phases, one status line each; any failure raises and exits nonzero:
-  1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
+  1. the card (nvidia-smi name, power limit and maximum SM clock) and the
+     torch/CUDA versions;
   2. build of every CUDA source with nvcc (sm_90a), and of kernel A's two
      ablation builds, all at once, timed, with the ptxas
-     register/stack/spill report of each kernel (it fails if plan_eval_kernel
-     or a BSI kernel spills or keeps a stack frame); cuobjdump's SASS of
-     each tuning kernel must keep the 16-byte loads of its main loop;
+     register/stack/spill report of each kernel (it fails if plan_eval_kernel,
+     a BSI kernel or a GroupBy kernel spills or keeps a stack frame);
+     cuobjdump's SASS of each tuning kernel must keep the 16-byte loads of
+     its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
      slice's shapes, on random words from a numpy seed: exact equality.
      Kernel A on every program shape the main path makes: AND, BSI `>`,
@@ -22,25 +24,32 @@ Phases, one status line each; any failure raises and exits nonzero:
      (bsi_sum_planes, bsi_min_max) on random groups at the slice's shape
      and on encoded values at depths 1, 14, 31, 32 and 63: ties across
      shards, sign-set zeros, all-negative groups, empty and all-ones
-     filters, an odd W and S = 131 and 7;
+     filters, an odd W and S = 131 and 7.  Kernels E and F (pair_counts,
+     bsi_sum_groups; `group_parity`): E at S = 1, 32 and 128 with F and R
+     each 1, 4, 8 and 33, with and without a filter; F at depths 1, 14,
+     31, 32 and 63 with G = 1, 8, 32 and 33 at S = 1 and 32; both at an
+     odd W, on all-ones words, empty masks and sign-only columns;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
-     beside the bytes bound at 3.35 TB/s, the measured device-to-device
+     beside the bound (bytes at 3.35 TB/s or, for E and F, popcounts at
+     the card's rate when that is longer), the measured device-to-device
      copy ceiling and the plain version's time (kernels C and D at depth
-     14, 128 shards); kernel A's cases must run
+     14, 128 shards; E and F at the main path's shapes); the card's
+     popcount rate from a popcount-only loop; kernel A's cases must run
      its form (staged by TMA, or scalar for the irregular cases), and a
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
      program;
   5. the slice: a --shards table (625,000 records per shard; set fields f
      and g, int field v in [-1000, 10000]) built through the port's import
-     API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow)
-     run through Executor(holder) on cuda, every answer equal to a CPU
-     executor over the same Holder and to a numpy oracle on
+     API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow,
+     Rows, UnionRows, Limit, GroupBy, and calls only the per-shard
+     interpreter runs) through Executor(holder) on cuda, every answer equal
+     to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)), TopN(f, n=5), Sum(field=v),
-     Min(field=v) and Max(Row(g=2), field=v); every kernel's launch counter
-     must rise, by PASS_LAUNCHES a pass of the full mix (row_counts three
-     times plus once a shard for each of MinRow and MaxRow);
+     Min(field=v), Max(Row(g=2), field=v) and the two per-shard GroupBys
+     (count, and Sum of v); every kernel's launch counter must rise, by
+     pass_launches() a pass of the full mix;
      TopN's per-shard branch must give the stacked answers; p50 latency per
      query; then a pass under torch.profiler, each query labelled: each
      kernel's device time and the device-busy share of each query and
@@ -68,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import hashlib
 import json
 import os
 import subprocess
@@ -78,7 +88,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
+# 32-bit popcounts a clock per SM (CUDA programming guide, arithmetic
+# instruction throughput, compute capability 9.0)
+POPC_PER_CLOCK_PER_SM = 16
 RECORDS_PER_SHARD = 625_000
+SHARDS_0_31 = ", ".join(str(s) for s in range(32))
 QUERIES = [
     "Count(Intersect(Row(f=1), Row(g=2)))",
     "Count(Union(Row(f=1), Row(f=2), Row(g=3)))",
@@ -103,21 +117,64 @@ QUERIES = [
     "Min(Row(v > 5000), field=v)",
     "MinRow(field=f)",
     "MaxRow(field=f)",
+    "Rows(f)",
+    "Rows(f, column={col5})",
+    "UnionRows(Rows(g))",
+    "GroupBy(Rows(f))",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    f"Options(GroupBy(Rows(f), Rows(g), filter=Row(v > 5000)), "
+    f"shards=[{SHARDS_0_31}])",
+    f"Options(GroupBy(Rows(f), aggregate=Sum(field=v)), "
+    f"shards=[{SHARDS_0_31}])",
+    "GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))",
+    "Count(Union(Row(f=1), Row(f=null)))",
+    "Sum(Row(f=null), field=v)",
+    "Options(Limit(Row(f=3), limit=5, offset=2), shards=[0])",
 ]
-# kernel launches in one pass of the full mix, by kernel
-PASS_LAUNCHES = {"plan_eval": 19, "bsi_sum_planes": 2, "bsi_min_max": 3}
+
+
+def pass_launches(S: int) -> dict:
+    """Kernel launches in one pass of the full mix over S shards: kernel A
+    19 times for the Count, TopN and aggregate queries, 4 for UnionRows'
+    rows, once each for the stacked GroupBy's filter, the interpreter's
+    Count and Limit; kernel B three times for TopN, once a shard for each
+    of MinRow and MaxRow, and once each for Rows(f), Rows(g) in UnionRows
+    and GroupBy(Rows(f)); kernel C twice, plus once a shard under the
+    unplannable filter; kernel E for the two GroupBys of f and g over
+    every shard, each once a shard above the one-shot mask cap (f's 8 rows
+    of every shard) and once below it, and once for the stacked one of 32
+    shards; kernel F once a shard above the cap (f x g's 32 combinations)
+    and once below it, and once for the stacked one."""
+    from featurebase_tpu_torch.core.consts import WORDS_PER_ROW
+    from featurebase_tpu_torch.executor.executor import Executor
+    cap, shard_bytes = Executor.GROUPBY_ONESHOT_MAX_MASK_BYTES, \
+        WORDS_PER_ROW * 4 * S
+    e_each = S if 8 * shard_bytes > cap else 1
+    f_each = S if 32 * shard_bytes > cap else 1
+    return {"plan_eval": 26, "row_counts": 6 + 2 * S,
+            "bsi_sum_planes": 2 + S, "bsi_min_max": 3,
+            "pair_counts": 2 * e_each + 1, "bsi_sum_groups": f_each + 1}
 
 
 def say(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def card_line() -> str:
+def nvidia_smi(fields: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True,
-        timeout=60)
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
+
+
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm, in MHz)."""
+    return float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
 
 
 def child_pids() -> list:
@@ -172,7 +229,8 @@ def kernel_device_ms(fn, reps: int) -> dict:
             fn()
         torch.cuda.synchronize()
     names = ("plan_eval_kernel", "row_counts_kernel", "bsi_sum_planes_kernel",
-             "bsi_min_max_kernel", "tune_ceiling_kernel",
+             "bsi_min_max_kernel", "pair_counts_kernel",
+             "bsi_sum_groups_kernel", "tune_ceiling_kernel",
              "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
              "tune_csa_partial_kernel", "Memset", "Memcpy")
 
@@ -557,6 +615,165 @@ def bsi_parity(S: int):
     return {"bsi_sum_planes": max(errs_c), "bsi_min_max": max(errs_d)}, timing
 
 
+# -- kernels E and F ----------------------------------------------------------
+
+def gpu_words(gen: torch.Generator, shape) -> torch.Tensor:
+    """Random int32 words made on the card (the parity cases are too large
+    to make on the host in good time)."""
+    return torch.randint(-(1 << 31), 1 << 31, shape, generator=gen,
+                         dtype=torch.int32, device="cuda")
+
+
+def group_parity() -> dict:
+    """Phase 3c: kernels E and F against their plain versions on the card,
+    exactly.  E at S = 1, 32 and 128, F and R each 1, 4, 8 and 33, with and
+    without a filter; F at depths 1, 14, 31, 32 and 63, G = 1, 8, 32 and
+    33, S = 1 and 32; both at an odd W (the scalar form) and on all-ones
+    words, empty masks and sign-only columns (the sign set, nothing else,
+    on columns with and without the exists bit)."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    W, odd = 32768, 32767
+    errs_e, errs_f, cases = [], [], []
+    masks, rows = gpu_words(gen, (128, 33, W)), gpu_words(gen, (128, 33, W))
+    filt = gpu_words(gen, (128, W))
+    for S in (1, 32, 128):
+        for F in (1, 4, 8, 33):
+            for R in (1, 4, 8, 33):
+                m, r = masks[:S, :F].contiguous(), rows[:S, :R].contiguous()
+                for fw in (None, filt[:S]):
+                    name = f"pair_counts S={S} F={F} R={R} " \
+                        f"filter={fw is not None}"
+                    errs_e.append(require_equal(
+                        name, ck.pair_counts(m, r, fw),
+                        ck.pair_counts_plain(m, r, fw)))
+                    cases.append(name)
+    del masks, rows, filt
+    ones = torch.full((4, 9, odd), -1, dtype=torch.int32, device="cuda")
+    zero = torch.zeros_like(ones)
+    rnd = gpu_words(gen, (4, 9, odd))
+    for name, m, r, fw in (
+            ("odd_w", rnd[:, :5], rnd[:, 4:], rnd[:, 0]),
+            ("all_ones", ones[:, :5], ones[:, 4:], ones[:, 0]),
+            ("empty_masks", zero[:, :5], rnd[:, 4:], None)):
+        m, r = m.contiguous(), r.contiguous()
+        fw = None if fw is None else fw.contiguous()
+        errs_e.append(require_equal(f"pair_counts {name}",
+                                    ck.pair_counts(m, r, fw),
+                                    ck.pair_counts_plain(m, r, fw)))
+        cases.append(f"pair_counts {name}")
+    for depth in (1, 14, 31, 32, 63):
+        group = gpu_words(gen, (32, depth + 2, W))
+        gm = gpu_words(gen, (32, 33, W))
+        for S in (1, 32):
+            for G in (1, 8, 32, 33):
+                g, m = group[:S].contiguous(), gm[:S, :G].contiguous()
+                name = f"bsi_sum_groups D={depth} S={S} G={G}"
+                errs_f.append(require_equal(
+                    name, ck.bsi_sum_groups(g, m),
+                    bsiops.sum_groups_plain(g, m)))
+                cases.append(name)
+        del group, gm
+    sign_only = torch.zeros((4, 16, odd), dtype=torch.int32, device="cuda")
+    sign_only[:, 1] = -1                            # every sign bit set
+    sign_only[:, 0] = gpu_words(gen, (4, odd))      # exists on half
+    for name, g, m in (
+            ("odd_w", gpu_words(gen, (4, 16, odd)), rnd[:, :9]),
+            ("all_ones", ones[:, :8].repeat(1, 2, 1), ones[:, :9]),
+            ("empty_masks", gpu_words(gen, (4, 16, odd)), zero[:, :9]),
+            ("sign_only", sign_only, rnd[:, :9])):
+        g, m = g.contiguous(), m.contiguous()
+        errs_f.append(require_equal(f"bsi_sum_groups {name}",
+                                    ck.bsi_sum_groups(g, m),
+                                    bsiops.sum_groups_plain(g, m)))
+        cases.append(f"bsi_sum_groups {name}")
+    torch.cuda.synchronize()
+    say("group_parity", ok=True, cases=len(cases),
+        pair_counts={"S": [1, 32, 128], "F": [1, 4, 8, 33],
+                     "R": [1, 4, 8, 33], "filter": [False, True]},
+        bsi_sum_groups={"D": [1, 14, 31, 32, 63], "G": [1, 8, 32, 33],
+                        "S": [1, 32]},
+        edge_cases=[c for c in cases if "=" not in c])
+    return {"pair_counts": max(errs_e), "bsi_sum_groups": max(errs_f)}
+
+
+def popc_rate(reps: int) -> dict:
+    """The card's 32-bit popcount rate: the popcount-only loop of
+    csrc/group_kernels.cu (8 independent chains a thread, 8 blocks of 256
+    threads an SM), CUDA events, median of `reps`; beside the published
+    rate, 16 a clock per SM at the card's maximum SM clock."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    lib = ck._group_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = sms * 8, 4096
+    out = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        rc = lib.fb_popc_rate(out.data_ptr(), blocks, iters, stream)
+        if rc != 0:
+            raise RuntimeError(f"popc_rate launch failed: CUDA error {rc}")
+    run()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    ms = float(np.median(times))
+    measured = 8 * iters * 256 * blocks / (ms / 1e3)
+    published = POPC_PER_CLOCK_PER_SM * sms * max_sm_clock_hz()
+    r = dict(measured_per_s=measured, published_per_s=published,
+             measured_over_published=measured / published, ms=ms, sms=sms,
+             max_sm_clock_mhz=max_sm_clock_hz() / 1e6)
+    say("popc_rate", **r)
+    return r
+
+
+def group_times(timer: Timer, popc_per_s: float) -> dict:
+    """Phase 4c: kernels E and F at the main path's shapes beside the
+    plain versions and their bound: the larger of bytes (each input read
+    once, the counts written once) at 3.35 TB/s and popcounts (F x R x S x
+    W for E, G x (2D + 1) x S x W for F) at `popc_per_s`."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    W, out = 32768, {}
+
+    def measure(fn, plain, nbytes, popcounts):
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        p_ms = popcounts / popc_per_s * 1e3
+        return dict(ms=timer(fn), plain_ms=timer(plain),
+                    device_ms=kernel_device_ms(fn, timer.reps), bytes=nbytes,
+                    popcounts=popcounts, bytes_ms=b_ms, popcounts_ms=p_ms,
+                    bound_ms=max(b_ms, p_ms),
+                    bound_by="bytes" if b_ms >= p_ms else "operations")
+    for S, F, R, filtered in ((1, 8, 4, False), (32, 8, 4, True)):
+        m, r = gpu_words(gen, (S, F, W)), gpu_words(gen, (S, R, W))
+        fw = gpu_words(gen, (S, W)) if filtered else None
+        nbytes = (F + R + (1 if filtered else 0)) * S * W * 4 + F * R * 8
+        out[f"pair_counts/s{S}_f{F}_r{R}" + ("_filtered" if filtered
+                                             else "")] = measure(
+            lambda: ck.pair_counts(m, r, fw),
+            lambda: ck.pair_counts_plain(m, r, fw), nbytes, F * R * S * W)
+    for S, G, D in ((1, 32, 14), (32, 8, 14)):
+        g, m = gpu_words(gen, (S, D + 2, W)), gpu_words(gen, (S, G, W))
+        nbytes = (D + 2 + G) * S * W * 4 + G * (2 * D + 1) * 8
+        out[f"bsi_sum_groups/s{S}_g{G}_d{D}"] = measure(
+            lambda: ck.bsi_sum_groups(g, m),
+            lambda: bsiops.sum_groups_plain(g, m), nbytes,
+            G * (2 * D + 1) * S * W)
+    for name, r in out.items():
+        say("kernel_time", kernel=name, **r)
+    return out
+
+
 def build_table(n_shards: int, seed: int = 0):
     """The slice's table through the port's import API, plus the generating
     arrays for the oracle."""
@@ -581,16 +798,24 @@ def build_table(n_shards: int, seed: int = 0):
     idx.field("g").import_bits(g_rows, cols)
     idx.field("v").import_values(cols, vals)
     idx.mark_exists(cols)
-    return holder, dict(f=f_rows, g=g_rows, v=vals)
+    return holder, dict(f=f_rows, g=g_rows, v=vals, cols=cols)
 
 
 def canon(result):
-    """Comparable form of a query result."""
-    from featurebase_tpu_torch.executor.results import (PairField,
+    """Comparable form of a query result; a bitmap as its column count and
+    a digest of its sorted columns (UnionRows(Rows(g)) holds every
+    record)."""
+    from featurebase_tpu_torch.executor.results import (GroupCount, PairField,
                                                         PairsField, ValCount)
     from featurebase_tpu_torch.model.row import Row
     if isinstance(result, Row):
-        return ("row", result.columns().tolist())
+        cols = result.columns()
+        return ("row", (int(cols.size),
+                        hashlib.sha1(cols.tobytes()).hexdigest()))
+    if isinstance(result, list):   # Rows' ids or GroupBy's groups
+        return ("list", [(tuple(fr.row_id for fr in x.group), x.count, x.agg)
+                         if isinstance(x, GroupCount) else int(x)
+                         for x in result])
     if isinstance(result, PairsField):
         return ("pairs", [(p.id, p.count) for p in result.pairs])
     if isinstance(result, ValCount):
@@ -757,7 +982,10 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     idx = holder.index("bench")
     say("table", shards=n_shards, records=int(gen["f"].size),
         bit_depth=idx.field("v").bit_depth, build_s=build_s)
-    queries = [q for q in QUERIES
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    cols = gen["cols"]
+    col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
+    queries = [q.replace("{col5}", str(col5)) for q in QUERIES
                if "shards=" not in q or n_shards > 63]
     rank_cache = idx.field("f")._topn_cache
 
@@ -779,14 +1007,16 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
-    # TopN three times; MinRow and MaxRow once per shard of f
-    want = dict(PASS_LAUNCHES, row_counts=3 + 2 * n_shards)
+    want = pass_launches(n_shards)
     if len(queries) == len(QUERIES) and launches != want:
         raise AssertionError(f"launches in one pass of the mix {launches} "
                              f"!= {want}")
     cpu = Executor(holder, device="cpu")
+    cpu_s = {}
     for q in queries:
+        t0 = time.perf_counter()
         want = run(cpu, q)
+        cpu_s[q] = time.perf_counter() - t0
         if answers[q] != want:
             raise AssertionError(f"{q}: cuda {answers[q][1]!r:.200} != "
                                  f"cpu {want[1]!r:.200}")
@@ -805,11 +1035,34 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     top = np.bincount(f, minlength=8)
     order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
     oracle["TopN(f, n=5)"] = ("pairs", [(r, int(top[r])) for r in order])
+    oracle["Rows(f)"] = ("list", [r for r in range(8) if top[r]])
+    oracle["GroupBy(Rows(f))"] = ("list", [((r,), int(top[r]), 0)
+                                           for r in range(8) if top[r]])
+    # the per-shard GroupBys: a bincount of the (f, g) pairs, and the
+    # pairs' sums of v with np.add.at in int64
+    pair = f * 4 + g
+    n_pair = np.bincount(pair, minlength=32)
+    s_pair = np.zeros(32, dtype=np.int64)
+    np.add.at(s_pair, pair, v.astype(np.int64))
+    by_count = [((k // 4, k % 4), int(n_pair[k]), 0) for k in range(32)
+                if n_pair[k]]
+    by_sum = [((k // 4, k % 4), int(n_pair[k]), int(s_pair[k]))
+              for k in range(32) if n_pair[k]]
+    if [x[:2] for x in by_count] != [x[:2] for x in by_sum]:
+        raise AssertionError("the two GroupBy oracles disagree on counts")
+    oracle["GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
+    oracle["GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))"] = (
+        "list", by_sum)
+    oracle["GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))"] \
+        = ("list", [x for x in by_count if x[1] > 2500000])
     for q, want in oracle.items():
-        if answers[q] != want:
-            raise AssertionError(f"{q}: engine {answers[q]} != oracle {want}")
-    say("answers", equal_to_cpu=True, equal_to_oracle=sorted(oracle),
-        counts={q: a[1] for q, a in answers.items() if a[0] == "value"})
+        if q in answers and answers[q] != want:
+            raise AssertionError(f"{q}: engine {answers[q]!r:.300} != "
+                                 f"oracle {want!r:.300}")
+    say("answers", equal_to_cpu=True,
+        equal_to_oracle=sorted(q for q in oracle if q in answers),
+        counts={q: a[1] for q, a in answers.items() if a[0] == "value"},
+        cpu_executor_s=cpu_s)
     # TopN's per-shard branch (taken above ROWS_STACKED_MAX_BYTES): the
     # (R, W) forms of kernel B, one launch per shard
     per_shard = Executor(holder)
@@ -834,7 +1087,32 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     latency = {q: float(np.median([timed(q) for _ in range(reps)]))
                for q in queries}
     say("latency_p50_ms", **latency)
-    query_profile(queries, timed, latency)
+    per = query_profile(queries, timed, latency)
+    # each new query ran the kernels it is meant to run
+    meant = {"Rows(f)": ("row_counts",),
+             "UnionRows(Rows(g))": ("row_counts", "plan_eval"),
+             "GroupBy(Rows(f))": ("row_counts",),
+             "GroupBy(Rows(f), Rows(g))": ("pair_counts",),
+             "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))":
+                 ("bsi_sum_groups",),
+             "GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))":
+                 ("pair_counts",),
+             "Count(Union(Row(f=1), Row(f=null)))": ("plan_eval",),
+             "Sum(Row(f=null), field=v)": ("bsi_sum_planes",)}
+    for q in queries:
+        if q.startswith("Options(GroupBy(Rows(f), Rows(g)"):
+            meant[q] = ("plan_eval", "pair_counts")
+        elif q.startswith("Options(GroupBy(Rows(f), aggregate"):
+            meant[q] = ("bsi_sum_groups",)
+        elif q.startswith("Options(Limit"):
+            meant[q] = ("plan_eval",)
+    for q, kernels in meant.items():
+        for k in kernels:
+            if q in per and per[q]["launches"][k] == 0:
+                raise AssertionError(f"{q} did not launch {k}: "
+                                     f"{per[q]['launches']}")
+    say("query_kernels", meant={q: list(k) for q, k in meant.items()
+                                if q in per})
     residency_phase(holder, queries, answers, run, resident["bytes"] // 2)
     return launches
 
@@ -944,19 +1222,24 @@ def main() -> int:
 
     card = card_line()
     say("card", nvidia_smi=card, torch=torch.__version__,
-        cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
+        cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+        max_sm_clock_mhz=max_sm_clock_hz() / 1e6)
     t0 = time.perf_counter()
-    builds = [(ck.SOURCE, ()), (ck.BSI_SOURCE, ()), (tk.SOURCE, ()),
+    sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, tk.SOURCE)
+    builds = [*((src, ()) for src in sources),
               *((ck.SOURCE, f) for f in ABLATIONS.values())]
     procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
     for src, f, proc in procs:
         build.finish(src, proc, f)
     report = {src: ptxas_report(build.build_log.get(src, ""))
-              for src in (ck.SOURCE, ck.BSI_SOURCE, tk.SOURCE)}
+              for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
-    for src in (ck.SOURCE, ck.BSI_SOURCE):
+    for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE):
+        if src == ck.GROUP_SOURCE and not report[src]:
+            raise AssertionError(f"no ptxas report for {src}")
         for fn, r in report[src].items():
-            if ("plan_eval_kernel" in fn or "bsi_" in fn) and (
+            if ("plan_eval_kernel" in fn or "bsi_" in fn
+                    or src == ck.GROUP_SOURCE) and (
                     r["spill_stores"] or r["spill_loads"]
                     or r["stack_bytes"]):
                 raise AssertionError(f"ptxas spills or keeps a stack frame "
@@ -967,8 +1250,12 @@ def main() -> int:
     errs, inputs = kernel_parity(S, depth, R)
     bsi_errs, inputs["bsi"] = bsi_parity(S)
     errs.update(bsi_errs)
+    errs.update(group_parity())
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
+    rate = popc_rate(args.reps)
+    times.update(group_times(timer, max(rate["measured_per_s"],
+                                        rate["published_per_s"])))
     ablation(inputs, args.reps)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs
@@ -1002,7 +1289,13 @@ def main() -> int:
             ("bsi_sum_planes", "bsi_sum_planes/d14", ck.BSI_SOURCE,
              "featurebase_tpu/ops/bsi.py:378"),
             ("bsi_min_max", "bsi_min_max/d14", ck.BSI_SOURCE,
-             "featurebase_tpu/ops/bsi.py:399")):
+             "featurebase_tpu/ops/bsi.py:399"),
+            ("pair_counts", "pair_counts/s1_f8_r4", ck.GROUP_SOURCE,
+             "featurebase_tpu/ops/bitwise.py:175, "
+             "featurebase_tpu/ops/bitwise.py:123"),
+            ("bsi_sum_groups", "bsi_sum_groups/s1_g32_d14", ck.GROUP_SOURCE,
+             "featurebase_tpu/ops/bsi.py:611, "
+             "featurebase_tpu/ops/bsi.py:333")):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1010,7 +1303,7 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": "bytes", "library_ms": None})
+            "bound_by": t.get("bound_by", "bytes"), "library_ms": None})
     for name, replaces in (
             ("tune_ceiling", "tools/tune_count_kernel.py:85"),
             ("tune_csa_scalar", "tools/tune_count_kernel.py:121"),

@@ -2,15 +2,25 @@
 
 Counterpart of featurebase_tpu/executor/executor.py (reference
 executor.go:183 Execute, 679-846 executeCall dispatch).  Ported call
-families: bitmap calls that the plan compiler accepts (Row, Range, Union,
-Intersect, Difference, Xor, Not, All, Shift, ConstRow), Count, TopN/TopK,
-Sum, Min/Max, MinRow/MaxRow and Options(shards=).  Every other family, and
-an aggregate filter the plan compiler refuses, raises NotImplementedError.
+families: every bitmap call (Row, Range, Union, Intersect, Difference, Xor,
+Not, All, Shift, ConstRow, Rows, UnionRows, Limit), Count, TopN/TopK,
+Sum, Min/Max, MinRow/MaxRow, Rows, GroupBy and Options(shards=).  Every
+other family raises NotImplementedError, as do Distinct as a bitmap
+operand and GroupBy's aggregate=Count(Distinct(...)).
 
-Kernels by family: bitmap calls, Count and every aggregate filter run
-kernel A (``plan_eval``); TopN and MinRow/MaxRow kernel B (``row_counts``);
-Sum kernel C (``bsi_sum_planes``); Min/Max kernel D (``bsi_min_max``)
-(ops/cuda_kernels.py).
+Calls the plan compiler accepts run over stacked (S, W) shard tiles; the
+rest (Row(f=null), Rows, UnionRows or Limit as an operand) run through the
+per-shard interpreter (``_bitmap_call_shard``, reference
+executeBitmapCallShard executor.go:1782), which keeps each shard's words on
+the device, and every aggregate whose filter the compiler refuses goes per
+shard too, with one fetch after the loop.
+
+Kernels by family: bitmap calls, Count and every plannable filter run
+kernel A (``plan_eval``), as do the interpreter's BSI rows (at S = 1) and
+its counts; TopN, MinRow/MaxRow, Rows and one-dimension GroupBy kernel B
+(``row_counts``); Sum kernel C (``bsi_sum_planes``); Min/Max kernel D
+(``bsi_min_max``); GroupBy's pair counts kernel E (``pair_counts``) and
+its sums kernel F (``bsi_sum_groups``) (ops/cuda_kernels.py).
 
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
@@ -18,15 +28,17 @@ unavailable; the CPU runs only when the caller asks for it with
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from featurebase_tpu_torch.core.consts import WORDS_PER_ROW
+from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
-from featurebase_tpu_torch.executor.results import (Pair, PairField,
+from featurebase_tpu_torch.executor.results import (FieldRow, GroupCount,
+                                                    Pair, PairField,
                                                     PairsField, ValCount)
 from featurebase_tpu_torch.model.field import (CACHE_NONE, TYPE_BOOL,
                                                TYPE_DECIMAL, TYPE_TIME,
@@ -38,7 +50,7 @@ from featurebase_tpu_torch.ops import bitwise as bw
 from featurebase_tpu_torch.ops import bsi as bsiops
 from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.parallel.agg import finalize_sum
-from featurebase_tpu_torch.pql.ast import Call
+from featurebase_tpu_torch.pql.ast import Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
 
 
@@ -53,11 +65,10 @@ class FieldNotFound(ExecError):
 # call families of featurebase_tpu's executor that this package does not run
 _NOT_PORTED = {
     "Set": "Set", "Clear": "Clear", "ClearRow": "ClearRow", "Store": "Store",
-    "Delete": "Delete", "Percentile": "Percentile", "Var": "Var/Corr", "Corr": "Var/Corr",
-    "Rows": "Rows", "GroupBy": "GroupBy", "Extract": "Extract",
-    "Distinct": "Distinct", "IncludesColumn": "IncludesColumn",
-    "FieldValue": "FieldValue", "Sort": "Sort", "UnionRows": "UnionRows",
-    "Limit": "Limit", "Apply": "Apply", "Arrow": "Arrow",
+    "Delete": "Delete", "Percentile": "Percentile", "Var": "Var/Corr",
+    "Corr": "Var/Corr", "Extract": "Extract", "Distinct": "Distinct",
+    "IncludesColumn": "IncludesColumn", "FieldValue": "FieldValue",
+    "Sort": "Sort", "Apply": "Apply", "Arrow": "Arrow",
     "ExternalLookup": "ExternalLookup",
 }
 
@@ -77,11 +88,43 @@ def _not_ported(family: str):
     return NotImplementedError(f"{family} is not ported yet")
 
 
+def _time_views(f: Field, call: Call) -> List[str]:
+    """The views a call reads: the time views its from=/to= cover on a time
+    field, else the standard view."""
+    from_t, to_t = call.args.get("from"), call.args.get("to")
+    if f.options.type == TYPE_TIME and (from_t or to_t):
+        from datetime import datetime
+
+        from featurebase_tpu_torch.model.timequantum import parse_time
+        lo = parse_time(from_t) if from_t else datetime(1, 1, 1)
+        hi = parse_time(to_t) if to_t else datetime(9999, 1, 1)
+        return f.views_for_range(lo, hi)
+    return [VIEW_STANDARD]
+
+
+def _fetch(parts: List[torch.Tensor]) -> List[np.ndarray]:
+    """Host copies of device tensors in one transfer (the per-shard loops
+    fetch once, after the loop)."""
+    if not parts:
+        return []
+    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
+    host = flat.cpu().numpy()
+    out, at = [], 0
+    for p in parts:
+        out.append(host[at:at + p.numel()].reshape(p.shape))
+        at += p.numel()
+    return out
+
+
 class Executor:
     """Single-controller executor over a Holder."""
 
-    # cap on the stacked TopN tile (a per-shard loop runs above it)
+    # cap on the stacked TopN and Rows tiles (a per-shard loop runs above it)
     ROWS_STACKED_MAX_BYTES = 256 << 20
+    # one-shot GroupBy limits: entries of the fused pair-count matrix, and
+    # bytes of materialized combination masks
+    GROUPBY_ONESHOT_MAX_COUNTS = 1 << 16
+    GROUPBY_ONESHOT_MAX_MASK_BYTES = 64 << 20
 
     def __init__(self, holder: Holder, device=None):
         self.holder = holder
@@ -115,8 +158,8 @@ class Executor:
 
     def _validate_call(self, index: Index, call: Call):
         """Unknown field names error regardless of data presence."""
-        if call.name in ("Row", "Range", "Sum", "Min", "Max", "MinRow",
-                         "MaxRow", "TopN", "TopK"):
+        if call.name in ("Row", "Range", "Rows", "Sum", "Min", "Max",
+                         "MinRow", "MaxRow", "TopN", "TopK"):
             fld = call.args.get("_field") or call.args.get("field")
             if fld is None and call.name in ("Row", "Range"):
                 fld, _ = call.field_arg()
@@ -139,15 +182,19 @@ class Executor:
     def _pre_translate(self, index: Index, call: Call) -> Call:
         """Convert string row keys to IDs in place (reference
         executor.go:6814 preTranslate; reads only)."""
-        if index.options.keys and call.name == "ConstRow":
+        if index.options.keys:
             cols_arg = call.args.get("columns")
-            if isinstance(cols_arg, list) and \
+            if call.name == "ConstRow" and isinstance(cols_arg, list) and \
                     any(isinstance(c, str) for c in cols_arg):
                 found = index.translate_store.find_keys(
                     [c for c in cols_arg if isinstance(c, str)])
                 call.args["columns"] = [
                     found.get(c, -1) if isinstance(c, str) else c
                     for c in cols_arg]
+            colf = call.args.get("column")
+            if isinstance(colf, str):   # Rows(f, column=<record key>)
+                call.args["column"] = index.translate_store.find_keys(
+                    [colf]).get(colf, -1)
         for k, v in list(call.args.items()):
             f = index.field(k)
             if f is None:
@@ -179,6 +226,23 @@ class Executor:
                 store = index.row_translation(result.field)
                 for p in result.pairs:
                     p.key = store.translate_ids([p.id])[0]
+        if isinstance(result, list) and result and \
+                isinstance(result[0], GroupCount):
+            for gc in result:
+                for fr in gc.group:
+                    f = index.field(fr.field)
+                    if f is not None and f.options.keys and fr.value is None:
+                        store = index.row_translation(fr.field)
+                        fr.row_key = store.translate_ids([fr.row_id])[0]
+        if isinstance(result, list) and call.name == "Rows":
+            # keyed fields return row keys (reference RowIdentifiers.Keys)
+            fld = call.args.get("_field") or call.args.get("field")
+            f = index.field(fld) if fld else None
+            if f is not None and f.options.keys:
+                keys = index.row_translation(fld).translate_ids(
+                    [int(r) for r in result])
+                return [k if k is not None else int(r)
+                        for k, r in zip(keys, result)]
         return result
 
     # ------------------------------------------------------- call dispatch
@@ -208,6 +272,14 @@ class Executor:
         if name in ("MinRow", "MaxRow"):
             return self._execute_min_max_row(index, call, shards,
                                              is_min=name == "MinRow")
+        if name == "Rows":
+            return self._execute_rows(index, call, shards)
+        if name == "GroupBy":
+            return self._execute_group_by(index, call, shards)
+        if name == "UnionRows":
+            return self._execute_union_rows(index, call, shards)
+        if name == "Limit":
+            return self._execute_limit(index, call, shards)
         if name in _NOT_PORTED:
             raise _not_ported(_NOT_PORTED[name])
         return self._execute_bitmap_call(index, call, shards)
@@ -217,16 +289,43 @@ class Executor:
         return list(shards) if shards is not None else \
             index.available_shards()
 
-    def _compile(self, index: Index, call: Call) -> BitmapPlan:
-        """Compile a bitmap call; unplannable calls need the per-shard
-        interpreter, which is not ported."""
-        if call.name in _NOT_PORTED:
-            raise _not_ported(_NOT_PORTED[call.name])
+    @staticmethod
+    def _try_compile(index: Index, call: Call) -> Optional[BitmapPlan]:
+        """The stacked plan of a bitmap call, or None when the plan compiler
+        refuses it (the per-shard interpreter runs it then)."""
         try:
             return PlanCompiler(index).compile(call)
-        except PlanError as e:
-            raise NotImplementedError(
-                f"per-shard bitmap path is not ported yet ({e})") from e
+        except PlanError:
+            return None
+
+    def _execute_union_rows(self, index: Index, call: Call,
+                            shards: Optional[List[int]]) -> Row:
+        """UnionRows(Rows(f)...): the union of every enumerated row's bitmap
+        (reference executeUnionRows)."""
+        acc = Row()
+        for ch in call.children:
+            if ch.name != "Rows":
+                raise ExecError("UnionRows() children must be Rows() calls")
+            fname = ch.args.get("_field") or ch.args.get("field")
+            for rid in self._execute_rows(index, ch, shards):
+                acc = acc.union(self._execute_bitmap_call(
+                    index, Call("Row", {fname: rid}), shards))
+        return acc
+
+    def _execute_limit(self, index: Index, call: Call,
+                       shards: Optional[List[int]]) -> Row:
+        """Limit(bitmap, limit=, offset=) (reference executeLimitCall)."""
+        if not call.children:
+            raise ExecError("Limit() requires a child call")
+        limit = call.args.get("limit")
+        offset = int(call.args.get("offset", 0))
+        row = self._execute_bitmap_call(index, call.children[0], shards)
+        cols = row.columns()
+        if offset:
+            cols = cols[offset:]
+        if limit is not None:
+            cols = cols[: int(limit)]
+        return Row.from_columns(cols)
 
     # ----------------------------------------------------- bitmap calls
 
@@ -234,37 +333,228 @@ class Executor:
                              shards: Optional[List[int]]) -> Row:
         if call.name == "All" and ("limit" in call.args
                                    or "offset" in call.args):
-            raise _not_ported("Limit")
-        plan = self._compile(index, call)
+            # All(limit=, offset=): a global column cut (reference
+            # executeAllCallShard executor.go:5781)
+            return self._execute_limit(
+                index, Call("Limit", {"limit": call.args.get("limit"),
+                                      "offset": call.args.get("offset", 0)},
+                            children=[Call("All")]), shards)
         shard_list = self._shards(index, shards)
-        if not shard_list:
-            return Row()
-        stacked = self.plan_executor.run_bitmap(index, plan, shard_list)
-        return Row({s: stacked[i] for i, s in enumerate(shard_list)})
+        plan = self._try_compile(index, call)
+        if plan is not None and shard_list:
+            stacked = self.plan_executor.run_bitmap(index, plan, shard_list)
+            return Row({s: stacked[i] for i, s in enumerate(shard_list)})
+        return Row({s: self._bitmap_call_shard(index, call, s)
+                    for s in shard_list})
 
     def _mesh_filter(self, index: Index, filt_call: Optional[Call],
-                     shards: List[int]) -> torch.Tensor:
+                     shards: List[int]) -> Optional[torch.Tensor]:
         """Stacked (S, W) filter words (the JAX package's mesh-aggregate
         filter, here on one device): all ones with no filter, else the
-        plan-compiled filter in word mode."""
+        plan-compiled filter in word mode; None when the filter is not
+        plannable (the caller goes per shard)."""
+        pe = self.plan_executor
         if filt_call is None:
-            return self.plan_executor.stacked_full(index, shards)
-        plan = self._compile(index, filt_call)
-        return self.plan_executor.run_bitmap(index, plan, shards)
+            return pe.stacked_full(index, shards)
+        plan = self._try_compile(index, filt_call)
+        if plan is None:
+            return None
+        return pe.run_bitmap(index, plan, shards)
+
+    # ------------------------------------------ the per-shard interpreter
+
+    def _zero(self) -> torch.Tensor:
+        return torch.zeros(WORDS_PER_ROW, dtype=torch.int32,
+                           device=self.device)
+
+    def _bitmap_call_shard(self, index: Index, call: Call, shard: int
+                           ) -> torch.Tensor:
+        """Evaluate a bitmap-producing call for one shard -> (W,) int32
+        words on the executor's device (reference executeBitmapCallShard
+        executor.go:1782).  Set algebra is torch ops on the shard's rows
+        from the fragment mirrors; BSI rows run kernel A at S = 1."""
+        name = call.name
+        if name in ("Row", "Range"):
+            return self._row_shard(index, call, shard)
+        if name == "Union":
+            out = self._zero()
+            for ch in call.children:
+                out = out | self._bitmap_call_shard(index, ch, shard)
+            return out
+        if name == "Intersect":
+            if not call.children:
+                raise ExecError("Intersect() requires at least one child")
+            out = self._bitmap_call_shard(index, call.children[0], shard)
+            for ch in call.children[1:]:
+                out = out & self._bitmap_call_shard(index, ch, shard)
+            return out
+        if name == "Difference":
+            if not call.children:
+                return self._zero()
+            out = self._bitmap_call_shard(index, call.children[0], shard)
+            for ch in call.children[1:]:
+                out = bw.b_andnot(out,
+                                  self._bitmap_call_shard(index, ch, shard))
+            return out
+        if name == "Xor":
+            out = self._zero()
+            for ch in call.children:
+                out = out ^ self._bitmap_call_shard(index, ch, shard)
+            return out
+        if name == "Not":
+            # complement within the index existence row (reference
+            # executeNotShard executor.go:5554)
+            ex = self._existence_shard(index, shard)
+            return bw.b_andnot(ex, self._bitmap_call_shard(
+                index, call.children[0], shard))
+        if name == "All":
+            return self._existence_shard(index, shard)
+        if name == "Shift":
+            child = self._bitmap_call_shard(index, call.children[0], shard)
+            return bw.b_shift(child, int(call.args.get("n", 1)))
+        if name == "ConstRow":
+            cols = call.args.get("columns", [])
+            in_shard = [c % SHARD_WIDTH for c in cols
+                        if isinstance(c, int) and c // SHARD_WIDTH == shard]
+            words = bw.cols_to_words(np.array(in_shard, dtype=np.int64))
+            return torch.from_numpy(words.view(np.int32)).to(self.device)
+        if name == "Precomputed":
+            seg = call.args["_row"].segment(shard)
+            return seg.to(self.device) if seg is not None else self._zero()
+        if name in ("Distinct", "UnionRows", "Limit"):
+            # pre-calls: computed globally once and embedded (reference
+            # handlePreCalls executor.go:364)
+            if name == "Distinct":
+                raise _not_ported("Distinct")
+            result = self._execute_call(index, call, None)
+            call.name, call.args, call.children = \
+                "Precomputed", {"_row": result}, []
+            return self._bitmap_call_shard(index, call, shard)
+        if name == "Rows":
+            # Rows in bitmap position: the columns with any value of the
+            # field (in the time views of from=/to=)
+            return self._rows_bitmap_shard(index, call, shard)
+        raise ExecError(f"unknown bitmap call: {name}")
+
+    def _rows_bitmap_shard(self, index: Index, call: Call, shard: int
+                           ) -> torch.Tensor:
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        from_t, to_t = call.args.get("from"), call.args.get("to")
+        if from_t is not None or to_t is not None:
+            from datetime import datetime
+
+            from featurebase_tpu_torch.model.timequantum import parse_time
+            lo = parse_time(from_t) if from_t is not None \
+                else datetime(1, 1, 1)
+            hi = parse_time(to_t) if to_t is not None \
+                else datetime(9999, 1, 1)
+            names = f.views_for_range(lo, hi)
+        else:
+            names = [VIEW_STANDARD]
+        out = self._zero()
+        for vn in names:
+            v = f.view(vn)
+            frag = v.fragment(shard) if v is not None else None
+            if frag is None or frag.num_rows == 0:
+                continue
+            out = out | bw.or_reduce_rows(frag.device_tile(self.device))
+        return out
+
+    def _existence_shard(self, index: Index, shard: int) -> torch.Tensor:
+        ef = index.existence_field()
+        if ef is None:
+            raise ExecError("index does not track existence")
+        v = ef.view(VIEW_STANDARD)
+        frag = v.fragment(shard) if v else None
+        if frag is None:
+            return self._zero()
+        return frag.device_row(0, self.device)
+
+    def _row_shard(self, index: Index, call: Call, shard: int
+                   ) -> torch.Tensor:
+        fld, val = call.field_arg()
+        if fld is None:
+            raise ExecError("Row() requires a field argument")
+        f = self._field_or_err(index, fld)
+        if isinstance(val, Condition):
+            return self._row_bsi_shard(index, f, val, shard)
+        if f.is_bsi():
+            # Row(f=5) on an int field is the equality predicate
+            return self._row_bsi_shard(index, f, Condition("==", val), shard)
+        if val is None:
+            # Row(f=null): records with no bit in this field
+            ex = self._existence_shard(index, shard)
+            v = f.view(VIEW_STANDARD)
+            frag = v.fragment(shard) if v else None
+            if frag is None or frag.num_rows == 0:
+                return ex
+            return bw.b_andnot(
+                ex, bw.or_reduce_rows(frag.device_tile(self.device)))
+        row_id = int(val)
+        if row_id == -1:
+            return self._zero()
+        acc = self._zero()
+        for vn in _time_views(f, call):
+            v = f.view(vn)
+            frag = v.fragment(shard) if v else None
+            if frag is not None:
+                acc = acc | frag.device_row(row_id, self.device)
+        return acc
+
+    def _row_bsi_shard(self, index: Index, f: Field, cond: Condition,
+                       shard: int) -> torch.Tensor:
+        """BSI predicate row (reference executeRowBSIGroupShard
+        executor.go:5249; fragment.rangeOp:937): the comparators of
+        ops/bsi.py on the shard's group, kernel A at S = 1."""
+        data = f.bsi_data(shard, self.device)
+        if data is None:
+            return self._zero()
+        group, depth = data
+        op, v = cond.op, cond.value
+        if op == "!=" and v is None:
+            return group[0]
+        if op == "==" and v is None:
+            return bw.b_andnot(self._existence_shard(index, shard), group[0])
+
+        def enc(x) -> int:
+            return f.encode_value(x) - f.base
+        if op == "betw":
+            lo, hi = v
+            return bsiops.range_between(
+                group, enc(lo) + (1 if cond.lo_strict else 0),
+                enc(hi) - (1 if cond.hi_strict else 0), depth)
+        pred = enc(v)
+        if op == "==":
+            return bsiops.range_eq(group, pred, depth)
+        if op == "!=":
+            return bsiops.range_neq(group, pred, depth)
+        if op in ("<", "<="):
+            return bsiops.range_lt(group, pred, depth, op == "<=")
+        if op in (">", ">="):
+            return bsiops.range_gt(group, pred, depth, op == ">=")
+        raise ExecError(f"unsupported condition op: {op}")
 
     # ------------------------------------------------------------- Count
 
     def _execute_count(self, index: Index, call: Call,
                        shards: Optional[List[int]]) -> int:
         """Count(bitmap) (reference executeCount executor.go:5839): the plan
-        and its popcount run fused in kernel A."""
+        and its popcount fused in kernel A, or the interpreter's words of
+        every shard counted by one kernel-A launch."""
         if not call.children:
             raise ExecError("Count() requires a child call")
-        plan = self._compile(index, call.children[0])
+        child = call.children[0]
+        if child.name == "Distinct":
+            raise _not_ported("Distinct")
         shard_list = self._shards(index, shards)
         if not shard_list:
             return 0
-        return self.plan_executor.run_count(index, plan, shard_list)
+        plan = self._try_compile(index, child)
+        if plan is not None:
+            return self.plan_executor.run_count(index, plan, shard_list)
+        words = [self._bitmap_call_shard(index, child, s) for s in shard_list]
+        return int(bw.popcount(torch.stack(words)))
 
     # ------------------------------------------------------- TopN / TopK
 
@@ -279,16 +569,7 @@ class Executor:
         filt_call = call.children[0] if call.children else None
         if filt_call is None and isinstance(call.args.get("filter"), Call):
             filt_call = call.args["filter"]  # TopK's named filter arg
-        from_t, to_t = call.args.get("from"), call.args.get("to")
-        if f.options.type == TYPE_TIME and (from_t or to_t):
-            from datetime import datetime
-
-            from featurebase_tpu_torch.model.timequantum import parse_time
-            lo = parse_time(from_t) if from_t else datetime(1, 1, 1)
-            hi = parse_time(to_t) if to_t else datetime(9999, 1, 1)
-            view_names = f.views_for_range(lo, hi)
-        else:
-            view_names = [VIEW_STANDARD]
+        view_names = _time_views(f, call)
 
         # unfiltered TopN serves per-shard counts from the field's rank
         # cache when fragment generations match (reference: cache.go:25)
@@ -323,8 +604,9 @@ class Executor:
                            use_cache: bool, counts: Dict[int, int]):
         """Per-row counts for cache-missing shards with kernel B: one
         stacked (S, R, W) launch over all of them, or a launch per shard
-        when the stacked tile would exceed ROWS_STACKED_MAX_BYTES.  Complete
-        per-shard count sets refresh the rank cache."""
+        when the stacked tile would exceed ROWS_STACKED_MAX_BYTES or the
+        filter is not plannable (the interpreter gives each shard's filter
+        then).  Complete per-shard count sets refresh the rank cache."""
         def add_shard(shard, row_ids, pc):
             shard_counts = {rid: int(c) for rid, c in zip(row_ids, pc) if c}
             for rid, c in shard_counts.items():
@@ -338,32 +620,34 @@ class Executor:
                     and (fr := vv.fragment(shard)) is not None]
 
         row_ids = sorted({int(r) for s in missing for fr in frags_of(s)
-                          for r in fr.row_ids()})
+                          for r in fr.row_ids()} | f.meta_rows(names))
         if not row_ids:
             return
         pe = self.plan_executor
         tile_bytes = len(row_ids) * len(missing) * WORDS_PER_ROW * 4
-        if tile_bytes <= self.ROWS_STACKED_MAX_BYTES:
+        filt = None
+        stacked = tile_bytes <= self.ROWS_STACKED_MAX_BYTES
+        if stacked and filt_call is not None:
+            filt = self._mesh_filter(index, filt_call, missing)
+            stacked = filt is not None
+        if stacked:
             tiles = pe.stacked_field_rows(index, f.name, names,
                                           tuple(row_ids), missing)
-            if filt_call is None:
-                pc = bw.per_shard_row_counts(tiles)
-            else:
-                filt = self._mesh_filter(index, filt_call, missing)
-                pc = bw.per_shard_filtered_row_counts(tiles, filt)
+            pc = (bw.per_shard_row_counts(tiles) if filt is None
+                  else bw.per_shard_filtered_row_counts(tiles, filt))
             pc = pc.cpu().numpy()
             for si, shard in enumerate(missing):
                 add_shard(shard, row_ids, pc[si])
             return
         for shard in missing:
-            frags = frags_of(shard)
-            srows = sorted({int(r) for fr in frags for r in fr.row_ids()})
+            srows = sorted({int(r) for fr in frags_of(shard)
+                            for r in fr.row_ids()})
             if not srows:
                 continue
             tile = pe.stacked_field_rows(index, f.name, names, tuple(srows),
                                          [shard])[0]
             if filt_call is not None:
-                fw = self._mesh_filter(index, filt_call, [shard])
+                fw = self._bitmap_call_shard(index, filt_call, shard)
                 pc1 = bw.count_and_rows(tile, fw)
             else:
                 pc1 = bw.popcount_rows(tile)
@@ -379,14 +663,17 @@ class Executor:
         filt_call = call.children[0] if call.children else None
         return f, filt_call
 
-    def _agg_group(self, index: Index, f: Field, filt_call: Optional[Call],
-                   shards: List[int]):
-        """The field's stacked BSI group at max(bit_depth, 1) planes and the
-        stacked filter over `shards`."""
-        filt = self._mesh_filter(index, filt_call, shards)
-        group = self.plan_executor.stacked_bsi(index, f.name,
-                                               max(f.bit_depth, 1), shards)
-        return group, filt
+    def _shard_groups(self, index: Index, f: Field, filt_call: Call,
+                      shards):
+        """Per-shard inputs of an aggregate whose filter the plan compiler
+        refuses: (group (1, D + 2, W), filter (1, W)) of each shard with
+        data (reference: the map_shards fallbacks, executor.py:1182)."""
+        for shard in shards:
+            data = f.bsi_data(shard, self.device)
+            if data is None:
+                continue
+            fw = self._bitmap_call_shard(index, filt_call, shard)
+            yield data[0][None], fw[None].contiguous()
 
     @staticmethod
     def _wrap_valcount(f: Field, val: int, count: int) -> ValCount:
@@ -401,14 +688,24 @@ class Executor:
     def _execute_sum(self, index: Index, call: Call,
                      shards: Optional[List[int]]) -> ValCount:
         """Sum (reference executor.go Sum; JAX executor.py:1158): one
-        kernel-C launch over every shard, finished exactly on the host."""
+        kernel-C launch over every shard, or one a shard under a filter the
+        plan compiler refuses; finished exactly on the host."""
         f, filt_call = self._agg_inputs(index, call)
         shard_list = self._shards(index, shards)
         if not shard_list:
             return self._wrap_valcount(f, 0, 0)
-        group, filt = self._agg_group(index, f, filt_call, shard_list)
-        D = group.shape[1] - 2
-        parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
+        filt = self._mesh_filter(index, filt_call, shard_list)
+        if filt is not None:
+            group = self.plan_executor.stacked_bsi(
+                index, f.name, max(f.bit_depth, 1), shard_list)
+            parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
+        else:
+            per_shard = [ck.bsi_sum_planes(g, fw) for g, fw in
+                         self._shard_groups(index, f, filt_call, shard_list)]
+            if not per_shard:
+                return self._wrap_valcount(f, 0, 0)
+            parts = torch.stack(per_shard).sum(0).cpu().numpy()
+        D = (parts.size - 1) // 2
         count = int(parts[2 * D])
         total = finalize_sum(parts[:D], parts[D:2 * D]) + f.base * count
         return self._wrap_valcount(f, total, count)
@@ -417,20 +714,31 @@ class Executor:
                          shards: Optional[List[int]], is_min: bool
                          ) -> ValCount:
         """Min/Max (JAX executor.py:1199): one kernel-D launch over every
-        shard.  Up to depth 31 the answer has min_max_stacked's semantics;
-        deeper, the reference's per-shard min_host/max_host merged with
-        ValCount.smaller/larger (ops/bsi.py)."""
+        shard.  Up to depth 31 under a plannable filter the answer has
+        min_max_stacked's semantics; deeper, or under a filter the plan
+        compiler refuses (one launch a shard then), the reference's
+        per-shard min_host/max_host merged with ValCount.smaller/larger
+        (ops/bsi.py)."""
         f, filt_call = self._agg_inputs(index, call)
         shard_list = self._shards(index, shards)
         if not shard_list:
             return self._wrap_valcount(f, 0, 0)
-        group, filt = self._agg_group(index, f, filt_call, shard_list)
-        parts = ck.bsi_min_max(group, filt).cpu().numpy()
-        if max(f.bit_depth, 1) <= 31:
-            v, c = bsiops.min_max_stacked_finish(parts, is_min)
-            if c == 0:
+        filt = self._mesh_filter(index, filt_call, shard_list)
+        if filt is not None:
+            group = self.plan_executor.stacked_bsi(
+                index, f.name, max(f.bit_depth, 1), shard_list)
+            parts = ck.bsi_min_max(group, filt).cpu().numpy()
+            if max(f.bit_depth, 1) <= 31:
+                v, c = bsiops.min_max_stacked_finish(parts, is_min)
+                if c == 0:
+                    return self._wrap_valcount(f, 0, 0)
+                return self._wrap_valcount(f, v + f.base, c)
+        else:
+            per_shard = [ck.bsi_min_max(g, fw) for g, fw in
+                         self._shard_groups(index, f, filt_call, shard_list)]
+            if not per_shard:
                 return self._wrap_valcount(f, 0, 0)
-            return self._wrap_valcount(f, v + f.base, c)
+            parts = torch.cat(per_shard).cpu().numpy()
         acc = ValCount()
         for v, c in bsiops.min_max_per_shard(parts, is_min):
             if c == 0:
@@ -458,13 +766,10 @@ class Executor:
             tile = frag.device_tile(self.device)
             slot_rows = frag.slot_rows()[: tile.shape[0]]
             per_shard.append((slot_rows, ck.row_counts(tile[None])[0]))
-        counts = torch.cat([c for _, c in per_shard]).cpu().numpy() \
-            if per_shard else None
-        best_row, best_count, at = None, 0, 0
-        for slot_rows, c in per_shard:
+        counts = _fetch([c for _, c in per_shard])
+        best_row, best_count = None, 0
+        for (slot_rows, _), cnt in zip(per_shard, counts):
             rows = np.array(slot_rows, dtype=np.int64)
-            cnt = counts[at:at + c.numel()]
-            at += c.numel()
             nz = cnt > 0
             if not nz.any():
                 continue
@@ -477,3 +782,392 @@ class Executor:
             elif pick == best_row:
                 best_count += n
         return PairField(Pair(id=best_row or 0, count=best_count), fld)
+
+    # ------------------------------------------------------------- Rows
+
+    def _execute_rows(self, index: Index, call: Call,
+                      shards: Optional[List[int]],
+                      verify_nonempty: bool = True) -> List[int]:
+        """Rows(f, ...) row-id enumeration through the row-scan framework
+        (reference executeRows executor.go:4077; ops/rowscan.py).  Without
+        a column filter the candidates come from host metadata and one
+        kernel-B launch over the stacked candidate tile drops the empty
+        ones; with column=, or above ROWS_STACKED_MAX_BYTES, each shard
+        scans its fragments.  verify_nonempty=False (GroupBy's dimensions,
+        which drop empty groups themselves) skips the device work."""
+        from featurebase_tpu_torch.ops.rowscan import (RowScanSpec, host_prune,
+                                                       scan_fragments)
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        limit = call.args.get("limit")
+        prev = call.args.get("previous")
+        col = call.args.get("column")
+        like = call.args.get("like")
+        in_list = call.args.get("in")
+
+        like_ids = None
+        if like is not None and f.options.keys:
+            # LIKE pushdown: one translate-store pass (reference like.go:13)
+            like_ids = set(index.row_translation(fld).match_like(like))
+        whitelist = {int(x) for x in in_list} if in_list is not None else None
+        names = _time_views(f, call)
+
+        def spec() -> RowScanSpec:
+            return RowScanSpec(
+                whitelist=whitelist, like_ids=like_ids,
+                min_row_excl=int(prev) if prev is not None else None)
+
+        shard_list = self._shards(index, shards)
+        if col is None and shard_list:
+            cand = sorted({int(r) for s in shard_list for vn in names
+                           if (vv := f.view(vn)) is not None
+                           and (fr := vv.fragment(s)) is not None
+                           for r in fr.row_ids()} | f.meta_rows(names))
+            cand = host_prune(cand, spec())
+            if not cand:
+                return []
+            if not verify_nonempty and limit is None:
+                return cand
+            tile_bytes = len(cand) * len(shard_list) * WORDS_PER_ROW * 4
+            if tile_bytes <= self.ROWS_STACKED_MAX_BYTES:
+                tiles = self.plan_executor.stacked_field_rows(
+                    index, fld, tuple(names), tuple(cand), shard_list)
+                counts = bw.stacked_row_counts(tiles).cpu().numpy()
+                rows_sorted = [r for r, c in zip(cand, counts) if c]
+                if limit is not None:
+                    rows_sorted = rows_sorted[: int(limit)]
+                return rows_sorted
+
+        out: set = set()
+        for shard in shard_list:
+            sp = spec()
+            if col is not None:
+                c = int(col)
+                if c // SHARD_WIDTH != shard:
+                    continue
+                sp.column = c % SHARD_WIDTH
+            frags = [(vv := f.view(vn)) and vv.fragment(shard)
+                     for vn in names]
+            out.update(scan_fragments(frags, sp, self.device))
+        rows_sorted = sorted(out)
+        if limit is not None:
+            rows_sorted = rows_sorted[: int(limit)]
+        return rows_sorted
+
+    # ----------------------------------------------------------- GroupBy
+
+    def _execute_group_by(self, index: Index, call: Call,
+                          shards: Optional[List[int]]) -> List[GroupCount]:
+        """GroupBy(Rows(f1), Rows(f2), ..., limit=, filter=, aggregate=,
+        having=) (reference executor.go:3176 executeGroupBy, 8617
+        groupByIterator): the stacked one-shot over every shard when it
+        fits the caps, else a loop over the shards whose counts and sums
+        stay on the device until one fetch after it."""
+        rows_calls = [c for c in call.children if c.name == "Rows"]
+        if not rows_calls:
+            raise ExecError("GroupBy() requires at least one Rows() child")
+        limit = call.args.get("limit")
+        filt_call = call.args.get("filter")
+        agg_call = call.args.get("aggregate")
+        having = call.args.get("having")
+
+        agg_field: Optional[Field] = None
+        agg_kind = None
+        if isinstance(agg_call, Call):
+            agg_kind = agg_call.name  # Sum or Count
+            if agg_kind == "Sum":
+                afld = agg_call.args.get("_field") or \
+                    agg_call.args.get("field")
+                agg_field = self._field_or_err(index, afld)
+            elif agg_kind == "Count" and agg_call.children and \
+                    agg_call.children[0].name == "Distinct":
+                raise _not_ported("GroupBy aggregate=Count(Distinct)")
+
+        fields = [c.args.get("_field") or c.args.get("field")
+                  for c in rows_calls]
+        # candidate rows per dimension with every Rows argument applied
+        # globally (reference precomputes nested Rows, executor.go:3987)
+        dim_rows_global = [self._execute_rows(index, rc, shards,
+                                              verify_nonempty=False)
+                           for rc in rows_calls]
+        groups: Dict[tuple, List[int]] = {}  # key -> [count, agg]
+        shard_list = self._shards(index, shards)
+        if not self._group_by_stacked(index, shard_list, rows_calls,
+                                      dim_rows_global, filt_call, agg_kind,
+                                      agg_field, groups):
+            pending: list = []
+            for shard in shard_list:
+                self._group_by_shard_device(index, shard, rows_calls,
+                                            dim_rows_global, filt_call,
+                                            agg_kind, agg_field, pending)
+            self._add_pending(pending, groups)
+
+        # assemble, sort by group key, apply having + limit
+        out = []
+        for key, (cnt, agg) in sorted(groups.items()):
+            if cnt == 0:
+                continue
+            group = [FieldRow(field=fields[i], row_id=key[i])
+                     for i in range(len(fields))]
+            gc = GroupCount(group, count=cnt, agg=agg)
+            if agg_field is not None and \
+                    agg_field.options.type == TYPE_DECIMAL:
+                gc.decimal_agg = agg / (10 ** agg_field.options.scale)
+            out.append(gc)
+        if isinstance(having, Call):
+            out = self._apply_having(out, having, agg_field)
+        if limit is not None:
+            out = out[: int(limit)]
+        return out
+
+    @staticmethod
+    def _add_counts(groups, keys, counts) -> None:
+        for key, c in zip(keys, counts):
+            if c:
+                g = groups.setdefault(key, [0, 0])
+                g[0] += int(c)
+
+    @staticmethod
+    def _add_sums(groups, keys, parts: np.ndarray) -> None:
+        """Each group's (sum, count) from kernel F's counters; the count is
+        the group's columns with a value (reference sum_groups_host)."""
+        for key, (s, c) in zip(keys, bsiops.finish_groups(parts)):
+            if c == 0:
+                continue
+            g = groups.setdefault(key, [0, 0])
+            g[0] += c
+            g[1] += s
+
+    def _add_pending(self, pending: list, groups) -> None:
+        """Fold the per-shard loop's results into `groups`: device counts
+        and sums of every shard in one fetch."""
+        dev = [(i, x) for i, (_, _, x) in enumerate(pending)
+               if isinstance(x, torch.Tensor)]
+        host = dict(zip((i for i, _ in dev), _fetch([x for _, x in dev])))
+        for i, (keys, kind, x) in enumerate(pending):
+            x = host.get(i, x)
+            if kind == "sum":
+                self._add_sums(groups, keys, x)
+            else:
+                self._add_counts(groups, keys, x.reshape(-1))
+
+    def _group_by_stacked(self, index: Index, shard_list, rows_calls,
+                          dim_rows_global, filt_call, agg_kind, agg_field,
+                          groups) -> bool:
+        """Every shard's cross-product in one launch with one fetch (JAX
+        executor.py:2007).  Returns False to go per shard (over the caps,
+        or a filter the plan compiler refuses)."""
+        if not shard_list or any(not grows for grows in dim_rows_global):
+            return True
+        n_combos = 1
+        for rows in dim_rows_global:
+            n_combos *= len(rows)
+        n_levels = len(rows_calls)
+        w_bytes = WORDS_PER_ROW * 4 * len(shard_list)
+        if agg_kind != "Sum":
+            prefix = (n_combos // len(dim_rows_global[-1])
+                      if n_levels > 1 else 1)
+            if (n_combos > self.GROUPBY_ONESHOT_MAX_COUNTS
+                    or prefix * w_bytes >
+                    self.GROUPBY_ONESHOT_MAX_MASK_BYTES):
+                return False
+        elif agg_field is None or n_combos * w_bytes > \
+                self.GROUPBY_ONESHOT_MAX_MASK_BYTES:
+            return False
+        filt = None
+        if isinstance(filt_call, Call):
+            filt = self._mesh_filter(index, filt_call, shard_list)
+            if filt is None:
+                return False
+        pe = self.plan_executor
+        dim_tiles = []
+        dim_rows: List[List[int]] = []
+        for rc, grows in zip(rows_calls, dim_rows_global):
+            fname = rc.args.get("_field") or rc.args.get("field")
+            dim_tiles.append(pe.stacked_field_rows(
+                index, fname, (VIEW_STANDARD,), tuple(grows), shard_list))
+            dim_rows.append([int(r) for r in grows])
+        keys = itertools.product(*dim_rows)
+
+        if agg_kind != "Sum":
+            if n_levels == 1:
+                counts = (bw.stacked_row_counts(dim_tiles[0]) if filt is None
+                          else bw.stacked_filtered_row_counts(dim_tiles[0],
+                                                              filt))
+            elif n_levels == 2:   # kernel E with the filter fused
+                counts = bw.stacked_pair_counts(dim_tiles[0], dim_tiles[1],
+                                                filt)
+            else:
+                masks = dim_tiles[0] if filt is None else \
+                    bw.stacked_mask_filter(dim_tiles[0], filt)
+                for lvl in range(1, n_levels - 1):
+                    masks = bw.stacked_all_pairs_and(masks, dim_tiles[lvl])
+                counts = bw.stacked_pair_counts(masks, dim_tiles[-1])
+            self._add_counts(groups, keys, counts.reshape(-1).cpu().numpy())
+            return True
+        masks = dim_tiles[0] if filt is None else \
+            bw.stacked_mask_filter(dim_tiles[0], filt)
+        for lvl in range(1, n_levels):
+            masks = bw.stacked_all_pairs_and(masks, dim_tiles[lvl])
+        bsi = pe.stacked_bsi(index, agg_field.name,
+                             max(agg_field.bit_depth, 1), shard_list)
+        self._add_sums(groups, keys,
+                       ck.bsi_sum_groups(bsi, masks.contiguous())
+                       .cpu().numpy())
+        return True
+
+    def _group_by_shard_device(self, index: Index, shard: int, rows_calls,
+                               dim_rows_global, filt_call, agg_kind,
+                               agg_field, pending: list) -> None:
+        """One shard's cross product (JAX executor.py:1923; reference
+        groupByIterator executor.go:8617,8651): the one-shot product for
+        small ones, else level-wise pruning, where each level's (F, R)
+        counts (kernel E) are fetched to keep the nonzero combinations and
+        one gather builds their masks.  Appends (keys, kind, counts or
+        sums) to `pending`; device results stay on the device."""
+        dev = self.device
+        dim_tiles = []
+        dim_rows: List[List[int]] = []
+        for rc, grows in zip(rows_calls, dim_rows_global):
+            fname = rc.args.get("_field") or rc.args.get("field")
+            v = self._field_or_err(index, fname).view(VIEW_STANDARD)
+            frag = v.fragment(shard) if v else None
+            if frag is None:
+                return
+            rows = [r for r in grows if frag.has_row(r)]
+            if not rows:
+                return
+            dim_tiles.append(frag.device_rows(rows, dev)[0])
+            dim_rows.append(rows)
+
+        # level 0: the first dimension's rows under the filter
+        masks = dim_tiles[0]
+        if isinstance(filt_call, Call):
+            masks = masks & self._bitmap_call_shard(index, filt_call,
+                                                    shard)[None, :]
+        if self._group_by_one_shot(dim_rows, agg_kind, masks, dim_tiles,
+                                   agg_field, shard, pending):
+            return
+        counts = bw.popcount_rows(masks).cpu().numpy()
+        keep = np.nonzero(counts)[0]
+        if keep.size == 0:
+            return
+        prefixes: List[tuple] = [(dim_rows[0][i],) for i in keep]
+        if keep.size < masks.shape[0]:
+            masks = masks.index_select(0, torch.as_tensor(keep, device=dev))
+        counts = counts[keep]
+        for lvl in range(1, len(dim_tiles)):
+            tile = dim_tiles[lvl]
+            pc = bw.count_and_pairs(masks, tile).cpu().numpy()  # (F, R)
+            fi, rj = np.nonzero(pc)
+            if fi.size == 0:
+                return
+            counts = pc[fi, rj]
+            prefixes = [prefixes[i] + (dim_rows[lvl][j],)
+                        for i, j in zip(fi, rj)]
+            masks = bw.and_pairs_gather(masks, tile,
+                                        torch.as_tensor(fi, device=dev),
+                                        torch.as_tensor(rj, device=dev))
+        if agg_kind == "Sum" and agg_field is not None:
+            data = agg_field.bsi_data(shard, dev)
+            if data is None:
+                return
+            pending.append((prefixes, "sum", ck.bsi_sum_groups(
+                data[0][None], masks[None].contiguous())))
+        else:
+            pending.append((prefixes, "count", counts))
+
+    def _group_by_one_shot(self, dim_rows, agg_kind, masks, dim_tiles,
+                           agg_field, shard, pending: list) -> bool:
+        """Every combination of one shard in one launch (JAX
+        executor.py:2160), for small cross products; True when handled.
+        `masks` is the first dimension's tile under the filter."""
+        n_combos = 1
+        for rows in dim_rows:
+            n_combos *= len(rows)
+        n_levels = len(dim_tiles)
+        w_bytes = int(masks.shape[-1]) * 4
+        keys = itertools.product(*dim_rows)
+        if agg_kind != "Sum":
+            # the last level never materializes (kernel E counts it), so
+            # the memory bound applies to the K-1 level prefix masks
+            prefix = n_combos // len(dim_rows[-1]) if n_levels > 1 else 1
+            if (n_combos > self.GROUPBY_ONESHOT_MAX_COUNTS
+                    or prefix * w_bytes >
+                    self.GROUPBY_ONESHOT_MAX_MASK_BYTES):
+                return False
+            for lvl in range(1, n_levels - 1):
+                masks = bw.all_pairs_and(masks, dim_tiles[lvl])
+            if n_levels == 1:
+                counts = bw.popcount_rows(masks)
+            else:
+                counts = bw.count_and_pairs(masks, dim_tiles[-1])
+            pending.append((keys, "count", counts))
+            return True
+        if agg_field is None:
+            return False
+        if n_combos * w_bytes > self.GROUPBY_ONESHOT_MAX_MASK_BYTES:
+            return False
+        data = agg_field.bsi_data(shard, self.device)
+        if data is not None:
+            for lvl in range(1, n_levels):
+                masks = bw.all_pairs_and(masks, dim_tiles[lvl])
+            pending.append((keys, "sum", ck.bsi_sum_groups(
+                data[0][None], masks[None].contiguous())))
+        return True
+
+    def _apply_having(self, groups: List[GroupCount], having: Call,
+                      agg_field=None) -> List[GroupCount]:
+        """Having(count > x) / Having(sum < y) (reference
+        satisfiesCondition executor.go:3787).  Decimal aggregates hold
+        scaled ints (gc.agg = value * 10^scale), so literals in the
+        condition are scaled to the same fixed point before comparing:
+        exact, no float round trips."""
+        out = []
+        for k, cond in having.args.items():
+            if not isinstance(cond, Condition):
+                cond = Condition("==", cond)
+            if (k != "count" and agg_field is not None
+                    and agg_field.options.type == TYPE_DECIMAL):
+                s = 10 ** agg_field.options.scale
+
+                def scaled(v, s=s):
+                    return int(round(v * s))
+                if cond.op == "betw":
+                    lo, hi = cond.value
+                    c2 = Condition("betw", (scaled(lo), scaled(hi)))
+                    c2.lo_strict = cond.lo_strict
+                    c2.hi_strict = cond.hi_strict
+                    cond = c2
+                else:
+                    cond = Condition(cond.op, scaled(cond.value))
+            for gc in groups:
+                v = gc.count if k == "count" else gc.agg
+                if self._cond_matches(cond, v):
+                    out.append(gc)
+            return out
+        return groups
+
+    @staticmethod
+    def _cond_matches(cond: Condition, v) -> bool:
+        op, cv = cond.op, cond.value
+        if op == "==":
+            return v == cv
+        if op == "!=":
+            return v != cv
+        if op == "<":
+            return v < cv
+        if op == "<=":
+            return v <= cv
+        if op == ">":
+            return v > cv
+        if op == ">=":
+            return v >= cv
+        if op == "betw":
+            lo, hi = cv
+            if cond.lo_strict:
+                lo = lo + 1
+            if cond.hi_strict:
+                hi = hi - 1
+            return lo <= v <= hi
+        return False

@@ -1,9 +1,10 @@
 """Query result types (own copy of featurebase_tpu/executor/results.py:
 ValCount for Sum/Min/Max, Pair and PairsField for TopN, PairField for
-MinRow/MaxRow; reference executor.go ValCount, cache.go Pair)."""
+MinRow/MaxRow, FieldRow and GroupCount for GroupBy; reference executor.go
+ValCount, FieldRow, GroupCount, cache.go Pair)."""
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 
 class ValCount:
@@ -99,3 +100,56 @@ class PairField:
 
     def __repr__(self):
         return f"PairField({self.field}, {self.pair})"
+
+
+class FieldRow:
+    """One grouping key element (reference executor.go FieldRow)."""
+
+    __slots__ = ("field", "row_id", "row_key", "value")
+
+    def __init__(self, field: str, row_id: int = 0,
+                 row_key: Optional[str] = None, value: Optional[int] = None):
+        self.field = field
+        self.row_id = row_id
+        self.row_key = row_key
+        self.value = value
+
+    def to_json(self):
+        out: Dict[str, Any] = {"field": self.field}
+        if self.value is not None:
+            out["value"] = self.value
+        elif self.row_key is not None:
+            out["rowKey"] = self.row_key
+        else:
+            out["rowID"] = self.row_id
+        return out
+
+    def __repr__(self):
+        v = self.value if self.value is not None else \
+            (self.row_key if self.row_key is not None else self.row_id)
+        return f"{self.field}={v}"
+
+
+class GroupCount:
+    """One GroupBy group: its key, count and aggregate (reference
+    executor.go GroupCount)."""
+
+    __slots__ = ("group", "count", "agg", "decimal_agg")
+
+    def __init__(self, group: List[FieldRow], count: int = 0, agg: int = 0,
+                 decimal_agg: Optional[float] = None):
+        self.group = group
+        self.count = count
+        self.agg = agg
+        self.decimal_agg = decimal_agg
+
+    def to_json(self):
+        out = {"group": [g.to_json() for g in self.group], "count": self.count}
+        if self.agg:
+            out["sum"] = self.agg
+        if self.decimal_agg is not None:
+            out["decimalSum"] = self.decimal_agg
+        return out
+
+    def __repr__(self):
+        return f"GroupCount({self.group}, count={self.count}, agg={self.agg})"

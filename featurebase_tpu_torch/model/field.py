@@ -1,10 +1,10 @@
 """Field: a typed column of the data model (host masters and write API).
 
 Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
-uses: options, value encoding, views, point and bulk writes and the TopN
-rank cache.  Mirrors reference field.go:73 (Field), field types
-field.go:42-50 and the bsiGroup value encoding (field.go:2394 bsiGroup,
-2412 baseValue).
+uses: options, value encoding, views, point and bulk writes, the TopN
+rank cache and the per-shard BSI group on the fragment mirror.  Mirrors
+reference field.go:73 (Field), field types field.go:42-50 and the
+bsiGroup value encoding (field.go:2394 bsiGroup, 2412 baseValue).
 
 BSI encoding: int-like values are stored relative to `base` as sign-magnitude
 bit slices in the `bsig_<field>` view — row 0 exists, row 1 sign, row 2+i =
@@ -343,6 +343,28 @@ class Field:
             frag.merge_rows_delta(
                 [BSI_EXISTS_ROW, BSI_SIGN_ROW] +
                 [BSI_OFFSET + i for i in range(depth)], delta)
+
+    # -- per-shard device data ----------------------------------------------
+
+    def bsi_data(self, shard: int, device):
+        """(group (D + 2, W) int32 on `device`, depth) of one shard, from
+        its fragment's device mirror (absent planes zero), or None without
+        data (featurebase_tpu/model/field.py:564)."""
+        v = self.views.get(view_bsi_group(self.name))
+        frag = v.fragment(shard) if v else None
+        if frag is None or frag.num_rows == 0:
+            return None
+        depth = max(self.bit_depth, 1)
+        rows = [BSI_EXISTS_ROW, BSI_SIGN_ROW] + \
+            [BSI_OFFSET + i for i in range(depth)]
+        tile, _ = frag.device_rows(rows, device)
+        return tile, depth
+
+    def meta_rows(self, view_names) -> set:
+        """Globally agreed candidate row ids of the views: empty, since the
+        port has no placement policy (the reference returns the empty set
+        unless one is active, featurebase_tpu/model/field.py:248)."""
+        return set()
 
     # -- views for a time range --------------------------------------------
 

@@ -386,6 +386,12 @@ class Fragment:
         if tile.shape[0] == 0:
             return torch.zeros((len(rows), WORDS_PER_ROW), dtype=torch.int32,
                                device=device), present
+        if present.all() and np.array_equal(
+                slots, np.arange(slots[0], slots[0] + len(slots))):
+            # consecutive slots (a BSI group, a field's rows in import
+            # order): a view of the mirror, with no index upload, which
+            # from pageable host memory can wait on the stream
+            return tile[slots[0]:slots[0] + len(slots)], present
         gathered = tile.index_select(0, torch.as_tensor(slots, device=device))
         mask = torch.as_tensor(present, device=device)[:, None]
         return torch.where(mask, gathered, 0), present

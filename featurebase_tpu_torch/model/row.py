@@ -1,8 +1,10 @@
 """Row: a query-result bitmap over the full column space, segmented by shard.
 
 Counterpart of featurebase_tpu/model/row.py (reference row.go:15 Row,
-row.go:511 RowSegment).  Each segment is a (WORDS_PER_ROW,) int32 torch
-tensor on the executor's device; ``columns()`` and ``count()`` decode
+row.go:511 RowSegment, segment ops row.go:546-629).  Each segment is a
+(WORDS_PER_ROW,) int32 torch tensor on the executor's device (``from_columns``
+builds CPU segments); the set algebra runs segment by segment with torch
+ops, on the left operand's device; ``columns()`` and ``count()`` decode
 through host numpy.
 """
 from __future__ import annotations
@@ -42,6 +44,49 @@ class Row:
                 words = bw.cols_to_words(cols[shards == s] % SHARD_WIDTH)
                 segs[int(s)] = torch.from_numpy(words.view(np.int32))
         return cls(segs)
+
+    # -- set algebra (reference row.go:202 Merge/Union etc.) ----------------
+
+    def _binary(self, other: "Row", fn, keep_left: bool = True,
+                keep_right: bool = True) -> "Row":
+        out: Dict[int, torch.Tensor] = {}
+        for s in set(self.segments) | set(other.segments):
+            a, b = self.segments.get(s), other.segments.get(s)
+            if a is None and not keep_right or b is None and not keep_left:
+                continue
+            if a is None:
+                a = torch.zeros_like(b)
+            elif b is None:
+                b = torch.zeros_like(a)
+            out[s] = fn(a, b.to(a.device))
+        return Row(out)
+
+    def union(self, other: "Row") -> "Row":
+        return self._binary(other, bw.b_or)
+
+    def intersect(self, other: "Row") -> "Row":
+        return self._binary(other, bw.b_and, keep_left=False,
+                            keep_right=False)
+
+    def difference(self, other: "Row") -> "Row":
+        return self._binary(other, bw.b_andnot, keep_right=False)
+
+    def xor(self, other: "Row") -> "Row":
+        return self._binary(other, bw.b_xor)
+
+    def any(self) -> bool:
+        return any(bw.any_set(a) for a in self.segments.values())
+
+    def includes(self, col: int) -> bool:
+        seg = self.segments.get(col >> 20)
+        if seg is None:
+            return False
+        c = col % SHARD_WIDTH
+        return bool((host_words(seg[c >> 5])[()] >> (c & 31)) & 1)
+
+    def segment(self, shard: int) -> Optional[torch.Tensor]:
+        """The words of one shard, or None."""
+        return self.segments.get(shard)
 
     def _host(self) -> np.ndarray:
         """(n_segments, W) uint32 host words in shard order (one copy)."""

@@ -3,10 +3,13 @@
 Counterpart of featurebase_tpu/ops/bitwise.py.  Words are ``torch.int32``
 tensors holding the uint32 bit patterns of the host masters (moved across by
 ``ndarray.view(np.int32)``, no copy); counts are int64.  The elementwise
-combinators and ``b_shift`` are plain torch.  Every popcount reduction goes
-through the kernels of ops/cuda_kernels.py: totals through ``plan_eval``
-(kernel A), per-row counts through ``row_counts`` (kernel B).  On CPU
-tensors those wrappers run their plain versions.
+combinators, ``b_shift`` and GroupBy's mask products (``all_pairs_and``,
+``stacked_all_pairs_and``, ``stacked_mask_filter``, ``and_pairs_gather``)
+are plain torch, as are ``or_reduce_rows`` and ``any_set``.  Every popcount
+reduction goes through the kernels of ops/cuda_kernels.py: totals through
+``plan_eval`` (kernel A), per-row counts through ``row_counts`` (kernel B),
+pair counts through ``pair_counts`` (kernel E).  On CPU tensors those
+wrappers run their plain versions.
 """
 from __future__ import annotations
 
@@ -112,6 +115,79 @@ def per_shard_filtered_row_counts(tiles: torch.Tensor, filt: torch.Tensor
                                   ) -> torch.Tensor:
     """(S, R, W) x (S, W) -> (S, R) int64."""
     return ck.row_counts(tiles.contiguous(), filt.contiguous())
+
+
+def any_set(a: torch.Tensor) -> bool:
+    """True if any bit is set."""
+    return bool((a != 0).any())
+
+
+def or_reduce_rows(tile: torch.Tensor) -> torch.Tensor:
+    """OR of an (R, W) tile's rows -> (W,) (n-way union, reference
+    roaring.go:1410), as a tree of halvings; zeros for R = 0."""
+    if tile.shape[0] == 0:
+        return torch.zeros(tile.shape[-1], dtype=tile.dtype,
+                           device=tile.device)
+    while tile.shape[0] > 1:
+        half = tile.shape[0] // 2
+        top = tile[:half] | tile[half:2 * half]
+        tile = torch.cat([top, tile[2 * half:]]) if tile.shape[0] % 2 \
+            else top
+    return tile[0]
+
+
+# -- stacked (S, ...) counts: one launch over every shard (bitwise.py:144-180)
+
+def stacked_row_counts(tiles: torch.Tensor) -> torch.Tensor:
+    """(S, R, W) -> (R,) int64 per-row popcounts summed over the shards."""
+    return ck.row_counts(tiles.contiguous()).sum(0)
+
+
+def stacked_filtered_row_counts(tiles: torch.Tensor, filt: torch.Tensor
+                                ) -> torch.Tensor:
+    """(S, R, W) x (S, W) -> (R,) int64."""
+    return ck.row_counts(tiles.contiguous(), filt.contiguous()).sum(0)
+
+
+def count_and_pairs(masks: torch.Tensor, tile: torch.Tensor) -> torch.Tensor:
+    """All-pairs intersection counts (F, W) x (R, W) -> (F, R) int64, the
+    GroupBy cross-product inner op (reference groupByIterator
+    executor.go:8617): kernel E at S = 1."""
+    return ck.pair_counts(masks[None].contiguous(), tile[None].contiguous())
+
+
+def stacked_pair_counts(masks: torch.Tensor, tile: torch.Tensor,
+                        filt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(S, F, W) x (S, R, W) [& (S, W) filter] -> (F, R) int64 (kernel E;
+    the filter is stacked_mask_filter fused)."""
+    return ck.pair_counts(masks.contiguous(), tile.contiguous(),
+                          None if filt is None else filt.contiguous())
+
+
+def stacked_mask_filter(tiles: torch.Tensor, filt: torch.Tensor
+                        ) -> torch.Tensor:
+    """(S, R, W) & (S, W) -> (S, R, W)."""
+    return tiles & filt[:, None, :]
+
+
+def all_pairs_and(masks: torch.Tensor, tile: torch.Tensor) -> torch.Tensor:
+    """Every cross-product mask: (F, W) x (R, W) -> (F * R, W), the R index
+    fastest (itertools.product order)."""
+    return (masks[:, None, :] & tile[None, :, :]).reshape(-1, masks.shape[-1])
+
+
+def stacked_all_pairs_and(masks: torch.Tensor, tile: torch.Tensor
+                          ) -> torch.Tensor:
+    """(S, F, W) x (S, R, W) -> (S, F * R, W), R fastest."""
+    S, F, W = masks.shape
+    return (masks[:, :, None, :] & tile[:, None, :, :]).reshape(
+        S, F * tile.shape[1], W)
+
+
+def and_pairs_gather(masks: torch.Tensor, tile: torch.Tensor,
+                     fi: torch.Tensor, rj: torch.Tensor) -> torch.Tensor:
+    """The surviving cross-product masks masks[fi] & tile[rj] -> (K, W)."""
+    return masks.index_select(0, fi) & tile.index_select(0, rj)
 
 
 # ---------------------------------------------------------------------------

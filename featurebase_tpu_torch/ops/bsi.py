@@ -18,9 +18,17 @@ values are stored relative to the field's base, as sign and magnitude.
 - ``min_max_stacked_finish`` and ``min_max_per_shard``: the reference
   executor's two semantics for Min/Max, which it picks by depth
   (executor/executor.py).
+- ``sum_groups_plain``: (G, 2D + 1) int64, kernel C's counters for each of
+  G masks (kernel F's output; ``sum_groups_stacked`` bsi.py:611 and
+  ``sum_groups_kernel`` :333), and ``finish_groups``, each group's exact
+  (sum, count).
+- ``range_eq`` ... ``range_between`` (bsi.py:114-160): the static-predicate
+  comparators of one shard's group, lowered with ops/bsi_traced.py onto
+  kernel A at S = 1 in word mode (the per-shard interpreter's BSI rows).
 
-The wrappers ``bsi_sum_planes`` and ``bsi_min_max`` in ops/cuda_kernels.py
-run these on CPU tensors and the kernels on CUDA tensors.
+The wrappers ``bsi_sum_planes``, ``bsi_min_max`` and ``bsi_sum_groups`` in
+ops/cuda_kernels.py run these on CPU tensors and the kernels on CUDA
+tensors.
 """
 from __future__ import annotations
 
@@ -29,7 +37,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from featurebase_tpu_torch.ops import bsi_traced as bst
+from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.ops.cuda_kernels import popcount_words
+from featurebase_tpu_torch.parallel.agg import finalize_sum
 
 POS_MIN, POS_MAX, NEG_MIN, NEG_MAX = range(4)
 # the deepest group: magnitudes of the port's Field are int64
@@ -133,3 +144,78 @@ def min_max_per_shard(parts: np.ndarray, is_min: bool
         else:
             out.append((sign * int(parts[s, k, 0]), int(parts[s, k, 1])))
     return out
+
+
+# ---------------------------------------------------------------------------
+# GroupBy sums (kernel F's plain version and finish)
+# ---------------------------------------------------------------------------
+
+def sum_groups_plain(group: torch.Tensor, masks: torch.Tensor
+                     ) -> torch.Tensor:
+    """(S, D + 2, W) group, (S, G, W) masks -> (G, 2D + 1) int64: for each
+    mask, sum_planes_plain's counters with the mask as the filter
+    (sum_groups_stacked, bsi.py:611: its three outputs side by side, in
+    int64)."""
+    D = group.shape[1] - 2
+    e = masks & group[:, None, 0]
+    sign = group[:, None, 1]
+    pos, neg = e & ~sign, e & sign
+    out = torch.empty((masks.shape[1], 2 * D + 1), dtype=torch.int64,
+                      device=group.device)
+    for d in range(D):
+        plane = group[:, None, 2 + d]
+        out[:, d] = popcount_words(plane & pos).sum((0, 2))
+        out[:, D + d] = popcount_words(plane & neg).sum((0, 2))
+    out[:, 2 * D] = popcount_words(e).sum((0, 2))
+    return out
+
+
+def finish_groups(parts: np.ndarray) -> List[Tuple[int, int]]:
+    """(G, 2D + 1) counters -> each group's (sum, count), exact Python ints
+    (sum_groups_host, bsi.py:353).  Sums are unbased."""
+    D = (parts.shape[1] - 1) // 2
+    return [(finalize_sum(p[:D], p[D:2 * D]), int(p[2 * D])) for p in parts]
+
+
+# ---------------------------------------------------------------------------
+# Static-predicate comparators of one shard (bsi.py:114-160)
+# ---------------------------------------------------------------------------
+
+def _range(group: torch.Tensor, lower, *args) -> torch.Tensor:
+    """Run one comparator lowering over a shard's (D + 2, W) group with
+    kernel A in word mode -> (W,) int32 words."""
+    g = group[None]
+    pb = ck.ProgramBuilder(1, g.shape[2])
+    r = lower(pb, bst.BsiPlanes(pb, "bsi", g), *args)
+    words, _ = ck.plan_eval(pb.build(r), want_words=True)
+    return words[0]
+
+
+def _pred(pred: int, depth: int):
+    bits, neg = bst.encode_pred(pred, depth)
+    return bits, int(neg)
+
+
+def range_eq(group: torch.Tensor, pred: int, depth: int) -> torch.Tensor:
+    return _range(group, bst.lower_eq, *_pred(pred, depth), depth)
+
+
+def range_neq(group: torch.Tensor, pred: int, depth: int) -> torch.Tensor:
+    return _range(group, bst.lower_neq, *_pred(pred, depth), depth)
+
+
+def range_lt(group: torch.Tensor, pred: int, depth: int,
+             allow_eq: bool = False) -> torch.Tensor:
+    return _range(group, bst.lower_lt, *_pred(pred, depth), depth, allow_eq)
+
+
+def range_gt(group: torch.Tensor, pred: int, depth: int,
+             allow_eq: bool = False) -> torch.Tensor:
+    return _range(group, bst.lower_gt, *_pred(pred, depth), depth, allow_eq)
+
+
+def range_between(group: torch.Tensor, lo: int, hi: int, depth: int
+                  ) -> torch.Tensor:
+    """lo <= value <= hi."""
+    return _range(group, bst.lower_between, *_pred(lo, depth),
+                  *_pred(hi, depth), depth)

@@ -32,6 +32,17 @@ is popcounts and bit-sliced descents that torch has no op for:
 Their plain versions are in ops/bsi.py.  Bound: bytes — each reads the
 group and the filter once.
 
+Two more (csrc/group_kernels.cu) serve GroupBy, again for XLA programs:
+
+- ``pair_counts`` (kernel E) replaces ``stacked_pair_counts``
+  (bitwise.py:175) and, at S = 1, ``count_and_pairs`` (:123): the (F, R)
+  intersection counts of F masks with R rows, under an optional filter.
+- ``bsi_sum_groups`` (kernel F) replaces ``sum_groups_stacked``
+  (bsi.py:611) and, at S = 1, ``sum_groups_kernel`` (:333): kernel C's
+  2D + 1 counters for each of G masks.
+Bound: popcounts or bytes, by shape (the header note of the source).
+``pair_counts_plain`` is below; ``sum_groups_plain`` is in ops/bsi.py.
+
 Words are ``torch.int32`` tensors holding the uint32 bit patterns.  Each
 wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.  ``launches`` on each wrapper counts
@@ -48,6 +59,7 @@ import torch
 
 SOURCE = "bitmap_kernels.cu"
 BSI_SOURCE = "bsi_kernels.cu"
+GROUP_SOURCE = "group_kernels.cu"
 
 # Program limits and opcodes; must match csrc/bitmap_kernels.cu.
 MAX_INSTR = 640        # instruction words, BSI payloads included
@@ -344,6 +356,20 @@ def row_counts_plain(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
     return popcount_words(x).sum(-1)
 
 
+def pair_counts_plain(masks: torch.Tensor, rows: torch.Tensor,
+                      filt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(S, F, W) masks x (S, R, W) rows [& (S, W) filter] -> (F, R) int64:
+    the set bits of each mask & row [& filter], summed over the shards,
+    one mask at a time (the (S, F, R, W) intersections never exist)."""
+    if filt is not None:
+        masks = masks & filt[:, None, :]
+    out = torch.empty((masks.shape[1], rows.shape[1]), dtype=torch.int64,
+                      device=masks.device)
+    for f in range(masks.shape[1]):
+        out[f] = popcount_words(masks[:, f, None, :] & rows).sum((0, 2))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -597,14 +623,152 @@ def bsi_min_max(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 bsi_min_max.launches = 0
 
 
+def _group_lib() -> ctypes.CDLL:
+    """Kernels E and F's library, built on first use."""
+    from featurebase_tpu_torch.ops import build
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    lib = build.load(GROUP_SOURCE)
+    if not getattr(lib, "_fb_typed", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pi64, pi32 = ctypes.POINTER(i64), ctypes.POINTER(i32)
+        lib.fb_pair_counts_slots.argtypes = [vp, vp, vp, i32, i32, i32, i64,
+                                             pi64, pi32]
+        lib.fb_pair_counts.argtypes = [vp, vp, vp, i32, i32, i32, i64, vp, vp,
+                                       i64, vp, i32, vp]
+        lib.fb_bsi_sum_groups_slots.argtypes = [vp, vp, i32, i32, i32, i64,
+                                                pi64, pi32]
+        lib.fb_bsi_sum_groups.argtypes = [vp, vp, i32, i32, i32, i64, vp, vp,
+                                          i64, vp, i32, vp]
+        lib.fb_popc_rate.argtypes = [vp, i32, i32, vp]
+        lib.fb_group_limits.argtypes = [ctypes.POINTER(i32)]
+        for fn in (lib.fb_pair_counts_slots, lib.fb_pair_counts,
+                   lib.fb_bsi_sum_groups_slots, lib.fb_bsi_sum_groups,
+                   lib.fb_popc_rate, lib.fb_group_limits):
+            fn.restype = i32
+        depth = i32()
+        lib.fb_group_limits(ctypes.byref(depth))
+        if depth.value != MAX_DEPTH:
+            raise RuntimeError("kernel depth limit differs from ops/bsi.py")
+        lib._fb_typed = True
+    return lib
+
+
+def _words(t: torch.Tensor, what: str, dims: int) -> None:
+    if t.dtype != torch.int32 or t.dim() != dims:
+        raise ValueError(f"{what} must be {dims}-D int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+# kernels E and F's tickets per (device, stream), one an output run: zero
+# between launches, since the last block of each run resets its own.
+_run_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket_array(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _run_tickets.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = _run_tickets[(dev.index, stream)] = torch.zeros(
+            max(n, 1024), dtype=torch.int32, device=dev)
+    return t
+
+
+def _group_launch(name: str, args: Tuple, out: torch.Tensor,
+                  ptrs: Tuple) -> None:
+    """Size the slots and tickets of one kernel-E or kernel-F launch with
+    its planner (`name`_slots), then launch it on the current stream."""
+    lib = _group_lib()
+    dev = out.device
+    n, runs = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(dev):
+        _check(getattr(lib, f"{name}_slots")(*ptrs, *args, ctypes.byref(n),
+                                              ctypes.byref(runs)), name)
+        slots = torch.empty(n.value, dtype=torch.int64, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        tickets = _ticket_array(dev, stream, runs.value)
+        rc = getattr(lib, name)(*ptrs, *args, out.data_ptr(),
+                                slots.data_ptr(), slots.numel(),
+                                tickets.data_ptr(), tickets.numel(), stream)
+    _check(rc, name)
+
+
+def pair_counts(masks: torch.Tensor, rows: torch.Tensor,
+                filt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Kernel E: (S, F, W) int32 masks x (S, R, W) int32 rows [& (S, W)
+    int32 filter] -> (F, R) int64, entry (f, r) the set bits of
+    masks[s, f] & rows[s, r] [& filt[s]] summed over s."""
+    _words(masks, "masks", 3)
+    _words(rows, "rows", 3)
+    S, F, W = masks.shape
+    R = rows.shape[1]
+    if rows.shape[0] != S or rows.shape[2] != W:
+        raise ValueError(f"rows {tuple(rows.shape)} do not match masks "
+                         f"{tuple(masks.shape)}")
+    if filt is not None:
+        _words(filt, "filter", 2)
+        if tuple(filt.shape) != (S, W):
+            raise ValueError(f"filter must be ({S}, {W}), got "
+                             f"{tuple(filt.shape)}")
+    if _is_cpu([masks, rows] + ([] if filt is None else [filt])):
+        return pair_counts_plain(masks, rows, filt)
+    if not all(t.is_contiguous() for t in (masks, rows, filt)
+               if t is not None):
+        raise ValueError("pair_counts needs contiguous masks, rows and "
+                         "filter")
+    if S == 0 or F == 0 or R == 0 or W == 0:
+        return torch.zeros((F, R), dtype=torch.int64, device=masks.device)
+    out = torch.empty((F, R), dtype=torch.int64, device=masks.device)
+    _group_launch("fb_pair_counts", (S, F, R, W), out,
+                  (masks.data_ptr(), rows.data_ptr(),
+                   filt.data_ptr() if filt is not None else None))
+    pair_counts.launches += 1
+    return out
+
+
+pair_counts.launches = 0
+
+
+def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
+    """Kernel F: an (S, D + 2, W) int32 group x (S, G, W) int32 masks ->
+    (G, 2D + 1) int64: per mask, kernel C's counters with the mask as the
+    filter (each plane's set bits under the positive columns, then under the
+    negative columns, then the count of the columns)."""
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    _words(group, "group", 3)
+    _words(masks, "masks", 3)
+    S, P, W = group.shape
+    G = masks.shape[1]
+    if not 3 <= P <= MAX_DEPTH + 2:
+        raise ValueError(f"group must have 1 to {MAX_DEPTH} magnitude planes, "
+                         f"got {tuple(group.shape)}")
+    if masks.shape[0] != S or masks.shape[2] != W:
+        raise ValueError(f"masks {tuple(masks.shape)} do not match the group "
+                         f"{tuple(group.shape)}")
+    if _is_cpu([group, masks]):
+        from featurebase_tpu_torch.ops.bsi import sum_groups_plain
+        return sum_groups_plain(group, masks)
+    if not group.is_contiguous() or not masks.is_contiguous():
+        raise ValueError("bsi_sum_groups needs a contiguous group and masks")
+    D = P - 2
+    if S == 0 or G == 0 or W == 0:
+        return torch.zeros((G, 2 * D + 1), dtype=torch.int64,
+                           device=group.device)
+    out = torch.empty((G, 2 * D + 1), dtype=torch.int64, device=group.device)
+    _group_launch("fb_bsi_sum_groups", (S, G, D, W), out,
+                  (group.data_ptr(), masks.data_ptr()))
+    bsi_sum_groups.launches += 1
+    return out
+
+
+bsi_sum_groups.launches = 0
+
+KERNELS = (plan_eval, row_counts, bsi_sum_planes, bsi_min_max, pair_counts,
+           bsi_sum_groups)
+
+
 def reset_launches() -> None:
-    plan_eval.launches = 0
-    row_counts.launches = 0
-    bsi_sum_planes.launches = 0
-    bsi_min_max.launches = 0
+    for k in KERNELS:
+        k.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {"plan_eval": plan_eval.launches, "row_counts": row_counts.launches,
-            "bsi_sum_planes": bsi_sum_planes.launches,
-            "bsi_min_max": bsi_min_max.launches}
+    return {k.__name__: k.launches for k in KERNELS}

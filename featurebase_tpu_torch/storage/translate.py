@@ -224,6 +224,15 @@ class FieldTranslateStore:
         with self._lock:
             return [self.id_to_key.get(int(i)) for i in ids]
 
+    def match_like(self, pattern: str) -> List[int]:
+        """LIKE pushdown: the ids of the keys matching a SQL LIKE pattern,
+        in one pass over the store (reference like.go:13 planLike)."""
+        import re
+        rx = re.compile("^" + re.escape(pattern).replace("%", ".*")
+                        .replace("_", ".") + "$")
+        with self._lock:
+            return [id_ for k, id_ in self.key_to_id.items() if rx.match(k)]
+
     @classmethod
     def from_json(cls, index: str, field: str, d: dict) -> "FieldTranslateStore":
         st = cls(index, field)

@@ -142,9 +142,9 @@ def test_results_are_port_types(engines):
 @pytest.mark.parametrize("query,family", [
     ("Percentile(field=v, nth=50)", "Percentile"),
     ("Extract(All(), Rows(f))", "Extract"),
-    ("GroupBy(Rows(f))", "GroupBy"), ("Rows(f)", "Rows"),
+    ("Sort(field=v)", "Sort"), ("Var(field=v)", "Var"),
     ("Set(5, f=1)", "Set"), ("Count(Distinct(field=v))", "Distinct"),
-    ("Count(Row(f=null))", "per-shard bitmap path"),
+    ('Apply("v + 1")', "Apply"),
 ])
 def test_unported_families_raise(engines, query, family):
     _, port_e = engines
@@ -183,7 +183,8 @@ def test_cpu_executor_launches_no_kernel(engines):
     ck.reset_launches()
     port_e.execute("fz", "Count(Row(v > 300)) TopN(f, Row(g=1), n=2)")
     assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
-                             "bsi_sum_planes": 0, "bsi_min_max": 0}
+                             "bsi_sum_planes": 0, "bsi_min_max": 0,
+                             "pair_counts": 0, "bsi_sum_groups": 0}
 
 
 def test_port_imports_neither_jax_nor_featurebase_tpu():
@@ -194,6 +195,7 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "import featurebase_tpu_torch.executor.executor\n"
         "import featurebase_tpu_torch.storage.snapshot\n"
         "import featurebase_tpu_torch.ops.build\n"
+        "import featurebase_tpu_torch.ops.rowscan\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'featurebase_tpu' or m.startswith('featurebase_tpu.')]\n"
         "print(bad)\n"

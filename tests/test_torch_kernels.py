@@ -194,4 +194,5 @@ def test_cpu_tensors_launch_nothing():
     tbw.per_shard_row_counts(x)
     tbw.popcount(x)
     assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
-                             "bsi_sum_planes": 0, "bsi_min_max": 0}
+                             "bsi_sum_planes": 0, "bsi_min_max": 0,
+                             "pair_counts": 0, "bsi_sum_groups": 0}

@@ -260,6 +260,20 @@ def test_device_rows_and_row():
     assert not frag.device_row(9, CPU).any()
 
 
+def test_device_rows_of_consecutive_slots_keep_their_words():
+    """Rows in consecutive slots come back as a view of the mirror; a later
+    write replaces the mirror out of place and leaves the view as it was."""
+    frag = fragment_with_rows()
+    tile, present = frag.device_rows([1, 2], CPU)
+    before = host_words(frag)[1:3]
+    assert present.tolist() == [True, True] and torch.equal(tile, before)
+    frag.set_bit(1, int(np.flatnonzero(
+        np.unpackbits(frag.host_row(1).view(np.uint8),
+                      bitorder="little") == 0)[0]))
+    assert torch.equal(tile, before)
+    assert torch.equal(frag.device_rows([1, 2], CPU)[0], host_words(frag)[1:3])
+
+
 def test_device_tile_under_a_diverged_pin_serves_the_pinned_rows(mgr):
     holder, cols = small_holder(1)
     idx = holder.index("r")
