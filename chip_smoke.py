@@ -25,17 +25,26 @@ Phases, one status line each; any failure raises and exits nonzero:
      and on encoded values at depths 1, 14, 31, 32 and 63: ties across
      shards, sign-set zeros, all-negative groups, empty and all-ones
      filters, an odd W and S = 131 and 7.  Kernels E and F (pair_counts,
-     bsi_sum_groups; `group_parity`): E at S = 1, 32 and 128 with F and R
-     each 1, 4, 8 and 33, with and without a filter; F at depths 1, 14,
-     31, 32 and 63 with G = 1, 8, 32 and 33 at S = 1 and 32; both at an
-     odd W, on all-ones words, empty masks and sign-only columns;
+     bsi_sum_groups; `group_parity`; the product on the tensor cores'
+     1-bit form): over stacked operands, E
+     at S = 1, 32 and 128 with F and R each 1, 8 and 33, with and without
+     a filter, F at depths 1, 14, 31, 32 and 63 with G = 1, 8, 32 and 33
+     at S = 1 and 32, both at an odd W, on all-ones words, empty masks and
+     sign-only columns; over per-shard tiles read in place (one launch over
+     every shard), absent rows, a shard without a tile, one to three
+     dimensions, 512 groups, filters as words, as per-shard rows and viewed
+     one word into a wider row (the 4-byte path), and D = 1 to 63;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
-     beside the bound (bytes at 3.35 TB/s or, for E and F, popcounts at
-     the card's rate when that is longer), the measured device-to-device
-     copy ceiling and the plain version's time (kernels C and D at depth
-     14, 128 shards; E and F at the main path's shapes); the card's
-     popcount rate from a popcount-only loop; kernel A's cases must run
+     beside the bound (bytes at 3.35 TB/s or, for E and F, bit products at
+     the tensor cores' measured rate when that is longer), the measured
+     device-to-device copy ceiling and the plain version's time (kernels C
+     and D at depth 14, 128 shards; E and F at the main path's one-launch
+     shapes over 128 shards, beside 128 launches of one shard each, and at
+     the stacked shapes of the earlier slices); the card's popcount rate
+     from a popcount-only loop and the tensor cores' rate in the 1-bit and
+     int8 mma.sync forms (`tc_rate`, with whether ptxas takes the
+     warpgroup 1-bit form, csrc/wgmma_b1_probe.cu); kernel A's cases must run
      its form (staged by TMA, or scalar for the irregular cases), and a
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
@@ -44,7 +53,9 @@ Phases, one status line each; any failure raises and exits nonzero:
      and g, int field v in [-1000, 10000]) built through the port's import
      API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow,
      Rows, UnionRows, Limit, GroupBy, and calls only the per-shard
-     interpreter runs) through Executor(holder) on cuda, every answer equal
+     interpreter runs), and LIMIT_QUERIES over a small second index (plans
+     past kernel A's limits, BSI predicates at depth 43), through
+     Executor(holder) on cuda, every answer equal
      to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)), TopN(f, n=5), Sum(field=v),
      Min(field=v), Max(Row(g=2), field=v) and the two per-shard GroupBys
@@ -92,6 +103,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet, 700 W
 # instruction throughput, compute capability 9.0)
 POPC_PER_CLOCK_PER_SM = 16
 RECORDS_PER_SHARD = 625_000
+WGMMA_PROBE_SOURCE = "wgmma_b1_probe.cu"
 SHARDS_0_31 = ", ".join(str(s) for s in range(32))
 QUERIES = [
     "Count(Intersect(Row(f=1), Row(g=2)))",
@@ -131,34 +143,70 @@ QUERIES = [
     "Count(Union(Row(f=1), Row(f=null)))",
     "Sum(Row(f=null), field=v)",
     "Options(Limit(Row(f=3), limit=5, offset=2), shards=[0])",
+    # the per-shard level-wise GroupBy loop: at the default caps for one
+    # dimension under a filter the plan compiler refuses; with both GroupBy
+    # caps at 0 (PER_SHARD) for two dimensions, counted and summed
+    "GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))",
+    "per_shard:GroupBy(Rows(f), Rows(g))",
+    "per_shard:GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
 ]
+PER_SHARD = "per_shard:"
+# Plans past kernel A's limits and BSI walks past 32 planes, over the small
+# "limits" index (limits_index): 3000 records over two shards, a set field
+# f of 60 rows, int fields a and b in [0, 2^30] and w at depth 43, a set
+# field g on half the records.
+UNION50 = "Union(" + ", ".join(f"Row(f={i})" for i in range(50)) + ")"
+CHAIN13 = "Row(f=12)"
+for _i in range(11, -1, -1):
+    CHAIN13 = f"{'Union' if _i % 2 == 0 else 'Intersect'}(Row(f={_i}), " \
+        f"{CHAIN13})"
+LIMIT_QUERIES = [
+    f"Count({UNION50})",
+    f"TopN(f, {UNION50}, n=3)",
+    f"Sum({UNION50}, field=a)",
+    "Count(Intersect(Row(a > 5), Row(b > 5)))",
+    f"Count({CHAIN13})",
+    "Count(Row(w > 5))",
+    "Count(Intersect(Row(w > 5), Row(g=null)))",
+]
+QUERIES += [f"limits:{q}" for q in LIMIT_QUERIES]
 
 
 def pass_launches(S: int) -> dict:
     """Kernel launches in one pass of the full mix over S shards: kernel A
     19 times for the Count, TopN and aggregate queries, 4 for UnionRows'
     rows, once each for the stacked GroupBy's filter, the interpreter's
-    Count and Limit; kernel B three times for TopN, once a shard for each
-    of MinRow and MaxRow, and once each for Rows(f), Rows(g) in UnionRows
-    and GroupBy(Rows(f)); kernel C twice, plus once a shard under the
-    unplannable filter; kernel E for the two GroupBys of f and g over
-    every shard, each once a shard above the one-shot mask cap (f's 8 rows
-    of every shard) and once below it, and once for the stacked one of 32
-    shards; kernel F once a shard above the cap (f x g's 32 combinations)
-    and once below it, and once for the stacked one."""
-    from featurebase_tpu_torch.core.consts import WORDS_PER_ROW
-    from featurebase_tpu_torch.executor.executor import Executor
-    cap, shard_bytes = Executor.GROUPBY_ONESHOT_MAX_MASK_BYTES, \
-        WORDS_PER_ROW * 4 * S
-    e_each = S if 8 * shard_bytes > cap else 1
-    f_each = S if 32 * shard_bytes > cap else 1
-    return {"plan_eval": 26, "row_counts": 6 + 2 * S,
-            "bsi_sum_planes": 2 + S, "bsi_min_max": 3,
-            "pair_counts": 2 * e_each + 1, "bsi_sum_groups": f_each + 1}
+    Count and Limit, and 13 for LIMIT_QUERIES (a spill and the query for
+    the 50-row union under Count, TopN and Sum and for the two 32-plane
+    groups; once for the chain and the depth-43 Count; once a shard and the
+    Count for the interpreter's depth-43 row); kernel B three times for
+    TopN and once more for the union's, once a shard for each of MinRow
+    and MaxRow, and once each for Rows(f), Rows(g) in UnionRows and
+    GroupBy(Rows(f)), and once a shard for each of the three per-shard
+    GroupBys (level 0); kernel C twice and once for the union, plus once a
+    shard under the unplannable filter; kernel E once for each GroupBy of
+    f and g (one launch over every shard, or stacked), once for the
+    stacked one of 32 shards, and once a shard for each per-shard GroupBy
+    of f and g (level 1); kernel F once for GroupBy+Sum, once for the
+    stacked one, and once a shard for the per-shard GroupBy+Sum."""
+    return {"plan_eval": 39, "row_counts": 7 + 5 * S,
+            "bsi_sum_planes": 3 + S, "bsi_min_max": 3,
+            "pair_counts": 3 + 2 * S, "bsi_sum_groups": 2 + S}
+
+
+T0 = time.perf_counter()
+LOG: list = []   # an open file that every status line is copied to (--log)
 
 
 def say(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One status line: the phase, its fields and the seconds since the
+    script started."""
+    line = json.dumps({"phase": phase, **kw,
+                       "t": round(time.perf_counter() - T0, 1)})
+    print(line, flush=True)
+    for fh in LOG:
+        fh.write(line + "\n")
+        fh.flush()
 
 
 def nvidia_smi(fields: str) -> str:
@@ -258,26 +306,24 @@ def rand_words(rng, shape) -> torch.Tensor:
 
 def bsi_gt_program(bsi: torch.Tensor, pred: int):
     from featurebase_tpu_torch.ops import bsi_traced as bst
-    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import lowering
     depth = bsi.shape[1] - 2
-    pb = ck.ProgramBuilder(bsi.shape[0], bsi.shape[2])
     bits, neg = bst.encode_pred(pred, depth)
-    r = bst.lower_gt(pb, bst.BsiPlanes(pb, "v", bsi), bits, int(neg), depth,
-                     False)
-    return pb.build(r)
+    return lowering.program(bst.expr_gt(bst.LeafPlanes("v", bsi), bits,
+                                        int(neg), depth, False),
+                            bsi.shape[0], bsi.shape[2])
 
 
 def between_program(bsi: torch.Tensor, lo: int, hi: int):
     """lo <= v <= hi, as Row(lo - 1 < v < hi + 1) lowers."""
     from featurebase_tpu_torch.ops import bsi_traced as bst
-    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import lowering
     depth = bsi.shape[1] - 2
-    pb = ck.ProgramBuilder(bsi.shape[0], bsi.shape[2])
     lb, ln = bst.encode_pred(lo, depth)
     hb, hn = bst.encode_pred(hi, depth)
-    r = bst.lower_between(pb, bst.BsiPlanes(pb, "v", bsi), lb, int(ln), hb,
-                          int(hn), depth)
-    return pb.build(r)
+    return lowering.program(bst.expr_between(bst.LeafPlanes("v", bsi), lb,
+                                             int(ln), hb, int(hn), depth),
+                            bsi.shape[0], bsi.shape[2])
 
 
 def and_program(a: torch.Tensor, b: torch.Tensor):
@@ -301,7 +347,9 @@ def every_op_program(a: torch.Tensor, b: torch.Tensor, bsi: torch.Tensor):
     depth = bsi.shape[1] - 2
     pb = ck.ProgramBuilder(*a.shape)
     ra, rb = pb.load(pb.plane("a", a)), pb.load(pb.plane("b", b))
-    planes = bst.BsiPlanes(pb, "v", bsi)
+    leaf = bst.LeafPlanes("v", bsi)
+    _, ex_key, ex = leaf.exists()
+    first = [pb.plane(p[1], p[2]) for p in leaf.mags(0, depth)][0]
     acc = pb.op(ck.OP_AND, ra, rb)
     pb.op(ck.OP_OR, acc, pb.op(ck.OP_XOR, ra, rb), dst=acc)
     pb.op(ck.OP_ANDNOT, acc, pb.op(ck.OP_NOT, rb), dst=acc)
@@ -310,9 +358,9 @@ def every_op_program(a: torch.Tensor, b: torch.Tensor, bsi: torch.Tensor):
     for pred, mode, eq in ((4321, ck.MODE_EQ, False), (777, ck.MODE_LT, True),
                            (9000, ck.MODE_GT, False),
                            ((1 << 20), ck.MODE_LT, False)):
-        side = pb.load(planes.exists())
+        side = pb.load(pb.plane(ex_key, ex))
         bits, _ = bst.encode_pred(pred, depth)
-        pb.bsi(side, planes.slices(depth), depth, mode, bits, eq)
+        pb.bsi(side, first, depth, mode, bits, eq)
         pb.op(ck.OP_XOR, acc, side, dst=acc)
         pb.free(side)
     return pb.build(acc)
@@ -509,6 +557,37 @@ def ablation(inputs, reps: int) -> dict:
     return out
 
 
+def group_ablation(reps: int) -> dict:
+    """Phase 4d: kernels E and F at the main path's one-launch shapes (128
+    shards; E 8 x 4, F 8 x 4 groups at D = 14)
+    under the ablation builds of csrc/group_kernels.cu beside its own:
+    the copies alone, and the product on stale rows."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    S, W = 128, 32768
+    mt = [gpu_words(gen, (8, W)) for _ in range(S)]
+    rt_ = [gpu_words(gen, (4, W)) for _ in range(S)]
+    bsi = [gpu_words(gen, (16, W)) for _ in range(S)]
+    ms_, rs = np.tile(np.arange(8), (S, 1)), np.tile(np.arange(4), (S, 1))
+    cases = {
+        "pair_counts": lambda: ck.pair_counts_sharded(mt, ms_, rt_, rs),
+        "bsi_sum_groups": lambda: ck.bsi_sum_groups_sharded(
+            bsi, [(mt, ms_), (rt_, rs)])}
+    real, out = ck._group_lib, {}
+    try:
+        for name, flags in (("kernel", ()), *ABLATIONS.items()):
+            ck._group_lib = lambda flags=flags: real(flags)
+            for case, fn in cases.items():
+                dev = kernel_device_ms(fn, reps)
+                out.setdefault(case, {})[name] = sum(
+                    v for k, v in dev.items() if k.startswith(case))
+    finally:
+        ck._group_lib = real
+    say("group_ablation", device_ms=out, shards=S)
+    return out
+
+
 # -- kernels C and D ----------------------------------------------------------
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -624,32 +703,63 @@ def gpu_words(gen: torch.Generator, shape) -> torch.Tensor:
                          dtype=torch.int32, device="cuda")
 
 
+def sharded_operands(gen: torch.Generator, S: int, n: int, W: int,
+                     absent: bool = True, offset: bool = False):
+    """Per-shard (n_s, W) tiles and an (S, n) slot table over them, as a
+    dimension's rows in the fragments' mirrors: each shard's tile holds its
+    rows in a shuffled order among spare ones; with `absent`, shard 1 has no
+    tile and about one row in five is missing (slot -1); with `offset`, each
+    tile is a view one word into a wider one (the 4-byte path)."""
+    tiles, slots = [], np.full((S, n), -1, dtype=np.int64)
+    rng = np.random.default_rng(int(torch.randint(
+        0, 1 << 30, (1,), generator=gen, device="cuda").item()))
+    for s in range(S):
+        if absent and s == 1:
+            tiles.append(None)
+            continue
+        rows = n + 2
+        t = gpu_words(gen, (rows, W + (1 if offset else 0)))
+        tiles.append(t[:, 1:] if offset else t)
+        slots[s] = rng.permutation(rows)[:n]
+        if absent:
+            slots[s, rng.random(n) < 0.2] = -1
+    return tiles, slots
+
+
 def group_parity() -> dict:
     """Phase 3c: kernels E and F against their plain versions on the card,
-    exactly.  E at S = 1, 32 and 128, F and R each 1, 4, 8 and 33, with and
-    without a filter; F at depths 1, 14, 31, 32 and 63, G = 1, 8, 32 and
-    33, S = 1 and 32; both at an odd W (the scalar form) and on all-ones
-    words, empty masks and sign-only columns (the sign set, nothing else,
-    on columns with and without the exists bit)."""
+    exactly (the product on the tensor cores, mma.sync .b1).  Stacked
+    operands (the thin wrappers): E at S = 1, 32 and 128 with F and R each
+    1, 8 and 33, with and without a filter; F at depths 1, 14, 31, 32 and
+    63 with G = 1, 8, 32 and 33 at S = 1 and 32; both at an odd W, on
+    all-ones words, empty masks and sign-only columns.  Per-shard operands
+    read in place (one launch over every shard): absent rows (slot -1), a
+    shard without a tile, one to three dimensions (E: a middle one), 512
+    groups, filters as (S, W) words, per-shard rows with one missing, and
+    viewed one word into a wider row (the 4-byte path), and D = 1, 14, 31,
+    32 and 63."""
     from featurebase_tpu_torch.ops import bsi as bsiops
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     W, odd = 32768, 32767
     errs_e, errs_f, cases = [], [], []
+
+    def check(errs, name, got, want):
+        errs.append(require_equal(name, got, want))
+        cases.append(name)
+
     masks, rows = gpu_words(gen, (128, 33, W)), gpu_words(gen, (128, 33, W))
     filt = gpu_words(gen, (128, W))
     for S in (1, 32, 128):
-        for F in (1, 4, 8, 33):
-            for R in (1, 4, 8, 33):
-                m, r = masks[:S, :F].contiguous(), rows[:S, :R].contiguous()
+        for F in (1, 8, 33):
+            for R in (1, 4, 33):
+                m, r = masks[:S, :F], rows[:S, :R]
                 for fw in (None, filt[:S]):
-                    name = f"pair_counts S={S} F={F} R={R} " \
-                        f"filter={fw is not None}"
-                    errs_e.append(require_equal(
-                        name, ck.pair_counts(m, r, fw),
-                        ck.pair_counts_plain(m, r, fw)))
-                    cases.append(name)
+                    check(errs_e, f"pair_counts S={S} F={F} R={R} "
+                          f"filter={fw is not None}",
+                          ck.pair_counts(m, r, fw),
+                          ck.pair_counts_plain(m, r, fw))
     del masks, rows, filt
     ones = torch.full((4, 9, odd), -1, dtype=torch.int32, device="cuda")
     zero = torch.zeros_like(ones)
@@ -658,23 +768,16 @@ def group_parity() -> dict:
             ("odd_w", rnd[:, :5], rnd[:, 4:], rnd[:, 0]),
             ("all_ones", ones[:, :5], ones[:, 4:], ones[:, 0]),
             ("empty_masks", zero[:, :5], rnd[:, 4:], None)):
-        m, r = m.contiguous(), r.contiguous()
-        fw = None if fw is None else fw.contiguous()
-        errs_e.append(require_equal(f"pair_counts {name}",
-                                    ck.pair_counts(m, r, fw),
-                                    ck.pair_counts_plain(m, r, fw)))
-        cases.append(f"pair_counts {name}")
+        check(errs_e, f"pair_counts {name}",
+              ck.pair_counts(m, r, fw), ck.pair_counts_plain(m, r, fw))
     for depth in (1, 14, 31, 32, 63):
         group = gpu_words(gen, (32, depth + 2, W))
         gm = gpu_words(gen, (32, 33, W))
         for S in (1, 32):
             for G in (1, 8, 32, 33):
-                g, m = group[:S].contiguous(), gm[:S, :G].contiguous()
-                name = f"bsi_sum_groups D={depth} S={S} G={G}"
-                errs_f.append(require_equal(
-                    name, ck.bsi_sum_groups(g, m),
-                    bsiops.sum_groups_plain(g, m)))
-                cases.append(name)
+                g, m = group[:S], gm[:S, :G]
+                check(errs_f, f"bsi_sum_groups D={depth} S={S} G={G}",
+                      ck.bsi_sum_groups(g, m), bsiops.sum_groups_plain(g, m))
         del group, gm
     sign_only = torch.zeros((4, 16, odd), dtype=torch.int32, device="cuda")
     sign_only[:, 1] = -1                            # every sign bit set
@@ -684,19 +787,66 @@ def group_parity() -> dict:
             ("all_ones", ones[:, :8].repeat(1, 2, 1), ones[:, :9]),
             ("empty_masks", gpu_words(gen, (4, 16, odd)), zero[:, :9]),
             ("sign_only", sign_only, rnd[:, :9])):
-        g, m = g.contiguous(), m.contiguous()
-        errs_f.append(require_equal(f"bsi_sum_groups {name}",
-                                    ck.bsi_sum_groups(g, m),
-                                    bsiops.sum_groups_plain(g, m)))
-        cases.append(f"bsi_sum_groups {name}")
+        check(errs_f, f"bsi_sum_groups {name}",
+              ck.bsi_sum_groups(g, m), bsiops.sum_groups_plain(g, m))
+    del ones, zero, rnd, sign_only
+
+    # per-shard operands, read in place
+    S = 5
+    wide = gpu_words(gen, (S, W + 1))
+    filters = {"none": None, "words": gpu_words(gen, (S, W)),
+               "rows": [gpu_words(gen, (W,)) if s != 3 else None
+                        for s in range(S)],
+               "odd_offset": wide[:, 1:]}
+    for (F, M, R), offset in (((8, 0, 4), False), ((33, 0, 5), False),
+                              ((4, 3, 4), False), ((8, 0, 4), True),
+                              ((65, 0, 40), False)):
+        mt, ms = sharded_operands(gen, S, F, W, offset=offset)
+        rt_, rs = sharded_operands(gen, S, R, W)
+        mid = sharded_operands(gen, S, M, W) if M else None
+        for fname, fw in filters.items():
+            check(errs_e, f"pair_counts_sharded F={F} M={M} R={R} "
+                  f"offset={offset} filter={fname}",
+                  ck.pair_counts_sharded(mt, ms, rt_, rs, fw, mid),
+                  ck.pair_counts_sharded_plain(mt, ms, rt_, rs, fw, mid))
+    for depth, sizes, fname in ((1, (8,), "words"), (14, (8, 4), "none"),
+                                (14, (8, 4), "odd_offset"),
+                                (31, (3, 4, 2), "rows"),
+                                (32, (5, 3), "words"),
+                                (63, (8, 4), "odd_offset"),
+                                (14, (8, 8, 8), "none")):
+        dims = [sharded_operands(gen, S, n, W) for n in sizes]
+        bsi = [gpu_words(gen, (depth + 2, W)) if s != 2 else None
+               for s in range(S)]
+        fw = filters[fname]
+        check(errs_f, f"bsi_sum_groups_sharded D={depth} dims={sizes} "
+              f"filter={fname}",
+              ck.bsi_sum_groups_sharded(bsi, dims, fw),
+              ck.bsi_sum_groups_sharded_plain(bsi, dims, fw))
     torch.cuda.synchronize()
     say("group_parity", ok=True, cases=len(cases),
-        pair_counts={"S": [1, 32, 128], "F": [1, 4, 8, 33],
-                     "R": [1, 4, 8, 33], "filter": [False, True]},
+        pair_counts={"S": [1, 32, 128], "F": [1, 8, 33], "R": [1, 4, 33],
+                     "filter": [False, True]},
         bsi_sum_groups={"D": [1, 14, 31, 32, 63], "G": [1, 8, 32, 33],
                         "S": [1, 32]},
-        edge_cases=[c for c in cases if "=" not in c])
+        other_cases=[c for c in cases if not c.endswith(("True", "False"))
+                     and "G=" not in c])
     return {"pair_counts": max(errs_e), "bsi_sum_groups": max(errs_f)}
+
+
+def rate_loop(launch, reps: int) -> float:
+    """Median ms of `launch` with CUDA events, after one warm-up."""
+    launch()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 def popc_rate(reps: int) -> dict:
@@ -715,17 +865,7 @@ def popc_rate(reps: int) -> dict:
         rc = lib.fb_popc_rate(out.data_ptr(), blocks, iters, stream)
         if rc != 0:
             raise RuntimeError(f"popc_rate launch failed: CUDA error {rc}")
-    run()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    ms = float(np.median(times))
+    ms = rate_loop(run, reps)
     measured = 8 * iters * 256 * blocks / (ms / 1e3)
     published = POPC_PER_CLOCK_PER_SM * sms * max_sm_clock_hz()
     r = dict(measured_per_s=measured, published_per_s=published,
@@ -735,42 +875,113 @@ def popc_rate(reps: int) -> dict:
     return r
 
 
-def group_times(timer: Timer, popc_per_s: float) -> dict:
-    """Phase 4c: kernels E and F at the main path's shapes beside the
-    plain versions and their bound: the larger of bytes (each input read
-    once, the counts written once) at 3.35 TB/s and popcounts (F x R x S x
-    W for E, G x (2D + 1) x S x W for F) at `popc_per_s`."""
+def tc_rate(reps: int, popc: dict) -> dict:
+    """The tensor cores' rate for the AND-popcount product, beside the
+    popcount unit's: mma.sync m16n8k256 .b1 .and.popc (32,768 bit products
+    an instruction) and int8 mma.sync m16n8k32 (4,096 products, one a bit
+    once the bits are unpacked to bytes), each eight independent chains a
+    warp on 4 blocks of 256 threads an SM, CUDA events, median of `reps`;
+    and whether ptxas takes the warpgroup .b1 form (csrc/wgmma_b1_probe.cu,
+    built in the build phase).  In bit products a second."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    lib = ck._group_lib()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = sms * 4, 2048
+    out = torch.empty(blocks, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    rates = {}
+    for name, b1, per in (("b1_mma_sync", 1, 32768), ("int8_mma_sync", 0,
+                                                      4096)):
+        def run(b1=b1):
+            rc = lib.fb_tc_rate(out.data_ptr(), blocks, iters, b1, stream)
+            if rc != 0:
+                raise RuntimeError(f"tc_rate launch failed: CUDA error {rc}")
+        ms = rate_loop(run, reps)
+        rates[name] = 8 * iters * 8 * blocks * per / (ms / 1e3)
+    rates["popc"] = popc["measured_per_s"] * 32
+    r = dict(bit_products_per_s=rates,
+             b1_over_popc=rates["b1_mma_sync"] / rates["popc"],
+             int8_over_popc=rates["int8_mma_sync"] / rates["popc"],
+             int8_published_per_s=1.979e15 / 2,
+             wgmma_b1_taken=WGMMA_PROBE.get("taken"),
+             wgmma_b1_log=WGMMA_PROBE.get("log", "")[-400:])
+    say("tc_rate", **r)
+    return r
+
+
+WGMMA_PROBE: dict = {}
+
+
+def group_times(timer: Timer, rates: dict, reps: int) -> dict:
+    """Phase 4c: kernels E and F beside the plain versions and their bound:
+    the larger of bytes (each input row read once, the counts written once)
+    at 3.35 TB/s and the AND-popcounts (G x C x S x W words) at the tensor
+    cores' measured 1-bit rate; beside it the popcount unit's time for the
+    same popcounts.  The main path's one-launch shapes at 128 shards (E: 8
+    masks x 4 rows; F: 8 x 4 groups at D = 14, 470 MB), read in place from
+    per-shard tiles, beside S launches of one shard each (the per-shard
+    loop this launch replaces); and the stacked shapes of the earlier
+    slices (E at S = 1 and 32 filtered; F at S = 1 and 32)."""
     from featurebase_tpu_torch.ops import bsi as bsiops
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator(device="cuda")
     gen.manual_seed(17)
     W, out = 32768, {}
 
-    def measure(fn, plain, nbytes, popcounts):
+    def measure(name, fn, plain, nbytes, words, G, C, per_shard=None):
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        p_ms = popcounts / popc_per_s * 1e3
-        return dict(ms=timer(fn), plain_ms=timer(plain),
-                    device_ms=kernel_device_ms(fn, timer.reps), bytes=nbytes,
-                    popcounts=popcounts, bytes_ms=b_ms, popcounts_ms=p_ms,
-                    bound_ms=max(b_ms, p_ms),
-                    bound_by="bytes" if b_ms >= p_ms else "operations")
+        bit_products = words * G * C * 32
+        o_ms = bit_products / rates["b1_mma_sync"] * 1e3
+        r = dict(bytes=nbytes, popcounts=words * G * C, bytes_ms=b_ms,
+                 ops_ms=o_ms, popc_unit_ms=bit_products / rates["popc"] * 1e3,
+                 bound_ms=max(b_ms, o_ms),
+                 bound_by="bytes" if b_ms >= o_ms else "operations",
+                 route="mma", ms=timer(fn),
+                 device_ms=kernel_device_ms(fn, reps),
+                 plain_ms=(timer if nbytes < 128 << 20 else Timer(3))(plain))
+        if per_shard is not None:
+            r["per_shard_loop_ms"] = timer(per_shard)
+        out[name] = r
+        say("kernel_time", kernel=name, **r)
+
+    S = 128
+    mt = [gpu_words(gen, (8, W)) for _ in range(S)]
+    rt_ = [gpu_words(gen, (4, W)) for _ in range(S)]
+    ms_, rs = np.tile(np.arange(8), (S, 1)), np.tile(np.arange(4), (S, 1))
+    measure(f"pair_counts/sharded_s{S}_f8_r4",
+            lambda: ck.pair_counts_sharded(mt, ms_, rt_, rs),
+            lambda: ck.pair_counts_sharded_plain(mt, ms_, rt_, rs),
+            12 * S * W * 4 + 32 * 8, S * W, 8, 4,
+            lambda: [ck.pair_counts_sharded(mt[s:s + 1], ms_[s:s + 1],
+                                            rt_[s:s + 1], rs[s:s + 1])
+                     for s in range(S)])
+    bsi = [gpu_words(gen, (16, W)) for _ in range(S)]
+    dims = [(mt, ms_), (rt_, rs)]
+    measure(f"bsi_sum_groups/sharded_s{S}_g32_d14",
+            lambda: ck.bsi_sum_groups_sharded(bsi, dims),
+            lambda: ck.bsi_sum_groups_sharded_plain(bsi, dims),
+            28 * S * W * 4 + 32 * 29 * 8, S * W, 32, 29,
+            lambda: [ck.bsi_sum_groups_sharded(
+                bsi[s:s + 1], [(mt[s:s + 1], ms_[s:s + 1]),
+                               (rt_[s:s + 1], rs[s:s + 1])])
+                for s in range(S)])
+    del mt, rt_, bsi, dims
     for S, F, R, filtered in ((1, 8, 4, False), (32, 8, 4, True)):
         m, r = gpu_words(gen, (S, F, W)), gpu_words(gen, (S, R, W))
         fw = gpu_words(gen, (S, W)) if filtered else None
-        nbytes = (F + R + (1 if filtered else 0)) * S * W * 4 + F * R * 8
-        out[f"pair_counts/s{S}_f{F}_r{R}" + ("_filtered" if filtered
-                                             else "")] = measure(
-            lambda: ck.pair_counts(m, r, fw),
-            lambda: ck.pair_counts_plain(m, r, fw), nbytes, F * R * S * W)
+        measure(f"pair_counts/s{S}_f{F}_r{R}"
+                + ("_filtered" if filtered else ""),
+                lambda: ck.pair_counts(m, r, fw),
+                lambda: ck.pair_counts_plain(m, r, fw),
+                (F + R + (1 if filtered else 0)) * S * W * 4 + F * R * 8,
+                S * W, F, R)
     for S, G, D in ((1, 32, 14), (32, 8, 14)):
         g, m = gpu_words(gen, (S, D + 2, W)), gpu_words(gen, (S, G, W))
-        nbytes = (D + 2 + G) * S * W * 4 + G * (2 * D + 1) * 8
-        out[f"bsi_sum_groups/s{S}_g{G}_d{D}"] = measure(
-            lambda: ck.bsi_sum_groups(g, m),
-            lambda: bsiops.sum_groups_plain(g, m), nbytes,
-            G * (2 * D + 1) * S * W)
-    for name, r in out.items():
-        say("kernel_time", kernel=name, **r)
+        measure(f"bsi_sum_groups/s{S}_g{G}_d{D}",
+                lambda: ck.bsi_sum_groups(g, m),
+                lambda: bsiops.sum_groups_plain(g, m),
+                (D + 2 + G) * S * W * 4 + G * (2 * D + 1) * 8, S * W, G,
+                2 * D + 1)
     return out
 
 
@@ -798,7 +1009,54 @@ def build_table(n_shards: int, seed: int = 0):
     idx.field("g").import_bits(g_rows, cols)
     idx.field("v").import_values(cols, vals)
     idx.mark_exists(cols)
+    limits_index(holder, rng)
     return holder, dict(f=f_rows, g=g_rows, v=vals, cols=cols)
+
+
+def limits_index(holder, rng) -> None:
+    """The "limits" index of LIMIT_QUERIES."""
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    from featurebase_tpu_torch.model.field import FieldOptions
+    n = 3000
+    cols = np.sort(rng.choice(2 * SHARD_WIDTH, n, replace=False))
+    idx = holder.create_index("limits")
+    idx.create_field("f")
+    idx.create_field("g")
+    idx.field("f").import_bits(rng.integers(0, 60, n), cols)
+    half = rng.random(n) < 0.5
+    idx.field("g").import_bits(rng.integers(0, 3, int(half.sum())),
+                               cols[half])
+    for name in "ab":
+        idx.create_field(name, FieldOptions(type="int", min=0, max=1 << 30))
+        idx.field(name).import_values(cols, rng.integers(0, 1 << 30, n,
+                                                         endpoint=True))
+    top = (1 << 43) - 1
+    idx.create_field("w", FieldOptions(type="int", min=-top, max=top))
+    idx.field("w").import_values(
+        cols, rng.integers(0, 500, n) * (1 << 34) - 5)
+    idx.mark_exists(cols)
+
+
+def index_of(q: str):
+    """(index name, query) of a QUERIES entry."""
+    if q.startswith("limits:"):
+        return "limits", q[len("limits:"):]
+    return "bench", q[len(PER_SHARD):] if q.startswith(PER_SHARD) else q
+
+
+def execute(executor, q: str):
+    """The result of a QUERIES entry; a PER_SHARD one runs with both GroupBy
+    caps of `executor` at 0, so that it takes the per-shard level-wise
+    loop."""
+    if not q.startswith(PER_SHARD):
+        return executor.execute(*index_of(q))[0]
+    executor.GROUPBY_ONESHOT_MAX_COUNTS = 0
+    executor.GROUPBY_ONESHOT_MAX_MASK_BYTES = 0
+    try:
+        return executor.execute(*index_of(q))[0]
+    finally:
+        del executor.GROUPBY_ONESHOT_MAX_COUNTS
+        del executor.GROUPBY_ONESHOT_MAX_MASK_BYTES
 
 
 def canon(result):
@@ -991,7 +1249,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
 
     def run(executor, q):
         rank_cache.clear()   # TopN then counts on the kernel path
-        return canon(executor.execute("bench", q)[0])
+        return canon(execute(executor, q))
 
     gpu = Executor(holder)
     ck.reset_launches()
@@ -1055,6 +1313,12 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         "list", by_sum)
     oracle["GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))"] \
         = ("list", [x for x in by_count if x[1] > 2500000])
+    oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
+    oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))"] \
+        = ("list", by_sum)
+    top_g1 = np.bincount(f[g == 1], minlength=8)
+    oracle["GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))"] = (
+        "list", [((r,), int(top_g1[r]), 0) for r in range(8) if top_g1[r]])
     for q, want in oracle.items():
         if q in answers and answers[q] != want:
             raise AssertionError(f"{q}: engine {answers[q]!r:.300} != "
@@ -1074,18 +1338,24 @@ def slice_phase(n_shards: int, reps: int) -> dict:
             raise AssertionError(f"{q}: per-shard TopN {got} != stacked "
                                  f"{answers[q]}")
     say("topn_per_shard", equal_to_stacked=topn)
+    group_paths(holder, queries, answers, run, reps)
     def timed(q) -> float:
         """One query as a caller runs it, to the synchronised answer (ms)."""
         rank_cache.clear()
         t0 = time.perf_counter()
-        result = gpu.execute("bench", q)[0]
+        result = execute(gpu, q)
         if isinstance(result, Row):
             result.columns()   # the decode a caller needs, no list
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3
 
-    latency = {q: float(np.median([timed(q) for _ in range(reps)]))
-               for q in queries}
+    def p50(q) -> float:
+        """Median of `reps` runs; of 5 for a query slower than 200 ms (the
+        host decodes, whose spread is small beside their length)."""
+        first = timed(q)
+        n = reps if first < 200 else 5
+        return float(np.median([first] + [timed(q) for _ in range(n - 1)]))
+    latency = {q: p50(q) for q in queries}
     say("latency_p50_ms", **latency)
     per = query_profile(queries, timed, latency)
     # each new query ran the kernels it is meant to run
@@ -1098,13 +1368,19 @@ def slice_phase(n_shards: int, reps: int) -> dict:
              "GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))":
                  ("pair_counts",),
              "Count(Union(Row(f=1), Row(f=null)))": ("plan_eval",),
-             "Sum(Row(f=null), field=v)": ("bsi_sum_planes",)}
+             "Sum(Row(f=null), field=v)": ("bsi_sum_planes",),
+             "GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))":
+                 ("row_counts",),
+             PER_SHARD + "GroupBy(Rows(f), Rows(g))":
+                 ("row_counts", "pair_counts"),
+             PER_SHARD + "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))":
+                 ("row_counts", "pair_counts", "bsi_sum_groups")}
     for q in queries:
         if q.startswith("Options(GroupBy(Rows(f), Rows(g)"):
             meant[q] = ("plan_eval", "pair_counts")
         elif q.startswith("Options(GroupBy(Rows(f), aggregate"):
             meant[q] = ("bsi_sum_groups",)
-        elif q.startswith("Options(Limit"):
+        elif q.startswith(("Options(Limit", "limits:")):
             meant[q] = ("plan_eval",)
     for q, kernels in meant.items():
         for k in kernels:
@@ -1115,6 +1391,58 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                 if q in per})
     residency_phase(holder, queries, answers, run, resident["bytes"] // 2)
     return launches
+
+
+def group_paths(holder, queries, answers, run, reps: int) -> dict:
+    """Phase 5a: each GroupBy of two dimensions or with a Sum that the mix
+    sends to the stacked path or to the one-launch path, through both: the
+    stacked path (the mask cap raised to 4 GB, so that it takes the
+    128-shard ones too) and the one-launch path (the cap lowered to 8 MB,
+    under what every shard's masks need and over what one shard's do).
+    Answers equal the first pass's; p50 of `reps` runs each, the two paths
+    in turns."""
+    from featurebase_tpu_torch.executor.executor import Executor
+    caps = {"stacked": 4 << 30, "launch": 8 << 20}
+    ex, seen = {}, {}
+    for name, cap in caps.items():
+        e = ex[name] = Executor(holder)
+        e.GROUPBY_ONESHOT_MAX_MASK_BYTES = cap
+        seen[name] = log = []
+        for path in ("stacked", "launch"):
+            real = getattr(e, f"_group_by_{path}")
+
+            def spy(*a, real=real, path=path, log=log):
+                r = real(*a)
+                log.append((path, r))
+                return r
+            setattr(e, f"_group_by_{path}", spy)
+    want_log = {"stacked": [("stacked", True)],
+                "launch": [("stacked", False), ("launch", True)]}
+    out = {}
+    for q in queries:
+        if "null" in q or q.startswith(PER_SHARD) or not (
+                "GroupBy(Rows(f), Rows(g)" in q or "aggregate=Sum" in q):
+            continue
+        times = {name: [] for name in caps}
+        for i in range(reps + 1):
+            for name, e in ex.items():
+                seen[name].clear()
+                t0 = time.perf_counter()
+                got = run(e, q)
+                torch.cuda.synchronize()
+                if i:   # the first run of each fills the caches
+                    times[name].append((time.perf_counter() - t0) * 1e3)
+                if got != answers[q]:
+                    raise AssertionError(f"{q} on the {name} path: "
+                                         f"{got[1]!r:.200} != "
+                                         f"{answers[q][1]!r:.200}")
+                if seen[name] != want_log[name]:
+                    raise AssertionError(f"{q} missed the {name} path: "
+                                         f"{seen[name]}")
+        out[q] = {f"{name}_p50_ms": float(np.median(t))
+                  for name, t in times.items()}
+    say("group_paths", caps=caps, queries=out)
+    return out
 
 
 def residency_phase(holder, queries, answers, run, budget: int) -> dict:
@@ -1211,7 +1539,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=128)
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--log", help="also write every status line to this "
+                    "file (the end of standard output may be all a remote "
+                    "runner keeps)")
     args = ap.parse_args()
+    if args.log:
+        os.makedirs(os.path.dirname(os.path.abspath(args.log)),
+                    exist_ok=True)
+        LOG.append(open(args.log, "w"))
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1227,10 +1562,17 @@ def main() -> int:
     t0 = time.perf_counter()
     sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, tk.SOURCE)
     builds = [*((src, ()) for src in sources),
-              *((ck.SOURCE, f) for f in ABLATIONS.values())]
+              *((src, f) for src in (ck.SOURCE, ck.GROUP_SOURCE)
+                for f in ABLATIONS.values())]
     procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
+    probe = build.compile_source(WGMMA_PROBE_SOURCE)
     for src, f, proc in procs:
         build.finish(src, proc, f)
+    try:
+        build.finish(WGMMA_PROBE_SOURCE, probe)
+        WGMMA_PROBE.update(taken=True)
+    except RuntimeError as e:   # a finding for tc_rate, not a failure
+        WGMMA_PROBE.update(taken=False, log=str(e))
     report = {src: ptxas_report(build.build_log.get(src, ""))
               for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
@@ -1253,10 +1595,10 @@ def main() -> int:
     errs.update(group_parity())
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
-    rate = popc_rate(args.reps)
-    times.update(group_times(timer, max(rate["measured_per_s"],
-                                        rate["published_per_s"])))
+    rates = tc_rate(args.reps, popc_rate(args.reps))
+    times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
     ablation(inputs, args.reps)
+    group_ablation(args.reps)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs
     launches = slice_phase(args.shards, args.reps)
@@ -1290,10 +1632,11 @@ def main() -> int:
              "featurebase_tpu/ops/bsi.py:378"),
             ("bsi_min_max", "bsi_min_max/d14", ck.BSI_SOURCE,
              "featurebase_tpu/ops/bsi.py:399"),
-            ("pair_counts", "pair_counts/s1_f8_r4", ck.GROUP_SOURCE,
+            ("pair_counts", "pair_counts/sharded_s128_f8_r4", ck.GROUP_SOURCE,
              "featurebase_tpu/ops/bitwise.py:175, "
              "featurebase_tpu/ops/bitwise.py:123"),
-            ("bsi_sum_groups", "bsi_sum_groups/s1_g32_d14", ck.GROUP_SOURCE,
+            ("bsi_sum_groups", "bsi_sum_groups/sharded_s128_g32_d14",
+             ck.GROUP_SOURCE,
              "featurebase_tpu/ops/bsi.py:611, "
              "featurebase_tpu/ops/bsi.py:333")):
         t = times[key]

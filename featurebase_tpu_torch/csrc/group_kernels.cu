@@ -4,51 +4,79 @@
 // with ctypes, as it loads csrc/bitmap_kernels.cu and csrc/bsi_kernels.cu.
 // Launchers take device pointers and the caller's stream, launch, and return
 // a cudaError_t (0 on success); they never synchronise and never allocate.
-// Both are AND-popcount products: they count intersections of many rows
-// with many rows without writing a single intersection.
+// Both are one AND-popcount matrix product over every shard of a GroupBy:
+//
+//   out[g, c] = sum over shards s, over the shard's bits k of
+//               A[s, g, k] & B[s, c, k]
 //
 // pair_counts (kernel E) is the counterpart of the XLA programs
 //   featurebase_tpu/ops/bitwise.py stacked_pair_counts (:175) and, at S = 1,
-//   count_and_pairs (:123): masks (S, F, W) x rows (S, R, W), optionally
-//   under a filter (S, W) -> (F, R) int64, entry (f, r) the set bits of
-//   masks[s, f] & rows[s, r] [& filter[s]] over every shard s.  The filter
-//   fuses stacked_mask_filter (:193), so the stacked two-dimension GroupBy
-//   reads its first dimension once.
+//   count_and_pairs (:123): A holds the masks of one or two dimensions
+//   (f_i [& h_j]) [& filter], B the rows of the last dimension.
 // bsi_sum_groups (kernel F) is the counterpart of bsi.py sum_groups_stacked
-//   (:611) and, at S = 1, sum_groups_kernel (:333): a stacked BSI group
-//   (S, D + 2, W) (plane 0 exists, plane 1 sign, plane 2 + i magnitude bit
-//   i) x masks (S, G, W) -> (G, 2D + 1) int64, per group the set bits of
-//   each plane under mask & exists & ~sign, then under mask & exists & sign,
-//   then of mask & exists: kernel C's counters (csrc/bsi_kernels.cu) with G
-//   masks in place of its one filter.  The host finishes each group's sum.
+//   (:611) and, at S = 1, sum_groups_kernel (:333): A holds the groups of one
+//   to three dimensions (f_i [& g_j [& h_k]]) [& filter], in
+//   itertools.product order (the last dimension fastest); B holds the
+//   2D + 1 classes of a BSI group: plane p & exists & ~sign (p < D), plane p
+//   & exists & sign, and exists.  The host finishes each group's sum.
 //
-// Bound: popcounts as often as bytes.  E does F x R popcounts for every
-// F + R (+ 1) words it reads, F does G x (2D + 1) for every D + 2 + G.  The
-// card's 32-bit popcount rate is 16 a clock per SM (the CUDA programming
-// guide's instruction throughput table, compute capability 9.0): 132 SMs at
-// 1.98 GHz give 4.2e12 a second, 1.25 for each 4-byte word that 3.35 TB/s
-// brings.  So E is bound by bytes while F x R / (F + R) stays under about 5
-// (the main path's 8 x 4: 2.7), and F by popcounts at any group count the
-// main path gives it (32 groups at D = 14: 19 a word).  chip_smoke.py
-// measures the rate with popc_rate_kernel below and reports which binds.
-// Design, simple and right first: a block owns a run of (shard, chunk)
-// tiles of 256 x V words (V = 4 with 16-byte loads when W % 4 == 0 and every
-// array is 16-byte aligned, else V = 1) and one tile of the outputs
-// (blockIdx.y): for E, 8 mask rows x RT rows, RT in {1, 2, 4, 8} by R; for
-// F, a run of groups sized so that the grid fills the card.  E keeps its
-// RT rows of a tile in registers, streams its 8 masks past them and adds
-// 8 x RT per-thread counters in registers (indices fixed at compile time:
-// runtime-indexed arrays go to a stack frame).  F keeps
-// exists & ~sign and exists & sign of its words, and for each group of its
-// run and each plane adds a warp-reduced (__reduce_add_sync) count into
-// the block's counters in shared memory (32-bit atomics).  Across blocks:
-// per-block slots; the last block of each output run to finish (an atomic
-// ticket a run, which that block resets, as kernels A, C and D reset
-// theirs) adds its run's slots, neighbouring threads on neighbouring
-// outputs: no memset, and integer sums equal in any order.  F and R, G and D are
-// runtime values; D from 1 to 63 shares one build.  Both are candidates for
-// the tensor cores' 1-bit AND-popcount product (mma.sync .b1.and.popc) in
-// a later version.
+// Operands are read where they live.  Each launch gets a table of row
+// addresses, (S, P) uint64: for each shard, the address of every row it may
+// read (a dimension's rows, the filter, B's rows or BSI planes) in the
+// fragments' device mirrors, 0 for a row the shard lacks, which reads as
+// zeros without touching memory.  Neither the group masks nor the classes
+// are written anywhere: each is formed in registers, a word at a time, from
+// the rows staged in shared memory as the product reads it.
+//
+// Bound.  Bytes: each staged row is read once a launch (per output region,
+// below; the main path's shapes have one).  Operations: G x C x 2^20
+// AND-popcounts a shard.  The popcount unit does 16 a clock per SM (the CUDA
+// programming guide's throughput table, compute capability 9.0), 4.2e12 a
+// second, 1.34e14 bit products; the tensor cores' 1-bit product
+// (mma.sync m16n8k256 .b1 .and.popc, 32,768 bit products an instruction)
+// does about 39 times that (chip_smoke.py's tc_rate phase measures both),
+// so the product runs there alone.  At 128 shards of 131,072-byte rows at
+// 3.35 TB/s: GroupBy(f, g) reads 8 + 4 rows a shard, 201 MB, bound by bytes
+// at 60 us; a GroupBy+Sum of 8 x 4 groups at D = 14 reads 8 + 4 + 16 rows,
+// 470 MB (140 us), and does 3.9e9 popcounts (32 x 29 a column word): 930 us
+// on the popcount unit, about 25 us on the tensor cores, so it is bound by
+// bytes.
+//
+// Design.  A persistent grid, about one block per SM (more where the
+// occupancy allows), walks the (shard, chunk) tiles of every shard: chunks
+// of CW words (32 to 256, the most that fit 100 KB of shared memory, so
+// that at least two blocks share an SM), tile t of a
+// block then t + gridDim.x.  blockIdx.y picks an output region of 16 MT
+// groups x 8 NT classes (MT, NT in {1, 2, 4} x {1, 4}); the main path's
+// shapes fit one region.  Each tile:
+//   1. stage: the rows the region reads go to shared memory with cp.async
+//      (16 bytes when every row address is 16-byte aligned and W % 4 == 0,
+//      else 4) into a ring of kStages buffers: the next tile's copies are
+//      in flight while this one is prepared and multiplied (a third buffer
+//      measured no faster).  Absent rows and words past W are stored as
+//      zeros;
+//   2. prepare: the filter is ANDed into the first dimension's rows in
+//      place, and for F the two sides exists & ~sign and exists & sign are
+//      formed once (2 rows), so that a group's word is the AND of one row
+//      of each dimension and a class's the AND of a plane and a side;
+//   3. multiply on the tensor cores, each lane reading its rows' words
+//      straight from shared memory: each warp owns every 16 x 8 tile of the
+//      region (register accumulators, indices fixed at compile time) for
+//      one in eight of the chunk's 256-bit k-steps, and issues MT x NT
+//      mma.sync .b1 .and.popc a step.
+// The counters stay in registers over the block's whole run of tiles and
+// are reduced once, at its end, through shared memory into 64-bit block
+// slots.  Across blocks: per-block slots; the last block of each region to
+// finish (an atomic ticket a region, which that block resets, as kernels
+// A, C and D reset theirs) adds its region's slots: no memset, and integer
+// sums equal in any order.  Counts are int64 at the output.  A block's
+// 32-bit counters count at most its tiles x CW x 32 bits; the planner caps a
+// block's tiles at (2^31 - 1) / (CW x 32) (2048 shards' worth at CW = 256;
+// more shards add blocks), so they never overflow before the flush to
+// int64 at the block's end.  D from 1 to 63 shares one build.
+// chip_smoke.py also builds it with FB_ABLATE_COPY (no copies: the product
+// runs on stale rows) and FB_ABLATE_COMPUTE (no product) to show where a
+// launch's time goes; neither build gives right counts.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,53 +85,87 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kPairRows = 8;          // kernel E: mask rows of an output tile
-constexpr int kMaxDepth = 63;         // kernel F: magnitude planes
-constexpr int kGroupCounters = 4064;  // kernel F: shared counters a block
-static_assert(2 * kMaxDepth + 1 <= kGroupCounters,
-              "a block must hold the counters of one group");
+constexpr int kMaxDepth = 63;
+constexpr int kMaxDims = 3;
+constexpr int kPad = 4;             // words of padding after each smem row
+constexpr int kStages = 2;          // staging buffers: tiles in flight + 1
+constexpr int kStageMax = 320;      // staged rows a tile, at most
+constexpr int kSmemBudget = 100 * 1024;  // two blocks an SM, at least
+constexpr int kSmemCap = 227 * 1024;
 
-template <int V>
-struct Vec {
-  uint32_t w[V];
+enum { kModeRows = 0, kModeBsi = 1 };
+
+struct ProductArgs {
+  const unsigned long long* table;  // (S, P) row addresses, 0 = absent
+  long long W;                      // words a row
+  int S, P;
+  int nd;                           // dimensions of A (1..3)
+  int n[kMaxDims];                  // rows of each dimension
+  int col0[kMaxDims];               // table column of each one's first row
+  int stride[kMaxDims];             // groups between its consecutive rows
+  int filt_col;                     // table column of the filter, or -1
+  int b_col;                        // table column of B's first row
+  int GA, NB, D;                    // groups, B's outputs, BSI depth
+  int CW, lcw4;                     // chunk words; log2(CW / 4)
+  int chunks;                       // chunks a shard
+  unsigned int n_tiles;             // S x chunks
+  int MT, NT;                       // region: 16 MT groups x 8 NT outputs
+  int regions_b;                    // regions along B
+  int stage_rows;                   // staged rows a tile, at most
 };
 
-// V words of a row from word i; words at or past W read as 0 (with V = 4,
-// W % 4 == 0, so a vector lies wholly inside or outside the row).
-template <int V>
-__device__ __forceinline__ Vec<V> load(const int32_t* row, long long i,
-                                       long long W) {
-  Vec<V> r;
-  if (i >= W) {
-#pragma unroll
-    for (int j = 0; j < V; ++j) r.w[j] = 0u;
-    return r;
-  }
-  if constexpr (V == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + i));
-    r.w[0] = v.x; r.w[1] = v.y; r.w[2] = v.z; r.w[3] = v.w;
-  } else {
-    r.w[0] = (uint32_t)__ldg(row + i);
-  }
-  return r;
+// ---- small helpers ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int V>
-__device__ __forceinline__ unsigned int popc_and(const Vec<V>& a,
-                                                 const Vec<V>& b) {
-  unsigned int c = 0;
-#pragma unroll
-  for (int j = 0; j < V; ++j) c += __popc(a.w[j] & b.w[j]);
-  return c;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
 }
 
-// Tiles a block may take: its counters then stay below 2^31 (a tile adds at
-// most 32 x 1024 to a counter).
-constexpr long long kMaxTilesPerBlock = 1ll << 16;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
 
-// The last block of output run blockIdx.y to finish: true in every thread
-// of that block.  Each thread fences its own slot writes first; the run's
-// ticket counts the blocks of the run (gridDim.x).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N commit groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// D += popc(A & B) over a 16 x 8 tile and 256 bits.  A: rows gid and
+// gid + 8, words tig and tig + 4 of the k-step; B: column gid, words tig
+// and tig + 4; D: (gid, 2 tig), (gid, 2 tig + 1), (gid + 8, 2 tig),
+// (gid + 8, 2 tig + 1).
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The same shape in int8: 16 x 8 outputs over 32 bytes.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// The last block of region blockIdx.y to finish: true in every thread of
+// that block.  Each thread fences its own slot writes first; the region's
+// ticket counts the blocks of the region (gridDim.x).
 __device__ __forceinline__ bool last_of_run(unsigned int* tickets, int* flag) {
   __threadfence();
   __syncthreads();
@@ -117,8 +179,8 @@ __device__ __forceinline__ bool last_of_run(unsigned int* tickets, int* flag) {
   return *flag;
 }
 
-// Output k of run blockIdx.y summed over the run's blocks: slot words of a
-// block are `width` apart; neighbouring threads read neighbouring words.
+// Output k of region blockIdx.y summed over the region's blocks: slot words
+// of a block are `width` apart; neighbouring threads read neighbouring words.
 __device__ __forceinline__ unsigned long long run_total(
     const unsigned long long* slots, int width, int k) {
   const unsigned long long* p =
@@ -130,186 +192,359 @@ __device__ __forceinline__ unsigned long long run_total(
   return v;
 }
 
-// How a launch cuts its words into tiles: S x tps tiles of 256 x V words.
-// Tile indices are 32-bit (the launchers refuse 2^31 tiles or more), so the
-// tile loop divides in 32 bits.
-struct Tiles {
-  long long W;
-  unsigned int tps;      // tiles per shard
-  unsigned int n_tiles;  // S x tps
+// ---- the product ------------------------------------------------------------
+
+// Shared state a block sets up once for its region.
+struct Region {
+  int ga0, cb0;           // first group and first B output of the region
+  int staged;             // staged rows a tile (the zero row included)
+  int d0_rows;            // staged rows of dimension 0 (the first ones)
+  int filt_pos;           // staged row of the filter, or -1
+  int b_pos;              // staged row of B's first row
+  int zrow;               // a staged row of zeros
+  int side;               // F: rows side, side + 1 hold exists & ~sign,
+                          // exists & sign (formed, after the staged rows)
+  int vr, vc;             // valid groups and outputs of the region
 };
 
-// ---- kernel E ---------------------------------------------------------------
-
-struct PairArgs {
-  Tiles t;
-  int F, R;
-  int r_tiles;        // output tiles along R: ceil(R / RT)
+// The staged rows each of the region's groups ANDs: pos[g][d] for dimension
+// d (-1 past nd; the zero row for a group past GA).
+struct RegionTables {
+  int scol[kStageMax];          // table column of each staged row, or -1
+  short pos[64][kMaxDims];
+  Region r;
+  int last;
 };
 
-template <int RT, int V>
-__global__ void __launch_bounds__(kThreads)
-pair_counts_kernel(const int32_t* __restrict__ masks,
-                   const int32_t* __restrict__ rows,
-                   const int32_t* __restrict__ filt, const PairArgs a,
-                   unsigned long long* __restrict__ out,
-                   unsigned long long* __restrict__ slots,
-                   unsigned int* __restrict__ tickets) {
-  constexpr int kOut = kPairRows * RT;
-  __shared__ unsigned long long warp_acc[kWarps][kOut];
-  __shared__ int last;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int f0 = (blockIdx.y / a.r_tiles) * kPairRows;
-  const int r0 = (blockIdx.y % a.r_tiles) * RT;
-  const int nf = min(kPairRows, a.F - f0), nr = min(RT, a.R - r0);
-  const long long W = a.t.W;
-  const bool filtered = filt != nullptr;
-  Vec<V> zero;
+__device__ void setup_region(const ProductArgs& a, int mode,
+                             RegionTables& rt) {
+  const int tid = threadIdx.x;
+  const int rows_a = 16 * a.MT, cols_b = 8 * a.NT;
+  const int ra = blockIdx.y / a.regions_b, rb = blockIdx.y % a.regions_b;
+  const int ga0 = ra * rows_a, cb0 = rb * cols_b;
+  const int ga_end = min(ga0 + rows_a, a.GA);
+  __shared__ int dim_base[kMaxDims], first_q[kMaxDims], wrap[kMaxDims];
+  if (tid == 0) {
+    int base = 0;
+    // d is fixed at compile time in each step: a runtime index into the
+    // argument's arrays would copy the arguments to a stack frame
 #pragma unroll
-  for (int j = 0; j < V; ++j) zero.w[j] = 0u;
-  unsigned int cnt[kPairRows][RT];
-#pragma unroll
-  for (int f = 0; f < kPairRows; ++f)
-#pragma unroll
-    for (int r = 0; r < RT; ++r) cnt[f][r] = 0u;
-  for (unsigned int t = blockIdx.x; t < a.t.n_tiles; t += gridDim.x) {
-    const unsigned int s = t / a.t.tps;
-    const long long i = (long long)(t - s * a.t.tps) * (kThreads * V) +
-                        (long long)tid * V;
-    const int32_t* rs = rows + ((long long)s * a.R + r0) * W;
-    const int32_t* ms = masks + ((long long)s * a.F + f0) * W;
-    // every load of the tile first, so that they are in flight together
-    Vec<V> x[RT], m[kPairRows];
-#pragma unroll
-    for (int r = 0; r < RT; ++r)
-      x[r] = r < nr ? load<V>(rs + r * W, i, W) : zero;
-#pragma unroll
-    for (int f = 0; f < kPairRows; ++f)
-      m[f] = f < nf ? load<V>(ms + f * W, i, W) : zero;
-    if (filtered) {
-      const Vec<V> fw = load<V>(filt + s * W, i, W);
-#pragma unroll
-      for (int f = 0; f < kPairRows; ++f)
-#pragma unroll
-        for (int j = 0; j < V; ++j) m[f].w[j] &= fw.w[j];
+    for (int d = 0; d < kMaxDims; ++d) {
+      if (d >= a.nd) break;
+      const int first = ga0 / a.stride[d];
+      const int span = (ga_end - 1) / a.stride[d] - first + 1;
+      const bool full = span > a.n[d];
+      const int cnt = full ? a.n[d] : span;
+      const int start = full ? 0 : first % a.n[d];
+      for (int t = 0; t < cnt; ++t)
+        rt.scol[base + t] = a.col0[d] + (start + t) % a.n[d];
+      dim_base[d] = base;
+      first_q[d] = first;
+      wrap[d] = full;
+      if (d == 0) rt.r.d0_rows = cnt;
+      base += cnt;
     }
-#pragma unroll
-    for (int f = 0; f < kPairRows; ++f)
-      if (f < nf) {
-#pragma unroll
-        for (int r = 0; r < RT; ++r)
-          if (r < nr) cnt[f][r] += popc_and<V>(m[f], x[r]);
-      }
+    rt.r.filt_pos = -1;
+    if (a.filt_col >= 0) {
+      rt.scol[base] = a.filt_col;
+      rt.r.filt_pos = base++;
+    }
+    rt.r.b_pos = base;
+    if (mode == kModeRows) {
+      for (int c = 0; c < cols_b; ++c)
+        rt.scol[base + c] = cb0 + c < a.NB ? a.b_col + cb0 + c : -1;
+      base += cols_b;
+    } else {
+      for (int j = 0; j < a.D + 2; ++j) rt.scol[base + j] = a.b_col + j;
+      base += a.D + 2;
+    }
+    rt.scol[base] = -1;
+    rt.r.zrow = base++;
+    rt.r.staged = base;
+    rt.r.side = base;
+    rt.r.ga0 = ga0;
+    rt.r.cb0 = cb0;
+    rt.r.vr = ga_end - ga0;
+    rt.r.vc = min(cols_b, a.NB - cb0);
   }
-  // the block's counters: warps (a warp's sum is below 2^31, see
-  // kMaxTilesPerBlock), then shared memory
+  __syncthreads();
+  if (tid < rows_a) {
+    const int ga = ga0 + tid;
 #pragma unroll
-  for (int f = 0; f < kPairRows; ++f)
+    for (int d = 0; d < kMaxDims; ++d) {
+      short p = -1;
+      if (d < a.nd) {
+        const int q = ga / a.stride[d];
+        p = ga >= a.GA ? (short)rt.r.zrow
+                       : (short)(dim_base[d] + (wrap[d] ? q % a.n[d]
+                                                        : q - first_q[d]));
+      }
+      rt.pos[tid][d] = p;
+    }
+  }
+  __syncthreads();
+}
+
+// Copies of tile t's staged rows into `dst` (rows CW + kPad words apart).
+template <int V>
+__device__ __forceinline__ void stage(const ProductArgs& a,
+                                      const RegionTables& rt, unsigned int t,
+                                      uint32_t* dst) {
+#ifdef FB_ABLATE_COPY  // measurement only: multiply stale rows
+  return;
+#endif
+  const unsigned int s = t / (unsigned int)a.chunks;
+  const long long w0 = (long long)(t - s * a.chunks) * a.CW;
+  const unsigned long long* trow = a.table + (long long)s * a.P;
+  const int cwp = a.CW + kPad;
+  const int per_row_log = V == 4 ? a.lcw4 : a.lcw4 + 2;  // log2(CW / V)
+  const int n = rt.r.staged << per_row_log;
+  for (int e = threadIdx.x; e < n; e += kThreads) {
+    const int j = e >> per_row_log;
+    const int v = e & ((1 << per_row_log) - 1);
+    const int col = rt.scol[j];
+    const unsigned long long row = col >= 0 ? __ldg(trow + col) : 0ull;
+    const long long word = w0 + (long long)v * V;
+    uint32_t* d = dst + j * cwp + v * V;
+    if (row == 0ull || word >= a.W) {
+      if constexpr (V == 4)
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+      else
+        *d = 0u;
+    } else {
+      const void* src = reinterpret_cast<const uint32_t*>(row) + word;
+      if constexpr (V == 4)
+        cp_async16(d, src);
+      else
+        cp_async4(d, src);
+    }
+  }
+}
+
+__device__ __forceinline__ uint4 and4(uint4 x, uint4 y) {
+  return make_uint4(x.x & y.x, x.y & y.y, x.z & y.z, x.w & y.w);
+}
+
+// What the product reads besides the staged rows: the filter ANDed into
+// dimension 0's rows in place (so a group's word is the AND of one row of
+// each dimension), and for F the two sides of the BSI group.
+__device__ __forceinline__ void prepare(const ProductArgs& a, int mode,
+                                        const RegionTables& rt,
+                                        uint32_t* sb) {
+  const int cwp = a.CW + kPad, q = a.CW / 4;
+  if (rt.r.filt_pos >= 0) {
+    const uint32_t* f = sb + rt.r.filt_pos * cwp;
+    const int n = rt.r.d0_rows << a.lcw4;
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int r = e >> a.lcw4, v = (e & (q - 1)) * 4;
+      uint4* x = reinterpret_cast<uint4*>(sb + r * cwp + v);
+      *x = and4(*x, *reinterpret_cast<const uint4*>(f + v));
+    }
+  }
+  if (mode != kModeBsi) return;
+  const uint32_t* ex = sb + rt.r.b_pos * cwp;
+  uint32_t* pos = sb + rt.r.side * cwp;
+  for (int v = threadIdx.x * 4; v < a.CW; v += kThreads * 4) {
+    const uint4 xe = *reinterpret_cast<const uint4*>(ex + v);
+    const uint4 xs = *reinterpret_cast<const uint4*>(ex + cwp + v);
+    *reinterpret_cast<uint4*>(pos + v) =
+        make_uint4(xe.x & ~xs.x, xe.y & ~xs.y, xe.z & ~xs.z, xe.w & ~xs.w);
+    *reinterpret_cast<uint4*>(pos + cwp + v) = and4(xe, xs);
+  }
+}
+
+// Word offsets of the rows a group's word ANDs (-1 past nd).
+__device__ __forceinline__ void group_rows(const RegionTables& rt, int g,
+                                           int cwp, int (&off)[kMaxDims]) {
 #pragma unroll
-    for (int r = 0; r < RT; ++r) {
-      const unsigned int v = __reduce_add_sync(0xFFFFFFFFu, cnt[f][r]);
-      if (lane == 0) warp_acc[warp][f * RT + r] = v;
+  for (int d = 0; d < kMaxDims; ++d) {
+    const int p = rt.pos[g][d];
+    off[d] = p >= 0 ? p * cwp : -1;
+  }
+}
+
+// Word offsets of B's output c of the region: E its row (side unused);
+// F a plane and a side (plane p & pos, plane p & neg, exists & exists),
+// the zero row past NB.
+template <int MODE>
+__device__ __forceinline__ void b_rows(const ProductArgs& a,
+                                       const RegionTables& rt, int c,
+                                       int cwp, int& off, int& side) {
+  if constexpr (MODE == kModeRows) {
+    off = (rt.r.b_pos + c) * cwp;
+    side = off;
+  } else {
+    const int k = rt.r.cb0 + c;
+    int plane = rt.r.zrow, sd = rt.r.zrow;
+    if (k < a.D) {
+      plane = rt.r.b_pos + 2 + k;
+      sd = rt.r.side;
+    } else if (k < 2 * a.D) {
+      plane = rt.r.b_pos + 2 + k - a.D;
+      sd = rt.r.side + 1;
+    } else if (k == 2 * a.D) {
+      plane = sd = rt.r.b_pos;
+    }
+    off = plane * cwp;
+    side = sd * cwp;
+  }
+}
+
+// A group's word at word w: the AND of its rows.
+__device__ __forceinline__ uint32_t a_word(const uint32_t* sb,
+                                           const int (&off)[kMaxDims],
+                                           int nd, int w) {
+  uint32_t x = sb[off[0] + w];
+  if (nd > 1) x &= sb[off[1] + w];
+  if (nd > 2) x &= sb[off[2] + w];
+  return x;
+}
+
+template <int MODE>
+__device__ __forceinline__ uint32_t b_word(const uint32_t* sb, int off,
+                                           int side, int w) {
+  if constexpr (MODE == kModeRows)
+    return sb[off + w];
+  else
+    return sb[off + w] & sb[side + w];
+}
+
+// The product over every (shard, chunk) tile of the block's run: MT x NT
+// tiles of mma.sync a warp, each group's and output's words read straight
+// from the staged rows.
+template <int MODE, int MT, int NT, int V>
+__device__ __forceinline__ void product(const ProductArgs& a,
+                                        unsigned long long* __restrict__ out,
+                                        unsigned long long* __restrict__ slots,
+                                        unsigned int* __restrict__ tickets) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ RegionTables rt;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  setup_region(a, MODE, rt);
+  const int cwp = a.CW + kPad, nd = a.nd;
+  const int rows_a = 16 * a.MT, cols_b = 8 * a.NT;
+  const int buf_words = a.stage_rows * cwp;   // one staging buffer
+
+  // each lane's rows, fixed over the run: rows gid and gid + 8 of each
+  // 16-row tile, column gid of each 8-column tile
+  int aoff[2 * MT][kMaxDims], boff[NT], soff[NT];
+#pragma unroll
+  for (int i = 0; i < 2 * MT; ++i)
+    group_rows(rt, 16 * (i / 2) + gid + 8 * (i % 2), cwp, aoff[i]);
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+    b_rows<MODE>(a, rt, 8 * j + gid, cwp, boff[j], soff[j]);
+
+  int acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][j][k] = 0;
+
+  // kStages - 1 tiles in flight ahead of the one being multiplied; each
+  // commit group is one tile's copies (empty past the block's last tile)
+  unsigned int t = blockIdx.x;
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    const unsigned int ts = t + st * gridDim.x;
+    if (ts < a.n_tiles) stage<V>(a, rt, ts, smem + st * buf_words);
+    cp_async_commit();
+  }
+  for (int buf = 0; t < a.n_tiles; t += gridDim.x) {
+    const unsigned int tn = t + (kStages - 1) * gridDim.x;
+    const int next = buf == 0 ? kStages - 1 : buf - 1;  // the freed buffer
+    if (tn < a.n_tiles) stage<V>(a, rt, tn, smem + next * buf_words);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    uint32_t* sb = smem + buf * buf_words;
+    buf = buf == kStages - 1 ? 0 : buf + 1;
+#ifdef FB_ABLATE_COMPUTE  // measurement only: the copies and waits alone
+    continue;
+#endif
+    prepare(a, MODE, rt, sb);
+    __syncthreads();
+    const int ksteps = a.CW / 8;
+    for (int ks = warp; ks < ksteps; ks += kWarps) {
+      const int kw = ks * 8 + tig;
+      uint32_t af[MT][4], bf[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        af[i][0] = a_word(sb, aoff[2 * i], nd, kw);
+        af[i][1] = a_word(sb, aoff[2 * i + 1], nd, kw);
+        af[i][2] = a_word(sb, aoff[2 * i], nd, kw + 4);
+        af[i][3] = a_word(sb, aoff[2 * i + 1], nd, kw + 4);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        bf[j][0] = b_word<MODE>(sb, boff[j], soff[j], kw);
+        bf[j][1] = b_word<MODE>(sb, boff[j], soff[j], kw + 4);
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_b1(acc[i][j], af[i], bf[j]);
+    }
+    __syncthreads();
+  }
+
+  // the block's counters, once: each warp's 32-bit partials through
+  // shared memory into one 64-bit total an output of the region
+  const int region = rows_a * cols_b;
+  uint32_t* mine = smem + warp * region;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int g = 16 * i + gid, c = 8 * j + 2 * tig;
+      mine[g * cols_b + c] = (uint32_t)acc[i][j][0];
+      mine[g * cols_b + c + 1] = (uint32_t)acc[i][j][1];
+      mine[(g + 8) * cols_b + c] = (uint32_t)acc[i][j][2];
+      mine[(g + 8) * cols_b + c + 1] = (uint32_t)acc[i][j][3];
     }
   __syncthreads();
-  unsigned long long v = 0;
-  if (tid < kOut) {
+  unsigned long long* my_slots =
+      slots + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * region;
+  for (int o = tid; o < region; o += kThreads) {
+    unsigned long long v = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) v += warp_acc[w][tid];
+    for (int w = 0; w < kWarps; ++w) v += smem[w * region + o];
+    my_slots[o] = v;
   }
-  const int f = tid / RT, r = tid % RT;
-  const bool mine = tid < kOut && f < nf && r < nr;
-  if (tid < kOut)
-    slots[((long long)blockIdx.y * gridDim.x + blockIdx.x) * kOut + tid] = v;
-  if (!last_of_run(tickets, &last)) return;
-  if (mine) out[(long long)(f0 + f) * a.R + r0 + r] = run_total(slots, kOut,
-                                                                tid);
+  if (!last_of_run(tickets, &rt.last)) return;
+  for (int o = tid; o < region; o += kThreads) {
+    const int g = o / cols_b, c = o % cols_b;
+    if (g < rt.r.vr && c < rt.r.vc)
+      out[(long long)(rt.r.ga0 + g) * a.NB + rt.r.cb0 + c] =
+          run_total(slots, region, o);
+  }
   if (tid == 0) tickets[blockIdx.y] = 0;  // ready for the next launch
 }
 
-// ---- kernel F ---------------------------------------------------------------
-
-struct GroupArgs {
-  Tiles t;
-  long long shard_stride;  // (D + 2) x W words between shards of the group
-  int G, D;
-  int run;                 // groups of a block: an output run along y
-};
-
-// A minimum of one block an SM: by default ptxas holds this kernel to 40
-// registers and keeps a stack frame; with the bound it takes 46-48 and none.
-template <int V>
+template <int MT, int NT, int V>
 __global__ void __launch_bounds__(kThreads, 1)
-bsi_sum_groups_kernel(const int32_t* __restrict__ group,
-                      const int32_t* __restrict__ masks, const GroupArgs a,
+pair_counts_kernel(const ProductArgs a, unsigned long long* __restrict__ out,
+                   unsigned long long* __restrict__ slots,
+                   unsigned int* __restrict__ tickets) {
+  product<kModeRows, MT, NT, V>(a, out, slots, tickets);
+}
+
+template <int MT, int NT, int V>
+__global__ void __launch_bounds__(kThreads, 1)
+bsi_sum_groups_kernel(const ProductArgs a,
                       unsigned long long* __restrict__ out,
                       unsigned long long* __restrict__ slots,
                       unsigned int* __restrict__ tickets) {
-  // the run's counters, below 2^31 (kMaxTilesPerBlock): 32-bit shared
-  // atomics, which the card has natively
-  __shared__ unsigned int acc[kGroupCounters];
-  __shared__ int last;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int D = a.D, K = 2 * D + 1;
-  const int g0 = blockIdx.y * a.run, ng = min(a.run, a.G - g0);
-  const int n_acc = ng * K;
-  const long long W = a.t.W;
-  for (int k = tid; k < n_acc; k += kThreads) acc[k] = 0u;
-  __syncthreads();
-  for (unsigned int t = blockIdx.x; t < a.t.n_tiles; t += gridDim.x) {
-    const unsigned int s = t / a.t.tps;
-    const long long i = (long long)(t - s * a.t.tps) * (kThreads * V) +
-                        (long long)tid * V;
-    const int32_t* gs = group + s * a.shard_stride;
-    const Vec<V> ex = load<V>(gs, i, W), sg = load<V>(gs + W, i, W);
-    Vec<V> pos_all, neg_all;
-#pragma unroll
-    for (int j = 0; j < V; ++j) {
-      pos_all.w[j] = ex.w[j] & ~sg.w[j];
-      neg_all.w[j] = ex.w[j] & sg.w[j];
-    }
-    for (int q = 0; q < ng; ++q) {
-      const Vec<V> m = load<V>(masks + ((long long)s * a.G + g0 + q) * W, i,
-                               W);
-      Vec<V> pos, neg;
-#pragma unroll
-      for (int j = 0; j < V; ++j) {
-        pos.w[j] = m.w[j] & pos_all.w[j];
-        neg.w[j] = m.w[j] & neg_all.w[j];
-      }
-      unsigned int* cq = acc + q * K;
-      // mask & exists is pos | neg, disjoint: its count is the sum
-      const unsigned int ec = __reduce_add_sync(
-          0xFFFFFFFFu, popc_and<V>(pos, pos) + popc_and<V>(neg, neg));
-      if (lane == 0) atomicAdd(cq + 2 * D, ec);
-#pragma unroll 2
-      for (int d = 0; d < D; ++d) {
-        const Vec<V> x = load<V>(gs + (long long)(2 + d) * W, i, W);
-        const unsigned int cp = __reduce_add_sync(0xFFFFFFFFu,
-                                                  popc_and<V>(x, pos));
-        const unsigned int cn = __reduce_add_sync(0xFFFFFFFFu,
-                                                  popc_and<V>(x, neg));
-        if (lane == 0) {
-          atomicAdd(cq + d, cp);
-          atomicAdd(cq + D + d, cn);
-        }
-      }
-    }
-  }
-  __syncthreads();
-  const int run_k = a.run * K;  // slot words of a block
-  for (int k = tid; k < n_acc; k += kThreads)
-    slots[((long long)blockIdx.y * gridDim.x + blockIdx.x) * run_k + k] =
-        acc[k];
-  if (!last_of_run(tickets, &last)) return;
-  for (int k = tid; k < n_acc; k += kThreads)
-    out[(long long)g0 * K + k] = run_total(slots, run_k, k);
-  if (tid == 0) tickets[blockIdx.y] = 0;
+  product<kModeBsi, MT, NT, V>(a, out, slots, tickets);
 }
 
-// ---- the popcount rate ------------------------------------------------------
+// ---- the rates --------------------------------------------------------------
 
 // Eight independent chains of popcount and add a thread, `iters` steps each:
-// the card's 32-bit popcount rate, which bounds E and F (chip_smoke.py).
+// the card's 32-bit popcount rate (chip_smoke.py's popc_rate).
 __global__ void __launch_bounds__(kThreads)
 popc_rate_kernel(unsigned int* __restrict__ out, int iters) {
   unsigned int x[8];
@@ -325,24 +560,63 @@ popc_rate_kernel(unsigned int* __restrict__ out, int iters) {
   if (v == 0x12345678u) out[blockIdx.x] = v;  // keeps the chains live
 }
 
+// Eight independent accumulator chains of mma.sync a warp, `iters` steps
+// each: the tensor cores' rate in the 1-bit AND-popcount form (B1 true) or
+// in int8 (chip_smoke.py's tc_rate).
+template <bool B1>
+__global__ void __launch_bounds__(kThreads)
+tc_rate_kernel(unsigned int* __restrict__ out, int iters) {
+  uint32_t a[4], b[2];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) a[j] = threadIdx.x * 2654435761u + j * 97u;
+  b[0] = a[0] ^ 0x9E3779B9u;
+  b[1] = a[1] ^ 0x7F4A7C15u;
+  int d[8][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) d[c][k] = 0;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      if constexpr (B1)
+        mma_b1(d[c], a, b);
+      else
+        mma_s8(d[c], a, b);
+    }
+  }
+  int v = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v ^= d[c][k];
+  if (v == 0x12345678) out[blockIdx.x] = (unsigned int)v;
+}
+
 // ---- launch -----------------------------------------------------------------
 
-using PairKernel = decltype(&pair_counts_kernel<8, 4>);
-using GroupKernel = decltype(&bsi_sum_groups_kernel<4>);
-constexpr int kPairForms = 8;   // RT in {1, 2, 4, 8} x V in {4, 1}
-const PairKernel kPairTable[kPairForms] = {
-    pair_counts_kernel<1, 4>, pair_counts_kernel<2, 4>,
-    pair_counts_kernel<4, 4>, pair_counts_kernel<8, 4>,
-    pair_counts_kernel<1, 1>, pair_counts_kernel<2, 1>,
-    pair_counts_kernel<4, 1>, pair_counts_kernel<8, 1>};
-const GroupKernel kGroupTable[2] = {bsi_sum_groups_kernel<4>,
-                                    bsi_sum_groups_kernel<1>};
+using ProductKernel = decltype(&pair_counts_kernel<1, 1, 4>);
 
-// Per device: SMs and resident blocks a SM of each form.
+// Forms: mode x (MT, NT) x V.
+constexpr int kShapes = 6;   // (MT, NT) in {1, 2, 4} x {1, 4}
+constexpr int kForms = 2 * kShapes * 2;
+
+#define FB_FORMS(K)                                                      \
+  K<1, 1, 4>, K<1, 4, 4>, K<2, 1, 4>, K<2, 4, 4>, K<4, 1, 4>, K<4, 4, 4>, \
+      K<1, 1, 1>, K<1, 4, 1>, K<2, 1, 1>, K<2, 4, 1>, K<4, 1, 1>, K<4, 4, 1>
+const ProductKernel kTable[kForms] = {FB_FORMS(pair_counts_kernel),
+                                      FB_FORMS(bsi_sum_groups_kernel)};
+#undef FB_FORMS
+
+int form_index(int mode, int MT, int NT, int V) {
+  const int shape = (MT == 1 ? 0 : MT == 2 ? 2 : 4) + (NT == 1 ? 0 : 1);
+  return mode * (kForms / 2) + (V == 4 ? 0 : kShapes) + shape;
+}
+
+// Per device: SMs, and whether each form may take the large shared memory.
 struct DeviceInfo {
   int sms = 0;
-  int pair_blocks[kPairForms] = {};
-  int group_blocks[2] = {};
+  bool smem_set[kForms] = {};
 };
 DeviceInfo g_devices[64];
 
@@ -357,125 +631,130 @@ cudaError_t device_info(DeviceInfo** out) {
     if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess)
       return e;
-    for (int f = 0; f < kPairForms; ++f) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &d.pair_blocks[f], kPairTable[f], kThreads, 0);
-      if (e != cudaSuccess) return e;
-      if (d.pair_blocks[f] < 1) return cudaErrorInvalidConfiguration;
-    }
-    for (int f = 0; f < 2; ++f) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &d.group_blocks[f], kGroupTable[f], kThreads, 0);
-      if (e != cudaSuccess) return e;
-      if (d.group_blocks[f] < 1) return cudaErrorInvalidConfiguration;
-    }
     d.sms = sms;
   }
   *out = &d;
   return cudaSuccess;
 }
 
-bool aligned16(const void* p) {
-  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
+// spec: mode, vec, S, P, nd, n0, n1, n2, col0_0, col0_1, col0_2, filt_col,
+// b_col, NB, D (kSpecWords ints).
+constexpr int kSpecWords = 15;
 
-// The tiles of S rows of W words, or false past 2^31 - 1 tiles.
-bool tiles_of(int S, long long W, int V, Tiles* t) {
-  const long long tps = (W + (long long)kThreads * V - 1) /
-                        ((long long)kThreads * V);
-  if (tps * S >= (1ll << 31)) return false;
-  t->W = W;
-  t->tps = (unsigned int)tps;
-  t->n_tiles = (unsigned int)(tps * S);
-  return true;
-}
-
-// Kernel E's launch: form, arguments, grid and the slot words it needs.
-struct PairPlan {
+struct Plan {
   int form;
-  int runs;  // output runs: blocks along y, one ticket each
-  PairArgs a;
+  int smem;
+  ProductArgs a;
   dim3 grid;
   long long n_slots;
-};
-
-cudaError_t plan_pairs(const void* masks, const void* rows, const void* filt,
-                       int S, int F, int R, long long W, PairPlan* p) {
-  if (masks == nullptr || rows == nullptr || S <= 0 || F <= 0 || R <= 0 ||
-      W <= 0)
-    return cudaErrorInvalidValue;
-  const bool vec = W % 4 == 0 && aligned16(masks) && aligned16(rows) &&
-                   aligned16(filt);
-  const int span = R < kPairRows ? R : kPairRows;
-  const int rt_index = span <= 1 ? 0 : span <= 2 ? 1 : span <= 4 ? 2 : 3;
-  const int RT = 1 << rt_index;
-  DeviceInfo* info = nullptr;
-  const cudaError_t e = device_info(&info);
-  if (e != cudaSuccess) return e;
-  p->form = (vec ? 0 : 4) + rt_index;
-  if (!tiles_of(S, W, vec ? 4 : 1, &p->a.t)) return cudaErrorInvalidValue;
-  p->a.F = F;
-  p->a.R = R;
-  p->a.r_tiles = (R + RT - 1) / RT;
-  const long long out_tiles =
-      (long long)((F + kPairRows - 1) / kPairRows) * p->a.r_tiles;
-  if (out_tiles > 65535) return cudaErrorInvalidConfiguration;
-  p->runs = (int)out_tiles;
-  const long long cap = (long long)info->sms * info->pair_blocks[p->form];
-  long long gx = cap / out_tiles;
-  if (gx < 1) gx = 1;
-  if (gx > p->a.t.n_tiles) gx = p->a.t.n_tiles;
-  const long long least = (p->a.t.n_tiles + kMaxTilesPerBlock - 1) /
-                          kMaxTilesPerBlock;
-  if (gx < least) gx = least;
-  p->grid = dim3((unsigned int)gx, (unsigned int)out_tiles, 1);
-  p->n_slots = out_tiles * gx * kPairRows * RT;
-  return cudaSuccess;
-}
-
-// Kernel F's launch.  The group run is as long as the shared counters allow
-// while the grid still has a block for each resident slot of the card.
-struct GroupPlan {
-  int form;
   int runs;
-  GroupArgs a;
-  dim3 grid;
-  long long n_slots;
 };
 
-cudaError_t plan_groups(const void* group, const void* masks, int S, int G,
-                        int D, long long W, GroupPlan* p) {
-  if (group == nullptr || masks == nullptr || S <= 0 || G <= 0 || W <= 0 ||
-      D < 1 || D > kMaxDepth)
+cudaError_t plan_product(const int* spec, long long W, Plan* p) {
+  const int mode = spec[0], V = spec[1];
+  ProductArgs& a = p->a;
+  a.table = nullptr;
+  a.W = W;
+  a.S = spec[2];
+  a.P = spec[3];
+  a.nd = spec[4];
+  if ((mode != kModeRows && mode != kModeBsi) || (V != 4 && V != 1) ||
+      a.S <= 0 || a.P <= 0 || W <= 0 || a.nd < 1 || a.nd > kMaxDims ||
+      (V == 4 && W % 4 != 0))
     return cudaErrorInvalidValue;
-  const bool vec = W % 4 == 0 && aligned16(group) && aligned16(masks);
-  DeviceInfo* info = nullptr;
-  const cudaError_t e = device_info(&info);
-  if (e != cudaSuccess) return e;
-  p->form = vec ? 0 : 1;
-  if (!tiles_of(S, W, vec ? 4 : 1, &p->a.t)) return cudaErrorInvalidValue;
-  p->a.shard_stride = (long long)(D + 2) * W;
-  p->a.G = G;
-  p->a.D = D;
-  const int K = 2 * D + 1;
-  const long long cap = (long long)info->sms * info->group_blocks[p->form];
-  const long long n_tiles = p->a.t.n_tiles;
-  long long runs = (cap + n_tiles - 1) / n_tiles;
-  if (runs > G) runs = G;
-  long long run = (G + runs - 1) / runs;
-  if (run * K > kGroupCounters) run = kGroupCounters / K;
-  runs = (G + run - 1) / run;
+  long long GA = 1;
+  for (int d = 0; d < kMaxDims; ++d) {
+    a.n[d] = d < a.nd ? spec[5 + d] : 1;
+    a.col0[d] = d < a.nd ? spec[8 + d] : 0;
+    if (a.n[d] <= 0 || a.col0[d] < 0 || a.col0[d] + a.n[d] > a.P)
+      return cudaErrorInvalidValue;
+    GA *= a.n[d];
+  }
+  if (GA >= (1ll << 30)) return cudaErrorInvalidValue;
+  a.GA = (int)GA;
+  int st = 1;
+  for (int d = a.nd - 1; d >= 0; --d) {
+    a.stride[d] = st;
+    st *= a.n[d];
+  }
+  for (int d = a.nd; d < kMaxDims; ++d) a.stride[d] = 1;
+  a.filt_col = spec[11];
+  a.b_col = spec[12];
+  a.NB = spec[13];
+  a.D = spec[14];
+  if (a.filt_col >= a.P || a.NB <= 0) return cudaErrorInvalidValue;
+  if (mode == kModeBsi) {
+    if (a.D < 1 || a.D > kMaxDepth || a.NB != 2 * a.D + 1 || a.b_col < 0 ||
+        a.b_col + a.D + 2 > a.P)
+      return cudaErrorInvalidValue;
+  } else if (a.b_col < 0 || a.b_col + a.NB > a.P) {
+    return cudaErrorInvalidValue;
+  }
+  // the region: MT in {1, 2, 4}, NT in {1, 4}
+  a.MT = GA <= 16 ? 1 : GA <= 32 ? 2 : 4;
+  a.NT = a.NB <= 8 ? 1 : 4;
+  const int rows_a = 16 * a.MT, cols_b = 8 * a.NT;
+  const long long regions_a = (GA + rows_a - 1) / rows_a;
+  a.regions_b = (a.NB + cols_b - 1) / cols_b;
+  const long long runs = regions_a * a.regions_b;
   if (runs > 65535) return cudaErrorInvalidConfiguration;
   p->runs = (int)runs;
-  p->a.run = (int)run;
+  // staged rows a tile, at most, over the regions
+  int staged = 0;
+  for (int d = 0; d < a.nd; ++d) {
+    const int span = (rows_a - 1) / a.stride[d] + 2;
+    staged += span < a.n[d] ? span : a.n[d];
+  }
+  staged += (a.filt_col >= 0) + (mode == kModeRows ? cols_b : a.D + 2) + 1;
+  if (staged > kStageMax) return cudaErrorInvalidValue;
+  // a buffer's rows: the staged ones and, for F, the two sides
+  a.stage_rows = staged + (mode == kModeBsi ? 2 : 0);
+  // chunk words: the most that fit the shared-memory budget
+  const int region = rows_a * cols_b;
+  const int red = kWarps * region * 4;   // the end-of-run reduction
+  int cw = 256, lcw4 = 6;
+  auto bytes = [&](int c) {
+    return kStages * a.stage_rows * (c + kPad) * 4;
+  };
+  while (cw > 32 && bytes(cw) > kSmemBudget) {
+    cw /= 2;
+    --lcw4;
+  }
+  if (bytes(cw) > kSmemBudget) return cudaErrorInvalidValue;
+  a.CW = cw;
+  a.lcw4 = lcw4;
+  p->smem = bytes(cw) > red ? bytes(cw) : red;
+  const long long chunks = (W + cw - 1) / cw;
+  if (chunks * a.S >= (1ll << 31)) return cudaErrorInvalidValue;
+  a.chunks = (int)chunks;
+  a.n_tiles = (unsigned int)(chunks * a.S);
+  p->form = form_index(mode, a.MT, a.NT, V);
+  DeviceInfo* info = nullptr;
+  cudaError_t e = device_info(&info);
+  if (e != cudaSuccess) return e;
+  if (!info->smem_set[p->form]) {
+    e = cudaFuncSetAttribute(kTable[p->form],
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kSmemCap - (int)sizeof(RegionTables) - 1024);
+    if (e != cudaSuccess) return e;
+    info->smem_set[p->form] = true;
+  }
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kTable[p->form],
+                                                    kThreads, p->smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // the grid: about the card's resident blocks over the regions, and
+  // enough blocks that none takes more tiles than its 32-bit counters hold
+  const long long cap = (long long)info->sms * per_sm;
   long long gx = cap / runs;
   if (gx < 1) gx = 1;
-  if (gx > p->a.t.n_tiles) gx = p->a.t.n_tiles;
-  const long long least = (p->a.t.n_tiles + kMaxTilesPerBlock - 1) /
-                          kMaxTilesPerBlock;
+  if (gx > a.n_tiles) gx = a.n_tiles;
+  const long long max_tiles = ((1ll << 31) - 1) / ((long long)cw * 32);
+  const long long least = (a.n_tiles + max_tiles - 1) / max_tiles;
   if (gx < least) gx = least;
   p->grid = dim3((unsigned int)gx, (unsigned int)runs, 1);
-  p->n_slots = runs * gx * run * K;
+  p->n_slots = runs * gx * region;
   return cudaSuccess;
 }
 
@@ -483,80 +762,45 @@ cudaError_t plan_groups(const void* group, const void* masks, int S, int G,
 
 extern "C" {
 
-// The deepest group kernel F takes.
-int fb_group_limits(int* max_depth) {
+// The deepest group kernel F takes, and the words of a launch spec.
+int fb_group_limits(int* max_depth, int* spec_words) {
   *max_depth = kMaxDepth;
+  *spec_words = kSpecWords;
   return 0;
 }
 
-// Slot words (int64) and tickets (uint32) that a launch of kernel E over
-// these arrays needs.
-int fb_pair_counts_slots(const void* masks, const void* rows,
-                         const void* filt, int S, int F, int R, long long W,
-                         long long* n_slots, int* n_tickets) {
-  PairPlan p;
-  const cudaError_t e = plan_pairs(masks, rows, filt, S, F, R, W, &p);
+// Slot words (int64) and tickets (uint32) that a launch of `spec` needs,
+// and its chunk words and output regions.
+int fb_group_product_slots(const int* spec, long long W, long long* n_slots,
+                           int* n_tickets, int* chunk_words) {
+  Plan p;
+  const cudaError_t e = plan_product(spec, W, &p);
   if (e == cudaSuccess) {
     *n_slots = p.n_slots;
     *n_tickets = p.runs;
+    *chunk_words = p.a.CW;
   }
   return (int)e;
 }
 
-// Kernel E.  masks ((S, F, W) int32), rows ((S, R, W) int32) and filt
-// ((S, W) int32, or null for none), each contiguous -> out ((F, R) int64).
-// slots: n_slots int64 of scratch, at least fb_pair_counts_slots' count, no
+// Kernel E (spec mode 0) or F (mode 1).  table: (S, P) uint64 row
+// addresses on the device, 0 for an absent row; every nonzero address
+// 16-byte aligned when spec's vec is 4.  out: (GA, NB) int64.  slots:
+// n_slots int64 of scratch, at least fb_group_product_slots' count, no
 // zeroing.  tickets: n_tickets uint32, at least its count, 0 before the
 // launch and 0 again after it.
-int fb_pair_counts(const void* masks, const void* rows, const void* filt,
-                   int S, int F, int R, long long W, void* out, void* slots,
-                   long long n_slots, void* tickets, int n_tickets,
-                   void* stream) {
-  PairPlan p;
-  const cudaError_t e = plan_pairs(masks, rows, filt, S, F, R, W, &p);
+int fb_group_product(const int* spec, long long W, const void* table,
+                     void* out, void* slots, long long n_slots, void* tickets,
+                     int n_tickets, void* stream) {
+  Plan p;
+  const cudaError_t e = plan_product(spec, W, &p);
   if (e != cudaSuccess) return (int)e;
-  if (out == nullptr || slots == nullptr || tickets == nullptr ||
-      p.n_slots > n_slots || p.runs > n_tickets)
+  if (table == nullptr || out == nullptr || slots == nullptr ||
+      tickets == nullptr || p.n_slots > n_slots || p.runs > n_tickets)
     return (int)cudaErrorInvalidValue;
-  kPairTable[p.form]<<<p.grid, kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(masks), static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(filt), p.a,
-      static_cast<unsigned long long*>(out),
-      static_cast<unsigned long long*>(slots),
-      static_cast<unsigned int*>(tickets));
-  return (int)cudaGetLastError();
-}
-
-// Slot words and tickets that a launch of kernel F over these arrays needs.
-int fb_bsi_sum_groups_slots(const void* group, const void* masks, int S,
-                            int G, int D, long long W, long long* n_slots,
-                            int* n_tickets) {
-  GroupPlan p;
-  const cudaError_t e = plan_groups(group, masks, S, G, D, W, &p);
-  if (e == cudaSuccess) {
-    *n_slots = p.n_slots;
-    *n_tickets = p.runs;
-  }
-  return (int)e;
-}
-
-// Kernel F.  group ((S, D + 2, W) int32) and masks ((S, G, W) int32), each
-// contiguous -> out ((G, 2D + 1) int64: per group the positive plane counts,
-// the negative plane counts, the count).  slots and tickets as for kernel E.
-int fb_bsi_sum_groups(const void* group, const void* masks, int S, int G,
-                      int D, long long W, void* out, void* slots,
-                      long long n_slots, void* tickets, int n_tickets,
-                      void* stream) {
-  GroupPlan p;
-  const cudaError_t e = plan_groups(group, masks, S, G, D, W, &p);
-  if (e != cudaSuccess) return (int)e;
-  if (out == nullptr || slots == nullptr || tickets == nullptr ||
-      p.n_slots > n_slots || p.runs > n_tickets)
-    return (int)cudaErrorInvalidValue;
-  kGroupTable[p.form]<<<p.grid, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(group), static_cast<const int32_t*>(masks),
+  p.a.table = static_cast<const unsigned long long*>(table);
+  kTable[p.form]<<<p.grid, kThreads, p.smem,
+                   static_cast<cudaStream_t>(stream)>>>(
       p.a, static_cast<unsigned long long*>(out),
       static_cast<unsigned long long*>(slots),
       static_cast<unsigned int*>(tickets));
@@ -571,6 +815,19 @@ int fb_popc_rate(void* out, int blocks, int iters, void* stream) {
     return (int)cudaErrorInvalidValue;
   popc_rate_kernel<<<blocks, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<unsigned int*>(out), iters);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core rate loop: `blocks` x 256 threads, `iters` steps of eight
+// mma.sync a warp (8 x iters x 8 x blocks instructions): b1 != 0 the 1-bit
+// AND-popcount form (m16n8k256, 32,768 bit products each), else int8
+// (m16n8k32, 4,096 products each).
+int fb_tc_rate(void* out, int blocks, int iters, int b1, void* stream) {
+  if (out == nullptr || blocks <= 0 || iters <= 0)
+    return (int)cudaErrorInvalidValue;
+  auto k = b1 ? tc_rate_kernel<true> : tc_rate_kernel<false>;
+  k<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned int*>(out), iters);
   return (int)cudaGetLastError();
 }

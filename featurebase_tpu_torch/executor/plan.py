@@ -14,7 +14,10 @@ generation-keyed device caches (uploads through pinned host buffers; each
 entry registered with the residency LRU of storage/residency.py), lowers
 the IR to a register program over leaf planes (``lower_ir``: each BSI
 comparator becomes a sign split and OP_BSI walks with its predicate bits
-in the payload, a Shift subtree is evaluated first and enters as a leaf) and runs it with kernel A
+in the payload, split in two past 32 planes; a Shift subtree is evaluated
+first and enters as a leaf; children are emitted in Sethi-Ullman order, and
+a subtree that does not fit kernel A's limits is evaluated first and enters
+as a leaf too, ops/lowering.py) and runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
 per-shard counts for Count.
 """
@@ -34,6 +37,7 @@ from featurebase_tpu_torch.model.view import VIEW_STANDARD, view_bsi_group
 from featurebase_tpu_torch.ops import bitwise as bw
 from featurebase_tpu_torch.ops import bsi_traced as bst
 from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.ops import lowering
 from featurebase_tpu_torch.pql.ast import Call, Condition
 
 
@@ -211,66 +215,63 @@ def _ir_key(ir) -> tuple:
 # Lowering of compiled IR to a kernel-A program
 # ---------------------------------------------------------------------------
 
-_SET_OPS = {"or": ck.OP_OR, "and": ck.OP_AND, "xor": ck.OP_XOR,
-            "andnot": ck.OP_ANDNOT}
+def ir_expr(ir, leaves: List[torch.Tensor], params: List[np.ndarray],
+            eval_expr: Callable[[tuple], torch.Tensor]):
+    """The IR tree over stacked leaves ((S, W) or (S, D+2, W) int32) as an
+    expression of ops/lowering.py.  `eval_expr(expr)` evaluates a Shift
+    operand to (S, W) words; the shifted words enter as a plane."""
+    bsi: Dict[int, bst.LeafPlanes] = {}
+
+    def bsi_leaf(leaf_node) -> bst.LeafPlanes:
+        lid = leaf_node[1]
+        if lid not in bsi:
+            bsi[lid] = bst.LeafPlanes(("leaf", lid), leaves[lid])
+        return bsi[lid]
+
+    def rec(node):
+        op = node[0]
+        if op == "leaf":
+            return ("plane", ("leaf", node[1]), leaves[node[1]])
+        if op in ("or", "and", "xor", "andnot"):
+            kids = tuple(rec(c) for c in node[1:])
+            return kids[0] if len(kids) == 1 else (op, *kids)
+        if op == "shift":
+            shifted = bw.b_shift(eval_expr(rec(node[2])), node[1])
+            return ("plane", ("shift", id(node)), shifted)
+        if op == "bsi_notnull":
+            return bsi_leaf(node[1]).exists()
+        if op == "bsi_null":
+            return ("andnot", rec(node[1]), bsi_leaf(node[2]).exists())
+        depth, p = node[1], node[2]
+        leaf = bsi_leaf(node[3])
+        if op == "bsi_betw":
+            return bst.expr_between(leaf, params[p], params[p + 1],
+                                    params[p + 2], params[p + 3], depth)
+        bits, neg = params[p], int(params[p + 1])
+        if op == "bsi_eq":
+            return bst.expr_eq(leaf, bits, neg, depth)
+        if op == "bsi_neq":
+            return bst.expr_neq(leaf, bits, neg, depth)
+        if op in ("bsi_lt", "bsi_lte"):
+            return bst.expr_lt(leaf, bits, neg, depth, op == "bsi_lte")
+        if op in ("bsi_gt", "bsi_gte"):
+            return bst.expr_gt(leaf, bits, neg, depth, op == "bsi_gte")
+        raise PlanError(f"bad IR op: {op}")
+
+    return rec(ir)
 
 
 def lower_ir(ir, leaves: List[torch.Tensor], params: List[np.ndarray],
-             S: int, shift_words: Callable[[tuple], torch.Tensor]
+             S: int, eval_words: Callable[[ck.Program], torch.Tensor]
              ) -> ck.Program:
-    """Lower an IR tree over stacked leaves ((S, W) or (S, D+2, W) int32) to
-    a register program.  `shift_words(subtree)` evaluates a Shift operand to
-    (S, W) words; the shifted words enter the program as a plane."""
-    pb = ck.ProgramBuilder(S, WORDS_PER_ROW)
-    bsi: Dict[int, bst.BsiPlanes] = {}
-
-    def bsi_planes(leaf_node) -> bst.BsiPlanes:
-        lid = leaf_node[1]
-        if lid not in bsi:
-            bsi[lid] = bst.BsiPlanes(pb, ("leaf", lid), leaves[lid])
-        return bsi[lid]
-
-    def rec(node) -> int:
-        op = node[0]
-        if op == "leaf":
-            return pb.load(pb.plane(("leaf", node[1]), leaves[node[1]]))
-        if op in _SET_OPS:
-            acc = rec(node[1])
-            for sub in node[2:]:
-                r = rec(sub)
-                pb.op(_SET_OPS[op], acc, r, dst=acc)
-                pb.free(r)
-            return acc
-        if op == "shift":
-            shifted = bw.b_shift(shift_words(node[2]), node[1])
-            return pb.load(pb.plane(("shift", id(node)), shifted))
-        if op == "bsi_notnull":
-            return pb.load(bsi_planes(node[1]).exists())
-        if op == "bsi_null":
-            ex = rec(node[1])
-            e = pb.load(bsi_planes(node[2]).exists())
-            pb.op(ck.OP_ANDNOT, ex, e, dst=ex)
-            pb.free(e)
-            return ex
-        depth, p = node[1], node[2]
-        planes = bsi_planes(node[3])
-        if op == "bsi_betw":
-            return bst.lower_between(pb, planes, params[p], params[p + 1],
-                                     params[p + 2], params[p + 3], depth)
-        bits, neg = params[p], int(params[p + 1])
-        if op == "bsi_eq":
-            return bst.lower_eq(pb, planes, bits, neg, depth)
-        if op == "bsi_neq":
-            return bst.lower_neq(pb, planes, bits, neg, depth)
-        if op in ("bsi_lt", "bsi_lte"):
-            return bst.lower_lt(pb, planes, bits, neg, depth,
-                                op == "bsi_lte")
-        if op in ("bsi_gt", "bsi_gte"):
-            return bst.lower_gt(pb, planes, bits, neg, depth,
-                                op == "bsi_gte")
-        raise PlanError(f"bad IR op: {op}")
-
-    return pb.build(rec(ir))
+    """Lower an IR tree to a register program within kernel A's limits
+    (ops/lowering.py: Sethi-Ullman order, and spills of subtrees that do
+    not fit).  `eval_words(program)` runs a program to its (S, W) words,
+    for Shift operands and spills."""
+    def eval_expr(e) -> torch.Tensor:
+        return eval_words(lowering.lower(e, S, WORDS_PER_ROW, eval_words))
+    return lowering.lower(ir_expr(ir, leaves, params, eval_expr), S,
+                          WORDS_PER_ROW, eval_words)
 
 
 # ---------------------------------------------------------------------------
@@ -440,14 +441,10 @@ class PlanExecutor:
     def _run(self, index: Index, plan: BitmapPlan, shards: List[int],
              want_words: bool, want_counts: bool):
         leaves = [self._gather_leaf(index, l, shards) for l in plan.leaves]
-        S = len(shards)
 
-        def shift_words(sub) -> torch.Tensor:
-            words, _ = ck.plan_eval(
-                lower_ir(sub, leaves, plan.params, S, shift_words),
-                want_words=True)
-            return words
-        prog = lower_ir(plan.ir, leaves, plan.params, S, shift_words)
+        def words(prog: ck.Program) -> torch.Tensor:
+            return ck.plan_eval(prog, want_words=True)[0]
+        prog = lower_ir(plan.ir, leaves, plan.params, len(shards), words)
         return ck.plan_eval(prog, want_words, want_counts)
 
     def run_bitmap(self, index: Index, plan: BitmapPlan, shards: List[int]

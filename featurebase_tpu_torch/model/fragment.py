@@ -363,6 +363,17 @@ class Fragment:
                                device=_canonical(device))
         return self.device_tile(device)[slot]
 
+    def device_slots(self, rows, device):
+        """(tile, slots): device_tile()'s tensor and the slot of each row
+        id in it (-1 for a row the fragment lacks), read in one hold of the
+        fragment's lock, so the slots index that very tensor (a writer
+        replaces the mirror out of place)."""
+        with self._lock:
+            tile = self.device_tile(device)
+            slots = np.array([self._slot_of_row.get(int(r), -1)
+                              for r in rows], dtype=np.int64)
+        return tile, slots
+
     def device_rows(self, rows, device):
         """Device rows for a list of row ids, absent rows as zeros:
         (tile (len(rows), W) int32, present (len(rows),) bool ndarray)."""

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from featurebase_tpu_torch.ops import bsi_traced as bst
-from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.ops import lowering
 from featurebase_tpu_torch.ops.cuda_kernels import popcount_words
 from featurebase_tpu_torch.parallel.agg import finalize_sum
 
@@ -181,14 +181,13 @@ def finish_groups(parts: np.ndarray) -> List[Tuple[int, int]]:
 # Static-predicate comparators of one shard (bsi.py:114-160)
 # ---------------------------------------------------------------------------
 
-def _range(group: torch.Tensor, lower, *args) -> torch.Tensor:
-    """Run one comparator lowering over a shard's (D + 2, W) group with
-    kernel A in word mode -> (W,) int32 words."""
+def _range(group: torch.Tensor, build, *args) -> torch.Tensor:
+    """Run one comparator expression (ops/bsi_traced.py ``expr_*``) over a
+    shard's (D + 2, W) group with kernel A in word mode -> (W,) int32 words
+    (a group deeper than kernel A's planes spills, ops/lowering.py)."""
     g = group[None]
-    pb = ck.ProgramBuilder(1, g.shape[2])
-    r = lower(pb, bst.BsiPlanes(pb, "bsi", g), *args)
-    words, _ = ck.plan_eval(pb.build(r), want_words=True)
-    return words[0]
+    expr = build(bst.LeafPlanes("bsi", g), *args)
+    return lowering.run_words(expr, 1, g.shape[2])[0]
 
 
 def _pred(pred: int, depth: int):
@@ -197,25 +196,25 @@ def _pred(pred: int, depth: int):
 
 
 def range_eq(group: torch.Tensor, pred: int, depth: int) -> torch.Tensor:
-    return _range(group, bst.lower_eq, *_pred(pred, depth), depth)
+    return _range(group, bst.expr_eq, *_pred(pred, depth), depth)
 
 
 def range_neq(group: torch.Tensor, pred: int, depth: int) -> torch.Tensor:
-    return _range(group, bst.lower_neq, *_pred(pred, depth), depth)
+    return _range(group, bst.expr_neq, *_pred(pred, depth), depth)
 
 
 def range_lt(group: torch.Tensor, pred: int, depth: int,
              allow_eq: bool = False) -> torch.Tensor:
-    return _range(group, bst.lower_lt, *_pred(pred, depth), depth, allow_eq)
+    return _range(group, bst.expr_lt, *_pred(pred, depth), depth, allow_eq)
 
 
 def range_gt(group: torch.Tensor, pred: int, depth: int,
              allow_eq: bool = False) -> torch.Tensor:
-    return _range(group, bst.lower_gt, *_pred(pred, depth), depth, allow_eq)
+    return _range(group, bst.expr_gt, *_pred(pred, depth), depth, allow_eq)
 
 
 def range_between(group: torch.Tensor, lo: int, hi: int, depth: int
                   ) -> torch.Tensor:
     """lo <= value <= hi."""
-    return _range(group, bst.lower_between, *_pred(lo, depth),
+    return _range(group, bst.expr_between, *_pred(lo, depth),
                   *_pred(hi, depth), depth)

@@ -4,10 +4,11 @@ Counterpart of featurebase_tpu/ops/bsi_traced.py (reference
 fragment.go:963-1305 rangeEQ/LT/GT/Between).  There the predicate bits are
 traced so one XLA program serves every literal; here they are host values at
 launch time, so every ``_sel(pred_bits[i], x, y)`` resolves on the host: the
-torch comparators pick the branch in Python, and the ``lower_*`` functions
-turn each comparator into a few kernel-A instructions (ops/cuda_kernels.py
-``plan_eval``): the sign split in set algebra, and each unsigned walk as one
-``OP_BSI`` whose payload holds the predicate bits.
+torch comparators pick the branch in Python, and the ``expr_*`` functions
+turn each comparator into an expression of a few kernel-A instructions
+(ops/lowering.py, ops/cuda_kernels.py ``plan_eval``): the sign split in set
+algebra, and each unsigned walk as one ``OP_BSI`` whose payload holds the
+predicate bits.
 
 Inputs of the torch comparators:
   slices: (..., D, W) int32 magnitude planes (leading dims = stacked shards)
@@ -122,109 +123,97 @@ def encode_pred(pred: int, depth: int):
 
 
 # ---------------------------------------------------------------------------
-# Lowering to kernel programs.  Every function takes a BsiPlanes view of one
-# BSI leaf and returns a register holding its result (the caller frees it).
-# The filter is all-ones in plans (executor/plan.py), so base = exists.
+# Lowering to kernel programs.  Each comparator becomes an expression of
+# ops/lowering.py over the planes of one BSI leaf: the sign split in set
+# algebra and each unsigned walk as OP_BSI walks.  One OP_BSI walks at most
+# ck.MAX_DEPTH (32) magnitude planes; a deeper walk is split into one over
+# the high planes, which carries the virtual plane's bit, and one over the
+# low 32, which carries a zero:
+#   eq = eq_hi & eq_lo        (the low walk applied to eq_hi in place)
+#   gt = gt_hi | (eq_hi & gt_lo),  lt the same way
+# with allow_eq on the low walk only.  The filter is all-ones in plans
+# (executor/plan.py), so base = exists.  executor/plan.py and ops/bsi.py
+# lower whole expressions within kernel A's limits with lowering.lower.
 # ---------------------------------------------------------------------------
 
-class BsiPlanes:
-    """Plane ids of one (S, D+2, W) BSI leaf in a ProgramBuilder, registered
-    on first use: row 0 exists, row 1 sign, row 2+i magnitude slice i."""
+class LeafPlanes:
+    """The plane expressions of one (S, D+2, W) BSI leaf: row 0 exists, row
+    1 sign, row 2+i magnitude slice i, each keyed (key, row) so that every
+    expression over the leaf names one plane of a program alike."""
 
-    __slots__ = ("pb", "key", "tensor")
+    __slots__ = ("key", "tensor")
 
-    def __init__(self, pb: ck.ProgramBuilder, key, tensor: torch.Tensor):
-        self.pb = pb
+    def __init__(self, key, tensor: torch.Tensor):
         self.key = key
         self.tensor = tensor
 
-    def row(self, j: int) -> int:
-        return self.pb.plane((self.key, j), self.tensor[:, j])
+    def row(self, j: int):
+        return ("plane", (self.key, j), self.tensor[:, j])
 
-    def exists(self) -> int:
+    def exists(self):
         return self.row(BSI_EXISTS_ROW)
 
-    def sign(self) -> int:
-        return self.row(BSI_SIGN_ROW)
-
-    def slice(self, i: int) -> int:
-        return self.row(BSI_OFFSET + i)
-
-    def slices(self, depth: int) -> int:
-        """Id of magnitude slice 0; slices 0 .. depth - 1 get consecutive
-        ids, as one OP_BSI walk names them."""
-        ids = [self.slice(i) for i in range(depth)]
-        if ids != list(range(ids[0], ids[0] + depth)):
-            raise ValueError(f"slices of {self.key!r} are not consecutive "
-                             f"planes: {ids}")
-        return ids[0]
+    def mags(self, lo: int, hi: int) -> tuple:
+        return tuple(self.row(BSI_OFFSET + i) for i in range(lo, hi))
 
 
 _MODES = {"eq": ck.MODE_EQ, "lt": ck.MODE_LT, "gt": ck.MODE_GT}
 
 
-def _lower_u(pb: ck.ProgramBuilder, planes: BsiPlanes, b: int, pred_bits,
-             depth: int, mode: str, allow_eq: bool = False) -> int:
-    """Unsigned walk from plane `depth` (virtual zero) down to 0 over the
-    side in register `b`, in place: one OP_BSI.  mode: 'eq', 'lt' or
-    'gt'."""
-    return pb.bsi(b, planes.slices(depth), depth, _MODES[mode], pred_bits,
-                  allow_eq)
+def _walk(leaf: LeafPlanes, src, pred_bits, depth: int, mode: str,
+          allow_eq: bool = False):
+    """The unsigned walk from plane `depth` (virtual zero) down to 0 over
+    the side `src`: one OP_BSI, or a split pair past ck.MAX_DEPTH planes.
+    mode: 'eq', 'lt' or 'gt'."""
+    bits = tuple(int(b) for b in pred_bits)
+    if depth <= ck.MAX_DEPTH:
+        return ("walk", src, leaf.mags(0, depth), _MODES[mode], bits,
+                allow_eq)
+    lo = ck.MAX_DEPTH
+    hi_planes, hi_bits = leaf.mags(lo, depth), bits[lo:depth + 1]
+    lo_planes, lo_bits = leaf.mags(0, lo), bits[:lo] + (0,)
+    eq_hi = ("walk", src, hi_planes, ck.MODE_EQ, hi_bits, False)
+    if mode == "eq":
+        return ("walk", eq_hi, lo_planes, ck.MODE_EQ, lo_bits, False)
+    return ("or", ("walk", src, hi_planes, _MODES[mode], hi_bits, False),
+            ("walk", eq_hi, lo_planes, _MODES[mode], lo_bits, allow_eq))
 
 
-def _lower_sides(pb: ck.ProgramBuilder, planes: BsiPlanes, want: str) -> int:
-    """Register with the positive ('pos') or negative ('neg') existing side:
-    exists & ~sign, or exists & sign."""
-    ex = pb.load(planes.exists())
-    sg = pb.load(planes.sign())
-    pb.op(ck.OP_ANDNOT if want == "pos" else ck.OP_AND, ex, sg, dst=ex)
-    pb.free(sg)
-    return ex
+def _side(leaf: LeafPlanes, want: str):
+    """The positive ('pos') or negative ('neg') existing side: exists &
+    ~sign, or exists & sign."""
+    return ("andnot" if want == "pos" else "and", leaf.exists(),
+            leaf.row(BSI_SIGN_ROW))
 
 
-def lower_eq(pb, planes: BsiPlanes, pred_bits, pred_neg, depth: int) -> int:
-    side = _lower_sides(pb, planes, "neg" if pred_neg else "pos")
-    return _lower_u(pb, planes, side, pred_bits, depth, "eq")
+def expr_eq(leaf: LeafPlanes, pred_bits, pred_neg, depth: int):
+    return _walk(leaf, _side(leaf, "neg" if pred_neg else "pos"), pred_bits,
+                 depth, "eq")
 
 
-def lower_neq(pb, planes: BsiPlanes, pred_bits, pred_neg, depth: int) -> int:
-    eq = lower_eq(pb, planes, pred_bits, pred_neg, depth)
-    ex = pb.load(planes.exists())
-    pb.op(ck.OP_ANDNOT, ex, eq, dst=ex)
-    pb.free(eq)
-    return ex
+def expr_neq(leaf: LeafPlanes, pred_bits, pred_neg, depth: int):
+    return ("andnot", leaf.exists(), expr_eq(leaf, pred_bits, pred_neg,
+                                             depth))
 
 
-def lower_lt(pb, planes: BsiPlanes, pred_bits, pred_neg, depth: int,
-             allow_eq: bool) -> int:
+def expr_lt(leaf: LeafPlanes, pred_bits, pred_neg, depth: int,
+            allow_eq: bool):
     if pred_neg:
-        neg = _lower_sides(pb, planes, "neg")
-        return _lower_u(pb, planes, neg, pred_bits, depth, "gt", allow_eq)
-    pos = _lower_sides(pb, planes, "pos")
-    r = _lower_u(pb, planes, pos, pred_bits, depth, "lt", allow_eq)
-    neg = _lower_sides(pb, planes, "neg")
-    pb.op(ck.OP_OR, r, neg, dst=r)
-    pb.free(neg)
-    return r
+        return _walk(leaf, _side(leaf, "neg"), pred_bits, depth, "gt",
+                     allow_eq)
+    return ("or", _walk(leaf, _side(leaf, "pos"), pred_bits, depth, "lt",
+                        allow_eq), _side(leaf, "neg"))
 
 
-def lower_gt(pb, planes: BsiPlanes, pred_bits, pred_neg, depth: int,
-             allow_eq: bool) -> int:
+def expr_gt(leaf: LeafPlanes, pred_bits, pred_neg, depth: int,
+            allow_eq: bool):
     if pred_neg:
-        neg = _lower_sides(pb, planes, "neg")
-        r = _lower_u(pb, planes, neg, pred_bits, depth, "lt", allow_eq)
-        pos = _lower_sides(pb, planes, "pos")
-        pb.op(ck.OP_OR, r, pos, dst=r)
-        pb.free(pos)
-        return r
-    pos = _lower_sides(pb, planes, "pos")
-    return _lower_u(pb, planes, pos, pred_bits, depth, "gt", allow_eq)
+        return ("or", _walk(leaf, _side(leaf, "neg"), pred_bits, depth, "lt",
+                            allow_eq), _side(leaf, "pos"))
+    return _walk(leaf, _side(leaf, "pos"), pred_bits, depth, "gt", allow_eq)
 
 
-def lower_between(pb, planes: BsiPlanes, lo_bits, lo_neg, hi_bits, hi_neg,
-                  depth: int) -> int:
-    a = lower_gt(pb, planes, lo_bits, lo_neg, depth, True)
-    b = lower_lt(pb, planes, hi_bits, hi_neg, depth, True)
-    pb.op(ck.OP_AND, a, b, dst=a)
-    pb.free(b)
-    return a
+def expr_between(leaf: LeafPlanes, lo_bits, lo_neg, hi_bits, hi_neg,
+                 depth: int):
+    return ("and", expr_gt(leaf, lo_bits, lo_neg, depth, True),
+            expr_lt(leaf, hi_bits, hi_neg, depth, True))

@@ -32,16 +32,24 @@ is popcounts and bit-sliced descents that torch has no op for:
 Their plain versions are in ops/bsi.py.  Bound: bytes — each reads the
 group and the filter once.
 
-Two more (csrc/group_kernels.cu) serve GroupBy, again for XLA programs:
+Two more (csrc/group_kernels.cu) serve GroupBy, again for XLA programs.
+Each is one AND-popcount product over every shard in one launch, its
+operands read where they live through a table of row addresses:
 
 - ``pair_counts`` (kernel E) replaces ``stacked_pair_counts``
   (bitwise.py:175) and, at S = 1, ``count_and_pairs`` (:123): the (F, R)
   intersection counts of F masks with R rows, under an optional filter.
 - ``bsi_sum_groups`` (kernel F) replaces ``sum_groups_stacked``
   (bsi.py:611) and, at S = 1, ``sum_groups_kernel`` (:333): kernel C's
-  2D + 1 counters for each of G masks.
-Bound: popcounts or bytes, by shape (the header note of the source).
-``pair_counts_plain`` is below; ``sum_groups_plain`` is in ops/bsi.py.
+  2D + 1 counters for each of G group masks, which it forms on chip from
+  one to three dimensions.
+``pair_counts_sharded`` and ``bsi_sum_groups_sharded`` take per-shard
+tiles (the fragments' device mirrors) and slot tables; ``pair_counts``
+and ``bsi_sum_groups`` take stacked tensors, with tables into them.  The
+product runs on the tensor cores (``mma.sync`` .b1 .and.popc).  Bound:
+bytes (the header note of the source).  The plain versions are
+``pair_counts_plain`` and ``*_sharded_plain`` below and
+``sum_groups_plain`` in ops/bsi.py.
 
 Words are ``torch.int32`` tensors holding the uint32 bit patterns.  Each
 wrapper takes its plain version only for tensors on the CPU; on a CUDA
@@ -96,10 +104,13 @@ class Program:
 
 
 def encode_bsi(first: int, depth: int, mode: int, pred_bits,
-               allow_eq: bool = False) -> Tuple[int, int]:
+               allow_eq: bool = False, max_planes: int = MAX_PLANES
+               ) -> Tuple[int, int]:
     """The two payload words of OP_BSI: a walk over planes first ..
     first + depth - 1 (magnitude planes 0 .. depth - 1) with predicate bits
-    pred_bits[0 .. depth] (bit `depth` is the virtual all-zero plane)."""
+    pred_bits[0 .. depth] (bit `depth` is the virtual all-zero plane).
+    max_planes: the planes a program may have (more only for programs that
+    are measured, not run: ProgramBuilder(limits=False))."""
     bits = [int(x) for x in pred_bits]
     if not 1 <= depth <= MAX_DEPTH or len(bits) != depth + 1 \
             or any(x not in (0, 1) for x in bits):
@@ -108,7 +119,7 @@ def encode_bsi(first: int, depth: int, mode: int, pred_bits,
                          f"{len(bits)} bits")
     if mode not in (MODE_EQ, MODE_LT, MODE_GT):
         raise ValueError(f"bad BSI mode {mode}")
-    if not 0 <= first or first + depth > MAX_PLANES:
+    if not 0 <= first or first + depth > max_planes:
         raise ValueError(f"BSI planes {first}..{first + depth - 1} out of "
                          f"range")
     mask = sum(b << i for i, b in enumerate(bits[:depth]))
@@ -126,22 +137,32 @@ def decode_bsi(mask: int, info: int) -> Tuple[int, int, int, np.ndarray,
             bool((info >> 18) & 1))
 
 
-class ProgramBuilder:
-    """Emits a straight-line program with a free list of registers."""
+# fields of an instruction word: registers and plane indices up to 255
+_FIELD_MAX = 255
 
-    def __init__(self, S: int, W: int):
+
+class ProgramBuilder:
+    """Emits a straight-line program with a free list of registers.  With
+    limits=False it takes more planes, registers and words than kernel A
+    holds (up to 255 of each field), to measure what an expression needs
+    (ops/lowering.py); such a program is never run."""
+
+    def __init__(self, S: int, W: int, limits: bool = True):
         self.S, self.W = S, W
         self.instrs: List[int] = []
         self.planes: List[torch.Tensor] = []
         self._plane_ids: Dict[object, int] = {}
-        self._free = list(range(NUM_REGS - 1, -1, -1))
+        self._limits = limits
+        self._max_planes = MAX_PLANES if limits else _FIELD_MAX
+        self._free = list(range((NUM_REGS if limits else _FIELD_MAX) - 1,
+                                -1, -1))
 
     def plane(self, key, tensor: torch.Tensor) -> int:
         """Index of a leaf plane, deduplicated by `key`."""
         pid = self._plane_ids.get(key)
         if pid is None:
-            if len(self.planes) >= MAX_PLANES:
-                raise ProgramTooLarge(f"more than {MAX_PLANES} planes")
+            if len(self.planes) >= self._max_planes:
+                raise ProgramTooLarge(f"more than {self._max_planes} planes")
             pid = len(self.planes)
             self.planes.append(tensor)
             self._plane_ids[key] = pid
@@ -156,7 +177,7 @@ class ProgramBuilder:
         self._free.extend(regs)
 
     def _words(self, *words: int) -> None:
-        if len(self.instrs) + len(words) > MAX_INSTR:
+        if self._limits and len(self.instrs) + len(words) > MAX_INSTR:
             raise ProgramTooLarge(f"more than {MAX_INSTR} instruction words")
         self.instrs.extend(words)
 
@@ -178,7 +199,8 @@ class ProgramBuilder:
     def bsi(self, src: int, first: int, depth: int, mode: int, pred_bits,
             allow_eq: bool = False) -> int:
         """Register `src` walked in place by one OP_BSI (see encode_bsi)."""
-        mask, info = encode_bsi(first, depth, mode, pred_bits, allow_eq)
+        mask, info = encode_bsi(first, depth, mode, pred_bits, allow_eq,
+                                self._max_planes)
         self._words(OP_BSI | (src << 8) | (src << 16), mask, info)
         return src
 
@@ -220,7 +242,8 @@ def compact_registers(instrs: List[int], result: int
     if result not in cur:
         return list(instrs), result
     last[cur[result]] = len(steps)
-    free = list(range(NUM_REGS))
+    free: List[int] = []    # freed registers; fresh ones come after them
+    fresh = 0
     phys: Dict[int, int] = {}
     cur = {}
     out: List[int] = []
@@ -230,7 +253,11 @@ def compact_registers(instrs: List[int], result: int
         for v in {cur[r] for r in reads}:
             if last[v] == i:
                 heapq.heappush(free, phys[v])
-        phys[i] = reg = heapq.heappop(free)
+        if free:
+            reg = heapq.heappop(free)
+        else:
+            reg, fresh = fresh, fresh + 1
+        phys[i] = reg
         cur[d] = i
         if i not in last:           # a value nothing reads
             heapq.heappush(free, reg)
@@ -314,7 +341,7 @@ def plan_eval_plain(prog: Program, want_words: bool = True,
     """Interpret `prog` with whole-tensor torch ops over (S, W)."""
     shape = (prog.S, prog.W)
     dev = prog.planes[0].device if prog.planes else torch.device("cpu")
-    regs: List[Optional[torch.Tensor]] = [None] * NUM_REGS
+    regs: List[Optional[torch.Tensor]] = [None] * (_FIELD_MAX + 1)
     k = 0
     while k < len(prog.instrs):
         ins = prog.instrs[k]
@@ -623,44 +650,39 @@ def bsi_min_max(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 bsi_min_max.launches = 0
 
 
-def _group_lib() -> ctypes.CDLL:
-    """Kernels E and F's library, built on first use."""
+def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """Kernels E and F's library, built on first use (with extra nvcc
+    `flags` if any)."""
     from featurebase_tpu_torch.ops import build
     from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
-    lib = build.load(GROUP_SOURCE)
+    lib = build.load(GROUP_SOURCE, flags)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         pi64, pi32 = ctypes.POINTER(i64), ctypes.POINTER(i32)
-        lib.fb_pair_counts_slots.argtypes = [vp, vp, vp, i32, i32, i32, i64,
-                                             pi64, pi32]
-        lib.fb_pair_counts.argtypes = [vp, vp, vp, i32, i32, i32, i64, vp, vp,
-                                       i64, vp, i32, vp]
-        lib.fb_bsi_sum_groups_slots.argtypes = [vp, vp, i32, i32, i32, i64,
-                                                pi64, pi32]
-        lib.fb_bsi_sum_groups.argtypes = [vp, vp, i32, i32, i32, i64, vp, vp,
-                                          i64, vp, i32, vp]
+        lib.fb_group_product_slots.argtypes = [pi32, i64, pi64, pi32, pi32]
+        lib.fb_group_product.argtypes = [pi32, i64, vp, vp, vp, i64, vp, i32,
+                                         vp]
         lib.fb_popc_rate.argtypes = [vp, i32, i32, vp]
-        lib.fb_group_limits.argtypes = [ctypes.POINTER(i32)]
-        for fn in (lib.fb_pair_counts_slots, lib.fb_pair_counts,
-                   lib.fb_bsi_sum_groups_slots, lib.fb_bsi_sum_groups,
-                   lib.fb_popc_rate, lib.fb_group_limits):
+        lib.fb_tc_rate.argtypes = [vp, i32, i32, i32, vp]
+        lib.fb_group_limits.argtypes = [pi32, pi32]
+        for fn in (lib.fb_group_product_slots, lib.fb_group_product,
+                   lib.fb_popc_rate, lib.fb_tc_rate, lib.fb_group_limits):
             fn.restype = i32
-        depth = i32()
-        lib.fb_group_limits(ctypes.byref(depth))
-        if depth.value != MAX_DEPTH:
-            raise RuntimeError("kernel depth limit differs from ops/bsi.py")
+        depth, spec = i32(), i32()
+        lib.fb_group_limits(ctypes.byref(depth), ctypes.byref(spec))
+        if depth.value != MAX_DEPTH or spec.value != _SPEC_WORDS:
+            raise RuntimeError("kernel limits differ from cuda_kernels.py")
         lib._fb_typed = True
     return lib
 
 
-def _words(t: torch.Tensor, what: str, dims: int) -> None:
-    if t.dtype != torch.int32 or t.dim() != dims:
-        raise ValueError(f"{what} must be {dims}-D int32, got "
-                         f"{tuple(t.shape)} {t.dtype}")
+# The group product's modes (csrc/group_kernels.cu): kernel E multiplies A
+# by rows, kernel F by a BSI group's classes.
+MODE_ROWS, MODE_BSI = 0, 1
+_SPEC_WORDS = 15
 
-
-# kernels E and F's tickets per (device, stream), one an output run: zero
-# between launches, since the last block of each run resets its own.
+# kernels E and F's tickets per (device, stream), one an output region: zero
+# between launches, since the last block of each region resets its own.
 _run_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -672,30 +694,300 @@ def _ticket_array(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     return t
 
 
-def _group_launch(name: str, args: Tuple, out: torch.Tensor,
-                  ptrs: Tuple) -> None:
-    """Size the slots and tickets of one kernel-E or kernel-F launch with
-    its planner (`name`_slots), then launch it on the current stream."""
+def _words(t: torch.Tensor, what: str, dims: int) -> None:
+    if t.dtype != torch.int32 or t.dim() != dims:
+        raise ValueError(f"{what} must be {dims}-D int32, got "
+                         f"{tuple(t.shape)} {t.dtype}")
+
+
+# -- the operands: per-shard tiles and slot tables ---------------------------
+
+def _check_tile(t: torch.Tensor, W: int, what: str) -> None:
+    _words(t, what, 2)
+    if t.shape[1] != W or t.stride(1) != 1:
+        raise ValueError(f"{what} must be (n, {W}) with unit word stride, got "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def _slot_table(slots, S: int, what: str) -> np.ndarray:
+    s = np.asarray(slots.cpu() if isinstance(slots, torch.Tensor) else slots,
+                   dtype=np.int64)
+    if s.ndim != 2 or s.shape[0] != S:
+        raise ValueError(f"{what} slots must be ({S}, n), got {s.shape}")
+    return s
+
+
+def _dim_addrs(tiles: Sequence[Optional[torch.Tensor]], slots: np.ndarray,
+               W: int, what: str) -> np.ndarray:
+    """(S, n) uint64 row addresses of one dimension: tile s's row at
+    slots[s, i], 0 for slot -1 or a shard without a tile."""
+    S = slots.shape[0]
+    if len(tiles) != S:
+        raise ValueError(f"{what}: {len(tiles)} tiles for {S} shards")
+    base = np.zeros(S, dtype=np.uint64)
+    step = np.zeros(S, dtype=np.uint64)
+    rows = np.zeros(S, dtype=np.int64)
+    for s, t in enumerate(tiles):
+        if t is not None:
+            _check_tile(t, W, what)
+            base[s], step[s], rows[s] = t.data_ptr(), t.stride(0) * 4, \
+                t.shape[0]
+    if ((slots >= rows[:, None]) & (base[:, None] != 0)).any() \
+            or (slots < -1).any():
+        raise ValueError(f"{what}: a slot past its tile")
+    live = (slots >= 0) & (base[:, None] != 0)
+    return np.where(live, base[:, None]
+                    + np.maximum(slots, 0).astype(np.uint64) * step[:, None],
+                    np.uint64(0))
+
+
+def _stacked_addrs(t: torch.Tensor) -> np.ndarray:
+    """(S, n) uint64 addresses of the rows of a stacked (S, n, W) tensor."""
+    S, n, _ = t.shape
+    s = np.arange(S, dtype=np.uint64)[:, None] * np.uint64(t.stride(0) * 4)
+    r = np.arange(n, dtype=np.uint64)[None, :] * np.uint64(t.stride(1) * 4)
+    return np.uint64(t.data_ptr()) + s + r
+
+
+def _filter_addrs(filt, S: int, W: int) -> np.ndarray:
+    """(S, 1) addresses of the filter: (S, W) words or per-shard (W,)."""
+    if isinstance(filt, torch.Tensor):
+        _words(filt, "filter", 2)
+        if tuple(filt.shape) != (S, W) or filt.stride(1) != 1:
+            raise ValueError(f"filter must be ({S}, {W}), got "
+                             f"{tuple(filt.shape)}")
+        return _stacked_addrs(filt[:, None, :])[:, :1]
+    if len(filt) != S:
+        raise ValueError(f"{len(filt)} filter rows for {S} shards")
+    out = np.zeros((S, 1), dtype=np.uint64)
+    for s, f in enumerate(filt):
+        if f is not None:
+            _check_tile(f[None], W, "filter")
+            out[s, 0] = f.data_ptr()
+    return out
+
+
+def _product(mode: int, dims: List[np.ndarray], filt: Optional[np.ndarray],
+             b: np.ndarray, NB: int, D: int, W: int,
+             dev: torch.device) -> torch.Tensor:
+    """One launch of kernel E (MODE_ROWS) or F (MODE_BSI) over the address
+    tables: dims (S, n_d) each, the filter (S, 1) or None, and B (S, NB rows
+    or D + 2 planes) -> (prod n_d, NB) int64.  Shards whose rows are all
+    absent in some dimension or in B are left out of the table.  The
+    caller holds the tensors the addresses point into until this returns,
+    when the launch is enqueued."""
+    GA = int(np.prod([d.shape[1] for d in dims]))
+    out = torch.zeros((GA, NB), dtype=torch.int64, device=dev)
+    live = np.ones(b.shape[0], dtype=bool)
+    for a in (*dims, b[:, :1] if mode == MODE_BSI else b):
+        live &= (a != 0).any(1)
+    if filt is not None:
+        live &= filt[:, 0] != 0
+    if GA == 0 or not live.any():
+        return out
+    cols = [*dims, *([] if filt is None else [filt]), b]
+    table = np.ascontiguousarray(np.concatenate(cols, axis=1)[live])
+    S, P = table.shape
+    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
+    col0 = np.cumsum([0] + [d.shape[1] for d in dims])
+    spec = [mode, vec, S, P, len(dims)] \
+        + [d.shape[1] for d in dims] + [1] * (3 - len(dims)) \
+        + [int(c) for c in col0[:len(dims)]] + [0] * (3 - len(dims)) \
+        + [-1 if filt is None else int(col0[-1]),
+           int(col0[-1]) + (filt is not None), NB, D]
+    spec_c = (ctypes.c_int * _SPEC_WORDS)(*spec)
     lib = _group_lib()
-    dev = out.device
-    n, runs = ctypes.c_longlong(), ctypes.c_int()
+    n, runs, cw = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
-        _check(getattr(lib, f"{name}_slots")(*ptrs, *args, ctypes.byref(n),
-                                              ctypes.byref(runs)), name)
+        _check(lib.fb_group_product_slots(spec_c, W, ctypes.byref(n),
+                                          ctypes.byref(runs),
+                                          ctypes.byref(cw)), "group product")
+        host = torch.from_numpy(table.view(np.int64)).pin_memory()
+        dev_table = host.to(dev, non_blocking=True)
         slots = torch.empty(n.value, dtype=torch.int64, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         tickets = _ticket_array(dev, stream, runs.value)
-        rc = getattr(lib, name)(*ptrs, *args, out.data_ptr(),
-                                slots.data_ptr(), slots.numel(),
-                                tickets.data_ptr(), tickets.numel(), stream)
-    _check(rc, name)
+        rc = lib.fb_group_product(spec_c, W, dev_table.data_ptr(),
+                                  out.data_ptr(), slots.data_ptr(),
+                                  slots.numel(), tickets.data_ptr(),
+                                  tickets.numel(), stream)
+    kernel = pair_counts if mode == MODE_ROWS else bsi_sum_groups
+    _check(rc, kernel.__name__)
+    kernel.launches += 1
+    return out
+
+
+def _all_cpu(tensors: List[torch.Tensor]) -> bool:
+    """True when every tensor lies on the CPU (or there is none)."""
+    return _is_cpu(tensors) if tensors else True
+
+
+# -- plain versions of the sharded product -----------------------------------
+
+def _gather_rows(tile: Optional[torch.Tensor], slots: np.ndarray, W: int,
+                 dev) -> torch.Tensor:
+    """(n, W) rows of a tile at `slots`, zeros for -1 or no tile."""
+    out = torch.zeros((len(slots), W), dtype=torch.int32, device=dev)
+    if tile is not None:
+        for i, sl in enumerate(slots):
+            if sl >= 0:
+                out[i] = tile[int(sl)]
+    return out
+
+
+def _group_masks_plain(dims, s: int, filt_row, W: int, dev) -> torch.Tensor:
+    """(prod n_d, W) masks of shard s: f_i [& g_j [& h_k]] [& filter], the
+    last dimension fastest."""
+    m = None
+    for tiles, slots in dims:
+        rows = _gather_rows(tiles[s], slots[s], W, dev)
+        m = rows if m is None else \
+            (m[:, None, :] & rows[None, :, :]).reshape(-1, W)
+    if filt_row is not None:
+        m = m & filt_row[None, :]
+    return m
+
+
+def _filter_row(filt, s: int, W: int, dev):
+    if filt is None:
+        return None
+    row = filt[s]
+    return torch.zeros(W, dtype=torch.int32, device=dev) if row is None \
+        else row
+
+
+def pair_counts_sharded_plain(mask_tiles, mask_slots, row_tiles, row_slots,
+                              filt=None, mid=None) -> torch.Tensor:
+    """pair_counts_sharded shard by shard with torch ops."""
+    dims, rows, W, S = _sharded_inputs(mask_tiles, mask_slots, row_tiles,
+                                       row_slots, mid)
+    dev = _device_of([t for t in (*mask_tiles, *row_tiles) if t is not None])
+    GA = int(np.prod([sl.shape[1] for _, sl in dims]))
+    out = torch.zeros((GA, rows[1].shape[1]), dtype=torch.int64, device=dev)
+    for s in range(S):
+        m = _group_masks_plain(dims, s, _filter_row(filt, s, W, dev), W, dev)
+        r = _gather_rows(rows[0][s], rows[1][s], W, dev)
+        out += pair_counts_plain(m[None], r[None])
+    return out
+
+
+def bsi_sum_groups_sharded_plain(bsi_tiles, dims, filt=None) -> torch.Tensor:
+    """bsi_sum_groups_sharded shard by shard with torch ops."""
+    from featurebase_tpu_torch.ops.bsi import sum_groups_plain
+    dims, D, W, S = _bsi_sharded_inputs(bsi_tiles, dims)
+    dev = _device_of([t for t in bsi_tiles if t is not None])
+    GA = int(np.prod([sl.shape[1] for _, sl in dims]))
+    out = torch.zeros((GA, 2 * D + 1), dtype=torch.int64, device=dev)
+    for s in range(S):
+        if bsi_tiles[s] is None:
+            continue
+        m = _group_masks_plain(dims, s, _filter_row(filt, s, W, dev), W, dev)
+        out += sum_groups_plain(bsi_tiles[s][None], m[None])
+    return out
+
+
+def _device_of(tensors: List[torch.Tensor]) -> torch.device:
+    return tensors[0].device if tensors else torch.device("cpu")
+
+
+def _sharded_inputs(mask_tiles, mask_slots, row_tiles, row_slots, mid):
+    S = len(mask_tiles)
+    W = _words_per_row([*mask_tiles, *row_tiles])
+    dims = [(list(mask_tiles), _slot_table(mask_slots, S, "mask"))]
+    if mid is not None:
+        dims.append((list(mid[0]), _slot_table(mid[1], S, "mid")))
+    rows = (list(row_tiles), _slot_table(row_slots, S, "row"))
+    return dims, rows, W, S
+
+
+def _bsi_sharded_inputs(bsi_tiles, dims):
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    S = len(bsi_tiles)
+    if not 1 <= len(dims) <= 3:
+        raise ValueError(f"1 to 3 dimensions, got {len(dims)}")
+    present = [t for t in bsi_tiles if t is not None]
+    W = _words_per_row(present + [t for tiles, _ in dims for t in tiles
+                                  if t is not None])
+    Ps = {t.shape[0] for t in present}
+    if len(Ps) > 1 or (Ps and not 3 <= min(Ps) <= MAX_DEPTH + 2):
+        raise ValueError(f"BSI tiles must share one (D + 2, W) shape with "
+                         f"1 <= D <= {MAX_DEPTH}, got {sorted(Ps)}")
+    D = (Ps.pop() if Ps else 3) - 2
+    dims = [(list(t), _slot_table(sl, S, f"dimension {i}"))
+            for i, (t, sl) in enumerate(dims)]
+    return dims, D, W, S
+
+
+def _words_per_row(tiles: List[Optional[torch.Tensor]]) -> int:
+    Ws = {t.shape[-1] for t in tiles if t is not None}
+    if len(Ws) != 1:
+        raise ValueError(f"tiles must share one row width, got {sorted(Ws)}")
+    return Ws.pop()
+
+
+# -- kernels E and F ---------------------------------------------------------
+
+def pair_counts_sharded(mask_tiles, mask_slots, row_tiles, row_slots,
+                        filt=None, mid=None) -> torch.Tensor:
+    """Kernel E over every shard in one launch, its operands read in place:
+    mask_tiles and row_tiles are lists of per-shard (n_s, W) int32 tiles
+    (a fragment's device mirror, or None for a shard without one),
+    mask_slots (S, F) and row_slots (S, R) int64 the slot of each mask and
+    row in its shard's tile (-1 absent); `mid`, an optional (tiles, slots)
+    pair of a middle dimension (masks f_i & h_j, j fastest); filt (S, W)
+    words or per-shard (W,) words -> (F [x M], R) int64, entry (f, r) the
+    set bits of mask f & row r [& filter] over every shard."""
+    dims, rows, W, S = _sharded_inputs(mask_tiles, mask_slots, row_tiles,
+                                       row_slots, mid)
+    tensors = [t for t in (*mask_tiles, *row_tiles,
+                           *([] if mid is None else mid[0]))
+               if t is not None]
+    if filt is not None:
+        tensors += [filt] if isinstance(filt, torch.Tensor) else \
+            [f for f in filt if f is not None]
+    if _all_cpu(tensors):
+        return pair_counts_sharded_plain(mask_tiles, mask_slots, row_tiles,
+                                         row_slots, filt, mid)
+    addrs = [_dim_addrs(t, sl, W, "dimension") for t, sl in dims]
+    out = _product(MODE_ROWS, addrs,
+                   None if filt is None else _filter_addrs(filt, S, W),
+                   _dim_addrs(rows[0], rows[1], W, "rows"),
+                   rows[1].shape[1], 0, W, tensors[0].device)
+    return out
+
+
+def bsi_sum_groups_sharded(bsi_tiles, dims, filt=None) -> torch.Tensor:
+    """Kernel F over every shard in one launch: bsi_tiles a list of
+    per-shard (D + 2, W) int32 groups (None for a shard without data), dims
+    1 to 3 (tiles, slots) pairs as pair_counts_sharded takes them, filt
+    (S, W) or per-shard (W,) words -> (G, 2D + 1) int64, G the product of
+    the dimension sizes in itertools.product order (the last fastest): per
+    group kernel C's counters with the group's mask [& filter] as the
+    filter.  The group masks are formed on the card and never stored."""
+    sdims, D, W, S = _bsi_sharded_inputs(bsi_tiles, dims)
+    tensors = [t for t in bsi_tiles if t is not None] + \
+        [t for tiles, _ in sdims for t in tiles if t is not None]
+    if filt is not None:
+        tensors += [filt] if isinstance(filt, torch.Tensor) else \
+            [f for f in filt if f is not None]
+    if _all_cpu(tensors):
+        return bsi_sum_groups_sharded_plain(bsi_tiles, dims, filt)
+    addrs = [_dim_addrs(t, sl, W, "dimension") for t, sl in sdims]
+    planes = np.tile(np.arange(D + 2, dtype=np.int64), (S, 1))
+    out = _product(MODE_BSI, addrs,
+                   None if filt is None else _filter_addrs(filt, S, W),
+                   _dim_addrs(bsi_tiles, planes, W, "BSI group"),
+                   2 * D + 1, D, W, tensors[0].device)
+    return out
 
 
 def pair_counts(masks: torch.Tensor, rows: torch.Tensor,
                 filt: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel E: (S, F, W) int32 masks x (S, R, W) int32 rows [& (S, W)
-    int32 filter] -> (F, R) int64, entry (f, r) the set bits of
-    masks[s, f] & rows[s, r] [& filt[s]] summed over s."""
+    """Kernel E over stacked operands: (S, F, W) int32 masks x (S, R, W)
+    int32 rows [& (S, W) int32 filter] -> (F, R) int64, entry (f, r) the set
+    bits of masks[s, f] & rows[s, r] [& filt[s]] summed over s.  The same
+    launch as pair_counts_sharded, its table pointing into the stacked
+    tensors (views with a unit word stride are taken as they are)."""
     _words(masks, "masks", 3)
     _words(rows, "rows", 3)
     S, F, W = masks.shape
@@ -710,17 +1002,13 @@ def pair_counts(masks: torch.Tensor, rows: torch.Tensor,
                              f"{tuple(filt.shape)}")
     if _is_cpu([masks, rows] + ([] if filt is None else [filt])):
         return pair_counts_plain(masks, rows, filt)
-    if not all(t.is_contiguous() for t in (masks, rows, filt)
-               if t is not None):
-        raise ValueError("pair_counts needs contiguous masks, rows and "
-                         "filter")
+    if any(t.stride(-1) != 1 for t in (masks, rows, filt) if t is not None):
+        raise ValueError("pair_counts needs a unit word stride")
     if S == 0 or F == 0 or R == 0 or W == 0:
         return torch.zeros((F, R), dtype=torch.int64, device=masks.device)
-    out = torch.empty((F, R), dtype=torch.int64, device=masks.device)
-    _group_launch("fb_pair_counts", (S, F, R, W), out,
-                  (masks.data_ptr(), rows.data_ptr(),
-                   filt.data_ptr() if filt is not None else None))
-    pair_counts.launches += 1
+    out = _product(MODE_ROWS, [_stacked_addrs(masks)],
+                   None if filt is None else _filter_addrs(filt, S, W),
+                   _stacked_addrs(rows), R, 0, W, masks.device)
     return out
 
 
@@ -728,10 +1016,12 @@ pair_counts.launches = 0
 
 
 def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
-    """Kernel F: an (S, D + 2, W) int32 group x (S, G, W) int32 masks ->
-    (G, 2D + 1) int64: per mask, kernel C's counters with the mask as the
-    filter (each plane's set bits under the positive columns, then under the
-    negative columns, then the count of the columns)."""
+    """Kernel F over stacked operands: an (S, D + 2, W) int32 group x
+    (S, G, W) int32 masks -> (G, 2D + 1) int64: per mask, kernel C's
+    counters with the mask as the filter (each plane's set bits under the
+    positive columns, then under the negative columns, then the count of the
+    columns).  The same launch as bsi_sum_groups_sharded with the masks as
+    its one dimension."""
     from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
     _words(group, "group", 3)
     _words(masks, "masks", 3)
@@ -746,16 +1036,14 @@ def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     if _is_cpu([group, masks]):
         from featurebase_tpu_torch.ops.bsi import sum_groups_plain
         return sum_groups_plain(group, masks)
-    if not group.is_contiguous() or not masks.is_contiguous():
-        raise ValueError("bsi_sum_groups needs a contiguous group and masks")
+    if group.stride(-1) != 1 or masks.stride(-1) != 1:
+        raise ValueError("bsi_sum_groups needs a unit word stride")
     D = P - 2
     if S == 0 or G == 0 or W == 0:
         return torch.zeros((G, 2 * D + 1), dtype=torch.int64,
                            device=group.device)
-    out = torch.empty((G, 2 * D + 1), dtype=torch.int64, device=group.device)
-    _group_launch("fb_bsi_sum_groups", (S, G, D, W), out,
-                  (group.data_ptr(), masks.data_ptr()))
-    bsi_sum_groups.launches += 1
+    out = _product(MODE_BSI, [_stacked_addrs(masks)], None,
+                   _stacked_addrs(group), 2 * D + 1, D, W, group.device)
     return out
 
 

@@ -15,6 +15,7 @@ import torch
 from featurebase_tpu.ops import bsi_traced as jbst
 from featurebase_tpu_torch.ops import bsi_traced as tbst
 from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.ops import lowering
 
 S, W = 2, 64
 N = S * W * 32
@@ -68,18 +69,17 @@ def torch_op(op, slices, ex, sign, filt, pred, depth):
 
 
 def lowered(op, leaf, pred, depth):
-    pb = ck.ProgramBuilder(S, W)
-    planes = tbst.BsiPlanes(pb, "v", leaf)
+    lp = tbst.LeafPlanes("v", leaf)
     bits, neg = tbst.encode_pred(pred, depth)
     if op == "eq":
-        r = tbst.lower_eq(pb, planes, bits, int(neg), depth)
+        e = tbst.expr_eq(lp, bits, int(neg), depth)
     elif op == "neq":
-        r = tbst.lower_neq(pb, planes, bits, int(neg), depth)
+        e = tbst.expr_neq(lp, bits, int(neg), depth)
     elif op in ("lt", "lte"):
-        r = tbst.lower_lt(pb, planes, bits, int(neg), depth, op == "lte")
+        e = tbst.expr_lt(lp, bits, int(neg), depth, op == "lte")
     else:
-        r = tbst.lower_gt(pb, planes, bits, int(neg), depth, op == "gte")
-    words, _ = ck.plan_eval(pb.build(r), True, False)
+        e = tbst.expr_gt(lp, bits, int(neg), depth, op == "gte")
+    words, _ = ck.plan_eval(lowering.program(e, S, W), True, False)
     return words
 
 
@@ -123,10 +123,9 @@ def test_between_and_lowering(depth):
         got = tbst.range_between_t(t(slices), t(ex), t(sign), t(filt), lb,
                                    int(ln), hb, int(hn), depth)
         np.testing.assert_array_equal(u32(got), jax_betw(filt))
-        pb = ck.ProgramBuilder(S, W)
-        r = tbst.lower_between(pb, tbst.BsiPlanes(pb, "v", leaf), lb,
-                               int(ln), hb, int(hn), depth)
-        words, _ = ck.plan_eval(pb.build(r), True, False)
+        prog = lowering.program(tbst.expr_between(
+            tbst.LeafPlanes("v", leaf), lb, int(ln), hb, int(hn), depth), S, W)
+        words, _ = ck.plan_eval(prog, True, False)
         np.testing.assert_array_equal(u32(words), jax_betw(ones),
                                       err_msg=f"lo={lo} hi={hi}")
 
@@ -144,10 +143,9 @@ def test_lowering_fits_the_kernel_at_depth_32():
     """A between at the deepest BSI the engine stores stays inside the
     kernel's program limits."""
     leaf = torch.zeros((1, 34, 8), dtype=torch.int32)
-    pb = ck.ProgramBuilder(1, 8)
     lb, ln = tbst.encode_pred(-12345, 32)
     hb, hn = tbst.encode_pred((1 << 32) - 7, 32)
-    tbst.lower_between(pb, tbst.BsiPlanes(pb, "v", leaf), lb, int(ln), hb,
-                       int(hn), 32)
-    assert len(pb.planes) == 34
-    assert len(pb.instrs) <= ck.MAX_INSTR
+    prog = lowering.program(tbst.expr_between(
+        tbst.LeafPlanes("v", leaf), lb, int(ln), hb, int(hn), 32), 1, 8)
+    assert len(prog.planes) == 34
+    assert len(prog.instrs) <= ck.MAX_INSTR

@@ -5,8 +5,11 @@ snapshot writer and loaded into the port.  Each query runs on both
 executors on each path, forced alike on both by the one-shot caps set on
 the instances (GROUPBY_ONESHOT_MAX_COUNTS / _MASK_BYTES):
   - stacked: every shard in one launch (the default caps);
-  - one_shot: per shard, every combination at once (the mask cap set to
-    what one shard needs, below what the stacked path needs);
+  - one_shot: every combination at once for each shard (the mask cap set
+    to what one shard needs, below what the stacked path needs): in the
+    JAX package a loop over the shards; in the port one launch over every
+    shard's mirrors (_group_by_launch), or the level-wise loop where that
+    declines (counts of one dimension);
   - level_wise: per shard, one dimension at a time with pruning (both caps
     0).
 A query whose filter the plan compiler refuses goes per shard on every
@@ -152,9 +155,9 @@ def force(executor, path: str, one_shot_bytes: int) -> None:
 
 
 def watch(port_e) -> dict:
-    """Record the port's path: what _group_by_stacked and each shard's
-    _group_by_one_shot returned."""
-    seen = {"stacked": [], "one_shot": []}
+    """Record the port's path: what _group_by_stacked and _group_by_launch
+    returned, and the shards the level-wise loop ran."""
+    seen = {"stacked": [], "launch": [], "shard_device": []}
     for name in seen:
         real = getattr(port_e, f"_group_by_{name}")
 
@@ -181,10 +184,18 @@ def test_group_by_matches_jax(engines, pql, path):
         return   # per shard on every path, or no groups at all
     if path == "stacked":
         assert seen["stacked"] == [True]
+        return
+    assert seen["stacked"] == [False]
+    launched = seen["launch"] == [True]
+    assert launched != bool(seen["shard_device"])
+    if path == "one_shot":
+        call = parse(pql).calls[0]
+        while call.name == "Options":
+            call = call.children[0]
+        one_level_count = len(call.children) == 1 and "Sum" not in pql
+        assert launched != one_level_count
     else:
-        assert seen["stacked"] == [False]
-        assert seen["one_shot"] and \
-            all(seen["one_shot"]) == (path == "one_shot")
+        assert not launched
 
 
 def test_group_by_answers_are_sorted_groups(engines):

@@ -19,6 +19,7 @@ from featurebase_tpu.ops import bsi_traced as jbst
 from featurebase_tpu_torch.ops import bitwise as tbw
 from featurebase_tpu_torch.ops import bsi_traced as tbst
 from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.ops import lowering
 
 S, W = 2, 96          # 96 words: not a multiple of the kernel's tile
 DEPTHS = [1, 14, 31, 32]
@@ -187,12 +188,10 @@ def test_lowering_reads_each_plane_once(depth):
     of its depth + 2 planes is one plane of the program, so the kernel
     stages it once per tile."""
     leaf = torch.zeros((1, depth + 2, 8), dtype=torch.int32)
-    pb = ck.ProgramBuilder(1, 8)
     lb, ln = tbst.encode_pred(-3, depth)
     hb, hn = tbst.encode_pred(5, depth)
-    r = tbst.lower_between(pb, tbst.BsiPlanes(pb, "v", leaf), lb, int(ln),
-                           hb, int(hn), depth)
-    prog = pb.build(r)
+    prog = lowering.program(tbst.expr_between(
+        tbst.LeafPlanes("v", leaf), lb, int(ln), hb, int(hn), depth), 1, 8)
     ck.validate(prog)
     assert len(prog.planes) == depth + 2
     walks = [w for w in prog.instrs if w & 0xFF == ck.OP_BSI]
@@ -201,12 +200,24 @@ def test_lowering_reads_each_plane_once(depth):
 
 
 def test_slices_must_be_consecutive_planes():
-    leaf = torch.zeros((1, 6, 8), dtype=torch.int32)
+    """One OP_BSI names its slices as a run of consecutive planes: slices
+    registered apart earlier are registered again as a fresh run, and the
+    walk gives the words it gives alone."""
+    rng = np.random.default_rng(6)
+    leaf = t(words(rng, (1, 6, 8)))
+    lp = tbst.LeafPlanes("v", leaf)
+    walk = ("walk", lp.exists(), lp.mags(0, 4), ck.MODE_GT,
+            (1, 0, 1, 0, 0), False)
     pb = ck.ProgramBuilder(1, 8)
-    planes = tbst.BsiPlanes(pb, "v", leaf)
-    planes.slice(2)
-    with pytest.raises(ValueError):
-        planes.slices(4)
+    pb.plane(lp.mags(2, 3)[0][1], leaf[:, 4])    # slice 2 first, alone
+    prog = pb.build(lowering.emit(pb, walk))
+    ck.validate(prog)
+    k = next(i for i, w in enumerate(prog.instrs) if w & 0xFF == ck.OP_BSI)
+    first, depth = ck.decode_bsi(*prog.instrs[k + 1:k + 3])[:2]
+    assert depth == 4 and all(torch.equal(prog.planes[first + i],
+                                          leaf[:, 2 + i]) for i in range(4))
+    assert torch.equal(ck.plan_eval(prog, True)[0],
+                       ck.plan_eval(lowering.program(walk, 1, 8), True)[0])
 
 
 @pytest.mark.parametrize("n", [1, 37, 96, 1000, 1027, 4096])
@@ -284,14 +295,13 @@ def test_compact_registers_uses_the_fewest():
     pb = ck.ProgramBuilder(1, 8)
     r = pb.op(ck.OP_AND, pb.load(pb.plane(0, a)), pb.load(pb.plane(1, a)))
     assert max(w >> 8 & 0xFF for w in pb.build(r).instrs) == 1
-    leaf = torch.zeros((1, 16, 8), dtype=torch.int32)
-    for lower, regs in ((lambda pb, pl: tbst.lower_gt(
-            pb, pl, tbst.encode_pred(5000, 14)[0], 0, 14, False), 2),
-                        (lambda pb, pl: tbst.lower_between(
-            pb, pl, tbst.encode_pred(1, 14)[0], 0,
-            tbst.encode_pred(99, 14)[0], 0, 14), 4)):
-        pb = ck.ProgramBuilder(1, 8)
-        prog = pb.build(lower(pb, tbst.BsiPlanes(pb, "v", leaf)))
+    leaf = tbst.LeafPlanes("v", torch.zeros((1, 16, 8), dtype=torch.int32))
+    for e, regs in ((tbst.expr_gt(leaf, tbst.encode_pred(5000, 14)[0], 0,
+                                  14, False), 2),
+                    (tbst.expr_between(leaf, tbst.encode_pred(1, 14)[0], 0,
+                                       tbst.encode_pred(99, 14)[0], 0, 14),
+                     4)):
+        prog = lowering.program(e, 1, 8)
         assert max((w >> 8) & 0xFF for w in _op_words(prog)) < regs
 
 
