@@ -105,6 +105,8 @@ POPC_PER_CLOCK_PER_SM = 16
 RECORDS_PER_SHARD = 625_000
 WGMMA_PROBE_SOURCE = "wgmma_b1_probe.cu"
 SHARDS_0_31 = ", ".join(str(s) for s in range(32))
+PER_SHARD_SUM = (f"per_shard:Options(GroupBy(Rows(f), Rows(g), "
+                 f"aggregate=Sum(field=v)), shards=[{SHARDS_0_31}])")
 QUERIES = [
     "Count(Intersect(Row(f=1), Row(g=2)))",
     "Count(Union(Row(f=1), Row(f=2), Row(g=3)))",
@@ -145,11 +147,34 @@ QUERIES = [
     "Options(Limit(Row(f=3), limit=5, offset=2), shards=[0])",
     # the per-shard level-wise GroupBy loop: at the default caps for one
     # dimension under a filter the plan compiler refuses; with both GroupBy
-    # caps at 0 (PER_SHARD) for two dimensions, counted and summed
+    # caps at 0 (PER_SHARD) for two dimensions, counted, and summed over
+    # shards 0-31 (the CPU executor's plain sums over every shard would
+    # take a seventh of the script)
     "GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))",
     "per_shard:GroupBy(Rows(f), Rows(g))",
-    "per_shard:GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    PER_SHARD_SUM,
 ]
+# the decode family: Distinct (a call, under Count, as an operand, as
+# GroupBy's aggregate), Percentile, Sort (a second page through the cursor
+# after the first), Extract, IncludesColumn and FieldValue
+DECODE_QUERIES = [
+    "Distinct(field=v)",
+    "Distinct(Row(f=1), field=g)",
+    "Count(Distinct(field=v))",
+    "Count(Intersect(Row(f=1), Distinct(Row(g=2), field=f)))",
+    "GroupBy(Rows(g), aggregate=Count(Distinct(field=v)))",
+    "Percentile(field=v, nth=50)",
+    "Percentile(field=v, nth=99.9, filter=Row(f=1))",
+    "Percentile(field=v, nth=0)",
+    "Percentile(field=v, nth=100)",
+    "Sort(Row(f=1), field=v, limit=10)",
+    "Sort(All(), field=v, sort-desc=true, limit=5, offset=3)",
+    "Sort(All(), field=v, sort-desc=true, limit=5, after={after})",
+    "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))",
+    "IncludesColumn(Row(f=1), column={col5})",
+    "FieldValue(field=v, column={col5})",
+]
+QUERIES += DECODE_QUERIES
 PER_SHARD = "per_shard:"
 # Plans past kernel A's limits and BSI walks past 32 planes, over the small
 # "limits" index (limits_index): 3000 records over two shards, a set field
@@ -168,30 +193,61 @@ LIMIT_QUERIES = [
     f"Count({CHAIN13})",
     "Count(Row(w > 5))",
     "Count(Intersect(Row(w > 5), Row(g=null)))",
+    # the decode family past depth 31: the host decode and the host
+    # bisection over Counts
+    "Distinct(field=w)",
+    "Sort(All(), field=w, limit=5)",
+    "Extract(Limit(All(), limit=20), Rows(f), Rows(w))",
+    "Percentile(field=w, nth=50)",
 ]
 QUERIES += [f"limits:{q}" for q in LIMIT_QUERIES]
+# Extract and Distinct on a keyed index (keyed_index): record keys, a keyed
+# set field translated to row keys, an unkeyed one left numeric
+KEYED_QUERIES = [
+    "Extract(All(), Rows(kf), Rows(n))",
+    "Distinct(field=kf)",
+    "Distinct(field=s)",
+    "Sort(All(), field=n, limit=3)",
+]
+QUERIES += [f"keyed:{q}" for q in KEYED_QUERIES]
 
 
-def pass_launches(S: int) -> dict:
+def pass_launches(S: int, percentile_rounds: int, extract_shards: int
+                  ) -> dict:
     """Kernel launches in one pass of the full mix over S shards: kernel A
     19 times for the Count, TopN and aggregate queries, 4 for UnionRows'
     rows, once each for the stacked GroupBy's filter, the interpreter's
-    Count and Limit, and 13 for LIMIT_QUERIES (a spill and the query for
-    the 50-row union under Count, TopN and Sum and for the two 32-plane
-    groups; once for the chain and the depth-43 Count; once a shard and the
-    Count for the interpreter's depth-43 row); kernel B three times for
-    TopN and once more for the union's, once a shard for each of MinRow
-    and MaxRow, and once each for Rows(f), Rows(g) in UnionRows and
+    Count and Limit, and 13 for the first seven LIMIT_QUERIES (a spill and
+    the query for the 50-row union under Count, TopN and Sum and for the
+    two 32-plane groups; once for the chain and the depth-43 Count; once a
+    shard and the Count for the interpreter's depth-43 row); kernel B three
+    times for TopN and once more for the union's, once a shard for each of
+    MinRow and MaxRow, and once each for Rows(f), Rows(g) in UnionRows and
     GroupBy(Rows(f)), and once a shard for each of the three per-shard
-    GroupBys (level 0); kernel C twice and once for the union, plus once a
-    shard under the unplannable filter; kernel E once for each GroupBy of
-    f and g (one launch over every shard, or stacked), once for the
-    stacked one of 32 shards, and once a shard for each per-shard GroupBy
-    of f and g (level 1); kernel F once for GroupBy+Sum, once for the
-    stacked one, and once a shard for the per-shard GroupBy+Sum."""
-    return {"plan_eval": 39, "row_counts": 7 + 5 * S,
-            "bsi_sum_planes": 3 + S, "bsi_min_max": 3,
-            "pair_counts": 3 + 2 * S, "bsi_sum_groups": 2 + S}
+    GroupBys (level 0; the summed one over shards 0-31); kernel C twice
+    and once for the union, plus once a shard under the unplannable
+    filter; kernel E once for each GroupBy of f and g (one launch over
+    every shard, or stacked), once for the stacked one of 32 shards, and
+    once a shard for each per-shard GroupBy of f and g (level 1); kernel F
+    once for GroupBy+Sum, once for the stacked one, and 32 times for the
+    per-shard GroupBy+Sum.
+    The decode family adds: kernel A once for each filter of Distinct,
+    Percentile, the three Sorts, the keyed Sort and the two Extracts' Limits,
+    twice under the Distinct operand (its filter and the Count), once for
+    each of the 4 groups of GroupBy's Count(Distinct), and 56 times for the
+    depth-43 Percentile's host bisection (its Counts; the limits index draws
+    from its own seed); kernel B once for each set-field Distinct (3 on the
+    bench index, 2 on the keyed one); kernel D for that bisection's Min
+    and Max; kernel G once for the bench index's stacked decode (cached for
+    every later query) and once for the keyed index's; kernel G' once a
+    shard that the first 1000 records of Row(f=1) reach, and once for each
+    of the keyed index's 32 shards; kernel I once for each round of the
+    four Percentiles (percentile_rounds, from oracle_percentile)."""
+    return {"plan_eval": 109, "row_counts": 44 + 4 * S,
+            "bsi_sum_planes": 3 + S, "bsi_min_max": 5,
+            "pair_counts": 35 + S, "bsi_sum_groups": 34,
+            "bsi_decode": 2, "bsi_decode_gather": extract_shards + 32,
+            "percentile_counts": percentile_rounds}
 
 
 T0 = time.perf_counter()
@@ -278,7 +334,9 @@ def kernel_device_ms(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     names = ("plan_eval_kernel", "row_counts_kernel", "bsi_sum_planes_kernel",
              "bsi_min_max_kernel", "pair_counts_kernel",
-             "bsi_sum_groups_kernel", "tune_ceiling_kernel",
+             "bsi_sum_groups_kernel", "bsi_decode_gather_kernel",
+             "bsi_decode_kernel", "percentile_counts_kernel",
+             "tune_ceiling_kernel",
              "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
              "tune_csa_partial_kernel", "Memset", "Memcpy")
 
@@ -512,6 +570,12 @@ def kernel_times(timer: Timer, inputs) -> dict:
             lambda: ck.row_counts(tile, f),
             lambda: ck.row_counts_plain(tile, f),
             (S * R * W + (0 if f is None else S * W)) * 4 + S * R * 8)
+    # the one-shard shape of most of B's launches on the main path (MinRow,
+    # MaxRow and the per-shard GroupBys' level 0: one (1, R, W) tile each)
+    one = tile[:1].contiguous()
+    out[f"row_counts/s1_r{R}"] = measure(
+        lambda: ck.row_counts(one), lambda: ck.row_counts_plain(one),
+        R * W * 4 + R * 8)
     from featurebase_tpu_torch.ops import bsi as bsiops
     group, gfilt = inputs["bsi"]
     gs, planes, gw = group.shape
@@ -985,6 +1049,200 @@ def group_times(timer: Timer, rates: dict, reps: int) -> dict:
     return out
 
 
+# -- kernels G, G' and I ------------------------------------------------------
+
+def decode_cases(S: int) -> dict:
+    """The groups kernels G and G' are held on: name -> (S, D + 2, W) group.
+    Encoded values at depths 1, 14 and 31 (every column signed at random,
+    40% absent, 1% sign-set zeros), random words at the slice's shape, and
+    a view one word into a wider group (W - 1 words, the ragged last chunk
+    of the kernel)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    W = 32768
+
+    def values(shards, depth):
+        C = 32 * W
+        mag = torch.randint(0, 1 << depth, (shards, C), generator=gen,
+                            device="cuda", dtype=torch.int64)
+        mag = torch.where(torch.rand((shards, C), generator=gen,
+                                     device="cuda") < 0.01, 0, mag)
+        neg = torch.rand((shards, C), generator=gen, device="cuda") < 0.5
+        ex = torch.rand((shards, C), generator=gen, device="cuda") < 0.6
+        return encode_group(mag, neg, ex, depth)
+
+    cases = {f"values_d{d}": values(16, d) for d in (1, 14, 31)}
+    cases["random_d14"] = gpu_words(gen, (S, 16, W))
+    cases["offset_d14"] = gpu_words(gen, (8, 16, W))[:, :, 1:]
+    return cases
+
+
+def percentile_reduction(vals, exists, filt, base: int, pivots) -> list:
+    """The plain torch-reduction form of a Percentile round, as the JAX
+    program counts it (bsi.py:571): for each pivot, the present values below
+    it and above it, one reduction each."""
+    from featurebase_tpu_torch.ops import decode
+    present = decode.expand_bits(exists & filt).bool()
+    x = vals + base
+    return [(int((present & (x < p)).sum()), int((present & (x > p)).sum()))
+            for p in pivots]
+
+
+def decode_parity(S: int) -> tuple:
+    """Phase 3d: kernels G, G' and I against their plain versions on the
+    card, exactly.  G on every decode_cases group; G' at N = 1, 37 and
+    65,536 columns of one shard at each depth and one word off alignment; I
+    over the decode of the slice-shaped group and of the depth-31 values,
+    under random and empty filters and exists words viewed one word into a
+    wider row, with threshold lists: none (the prep pass), sorted random
+    ones with duplicates, ones holding the min and the max, a full round of
+    the bisection (129) and one of 512, and a base that shifts values; then
+    the Percentile bisection driven by I against the same driven by the
+    plain counts, and its probes against percentile_reduction."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import decode
+    cases = decode_cases(S)
+    rng = np.random.default_rng(29)
+    errs = {"bsi_decode": [0], "bsi_decode_gather": [0],
+            "percentile_counts": [0]}
+    checks = []
+
+    def check(kernel, name, got, want):
+        got, want = ([got] if isinstance(got, torch.Tensor) else got,
+                     [want] if isinstance(want, torch.Tensor) else want)
+        for g, w in zip(got, want):
+            errs[kernel].append(require_equal(f"{kernel} {name}", g, w))
+        checks.append(f"{kernel} {name}")
+
+    decoded = {}
+    for name, group in cases.items():
+        decoded[name] = ck.bsi_decode(group)
+        check("bsi_decode", name, decoded[name],
+              decode.decode_values_plain(group))
+        shard = group[0]
+        C = 32 * shard.shape[1]
+        for n in (1, 37, 1 << 16):
+            cols = torch.from_numpy(rng.choice(C, n, replace=False)).cuda()
+            check("bsi_decode_gather", f"{name} N={n}",
+                  ck.bsi_decode_gather(shard, cols),
+                  decode.decode_gather_plain(shard, cols))
+    W, nf = 32768, max(S, 16)
+    wide = rand_words(rng, (nf, W + 1))
+    filters = {"random": rand_words(rng, (nf, W)),
+               "empty": torch.zeros((nf, W), dtype=torch.int32,
+                                    device="cuda"),
+               "offset": wide[:, 1:]}
+    for vname, gname in (("random_d14", "random_d14"),
+                         ("values_d31", "values_d31")):
+        vals, group = decoded[vname], cases[gname]
+        s = vals.shape[0]
+        exists = group[:, 0]
+        x = vals[decode.expand_bits(exists).bool()]
+        lo, hi = int(x.min()), int(x.max())
+        picks = np.sort(rng.choice(x.cpu().numpy(), 40))
+        lists = {
+            "prep": [],
+            "duplicates": sorted(picks.tolist() + picks[::3].tolist()),
+            "min_max": [lo, int(np.median(picks)), hi],
+            "round_129": sorted(rng.integers(lo, hi, 129).tolist()),
+            "full_512": sorted(rng.integers(lo, hi, 512).tolist()),
+        }
+        for fname, fw in filters.items():
+            for lname, t in lists.items():
+                for base in (0, -7):
+                    check("percentile_counts",
+                          f"{vname} filter={fname} {lname} base={base}",
+                          ck.percentile_counts(vals, exists, fw[:s], base, t),
+                          decode.percentile_counts_plain(vals, exists,
+                                                         fw[:s], base, t))
+    vals, exists = decoded["random_d14"], cases["random_d14"][:, 0]
+    fw = filters["random"][:S]
+    for nth in (0, 0.5, 20.2, 50, 99.9, 100):
+        check("percentile_counts", f"bisection nth={nth}",
+              torch.tensor(decode.percentile(vals, exists, fw, 0, nth)),
+              torch.tensor(decode.percentile(
+                  vals, exists, fw, 0, nth,
+                  counts=decode.percentile_counts_plain)))
+    probes = decode.pivot_tree(-8000, 8000, 5)
+    t = sorted(set(probes))
+    h = ck.percentile_counts(vals, exists, fw, 0, t).cpu().tolist()
+    total = sum(h[:2 * len(t) + 1])
+    below, mine = 0, {}
+    for k, p in enumerate(t):
+        below += h[2 * k]
+        mine[p] = (below, total - below - h[2 * k + 1])
+        below += h[2 * k + 1]
+    check("percentile_counts", "31 pivots against the reduction form",
+          torch.tensor([mine[p] for p in probes]),
+          torch.tensor(percentile_reduction(vals, exists, fw, 0, probes)))
+    torch.cuda.synchronize()
+    say("decode_parity", ok=True, checks=len(checks),
+        cases={n: list(g.shape) for n, g in cases.items()},
+        gather_n=[1, 37, 1 << 16], filters=list(filters),
+        threshold_lists=["prep", "duplicates", "min_max", "round_129",
+                         "full_512"])
+    return {k: max(v) for k, v in errs.items()}, (cases["random_d14"],
+                                                  decoded["random_d14"],
+                                                  filters["random"][:S])
+
+
+def decode_times(timer: Timer, inputs, reps: int) -> dict:
+    """Phase 4e: kernels G, G' and I beside their plain versions and their
+    bytes bounds, at the main path's shapes: G over the slice-shaped group
+    (S = 128, D = 14: D + 1 planes read, 4 bytes a column written); G' at
+    N = 1,000 and 65,536 columns of one shard; I over the slice's values,
+    exists and filter words with no thresholds (the prep pass) and with a
+    round's 129, beside the torch-reduction form's time for the 31 pivots of
+    a JAX round (62 reductions)."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import decode
+    group, vals, filt = inputs
+    S, P, W = group.shape
+    C, D = 32 * W, P - 2
+    out = {}
+
+    def measure(name, fn, plain, nbytes, slow_plain=False):
+        r = dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                 bound_by="bytes", ms=timer(fn),
+                 device_ms=kernel_device_ms(fn, reps),
+                 plain_ms=(Timer(3) if slow_plain else timer)(plain))
+        out[name] = r
+        say("kernel_time", kernel=name, **r)
+        return r
+
+    measure(f"bsi_decode/s{S}_d{D}", lambda: ck.bsi_decode(group),
+            lambda: decode.decode_values_plain(group),
+            (D + 1) * S * W * 4 + S * C * 4, slow_plain=True)
+    rng = np.random.default_rng(31)
+    shard = group[0]
+    for n in (1000, 1 << 16):
+        cols = torch.from_numpy(np.sort(rng.choice(C, n, replace=False))
+                                ).cuda()
+        words = np.unique(cols.cpu().numpy() >> 5).size
+        measure(f"bsi_decode_gather/n{n}_d{D}",
+                lambda: ck.bsi_decode_gather(shard, cols),
+                lambda: decode.decode_gather_plain(shard, cols),
+                n * 4 + words * P * 4 + n * 8)
+    exists = group[:, 0]
+    lo, hi = -(1 << 14), 1 << 14
+    for name, t in (("prep", []),
+                    ("round_129", sorted({lo, hi, *decode.pivot_tree(
+                        lo, hi, decode.PERCENTILE_LEVELS)}))):
+        r = measure(f"percentile_counts/s{S}_{name}",
+                    lambda t=t: ck.percentile_counts(vals, exists, filt, 0, t),
+                    lambda t=t: decode.percentile_counts_plain(
+                        vals, exists, filt, 0, t),
+                    S * C * 4 + 2 * S * W * 4 + (2 * len(t) + 3) * 8
+                    + len(t) * 4, slow_plain=True)
+        r["thresholds"] = len(t)
+    pivots = decode.pivot_tree(lo, hi, 5)
+    red = Timer(3)(lambda: percentile_reduction(vals, exists, filt, 0, pivots))
+    out[f"percentile_counts/s{S}_round_129"]["reduction_31_pivots_ms"] = red
+    say("percentile_reduction", pivots=len(pivots), ms=red,
+        kernel_round_ms=out[f"percentile_counts/s{S}_round_129"]["ms"])
+    return out
+
+
 def build_table(n_shards: int, seed: int = 0):
     """The slice's table through the port's import API, plus the generating
     arrays for the oracle."""
@@ -1009,12 +1267,16 @@ def build_table(n_shards: int, seed: int = 0):
     idx.field("g").import_bits(g_rows, cols)
     idx.field("v").import_values(cols, vals)
     idx.mark_exists(cols)
-    limits_index(holder, rng)
-    return holder, dict(f=f_rows, g=g_rows, v=vals, cols=cols)
+    # the small indexes draw from their own seeds, so their data (and the
+    # launches of their queries) do not depend on --shards
+    limits = limits_index(holder, np.random.default_rng(seed + 1))
+    keyed_index(holder, np.random.default_rng(seed + 2))
+    return holder, dict(f=f_rows, g=g_rows, v=vals, cols=cols, limits=limits)
 
 
-def limits_index(holder, rng) -> None:
-    """The "limits" index of LIMIT_QUERIES."""
+def limits_index(holder, rng) -> dict:
+    """The "limits" index of LIMIT_QUERIES; returns its w values and their
+    columns."""
     from featurebase_tpu_torch.core.consts import SHARD_WIDTH
     from featurebase_tpu_torch.model.field import FieldOptions
     n = 3000
@@ -1032,15 +1294,38 @@ def limits_index(holder, rng) -> None:
                                                          endpoint=True))
     top = (1 << 43) - 1
     idx.create_field("w", FieldOptions(type="int", min=-top, max=top))
-    idx.field("w").import_values(
-        cols, rng.integers(0, 500, n) * (1 << 34) - 5)
+    w = rng.integers(0, 500, n) * (1 << 34) - 5
+    idx.field("w").import_values(cols, w)
+    idx.mark_exists(cols)
+    return dict(w=w, cols=cols)
+
+
+def keyed_index(holder, rng) -> None:
+    """The "keyed" index of KEYED_QUERIES: 40 records with string keys, a
+    keyed set field kf, a set field s and an int field n."""
+    from featurebase_tpu_torch.model.field import FieldOptions
+    from featurebase_tpu_torch.model.index import IndexOptions
+    idx = holder.create_index("keyed", IndexOptions(keys=True))
+    recs = [f"rec-{i}" for i in range(40)]
+    ids = idx.translate_store.create_keys(recs)
+    cols = np.array(sorted(ids[r] for r in recs), dtype=np.int64)
+    idx.create_field("kf", FieldOptions(keys=True))
+    keys = ["alpha", "beta", "gamma"]
+    kid = idx.row_translation("kf").create_keys(keys)
+    idx.field("kf").import_bits(
+        np.array([kid[keys[i]] for i in rng.integers(0, 3, cols.size)]), cols)
+    idx.create_field("s")
+    idx.field("s").import_bits(rng.integers(0, 5, cols.size), cols)
+    idx.create_field("n", FieldOptions(type="int", min=0, max=1000))
+    idx.field("n").import_values(cols, rng.integers(0, 1000, cols.size))
     idx.mark_exists(cols)
 
 
 def index_of(q: str):
     """(index name, query) of a QUERIES entry."""
-    if q.startswith("limits:"):
-        return "limits", q[len("limits:"):]
+    for name in ("limits", "keyed"):
+        if q.startswith(f"{name}:"):
+            return name, q[len(name) + 1:]
     return "bench", q[len(PER_SHARD):] if q.startswith(PER_SHARD) else q
 
 
@@ -1059,17 +1344,36 @@ def execute(executor, q: str):
         del executor.GROUPBY_ONESHOT_MAX_MASK_BYTES
 
 
+def digest(x) -> str:
+    return hashlib.sha1(json.dumps(x).encode()).hexdigest()
+
+
 def canon(result):
     """Comparable form of a query result; a bitmap as its column count and
-    a digest of its sorted columns (UnionRows(Rows(g)) holds every
-    record)."""
-    from featurebase_tpu_torch.executor.results import (GroupCount, PairField,
+    a digest of its sorted columns (UnionRows(Rows(g)) holds every record)
+    and its keys; Distinct's values, Sort's columns and values and
+    Extract's table as digests beside their sizes."""
+    from featurebase_tpu_torch.executor.results import (ExtractedTable,
+                                                        GroupCount, PairField,
                                                         PairsField, ValCount)
-    from featurebase_tpu_torch.model.row import Row
+    from featurebase_tpu_torch.model.row import Row, SignedRow
     if isinstance(result, Row):
         cols = result.columns()
         return ("row", (int(cols.size),
-                        hashlib.sha1(cols.tobytes()).hexdigest()))
+                        hashlib.sha1(cols.tobytes()).hexdigest(),
+                        result.keys))
+    if isinstance(result, SignedRow):
+        vals = [int(v) for v in result.values()]
+        return ("signed", (len(vals), digest(vals)))
+    if isinstance(result, dict):     # Sort
+        return ("sort", (len(result["columns"]),
+                         digest([result["columns"], result["values"]])))
+    if isinstance(result, ExtractedTable):
+        return ("table", (len(result.col_ids), digest(
+            [[[f.name, f.type] for f in result.fields], result.col_ids,
+             result.field_values])))
+    if result is None or isinstance(result, bool):
+        return ("value", result)
     if isinstance(result, list):   # Rows' ids or GroupBy's groups
         return ("list", [(tuple(fr.row_id for fr in x.group), x.count, x.agg)
                          if isinstance(x, GroupCount) else int(x)
@@ -1081,6 +1385,89 @@ def canon(result):
     if isinstance(result, PairField):
         return ("pair", (result.pair.id, result.pair.count))
     return ("value", int(result))
+
+
+def oracle_percentile(x: np.ndarray, nth) -> tuple:
+    """Percentile of the based values `x` by the port's bisection
+    (ops/decode.py percentile) over counts taken with numpy instead of
+    kernel I: ((value, count), rounds of counts).  Its answer checks kernel
+    I's counts; its rounds are the launches of kernel I a query makes."""
+    from featurebase_tpu_torch.ops import decode
+    xs = np.sort(x.astype(np.int64))
+    calls = []
+
+    def counts(vals, exists, filt, base, t):
+        calls.append(len(t))
+        t = np.asarray(t, dtype=np.int64)
+        lo = np.searchsorted(xs, t, side="left")
+        hi = np.searchsorted(xs, t, side="right")
+        bins = np.zeros(2 * t.size + 1, dtype=np.int64)
+        bins[1::2] = hi - lo
+        bins[0::2] = np.diff(np.concatenate([[0], lo, [xs.size]])) - \
+            np.concatenate([[0], hi - lo])
+        ext = [int(xs[0]), int(xs[-1])] if xs.size else \
+            [(1 << 31) - 1, -(1 << 31)]
+        return torch.tensor(bins.tolist() + ext)
+    val, cnt = decode.percentile(None, None, None, 0, nth, counts=counts)
+    return (val, cnt), len(calls)
+
+
+def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
+    """numpy oracles of the decode family's queries over the bench table
+    (keys as in QUERIES, placeholders included), the launches of kernel I
+    that a pass of the mix makes (oracle_percentile's rounds), and the
+    shards Extract's first 1000 records of Row(f=1) reach."""
+    f, g, v, cols = gen["f"], gen["g"], gen["v"], gen["cols"]
+
+    def signed(vals):
+        vals = [int(x) for x in np.unique(vals)]
+        return ("signed", (len(vals), digest(vals)))
+
+    def row(ids):
+        ids = np.unique(np.asarray(ids)).astype(np.uint64)
+        return ("row", (int(ids.size), hashlib.sha1(ids.tobytes()).hexdigest(),
+                        None))
+
+    def sort(order):
+        return ("sort", (len(order), digest([[int(c) for c in cols[order]],
+                                             [int(x) for x in v[order]]])))
+    asc_f1 = np.flatnonzero(f == 1)[np.lexsort((cols[f == 1], v[f == 1]))]
+    d_f = np.unique(f[g == 2])
+    at5 = np.flatnonzero(cols == col5)[0]
+    ext = np.flatnonzero(f == 1)[:1000]
+    oracle = {
+        "Distinct(field=v)": signed(v),
+        "Distinct(Row(f=1), field=g)": row(g[f == 1]),
+        "Count(Distinct(field=v))": ("value", int(np.unique(v).size)),
+        "Count(Intersect(Row(f=1), Distinct(Row(g=2), field=f)))":
+            ("value", int(((f == 1) & np.isin(cols, d_f)).sum())),
+        "GroupBy(Rows(g), aggregate=Count(Distinct(field=v)))": (
+            "list", [((r,), int((g == r).sum()), int(np.unique(v[g == r]).size))
+                     for r in range(4) if (g == r).any()]),
+        "Sort(Row(f=1), field=v, limit=10)": sort(asc_f1[:10]),
+        "Sort(All(), field=v, sort-desc=true, limit=5, offset=3)":
+            sort(desc[3:8]),
+        "Sort(All(), field=v, sort-desc=true, limit=5, after={after})":
+            sort(desc[8:13]),
+        "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))": (
+            "table", (int(ext.size), digest(
+                [[["f", "[]id"], ["g", "[]id"], ["v", "int64"]],
+                 [int(c) for c in cols[ext]],
+                 [[[int(x)] for x in f[ext]], [[int(x)] for x in g[ext]],
+                  [int(x) for x in v[ext]]]]))),
+        "IncludesColumn(Row(f=1), column={col5})": ("value", bool(f[at5] == 1)),
+        "FieldValue(field=v, column={col5})": ("valcount", (int(v[at5]), 1)),
+    }
+    rounds = 0
+    for q, x in (("Percentile(field=v, nth=50)", v),
+                 ("Percentile(field=v, nth=99.9, filter=Row(f=1))", v[f == 1]),
+                 ("Percentile(field=v, nth=0)", v),
+                 ("Percentile(field=v, nth=100)", v)):
+        nth = float(q.split("nth=")[1].split(",")[0].rstrip(")"))
+        answer, n = oracle_percentile(x, nth)
+        oracle[q] = ("valcount", answer)
+        rounds += n
+    return oracle, rounds, int(np.unique(cols[ext] >> 20).size)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1243,8 +1630,14 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     from featurebase_tpu_torch.core.consts import SHARD_WIDTH
     cols = gen["cols"]
     col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
-    queries = [q.replace("{col5}", str(col5)) for q in QUERIES
-               if "shards=" not in q or n_shards > 63]
+    # the second page of Sort(All(), field=v, sort-desc=true, limit=5,
+    # offset=3) starts after its last record
+    desc = np.lexsort((cols, -gen["v"]))
+    after = f"[{int(gen['v'][desc[7]])}, {int(cols[desc[7]])}]"
+    def sub(q: str) -> str:
+        return q.replace("{col5}", str(col5)).replace("{after}", after)
+    queries = [sub(q) for q in QUERIES if "shards=" not in q or n_shards > 63]
+    decode_queries = [sub(q) for q in DECODE_QUERIES]
     rank_cache = idx.field("f")._topn_cache
 
     def run(executor, q):
@@ -1259,13 +1652,16 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     first_s = time.perf_counter() - t0
     launches = ck.launches()
     resident = residency.residency().stats()
+    vals_cache = {k[2]: v[1].numel() * 4 for k, v in
+                  gpu.plan_executor._leaf_cache.items() if k[0] == "vals"}
     say("main_path", first_pass_s=first_s, launches=launches,
-        residency=resident)
+        residency=resident, stacked_vals_bytes=vals_cache)
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
-    want = pass_launches(n_shards)
+    oracle, rounds, extract_shards = decode_oracles(gen, col5, desc)
+    want = pass_launches(n_shards, rounds, extract_shards)
     if len(queries) == len(QUERIES) and launches != want:
         raise AssertionError(f"launches in one pass of the mix {launches} "
                              f"!= {want}")
@@ -1280,7 +1676,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                  f"cpu {want[1]!r:.200}")
     f, g, v = gen["f"], gen["g"], gen["v"]
     at_g2 = v[g == 2]
-    oracle = {
+    oracle.update({
         "Count(Intersect(Row(f=1), Row(g=2)))":
             ("value", int(((f == 1) & (g == 2)).sum())),
         "Count(Row(v > 5000))": ("value", int((v > 5000).sum())),
@@ -1289,7 +1685,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                       int((v == v.min()).sum()))),
         "Max(Row(g=2), field=v)": ("valcount", (
             int(at_g2.max()), int((at_g2 == at_g2.max()).sum()))),
-    }
+    })
     top = np.bincount(f, minlength=8)
     order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
     oracle["TopN(f, n=5)"] = ("pairs", [(r, int(top[r])) for r in order])
@@ -1314,17 +1710,25 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     oracle["GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))"] \
         = ("list", [x for x in by_count if x[1] > 2500000])
     oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
-    oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))"] \
-        = ("list", by_sum)
+    first32 = (gen["cols"] >> 20) < 32
+    s32 = np.zeros(32, dtype=np.int64)
+    np.add.at(s32, pair[first32], v[first32].astype(np.int64))
+    n32 = np.bincount(pair[first32], minlength=32)
+    oracle[PER_SHARD_SUM] = ("list", [((k // 4, k % 4), int(n32[k]),
+                                       int(s32[k])) for k in range(32)
+                                      if n32[k]])
     top_g1 = np.bincount(f[g == 1], minlength=8)
     oracle["GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))"] = (
         "list", [((r,), int(top_g1[r]), 0) for r in range(8) if top_g1[r]])
     for q, want in oracle.items():
+        q = q.replace("{col5}", str(col5)).replace("{after}", after)
         if q in answers and answers[q] != want:
             raise AssertionError(f"{q}: engine {answers[q]!r:.300} != "
                                  f"oracle {want!r:.300}")
     say("answers", equal_to_cpu=True,
-        equal_to_oracle=sorted(q for q in oracle if q in answers),
+        equal_to_oracle=sorted(
+            q for q in (k.replace("{col5}", str(col5)).replace(
+                "{after}", after) for k in oracle) if q in answers),
         counts={q: a[1] for q, a in answers.items() if a[0] == "value"},
         cpu_executor_s=cpu_s)
     # TopN's per-shard branch (taken above ROWS_STACKED_MAX_BYTES): the
@@ -1373,14 +1777,33 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                  ("row_counts",),
              PER_SHARD + "GroupBy(Rows(f), Rows(g))":
                  ("row_counts", "pair_counts"),
-             PER_SHARD + "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))":
+             PER_SHARD_SUM:
                  ("row_counts", "pair_counts", "bsi_sum_groups")}
+    # the decode family (on warm caches: the stacked decode is cached, so
+    # kernel G runs in the first pass, not here)
+    meant.update({
+        "Distinct(Row(f=1), field=g)": ("plan_eval", "row_counts"),
+        "GroupBy(Rows(g), aggregate=Count(Distinct(field=v)))":
+            ("row_counts", "plan_eval"),
+        "Percentile(field=v, nth=50)": ("percentile_counts",),
+        "Percentile(field=v, nth=99.9, filter=Row(f=1))":
+            ("plan_eval", "percentile_counts"),
+        "Sort(Row(f=1), field=v, limit=10)": ("plan_eval",),
+        "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))":
+            ("plan_eval", "bsi_decode_gather"),
+        "limits:Percentile(field=w, nth=50)": ("plan_eval", "bsi_min_max"),
+        "limits:Extract(Limit(All(), limit=20), Rows(f), Rows(w))":
+            ("plan_eval",),
+        "keyed:Extract(All(), Rows(kf), Rows(n))": ("bsi_decode_gather",),
+        "keyed:Distinct(field=kf)": ("row_counts",),
+        "keyed:Sort(All(), field=n, limit=3)": ("plan_eval",)})
     for q in queries:
         if q.startswith("Options(GroupBy(Rows(f), Rows(g)"):
             meant[q] = ("plan_eval", "pair_counts")
         elif q.startswith("Options(GroupBy(Rows(f), aggregate"):
             meant[q] = ("bsi_sum_groups",)
-        elif q.startswith(("Options(Limit", "limits:")):
+        elif q.startswith("Options(Limit") or (
+                q.startswith("limits:") and q[7:] in LIMIT_QUERIES[:7]):
             meant[q] = ("plan_eval",)
     for q, kernels in meant.items():
         for k in kernels:
@@ -1389,7 +1812,8 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                      f"{per[q]['launches']}")
     say("query_kernels", meant={q: list(k) for q, k in meant.items()
                                 if q in per})
-    residency_phase(holder, queries, answers, run, resident["bytes"] // 2)
+    residency_phase(holder, queries, answers, run, resident["bytes"] // 2,
+                    decode_queries)
     return launches
 
 
@@ -1445,19 +1869,27 @@ def group_paths(holder, queries, answers, run, reps: int) -> dict:
     return out
 
 
-def residency_phase(holder, queries, answers, run, budget: int) -> dict:
+def residency_phase(holder, queries, answers, run, budget: int,
+                    decode_queries) -> dict:
     """Phase 5b: every device cache dropped, then the whole mix again by a
     fresh executor under a residency budget of about half the bytes the
-    first pass left resident.  Every answer must be unchanged, the LRU must
-    evict, and after each query its bytes must be within the budget (or one
-    entry larger than the budget must be all that is left)."""
+    first pass left resident: the decode family first, then the rest of the
+    mix, then the decode family again.  Every answer must be unchanged, the
+    LRU must evict, and after each query its bytes must be within the
+    budget (or one entry larger than the budget must be all that is left);
+    the stacked decode's cache (PlanExecutor.stacked_vals, 537 MB at 128
+    shards) must be evicted and decoded again."""
     from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
     from featurebase_tpu_torch.storage import residency
     residency.residency().set_budget(0)   # evicts every earlier entry
     mgr = residency.reset(budget)
     gpu = Executor(holder)
     peak = 0
-    for q in queries:
+    rest = [q for q in queries if q not in decode_queries]
+    seen, evicted = set(), set()
+    decodes = ck.launches()["bsi_decode"]
+    for q in decode_queries + rest + decode_queries:
         got = run(gpu, q)
         if got != answers[q]:
             raise AssertionError(f"{q} under a budget of {budget} bytes: "
@@ -1467,11 +1899,20 @@ def residency_phase(holder, queries, answers, run, budget: int) -> dict:
             raise AssertionError(f"{q}: {st['bytes']} bytes resident over a "
                                  f"budget of {budget}: {st}")
         peak = max(peak, st["bytes"])
+        vals = {k for k in gpu.plan_executor._leaf_cache if k[0] == "vals"}
+        evicted |= seen - vals
+        seen |= vals
     st = mgr.stats()
     if st["evictions"] == 0:
         raise AssertionError(f"no eviction under a budget of {budget}: {st}")
+    bench_vals = [k for k in evicted if k[1] == "bench"]
+    if not bench_vals:
+        raise AssertionError(f"the stacked decode of the bench index was "
+                             f"never evicted under {budget} bytes: {st}")
     say("residency", budget=budget, answers_unchanged=True,
-        peak_bytes_after_query=peak, stats=st)
+        peak_bytes_after_query=peak, stats=st,
+        stacked_vals_evicted=[list(k[:4]) for k in evicted],
+        bsi_decode_launches=ck.launches()["bsi_decode"] - decodes)
     return st
 
 
@@ -1560,7 +2001,8 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         max_sm_clock_mhz=max_sm_clock_hz() / 1e6)
     t0 = time.perf_counter()
-    sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, tk.SOURCE)
+    sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE,
+               tk.SOURCE)
     builds = [*((src, ()) for src in sources),
               *((src, f) for src in (ck.SOURCE, ck.GROUP_SOURCE)
                 for f in ABLATIONS.values())]
@@ -1576,12 +2018,12 @@ def main() -> int:
     report = {src: ptxas_report(build.build_log.get(src, ""))
               for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
-    for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE):
-        if src == ck.GROUP_SOURCE and not report[src]:
+    for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE):
+        if src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE) and not report[src]:
             raise AssertionError(f"no ptxas report for {src}")
         for fn, r in report[src].items():
             if ("plan_eval_kernel" in fn or "bsi_" in fn
-                    or src == ck.GROUP_SOURCE) and (
+                    or src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE)) and (
                     r["spill_stores"] or r["spill_loads"]
                     or r["stack_bytes"]):
                 raise AssertionError(f"ptxas spills or keeps a stack frame "
@@ -1593,10 +2035,14 @@ def main() -> int:
     bsi_errs, inputs["bsi"] = bsi_parity(S)
     errs.update(bsi_errs)
     errs.update(group_parity())
+    decode_errs, decode_inputs = decode_parity(S)
+    errs.update(decode_errs)
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
     rates = tc_rate(args.reps, popc_rate(args.reps))
     times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
+    times.update(decode_times(timer, decode_inputs, args.reps))
+    del decode_inputs
     ablation(inputs, args.reps)
     group_ablation(args.reps)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
@@ -1638,7 +2084,14 @@ def main() -> int:
             ("bsi_sum_groups", "bsi_sum_groups/sharded_s128_g32_d14",
              ck.GROUP_SOURCE,
              "featurebase_tpu/ops/bsi.py:611, "
-             "featurebase_tpu/ops/bsi.py:333")):
+             "featurebase_tpu/ops/bsi.py:333"),
+            ("bsi_decode", f"bsi_decode/s{S}_d14", ck.DECODE_SOURCE,
+             "featurebase_tpu/ops/bsi.py:759, "
+             "featurebase_tpu/ops/bsi.py:482"),
+            ("bsi_decode_gather", "bsi_decode_gather/n1000_d14",
+             ck.DECODE_SOURCE, "featurebase_tpu/ops/bsi.py:367"),
+            ("percentile_counts", f"percentile_counts/s{S}_round_129",
+             ck.DECODE_SOURCE, "featurebase_tpu/ops/bsi.py:491")):
         t = times[key]
         kernels.append({
             "name": name, "route": "cuda",

@@ -4,9 +4,11 @@ Counterpart of featurebase_tpu/executor/executor.py (reference
 executor.go:183 Execute, 679-846 executeCall dispatch).  Ported call
 families: every bitmap call (Row, Range, Union, Intersect, Difference, Xor,
 Not, All, Shift, ConstRow, Rows, UnionRows, Limit), Count, TopN/TopK,
-Sum, Min/Max, MinRow/MaxRow, Rows, GroupBy and Options(shards=).  Every
-other family raises NotImplementedError, as do Distinct as a bitmap
-operand and GroupBy's aggregate=Count(Distinct(...)).
+Sum, Min/Max, MinRow/MaxRow, Rows, GroupBy, Distinct (also under Count, as
+a bitmap operand and as GroupBy's aggregate=Count(Distinct(...))),
+Percentile, Sort, Extract, IncludesColumn, FieldValue and
+Options(shards=).  Every other family (Var/Corr, the writes, Apply, Arrow,
+ExternalLookup) raises NotImplementedError.
 
 Calls the plan compiler accepts run over stacked (S, W) shard tiles; the
 rest (Row(f=null), Rows, UnionRows or Limit as an operand) run through the
@@ -22,7 +24,13 @@ its counts; TopN, MinRow/MaxRow, Rows and one-dimension GroupBy kernel B
 (``bsi_min_max``); GroupBy's pair counts kernel E (``pair_counts``) and
 its sums kernel F (``bsi_sum_groups``) (ops/cuda_kernels.py), one launch
 over every shard (a residency batch) where the reference's per-shard loop
-would take its one-shot product.
+would take its one-shot product.  Decoded values come from kernel G
+(``bsi_decode``: Distinct, Sort and Percentile over the cached stacked
+decode, PlanExecutor.stacked_vals, or one shard's group), Extract's from
+kernel G' (``bsi_decode_gather``, one launch a shard), and Percentile's
+bisection counts from kernel I (``percentile_counts``); a field deeper
+than 31 planes decodes on the host in int64 (Field.values_dense_host), and
+its Percentile bisects over kernel-A Counts.
 
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
@@ -39,18 +47,23 @@ import torch
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
-from featurebase_tpu_torch.executor.results import (FieldRow, GroupCount,
+from featurebase_tpu_torch.executor.results import (ExtractedTable,
+                                                    ExtractedTableField,
+                                                    FieldRow, GroupCount,
                                                     Pair, PairField,
                                                     PairsField, ValCount)
 from featurebase_tpu_torch.model.field import (CACHE_NONE, TYPE_BOOL,
-                                               TYPE_DECIMAL, TYPE_TIME,
-                                               TYPE_TIMESTAMP, Field)
+                                               TYPE_DECIMAL, TYPE_INT,
+                                               TYPE_MUTEX, TYPE_SET,
+                                               TYPE_TIME, TYPE_TIMESTAMP,
+                                               Field)
 from featurebase_tpu_torch.model.index import Holder, Index
-from featurebase_tpu_torch.model.row import Row
+from featurebase_tpu_torch.model.row import Row, SignedRow, host_words
 from featurebase_tpu_torch.model.view import VIEW_STANDARD, view_bsi_group
 from featurebase_tpu_torch.ops import bitwise as bw
 from featurebase_tpu_torch.ops import bsi as bsiops
 from featurebase_tpu_torch.ops import cuda_kernels as ck
+from featurebase_tpu_torch.ops import decode
 from featurebase_tpu_torch.parallel.agg import finalize_sum
 from featurebase_tpu_torch.pql.ast import Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
@@ -67,11 +80,8 @@ class FieldNotFound(ExecError):
 # call families of featurebase_tpu's executor that this package does not run
 _NOT_PORTED = {
     "Set": "Set", "Clear": "Clear", "ClearRow": "ClearRow", "Store": "Store",
-    "Delete": "Delete", "Percentile": "Percentile", "Var": "Var/Corr",
-    "Corr": "Var/Corr", "Extract": "Extract", "Distinct": "Distinct",
-    "IncludesColumn": "IncludesColumn", "FieldValue": "FieldValue",
-    "Sort": "Sort", "Apply": "Apply", "Arrow": "Arrow",
-    "ExternalLookup": "ExternalLookup",
+    "Delete": "Delete", "Var": "Var/Corr", "Corr": "Var/Corr",
+    "Apply": "Apply", "Arrow": "Arrow", "ExternalLookup": "ExternalLookup",
 }
 
 
@@ -161,7 +171,8 @@ class Executor:
     def _validate_call(self, index: Index, call: Call):
         """Unknown field names error regardless of data presence."""
         if call.name in ("Row", "Range", "Rows", "Sum", "Min", "Max",
-                         "MinRow", "MaxRow", "TopN", "TopK"):
+                         "MinRow", "MaxRow", "Distinct", "TopN", "TopK",
+                         "Percentile", "Sort", "FieldValue"):
             fld = call.args.get("_field") or call.args.get("field")
             if fld is None and call.name in ("Row", "Range"):
                 fld, _ = call.field_arg()
@@ -217,6 +228,18 @@ class Executor:
 
     def _translate_result(self, index: Index, call: Call, result):
         """IDs -> keys on results (reference executor.go:7519)."""
+        if isinstance(result, Row) and call.name == "Distinct":
+            # Distinct's bitmap holds field values, not records: a keyed
+            # field's ids translate through its row store, an unkeyed
+            # field's stay numeric on a keyed index
+            fld = call.args.get("_field") or call.args.get("field")
+            f = index.field(fld) if fld else None
+            if f is not None and f.options.keys:
+                ids = [int(c) for c in result.columns()]
+                keys = index.row_translation(fld).translate_ids(ids)
+                result.keys = [k if k is not None else i
+                               for k, i in zip(keys, ids)]
+            return result
         if isinstance(result, Row) and index.options.keys:
             cols = result.columns()
             keys = index.translate_store.translate_ids(cols)
@@ -236,6 +259,13 @@ class Executor:
                     if f is not None and f.options.keys and fr.value is None:
                         store = index.row_translation(fr.field)
                         fr.row_key = store.translate_ids([fr.row_id])[0]
+        if isinstance(result, dict) and call.name == "Sort" and \
+                "columns" in result and index.options.keys:
+            # sorted record ids translate to record keys
+            cols = result["columns"]
+            keys = index.translate_store.translate_ids(cols)
+            result["columns"] = [k if k is not None else c
+                                 for k, c in zip(keys, cols)]
         if isinstance(result, list) and call.name == "Rows":
             # keyed fields return row keys (reference RowIdentifiers.Keys)
             fld = call.args.get("_field") or call.args.get("field")
@@ -282,6 +312,18 @@ class Executor:
             return self._execute_union_rows(index, call, shards)
         if name == "Limit":
             return self._execute_limit(index, call, shards)
+        if name == "Distinct":
+            return self._execute_distinct(index, call, shards)
+        if name == "Percentile":
+            return self._execute_percentile(index, call, shards)
+        if name == "Sort":
+            return self._execute_sort(index, call, shards)
+        if name == "Extract":
+            return self._execute_extract(index, call, shards)
+        if name == "IncludesColumn":
+            return self._execute_includes_column(index, call)
+        if name == "FieldValue":
+            return self._execute_field_value(index, call)
         if name in _NOT_PORTED:
             raise _not_ported(_NOT_PORTED[name])
         return self._execute_bitmap_call(index, call, shards)
@@ -291,14 +333,30 @@ class Executor:
         return list(shards) if shards is not None else \
             index.available_shards()
 
-    @staticmethod
-    def _try_compile(index: Index, call: Call) -> Optional[BitmapPlan]:
+    def _try_compile(self, index: Index, call: Call) -> Optional[BitmapPlan]:
         """The stacked plan of a bitmap call, or None when the plan compiler
-        refuses it (the per-shard interpreter runs it then)."""
+        refuses it (the per-shard interpreter runs it then).  Distinct
+        operands are computed first and enter as Precomputed rows."""
+        self._precompute_distinct(index, call)
         try:
             return PlanCompiler(index).compile(call)
         except PlanError:
             return None
+
+    def _precompute_distinct(self, index: Index, call: Call) -> None:
+        """Replace each Distinct of a bitmap tree, in place, by its result
+        over every shard as a Precomputed row: a BSI field's non-negative
+        values as columns (reference handlePreCalls executor.go:364), for
+        the planner and for the interpreter."""
+        if call.name == "Distinct":
+            result = self._execute_distinct(index, call, None)
+            if isinstance(result, SignedRow):
+                result = result.pos
+            call.name, call.args, call.children = \
+                "Precomputed", {"_row": result}, []
+            return
+        for ch in call.children:
+            self._precompute_distinct(index, ch)
 
     def _execute_union_rows(self, index: Index, call: Call,
                             shards: Optional[List[int]]) -> Row:
@@ -427,10 +485,11 @@ class Executor:
             # pre-calls: computed globally once and embedded (reference
             # handlePreCalls executor.go:364)
             if name == "Distinct":
-                raise _not_ported("Distinct")
-            result = self._execute_call(index, call, None)
-            call.name, call.args, call.children = \
-                "Precomputed", {"_row": result}, []
+                self._precompute_distinct(index, call)
+            else:
+                result = self._execute_call(index, call, None)
+                call.name, call.args, call.children = \
+                    "Precomputed", {"_row": result}, []
             return self._bitmap_call_shard(index, call, shard)
         if name == "Rows":
             # Rows in bitmap position: the columns with any value of the
@@ -548,7 +607,10 @@ class Executor:
             raise ExecError("Count() requires a child call")
         child = call.children[0]
         if child.name == "Distinct":
-            raise _not_ported("Distinct")
+            res = self._execute_distinct(index, child, shards)
+            if isinstance(res, SignedRow):
+                return int(res.values().size)
+            return res.count()
         shard_list = self._shards(index, shards)
         if not shard_list:
             return 0
@@ -883,9 +945,6 @@ class Executor:
                 afld = agg_call.args.get("_field") or \
                     agg_call.args.get("field")
                 agg_field = self._field_or_err(index, afld)
-            elif agg_kind == "Count" and agg_call.children and \
-                    agg_call.children[0].name == "Distinct":
-                raise _not_ported("GroupBy aggregate=Count(Distinct)")
 
         fields = [c.args.get("_field") or c.args.get("field")
                   for c in rows_calls]
@@ -921,6 +980,23 @@ class Executor:
                     agg_field.options.type == TYPE_DECIMAL:
                 gc.decimal_agg = agg / (10 ** agg_field.options.scale)
             out.append(gc)
+        if agg_kind == "Count" and agg_call.children and \
+                agg_call.children[0].name == "Distinct":
+            # aggregate=Count(Distinct(field=x)): for each group,
+            # Count(Distinct(Intersect(group rows, filter), field=x))
+            # (reference executor.go:3342)
+            dist = agg_call.children[0]
+            for gc in out:
+                kids = [Call("Row", {fr.field: fr.row_id})
+                        for fr in gc.group]
+                if isinstance(filt_call, Call):
+                    kids.append(filt_call)
+                if dist.children:
+                    kids.append(dist.children[0])
+                inner = Call("Distinct", dict(dist.args),
+                             children=[Call("Intersect", children=kids)])
+                gc.agg = self._execute_count(
+                    index, Call("Count", children=[inner]), shards)
         if isinstance(having, Call):
             out = self._apply_having(out, having, agg_field)
         if limit is not None:
@@ -1243,3 +1319,483 @@ class Executor:
                 hi = hi - 1
             return lo <= v <= hi
         return False
+
+    # ------------------------------------------------------------ Distinct
+
+    def _shard_filter(self, index: Index, filt_call: Optional[Call],
+                      shard: int) -> torch.Tensor:
+        """One shard's (W,) filter words: all ones without a filter."""
+        if filt_call is None:
+            return torch.full((WORDS_PER_ROW,), -1, dtype=torch.int32,
+                              device=self.device)
+        return self._bitmap_call_shard(index, filt_call, shard)
+
+    def _execute_distinct(self, index: Index, call: Call,
+                          shards: Optional[List[int]]):
+        """Distinct(filter?, field=f) (reference executeDistinct
+        executor.go:1173; JAX executor.py:2313).  A set field gives the
+        rows with a column under the filter, counted by kernel B over the
+        stacked rows (one launch a shard past ROWS_STACKED_MAX_BYTES or
+        under a filter the plan compiler refuses), as a Row.  A BSI field
+        gives its distinct values as a SignedRow: up to depth 31,
+        torch.unique over the present columns of the cached stacked decode
+        (kernel G) under the stacked filter, or of each shard's decode under
+        its interpreted filter; deeper, each shard's host decode."""
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        filt_call = call.children[0] if call.children else None
+        shard_list = self._shards(index, shards)
+        if not f.is_bsi():
+            return self._distinct_rows(index, f, filt_call, shard_list)
+        depth = max(f.bit_depth, 1)
+        filt = None
+        if shard_list and depth <= decode.DEVICE_MAX_DEPTH:
+            filt = self._mesh_filter(index, filt_call, shard_list)
+        parts: List[np.ndarray] = []
+        if filt is not None:
+            pe = self.plan_executor
+            exists = pe.stacked_bsi(index, f.name, depth, shard_list)[:, 0]
+            vals = pe.stacked_vals(index, f.name, depth, shard_list)
+            present = decode.expand_bits(exists & filt).bool()
+            parts = _fetch([torch.unique(vals[present])])
+        else:
+            dev_parts = []
+            for shard in shard_list:
+                data = f.bsi_data(shard, self.device)
+                if data is None:
+                    continue
+                group = data[0]
+                fw = self._shard_filter(index, filt_call, shard)
+                if depth <= decode.DEVICE_MAX_DEPTH:
+                    present = decode.expand_bits(group[0] & fw).bool()
+                    vals = ck.bsi_decode(group[None])[0]
+                    dev_parts.append(torch.unique(vals[present]))
+                    continue
+                vals, exists_b = f.values_dense_host(shard)
+                present = exists_b & decode.expand_bits_host(host_words(fw))
+                parts.append(np.unique(vals[present]))
+            parts += _fetch(dev_parts)
+        uniq = np.unique(np.concatenate(parts)) if parts else \
+            np.zeros(0, dtype=np.int64)
+        uniq = uniq.astype(np.int64) + f.base
+        return SignedRow(Row.from_columns(np.sort(-uniq[uniq < 0])),
+                         Row.from_columns(uniq[uniq >= 0]), field=fld)
+
+    def _distinct_rows(self, index: Index, f: Field,
+                       filt_call: Optional[Call], shard_list: List[int]
+                       ) -> Row:
+        """Distinct over a set field: the row ids with a column under the
+        filter."""
+        v = f.view(VIEW_STANDARD)
+        if shard_list:
+            row_ids = sorted({int(r) for s in shard_list
+                              if v is not None
+                              and (fr := v.fragment(s)) is not None
+                              for r in fr.row_ids()}
+                             | f.meta_rows((VIEW_STANDARD,)))
+            if not row_ids:
+                return Row.from_columns([])
+            tile_bytes = len(row_ids) * len(shard_list) * WORDS_PER_ROW * 4
+            filt = self._mesh_filter(index, filt_call, shard_list) \
+                if tile_bytes <= self.ROWS_STACKED_MAX_BYTES else None
+            if filt is not None:
+                tiles = self.plan_executor.stacked_field_rows(
+                    index, f.name, (VIEW_STANDARD,), tuple(row_ids),
+                    shard_list)
+                pc = bw.stacked_filtered_row_counts(tiles, filt)
+                return Row.from_columns(
+                    [r for r, c in zip(row_ids, pc.cpu().numpy()) if c])
+        per_shard = []
+        for shard in shard_list:
+            frag = v.fragment(shard) if v else None
+            if frag is None:
+                continue
+            rows = [int(r) for r in frag.row_ids()]
+            if not rows:
+                continue
+            tile, _ = frag.device_rows(rows, self.device)
+            pc = bw.popcount_rows(tile) if filt_call is None else \
+                bw.count_and_rows(tile, self._bitmap_call_shard(
+                    index, filt_call, shard))
+            per_shard.append((rows, pc))
+        out = set()
+        for (rows, _), pc in zip(per_shard, _fetch([p for _, p in per_shard])):
+            out.update(r for r, c in zip(rows, pc) if c > 0)
+        return Row.from_columns(sorted(out))
+
+    # ------------------------------------------ IncludesColumn / FieldValue
+
+    def _execute_includes_column(self, index: Index, call: Call) -> bool:
+        """IncludesColumn(bitmap, column=c): the bit of c in its shard's
+        words (JAX executor.py:2398)."""
+        col = call.args.get("column")
+        if col is None:
+            raise ExecError("IncludesColumn() requires a column argument")
+        if not call.children:
+            raise ExecError("IncludesColumn() requires a row query")
+        col = int(col)
+        words = host_words(self._bitmap_call_shard(index, call.children[0],
+                                                   col // SHARD_WIDTH))
+        c = col % SHARD_WIDTH
+        return bool((words[c >> 5] >> (c & 31)) & 1)
+
+    def _execute_field_value(self, index: Index, call: Call) -> ValCount:
+        """FieldValue(field=f, column=c): one column's value from the host
+        master bits (JAX executor.py:2414)."""
+        fld = call.args.get("_field") or call.args.get("field")
+        col = call.args.get("column")
+        if fld is None or col is None:
+            raise ExecError("FieldValue() requires field and column")
+        f = self._field_or_err(index, fld)
+        if isinstance(col, str):
+            col = index.translate_store.find_keys([col]).get(col, -1)
+        if col == -1:
+            return ValCount()
+        val, ok = f.value(int(col))
+        if not ok:
+            return ValCount()
+        return self._wrap_valcount(f, val, 1)
+
+    # ---------------------------------------------------------- Percentile
+
+    def _execute_percentile(self, index: Index, call: Call,
+                            shards: Optional[List[int]]
+                            ) -> Optional[ValCount]:
+        """Percentile(field=f, nth=, filter=) (reference executor.go:1310;
+        JAX executor.py:1273): up to depth 31 on an int, decimal or
+        timestamp field whose based values fit int32, under a filter the
+        plan compiler takes, the bisection of ops/decode.py over kernel I's
+        counts of the cached stacked decode; else the reference's host
+        bisection over Counts (kernel A) and Min/Max (kernel D).  Both test
+        the exact rational thresholds."""
+        nth = call.args.get("nth")
+        if nth is None:
+            raise ExecError("Percentile(): nth required")
+        nth = float(nth)
+        if nth < 0 or nth > 100:
+            raise ExecError("Percentile(): nth must be in [0, 100]")
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        filt = call.args.get("filter")
+        filt_children = [filt] if isinstance(filt, Call) else []
+        depth = max(f.bit_depth, 1)
+        shard_list = self._shards(index, shards)
+        if (shard_list and depth <= decode.DEVICE_MAX_DEPTH
+                and f.options.type in (TYPE_INT, TYPE_DECIMAL,
+                                       TYPE_TIMESTAMP)
+                and abs(f.base) + (1 << depth) < 2**31 - 2):
+            filt_words = self._mesh_filter(
+                index, filt if isinstance(filt, Call) else None, shard_list)
+            if filt_words is not None:
+                pe = self.plan_executor
+                exists = pe.stacked_bsi(index, f.name, depth, shard_list)[:, 0]
+                vals = pe.stacked_vals(index, f.name, depth, shard_list)
+                val, cnt = decode.percentile(vals, exists, filt_words,
+                                             int(f.base), nth)
+                if cnt == 0:
+                    return None
+                return self._wrap_valcount(f, val, cnt)
+
+        def count_of(cond: Optional[Condition]) -> int:
+            row_call = Call("Row", {fld: cond if cond is not None
+                                    else Condition("!=", None)})
+            inner = row_call
+            if filt_children:
+                inner = Call("Intersect", children=[row_call] + filt_children)
+            return self._execute_count(index, Call("Count", children=[inner]),
+                                       shards)
+
+        total = count_of(None)
+        if total == 0:
+            return None
+        num, den = decode.nth_ratio(nth)
+        desired_less = total * num // den
+        desired_greater = total * (den - num) // den
+        minc = Call("Min", {"_field": fld}, children=filt_children[:])
+        maxc = Call("Max", {"_field": fld}, children=filt_children[:])
+        if desired_greater != 0:
+            min_vc = self._execute_min_max(index, minc, shards, is_min=True)
+            if desired_less == 0:
+                return min_vc
+        max_vc = self._execute_min_max(index, maxc, shards, is_min=False)
+        if desired_greater == 0:
+            return max_vc
+        lo, hi = min_vc.val, max_vc.val
+        possible = lo
+        while lo < hi:
+            possible = decode.pivot(lo, hi)
+            # bisection in stored units: a decimal's predicate is decoded
+            # first, since Row() encodes its value
+            raw = f.decode_value(possible) \
+                if f.options.type == TYPE_DECIMAL else possible
+            left = count_of(Condition("<", raw))
+            if left > desired_less:
+                hi = possible - 1
+                continue
+            right = count_of(Condition(">", raw))
+            if right > desired_greater:
+                lo = possible + 1
+                continue
+            break
+        return self._wrap_valcount(f, possible, 1)
+
+    # ---------------------------------------------------------------- Sort
+
+    def _execute_sort(self, index: Index, call: Call,
+                      shards: Optional[List[int]]) -> dict:
+        """Sort(filter, field=f, limit=, offset=, sort-desc=, after=[value,
+        column]) -> {"columns", "values"} in (value, column) order
+        (reference executeSort executor.go:9321; JAX executor.py:2569).
+        With a limit, up to depth 31 under a filter the plan compiler takes,
+        every shard's top offset + limit at once over the cached stacked
+        decode (kernel G), the cursor's mask ANDed into the filter; else a
+        sort a shard, of its decode (kernel G) or, past depth 31, its host
+        decode; then one merge.  `after` keeps only records strictly after
+        the cursor."""
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        if not f.is_bsi():
+            raise ExecError("Sort() requires an int-like field")
+        desc = bool(call.args.get("sort-desc", call.args.get("desc", False)))
+        limit = call.args.get("limit")
+        offset = int(call.args.get("offset", 0))
+        after = call.args.get("after")
+        after_raw = after_col = None
+        if after is not None:
+            after_raw, after_col = int(after[0]) - f.base, int(after[1])
+        filt_call = call.children[0] if call.children else None
+        take = None if limit is None else offset + int(limit)
+        shard_list = self._shards(index, shards)
+        depth = max(f.bit_depth, 1)
+        filt = None
+        if shard_list and depth <= decode.DEVICE_MAX_DEPTH \
+                and take is not None:
+            filt = self._mesh_filter(index, filt_call, shard_list)
+        if filt is not None:
+            pe = self.plan_executor
+            exists = pe.stacked_bsi(index, fld, depth, shard_list)[:, 0]
+            vals = pe.stacked_vals(index, fld, depth, shard_list)
+            cut = min(take, SHARD_WIDTH)
+            if after is not None:
+                col0 = torch.tensor(shard_list, dtype=torch.int64,
+                                    device=self.device) * SHARD_WIDTH
+                av = int(np.clip(after_raw, -(2**31), 2**31 - 1))
+                filt = filt & decode.after_mask_stacked(vals, col0, av,
+                                                        after_col, desc)
+            idx, keys, n_present = _fetch(list(decode.sort_stacked(
+                vals, exists, desc, cut, filt)))
+            cols_parts, vals_parts = [], []
+            for si, shard in enumerate(shard_list):
+                n = min(int(n_present[si]), cut)
+                if n:
+                    cols_parts.append(idx[si, :n] + shard * SHARD_WIDTH)
+                    vals_parts.append(-keys[si, :n] if desc
+                                      else keys[si, :n])
+            return self._sort_merge(f, cols_parts, vals_parts, desc, offset,
+                                    limit)
+        runs = []
+        for shard in shard_list:
+            data = f.bsi_data(shard, self.device)
+            if data is None:
+                continue
+            group = data[0]
+            fw = None if filt_call is None else \
+                self._bitmap_call_shard(index, filt_call, shard)
+            if depth <= decode.DEVICE_MAX_DEPTH:
+                ex = group[0] if fw is None else group[0] & fw
+                runs.append((shard, decode.sort_shard(
+                    ck.bsi_decode(group[None])[0],
+                    decode.expand_bits(ex).bool(), desc)))
+                continue
+            vals_d, exists_b = f.values_dense_host(shard)
+            if fw is not None:
+                exists_b = exists_b & decode.expand_bits_host(host_words(fw))
+            cols = np.nonzero(exists_b)[0].astype(np.int64)
+            v = vals_d[cols]
+            order = np.lexsort((cols, -v if desc else v))
+            runs.append((shard, (cols[order], v[order])))
+        dev = [x for _, run in runs for x in run
+               if isinstance(x, torch.Tensor)]
+        host = iter(_fetch(dev))
+        cols_parts, vals_parts = [], []
+        for shard, (cols, v) in runs:
+            if isinstance(cols, torch.Tensor):
+                cols, v = next(host), next(host)
+            if after is not None:
+                later = (v < after_raw) if desc else (v > after_raw)
+                keep = later | ((v == after_raw)
+                                & (cols + shard * SHARD_WIDTH > after_col))
+                cols, v = cols[keep], v[keep]
+            if take is not None:
+                cols, v = cols[:take], v[:take]
+            if cols.size:
+                cols_parts.append(cols + shard * SHARD_WIDTH)
+                vals_parts.append(v)
+        return self._sort_merge(f, cols_parts, vals_parts, desc, offset,
+                                limit)
+
+    @staticmethod
+    def _sort_merge(f: Field, cols_parts, vals_parts, desc: bool,
+                    offset: int, limit) -> dict:
+        """Merge of the per-shard sorted runs (reference k-way merge,
+        executor.go:9574)."""
+        if not cols_parts:
+            return {"columns": [], "values": []}
+        cols_all = np.concatenate(cols_parts)
+        vals_all = np.concatenate(vals_parts)
+        order = np.lexsort((cols_all, -vals_all if desc else vals_all))
+        if offset:
+            order = order[offset:]
+        if limit is not None:
+            order = order[: int(limit)]
+        return {"columns": [int(c) for c in cols_all[order]],
+                "values": [f.decode_value(int(v) + f.base)
+                           for v in vals_all[order]]}
+
+    # ------------------------------------------------------------- Extract
+
+    _EXTRACT_FILTERS = ("Row", "Union", "Intersect", "Difference", "Xor",
+                        "Not", "All", "ConstRow", "Limit", "Distinct",
+                        "Precomputed", "Rows", "UnionRows", "Range", "Shift")
+
+    def _execute_extract(self, index: Index, call: Call,
+                         shards: Optional[List[int]]) -> ExtractedTable:
+        """Extract(filter, Rows(f)...) (reference executeExtract
+        executor.go:4711, executeExtractShard:4758; JAX executor.py:2431):
+        each matched record's value of each field, columnar, in column
+        order.  The filter's words come from the host existence rows for
+        All(), else from one stacked plan (kernel A) fetched once, else
+        from the interpreter a shard."""
+        if not call.children or \
+                call.children[0].name not in self._EXTRACT_FILTERS:
+            raise ExecError("Extract() requires a filter call")
+        filt_call = call.children[0]
+        rows_calls = [c for c in call.children[1:] if c.name == "Rows"]
+        flds = [self._field_or_err(index, c.args.get("_field")
+                                   or c.args.get("field"))
+                for c in rows_calls]
+        tfields = [ExtractedTableField(name=f.name, type=_extract_type(f))
+                   for f in flds]
+        col_ids: list = []
+        field_values: List[list] = [[] for _ in flds]
+        shard_list = sorted(self._shards(index, shards))
+        filt_rows = None
+        ef = index.existence_field()
+        if filt_call.name == "All" and not filt_call.args and \
+                ef is not None and index.options.track_existence:
+            v0 = ef.view(VIEW_STANDARD)
+            filt_rows = {s: (fr.host_row(0) if (fr := v0 and v0.fragment(s))
+                             is not None else
+                             np.zeros(WORDS_PER_ROW, dtype=np.uint32))
+                         for s in shard_list}
+        elif shard_list and filt_call.name != "All":
+            stacked = self._mesh_filter(index, filt_call, shard_list)
+            if stacked is not None:
+                arr = host_words(stacked)
+                filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
+        for shard in shard_list:
+            words = filt_rows[shard] if filt_rows is not None else \
+                host_words(self._bitmap_call_shard(index, filt_call, shard))
+            cols = bw.words_to_cols(words).astype(np.int64)
+            if cols.size == 0:
+                continue
+            for fi, f in enumerate(flds):
+                field_values[fi].extend(
+                    self._extract_field_values(f, shard, cols))
+            col_ids.extend((cols + shard * SHARD_WIDTH).tolist())
+        if index.options.keys and col_ids:
+            keys = index.translate_store.translate_ids(col_ids)
+            col_ids = [k if k is not None else c
+                       for c, k in zip(col_ids, keys)]
+        for fi, f in enumerate(flds):
+            if f.options.keys and not f.is_bsi():
+                vals = field_values[fi]
+                ids = sorted({int(r) for v in vals
+                              for r in (v if isinstance(v, list)
+                                        else ([v] if v is not None else []))})
+                lut = dict(zip(ids, index.row_translation(f.name)
+                               .translate_ids(ids)))
+                field_values[fi] = [
+                    [lut.get(r) for r in v] if isinstance(v, list)
+                    else (lut.get(v) if v is not None and
+                          f.options.type == TYPE_MUTEX else v)
+                    for v in vals]
+        return ExtractedTable(tfields, col_ids=col_ids,
+                              field_values=field_values)
+
+    def _extract_field_values(self, f: Field, shard: int,
+                              cols: np.ndarray) -> List[Any]:
+        """One field's values at a shard's matched columns, as a list: a
+        BSI, bool or mutex field's value (None where it has none), a set or
+        time field's sorted row ids."""
+        if f.is_bsi() or f.options.type in (TYPE_BOOL, TYPE_MUTEX):
+            vals, null = self._field_shard_columns(f, shard, cols)
+            out = vals.tolist()
+            if null.any():
+                out = [None if m else v for v, m in zip(out, null.tolist())]
+            return out
+        acc: List[List[int]] = [[] for _ in range(cols.size)]
+        v = f.view(VIEW_STANDARD)
+        frag = v.fragment(shard) if v else None
+        rows = frag.slot_rows() if frag else []
+        if not rows:
+            return acc
+        bits = self._row_bits(frag, rows, cols)
+        rows_arr = np.asarray(rows, dtype=np.int64)
+        for ci, ri in zip(*(x.tolist() for x in np.nonzero(bits.T))):
+            acc[ci].append(int(rows_arr[ri]))
+        return [sorted(x) for x in acc]
+
+    @staticmethod
+    def _row_bits(frag, rows, cols: np.ndarray) -> np.ndarray:
+        """(R, N) bits of each row at each column, from the host masters."""
+        word_idx = (cols >> 5).astype(np.int64)
+        bit_idx = (cols & 31).astype(np.uint32)
+        sub = np.stack([frag.host_row(r)[word_idx] for r in rows])
+        return (sub >> bit_idx[None, :]) & 1
+
+    def _field_shard_columns(self, f: Field, shard: int, cols: np.ndarray):
+        """(values, null) arrays of one field at a shard's matched columns
+        (JAX executor.py:634): a BSI field's values through kernel G' (one
+        launch a shard) up to depth 31 and the host decode past it; a bool
+        or mutex field's first set row."""
+        n = cols.size
+        absent = np.zeros(n, np.int64), np.ones(n, dtype=bool)
+        if f.is_bsi():
+            if max(f.bit_depth, 1) <= decode.DEVICE_MAX_DEPTH:
+                data = f.bsi_data(shard, self.device)
+                if data is None:
+                    return absent
+                va, ok = _fetch(list(ck.bsi_decode_gather(
+                    data[0], torch.from_numpy(cols).to(self.device))))
+                vals, null = va + f.base, ok == 0
+            else:
+                dense = f.values_dense_host(shard)
+                if dense is None:
+                    return absent
+                vals_d, exists_b = dense
+                vals, null = vals_d[cols] + f.base, ~exists_b[cols]
+            if f.options.type == TYPE_DECIMAL:
+                return vals / float(10 ** f.options.scale), null
+            return vals, null
+        v = f.view(VIEW_STANDARD)
+        frag = v.fragment(shard) if v else None
+        rows = frag.slot_rows() if frag else []
+        if not rows:
+            return absent
+        bits = self._row_bits(frag, rows, cols)
+        vals = np.asarray(rows, dtype=np.int64)[bits.argmax(axis=0)]
+        if f.options.type == TYPE_BOOL:
+            vals = vals.astype(bool)
+        return vals, ~bits.any(axis=0)
+
+
+def _extract_type(f: Field) -> str:
+    """Extract's column type of a field (reference executeExtract)."""
+    t = f.options.type
+    if t in (TYPE_SET, TYPE_TIME):
+        return "[]string" if f.options.keys else "[]id"
+    if t == TYPE_MUTEX:
+        return "string" if f.options.keys else "id"
+    return {TYPE_BOOL: "bool", TYPE_DECIMAL: "decimal",
+            TYPE_TIMESTAMP: "timestamp"}.get(t, "int64")

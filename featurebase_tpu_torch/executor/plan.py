@@ -19,7 +19,9 @@ first and enters as a leaf; children are emitted in Sethi-Ullman order, and
 a subtree that does not fit kernel A's limits is evaluated first and enters
 as a leaf too, ops/lowering.py) and runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
-per-shard counts for Count.
+per-shard counts for Count.  ``stacked_vals`` caches a field's decoded
+values (kernel G, ``bsi_decode``) the same way, for Distinct, Percentile
+and Sort.
 """
 from __future__ import annotations
 
@@ -431,6 +433,33 @@ class PlanExecutor:
         Count's range predicates read."""
         return self._gather_leaf(index, _Leaf("bsi", field=fname,
                                               depth=depth), shards)
+
+    def stacked_vals(self, index: Index, fname: str, depth: int,
+                     shards: List[int]) -> torch.Tensor:
+        """(S, 2^20) int32 decoded values of a field (depth <= 31), unbased
+        and undefined where the exists bit is clear: kernel G over the
+        stacked group, cached by fragment generation beside the leaves and
+        registered with the residency LRU (JAX plan.py:512).  Under a pin
+        that has diverged from the live fragments the decode is returned
+        without being published."""
+        from featurebase_tpu_torch.storage.residency import residency
+        f = index.field(fname)
+        frags = [self._frag(f, view_bsi_group(fname), s) for s in shards]
+        gen = tuple(fr.generation if fr else -1 for fr in frags)
+        key = ("vals", index.name, fname, depth, tuple(shards))
+        rkey = ("leaf", id(self), key)
+        diverged = self._pin_diverged(frags)
+        hit = self._leaf_cache.get(key)
+        if not diverged and hit is not None and hit[0] == gen:
+            residency().touch(rkey)
+            return hit[1]
+        arr = ck.bsi_decode(self.stacked_bsi(index, fname, depth, shards))
+        if diverged:
+            return arr
+        self._leaf_cache[key] = (gen, arr)
+        residency().add(rkey, arr.numel() * 4,
+                        lambda: self._leaf_cache.pop(key, None))
+        return arr
 
     def stacked_full(self, index: Index, shards: List[int]) -> torch.Tensor:
         """(S, W) all-ones filter."""

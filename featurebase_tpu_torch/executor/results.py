@@ -1,7 +1,8 @@
 """Query result types (own copy of featurebase_tpu/executor/results.py:
 ValCount for Sum/Min/Max, Pair and PairsField for TopN, PairField for
-MinRow/MaxRow, FieldRow and GroupCount for GroupBy; reference executor.go
-ValCount, FieldRow, GroupCount, cache.go Pair)."""
+MinRow/MaxRow, FieldRow and GroupCount for GroupBy, and the Extracted*
+types of Extract; reference executor.go ValCount, FieldRow, GroupCount,
+ExtractedIDMatrix, ExtractedTable, cache.go Pair)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
@@ -153,3 +154,98 @@ class GroupCount:
 
     def __repr__(self):
         return f"GroupCount({self.group}, count={self.count}, agg={self.agg})"
+
+
+class ExtractedIDColumn:
+    __slots__ = ("column", "rows")
+
+    def __init__(self, column: int, rows: List[List[int]]):
+        self.column = column
+        self.rows = rows
+
+
+class ExtractedIDMatrix:
+    """Per-shard Extract result before key translation (reference
+    executor.go ExtractedIDMatrix)."""
+
+    __slots__ = ("fields", "columns")
+
+    def __init__(self, fields: List[str], columns: List[ExtractedIDColumn]):
+        self.fields = fields
+        self.columns = columns
+
+    def append(self, other: "ExtractedIDMatrix"):
+        self.columns.extend(other.columns)
+
+
+class ExtractedTableField:
+    __slots__ = ("name", "type")
+
+    def __init__(self, name: str, type: str):
+        self.name = name
+        self.type = type
+
+
+class ExtractedTableColumn:
+    __slots__ = ("column", "rows")
+
+    def __init__(self, column, rows: List[Any]):
+        self.column = column
+        self.rows = rows
+
+
+class ExtractedTable:
+    """Tabular Extract result, columnar first (reference arrow.go:366
+    per-shard streaming): the executor fills `col_ids` (record ids or keys,
+    sorted) and `field_values` (one parallel value list per field); the
+    per-record `columns` view is built only when a consumer asks for it."""
+
+    __slots__ = ("fields", "_columns", "col_ids", "field_values")
+
+    def __init__(self, fields: List[ExtractedTableField],
+                 columns: Optional[List[ExtractedTableColumn]] = None,
+                 col_ids: Optional[list] = None,
+                 field_values: Optional[list] = None):
+        self.fields = fields
+        self._columns = columns
+        self.col_ids = col_ids if col_ids is not None else \
+            (None if columns is not None else [])
+        self.field_values = field_values
+
+    @property
+    def columns(self) -> List[ExtractedTableColumn]:
+        if self._columns is None:
+            cids = self.col_ids or []
+            if self.field_values:
+                self._columns = [
+                    ExtractedTableColumn(c, list(vs))
+                    for c, vs in zip(cids, zip(*self.field_values))]
+            else:
+                self._columns = [ExtractedTableColumn(c, [])
+                                 for c in cids]
+        return self._columns
+
+    @columns.setter
+    def columns(self, v: List[ExtractedTableColumn]):
+        self._columns = v
+        self.col_ids = None
+        self.field_values = None
+
+    def __len__(self):
+        if self.col_ids is not None:
+            return len(self.col_ids)
+        return len(self._columns or ())
+
+    def to_json(self):
+        fields = [{"name": f.name, "type": f.type} for f in self.fields]
+        if self._columns is None and self.col_ids is not None:
+            if self.field_values:
+                cols = [{"column": c, "rows": list(vs)}
+                        for c, vs in zip(self.col_ids,
+                                         zip(*self.field_values))]
+            else:
+                cols = [{"column": c, "rows": []} for c in self.col_ids]
+        else:
+            cols = [{"column": c.column, "rows": c.rows}
+                    for c in self.columns]
+        return {"fields": fields, "columns": cols}

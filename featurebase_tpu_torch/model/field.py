@@ -1,8 +1,9 @@
 """Field: a typed column of the data model (host masters and write API).
 
 Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
-uses: options, value encoding, views, point and bulk writes, the TopN
-rank cache and the per-shard BSI group on the fragment mirror.  Mirrors
+uses: options, value encoding and decoding, views, point and bulk writes,
+the TopN rank cache, the per-shard BSI group on the fragment mirror, and
+one column's value or a shard's values decoded on the host.  Mirrors
 reference field.go:73 (Field), field types field.go:42-50 and the
 bsiGroup value encoding (field.go:2394 bsiGroup, 2412 baseValue).
 
@@ -147,6 +148,12 @@ class Field:
             ns = int((t - _EPOCH).total_seconds() * 1e9)
             return ns // _TIME_UNIT_NS.get(o.time_unit, 1_000_000_000)
         return int(v)
+
+    def decode_value(self, stored: int):
+        """A stored value (base added) in field units: scaled for decimals."""
+        if self.options.type == TYPE_DECIMAL:
+            return stored / (10 ** self.options.scale)
+        return int(stored)
 
     # -- views --------------------------------------------------------------
 
@@ -359,6 +366,37 @@ class Field:
             [BSI_OFFSET + i for i in range(depth)]
         tile, _ = frag.device_rows(rows, device)
         return tile, depth
+
+    def value(self, col: int):
+        """(value with base, True) of one column, or (0, False) without one
+        (reference fragment.go:579 value), from the host master bits."""
+        v = self.views.get(view_bsi_group(self.name))
+        frag = v.fragment(col >> 20) if v else None
+        if frag is None or not frag.get_bit(BSI_EXISTS_ROW, col):
+            return 0, False
+        mag = 0
+        for i in range(self.bit_depth):
+            if frag.get_bit(BSI_OFFSET + i, col):
+                mag |= 1 << i
+        if frag.get_bit(BSI_SIGN_ROW, col):
+            mag = -mag
+        return mag + self.base, True
+
+    def values_dense_host(self, shard: int):
+        """(values (SHARD_WIDTH,) int64 unbased, exists (SHARD_WIDTH,) bool)
+        of one shard decoded on the host, for any depth up to 62, or None
+        without data (ops/decode.py decode_values_host)."""
+        from featurebase_tpu_torch.ops.decode import (decode_values_host,
+                                                      expand_bits_host)
+        v = self.views.get(view_bsi_group(self.name))
+        frag = v.fragment(shard) if v else None
+        if frag is None or frag.num_rows == 0:
+            return None
+        depth = max(self.bit_depth, 1)
+        slices = np.stack([frag.host_row(BSI_OFFSET + i)
+                           for i in range(depth)])
+        vals = decode_values_host(slices, frag.host_row(BSI_SIGN_ROW), depth)
+        return vals, expand_bits_host(frag.host_row(BSI_EXISTS_ROW))
 
     def meta_rows(self, view_names) -> set:
         """Globally agreed candidate row ids of the views: empty, since the

@@ -1,7 +1,8 @@
 """Row: a query-result bitmap over the full column space, segmented by shard.
 
 Counterpart of featurebase_tpu/model/row.py (reference row.go:15 Row,
-row.go:511 RowSegment, segment ops row.go:546-629).  Each segment is a
+row.go:511 RowSegment, segment ops row.go:546-629), and SignedRow, the
+result of Distinct over a BSI field.  Each segment is a
 (WORDS_PER_ROW,) int32 torch tensor on the executor's device (``from_columns``
 builds CPU segments); the set algebra runs segment by segment with torch
 ops, on the left operand's device; ``columns()`` and ``count()`` decode
@@ -117,3 +118,29 @@ class Row:
         preview = ", ".join(str(int(c)) for c in cols[:8])
         return (f"Row<{cols.size} cols: "
                 f"[{preview}{'...' if cols.size > 8 else ''}]>")
+
+
+class SignedRow:
+    """Distinct values of a BSI field as two bitmaps: the magnitudes of the
+    negative values and the non-negative values (reference SignedRow,
+    executor.go Distinct over BSI; featurebase_tpu/model/row.py:137)."""
+
+    __slots__ = ("neg", "pos", "field")
+
+    def __init__(self, neg: Row, pos: Row, field: Optional[str] = None):
+        self.neg = neg
+        self.pos = pos
+        self.field = field
+
+    def values(self) -> np.ndarray:
+        """Sorted distinct signed values."""
+        n = -self.neg.columns().astype(np.int64)
+        p = self.pos.columns().astype(np.int64)
+        return np.unique(np.concatenate([n, p]))
+
+    def union(self, other: "SignedRow") -> "SignedRow":
+        return SignedRow(self.neg.union(other.neg), self.pos.union(other.pos),
+                         self.field or other.field)
+
+    def to_json(self):
+        return {"values": [int(v) for v in self.values()]}

@@ -51,6 +51,19 @@ bytes (the header note of the source).  The plain versions are
 ``pair_counts_plain`` and ``*_sharded_plain`` below and
 ``sum_groups_plain`` in ops/bsi.py.
 
+Three more (csrc/decode_kernels.cu) decode BSI values, again for XLA
+programs of featurebase_tpu/ops/bsi.py:
+
+- ``bsi_decode`` (kernel G) replaces ``decode_values`` (bsi.py:759) and
+  ``decode_values_jit`` (:482): a stacked group to (S, 2^20) int32 values.
+- ``bsi_decode_gather`` (kernel G') replaces ``decode_gather`` (:367): one
+  shard's values and exists bits at N columns.
+- ``percentile_counts`` (kernel I) replaces the counting passes of
+  ``percentile_fused`` (:491-607): a histogram of the present values over
+  the bins of K sorted thresholds, with their min and max.
+Bound: bytes (the header note of the source).  Their plain versions are in
+ops/decode.py, with the Percentile bisection that drives kernel I.
+
 Words are ``torch.int32`` tensors holding the uint32 bit patterns.  Each
 wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.  ``launches`` on each wrapper counts
@@ -68,6 +81,7 @@ import torch
 SOURCE = "bitmap_kernels.cu"
 BSI_SOURCE = "bsi_kernels.cu"
 GROUP_SOURCE = "group_kernels.cu"
+DECODE_SOURCE = "decode_kernels.cu"
 
 # Program limits and opcodes; must match csrc/bitmap_kernels.cu.
 MAX_INSTR = 640        # instruction words, BSI payloads included
@@ -1049,8 +1063,165 @@ def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 bsi_sum_groups.launches = 0
 
+
+# -- kernels G, G' and I: the decode family (csrc/decode_kernels.cu) ---------
+
+MAX_DECODE_DEPTH = 31      # int32 values; must match csrc/decode_kernels.cu
+MAX_THRESHOLDS = 512
+
+
+def _decode_lib() -> ctypes.CDLL:
+    """Kernels G, G' and I's library, built on first use."""
+    from featurebase_tpu_torch.ops import build
+    lib = build.load(DECODE_SOURCE)
+    if not getattr(lib, "_fb_typed", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.fb_bsi_decode.argtypes = [vp, i64, i64, i32, i32, i64, vp, vp]
+        lib.fb_bsi_decode_gather.argtypes = [vp, i64, i32, vp, i64, vp, vp,
+                                             vp]
+        lib.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64, i32,
+                                             i64, i32, vp, i32, vp, vp]
+        lib.fb_decode_limits.argtypes = [ctypes.POINTER(i32)] * 2
+        for fn in (lib.fb_bsi_decode, lib.fb_bsi_decode_gather,
+                   lib.fb_percentile_counts, lib.fb_decode_limits):
+            fn.restype = i32
+        depth, thr = i32(), i32()
+        lib.fb_decode_limits(ctypes.byref(depth), ctypes.byref(thr))
+        if (depth.value, thr.value) != (MAX_DECODE_DEPTH, MAX_THRESHOLDS):
+            raise RuntimeError("kernel limits differ from cuda_kernels.py")
+        lib._fb_typed = True
+    return lib
+
+
+def _group_planes(group: torch.Tensor, dims: int) -> Tuple[int, int]:
+    """Check a BSI group of `dims` dimensions ((S, D + 2, W) or (D + 2, W))
+    for the decode kernels: int32, 1 <= D <= MAX_DECODE_DEPTH, a unit word
+    stride.  Returns (D, W)."""
+    _words(group, "group", dims)
+    P, W = group.shape[-2], group.shape[-1]
+    if not 3 <= P <= MAX_DECODE_DEPTH + 2 or W == 0:
+        raise ValueError(f"group must have 1 to {MAX_DECODE_DEPTH} magnitude "
+                         f"planes, got {tuple(group.shape)}")
+    if group.stride(-1) != 1:
+        raise ValueError("the decode kernels need a unit word stride")
+    return P - 2, W
+
+
+def bsi_decode(group: torch.Tensor) -> torch.Tensor:
+    """Kernel G: an (S, D + 2, W) int32 group -> (S, 32 W) int32 values,
+    unbased, negated where the sign bit is set; undefined (the decode of
+    whatever bits are there) where exists is clear."""
+    D, W = _group_planes(group, 3)
+    if _is_cpu([group]):
+        from featurebase_tpu_torch.ops.decode import decode_values_plain
+        return decode_values_plain(group)
+    S = group.shape[0]
+    out = torch.empty((S, 32 * W), dtype=torch.int32, device=group.device)
+    if S == 0:
+        return out
+    with torch.cuda.device(group.device):
+        stream = torch.cuda.current_stream(group.device).cuda_stream
+        rc = _decode_lib().fb_bsi_decode(
+            group.data_ptr(), group.stride(0), group.stride(1), S, D, W,
+            out.data_ptr(), stream)
+    _check(rc, "bsi_decode")
+    bsi_decode.launches += 1
+    return out
+
+
+bsi_decode.launches = 0
+
+
+def bsi_decode_gather(group: torch.Tensor, cols: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G': one shard's (D + 2, W) int32 group and (N,) column ids
+    (within the shard, on the group's device) -> (vals (N,) int32, ok (N,)
+    int32): each column's signed, unbased value and its exists bit."""
+    D, W = _group_planes(group, 2)
+    if cols.dim() != 1 or cols.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"cols must be (N,) int32 or int64, got "
+                         f"{tuple(cols.shape)} {cols.dtype}")
+    if cols.numel():
+        lo, hi = (int(x) for x in torch.aminmax(cols))   # one sync
+        if lo < 0 or hi >= 32 * W:
+            raise ValueError(f"columns must lie in [0, {32 * W})")
+    if _is_cpu([group, cols]):
+        from featurebase_tpu_torch.ops.decode import decode_gather_plain
+        return decode_gather_plain(group, cols)
+    n = cols.numel()
+    dev = group.device
+    vals = torch.empty(n, dtype=torch.int32, device=dev)
+    ok = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return vals, ok
+    c32 = cols.to(torch.int32).contiguous()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _decode_lib().fb_bsi_decode_gather(
+            group.data_ptr(), group.stride(0), D, c32.data_ptr(), n,
+            vals.data_ptr(), ok.data_ptr(), stream)
+    _check(rc, "bsi_decode_gather")
+    bsi_decode_gather.launches += 1
+    return vals, ok
+
+
+bsi_decode_gather.launches = 0
+
+
+def percentile_counts(vals: torch.Tensor, exists: torch.Tensor,
+                      filt: torch.Tensor, base: int, thresholds
+                      ) -> torch.Tensor:
+    """Kernel I: over (S, 32 W) int32 values, with x = value + base (int32,
+    wrapping) for each column whose bit is set in both the (S, W) exists and
+    filter words, and K sorted thresholds (duplicates allowed) -> (2K + 3,)
+    int64: the histogram of the 2K + 1 bins the thresholds make (bin 2k:
+    t[k-1] < x < t[k]; bin 2k + 1: x == t[k], empty for a repeat of t[k-1]),
+    then the min and the max of x (2^31 - 1 and -2^31 when no column is
+    present).  K = 0 gives the count of the present columns in bin 0."""
+    t = [int(x) for x in thresholds]
+    if len(t) > MAX_THRESHOLDS or any(a > b for a, b in zip(t, t[1:])) \
+            or any(not -(1 << 31) <= x < 1 << 31 for x in t):
+        raise ValueError(f"thresholds must be at most {MAX_THRESHOLDS} sorted "
+                         f"int32 values")
+    if not -(1 << 31) <= int(base) < 1 << 31:
+        raise ValueError("base must be an int32")
+    _words(vals, "values", 2)
+    _words(exists, "exists", 2)
+    _words(filt, "filter", 2)
+    S, W = exists.shape
+    if tuple(filt.shape) != (S, W) or tuple(vals.shape) != (S, 32 * W):
+        raise ValueError(f"values {tuple(vals.shape)}, exists "
+                         f"{tuple(exists.shape)} and filter "
+                         f"{tuple(filt.shape)} do not match")
+    if _is_cpu([vals, exists, filt]):
+        from featurebase_tpu_torch.ops.decode import percentile_counts_plain
+        return percentile_counts_plain(vals, exists, filt, int(base), t)
+    if any(x.stride(-1) != 1 for x in (vals, exists, filt)) \
+            or vals.stride(0) % 4 or vals.data_ptr() % 16:
+        raise ValueError("percentile_counts needs unit word strides and "
+                         "16-byte aligned value rows")
+    K, dev = len(t), vals.device
+    init = torch.tensor([0] * (2 * K + 1) + [(1 << 31) - 1, -(1 << 31)]
+                        + t, dtype=torch.int64).pin_memory()
+    buf = init.to(dev, non_blocking=True)
+    out, t_dev = buf[:2 * K + 3], buf[2 * K + 3:].to(torch.int32)
+    if S == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _decode_lib().fb_percentile_counts(
+            vals.data_ptr(), vals.stride(0), exists.data_ptr(),
+            exists.stride(0), filt.data_ptr(), filt.stride(0), S, W,
+            int(base), t_dev.data_ptr(), K, out.data_ptr(), stream)
+    _check(rc, "percentile_counts")
+    percentile_counts.launches += 1
+    return out
+
+
+percentile_counts.launches = 0
+
 KERNELS = (plan_eval, row_counts, bsi_sum_planes, bsi_min_max, pair_counts,
-           bsi_sum_groups)
+           bsi_sum_groups, bsi_decode, bsi_decode_gather, percentile_counts)
 
 
 def reset_launches() -> None:

@@ -194,7 +194,9 @@ def test_cpu_aggregates_launch_no_kernel(fuzz):
                          "MaxRow(field=g)")
     assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
                              "bsi_sum_planes": 0, "bsi_min_max": 0,
-                             "pair_counts": 0, "bsi_sum_groups": 0}
+                             "pair_counts": 0, "bsi_sum_groups": 0,
+                             "bsi_decode": 0, "bsi_decode_gather": 0,
+                             "percentile_counts": 0}
 
 
 @pytest.mark.parametrize("pql", ["Sum(field=nope)", "Min(field=nope)",

@@ -240,10 +240,12 @@ def test_null_row_by_hand(engines):
     assert nulls and idx.field("g") is not None
 
 
-def test_distinct_as_an_operand_is_not_ported(engines):
-    _, port_e = engines
-    with pytest.raises(NotImplementedError, match="Distinct"):
-        port_e.execute("b", "Count(Intersect(Distinct(field=w14), Row(f=1)))")
+def test_distinct_as_an_operand(engines):
+    """A Distinct operand (it raised before Distinct was ported) is a
+    Precomputed row of its non-negative values, in the planner and in the
+    interpreter (under Row(g=null))."""
+    same(engines, "Count(Intersect(Distinct(field=w14), Row(f=1)))")
+    same(engines, "Count(Union(Row(g=null), Distinct(field=w14)))")
 
 
 def test_cpu_interpreter_launches_no_kernel(engines):

@@ -225,11 +225,16 @@ def test_group_by_decimal_sum_and_keys(engines):
     assert all(gc.decimal_agg == gc.agg / 100 for gc in got)
 
 
-def test_group_by_count_distinct_aggregate_is_not_ported(engines):
-    _, port_e = engines
-    with pytest.raises(NotImplementedError, match="Count\\(Distinct\\)"):
-        port_e.execute("g", "GroupBy(Rows(f), "
-                            "aggregate=Count(Distinct(field=v)))")
+def test_group_by_count_distinct_aggregate(engines):
+    """aggregate=Count(Distinct(...)) (it raised before Distinct was
+    ported): each group's agg is the count of the distinct values under the
+    group's rows and the filter."""
+    jax_e, port_e = engines
+    for q in ("GroupBy(Rows(f), aggregate=Count(Distinct(field=v)))",
+              "GroupBy(Rows(f), Rows(kf), filter=Row(g=1), "
+              "aggregate=Count(Distinct(field=d)))"):
+        assert norm(port_e.execute("g", q)[0]) == \
+            norm(jax_e.execute("g", q)[0])
 
 
 def test_group_by_needs_a_rows_child(engines):

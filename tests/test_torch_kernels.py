@@ -195,4 +195,6 @@ def test_cpu_tensors_launch_nothing():
     tbw.popcount(x)
     assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
                              "bsi_sum_planes": 0, "bsi_min_max": 0,
-                             "pair_counts": 0, "bsi_sum_groups": 0}
+                             "pair_counts": 0, "bsi_sum_groups": 0,
+                             "bsi_decode": 0, "bsi_decode_gather": 0,
+                             "percentile_counts": 0}
