@@ -20,7 +20,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      `between` at depth 14 and at depth 32 (34 planes, 16 shards), word
      mode, a program of every opcode, the flat S = 1 count_and over 2^22
      words, and the 1,000,003-word scalar path; and in each of its forms
-     (register file 2, 4 or 12; staged or scalar).  Kernels C and D
+     (register file 2, 4 or 12; staged or scalar).  Kernel B'
+     (row_counts) over stacked tiles at S and 1, and over address tables
+     of per-shard tiles (row_table_parity): slot -1, shards without a tile,
+     filter words, filter rows with a shard's missing, no filter, W = 32768,
+     1001 and 37, S = 1, 5, 32 and 128, and 150 rows.  Kernels C and D
      (bsi_sum_planes, bsi_min_max) on random groups at the slice's shape
      and on encoded values at depths 1, 14, 31, 32 and 63: ties across
      shards, sign-set zeros, all-negative groups, empty and all-ones
@@ -33,22 +37,31 @@ Phases, one status line each; any failure raises and exits nonzero:
      sign-only columns; over per-shard tiles read in place (one launch over
      every shard), absent rows, a shard without a tile, one to three
      dimensions, 512 groups, filters as words, as per-shard rows and viewed
-     one word into a wider row (the 4-byte path), and D = 1 to 63;
+     one word into a wider row (the 4-byte path), and D = 1 to 63.  Kernels
+     G, G' and I' (decode_parity), I' in each of its forms at K = 0, 1, 2,
+     129 and 512 thresholds: random, duplicated, every value below them,
+     every value above them, and bases that wrap value + base in int32;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
      beside the bound (bytes at 3.35 TB/s or, for E and F, bit products at
      the tensor cores' measured rate when that is longer), the measured
      device-to-device copy ceiling and the plain version's time (kernels C
-     and D at depth 14, 128 shards; E and F at the main path's one-launch
-     shapes over 128 shards, beside 128 launches of one shard each, and at
-     the stacked shapes of the earlier slices); the card's popcount rate
+     and D at depth 14, 128 shards and one shard; B' stacked at S = 128 filtered and
+     not, at S = 1, and in one launch over 128 shards' mirrors beside the
+     128 one-shard launches it replaces; E and F at the main path's
+     one-launch shapes over 128 shards, beside 128 launches of one shard
+     each, and at the stacked shapes of the earlier slices; G, G' and I',
+     I' at its prep pass and at rounds of 2 and 129); the card's popcount rate
      from a popcount-only loop and the tensor cores' rate in the 1-bit and
      int8 mma.sync forms (`tc_rate`, with whether ptxas takes the
      warpgroup 1-bit form, csrc/wgmma_b1_probe.cu); kernel A's cases must run
      its form (staged by TMA, or scalar for the irregular cases), and a
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
-     program;
+     program; B' built with its rows staged by TMA bulk copies beside the
+     default's direct loads (row_ablation), and I' built with its search a
+     lift over every threshold beside the default's bucket table
+     (pct_ablation);
   5. the slice: a --shards table (625,000 records per shard; set fields f
      and g, int field v in [-1000, 10000]) built through the port's import
      API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow,
@@ -87,6 +100,7 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
+import ctypes
 import glob
 import hashlib
 import json
@@ -221,10 +235,10 @@ def pass_launches(S: int, percentile_rounds: int, extract_shards: int
     the query for the 50-row union under Count, TopN and Sum and for the
     two 32-plane groups; once for the chain and the depth-43 Count; once a
     shard and the Count for the interpreter's depth-43 row); kernel B three
-    times for TopN and once more for the union's, once a shard for each of
-    MinRow and MaxRow, and once each for Rows(f), Rows(g) in UnionRows and
-    GroupBy(Rows(f)), and once a shard for each of the three per-shard
-    GroupBys (level 0; the summed one over shards 0-31); kernel C twice
+    times for TopN and once more for the union's, once each for MinRow and
+    MaxRow (one launch over every shard's mirror), once each for Rows(f),
+    Rows(g) in UnionRows and GroupBy(Rows(f)), and once for each of the
+    three per-shard GroupBys (level 0 of every shard); kernel C twice
     and once for the union, plus once a shard under the unplannable
     filter; kernel E once for each GroupBy of f and g (one launch over
     every shard, or stacked), once for the stacked one of 32 shards, and
@@ -243,7 +257,7 @@ def pass_launches(S: int, percentile_rounds: int, extract_shards: int
     shard that the first 1000 records of Row(f=1) reach, and once for each
     of the keyed index's 32 shards; kernel I once for each round of the
     four Percentiles (percentile_rounds, from oracle_percentile)."""
-    return {"plan_eval": 109, "row_counts": 44 + 4 * S,
+    return {"plan_eval": 109, "row_counts": 17,
             "bsi_sum_planes": 3 + S, "bsi_min_max": 5,
             "pair_counts": 35 + S, "bsi_sum_groups": 34,
             "bsi_decode": 2, "bsi_decode_gather": extract_shards + 32,
@@ -514,6 +528,7 @@ def kernel_parity(S: int, depth: int, R: int):
             errs_b.append(require_equal(
                 f"row_counts S={s} filter={f is not None}",
                 ck.row_counts(tile[:s], f), ck.row_counts_plain(tile[:s], f)))
+    errs_b += row_table_parity(rng)
     torch.cuda.synchronize()
     errs = {"plan_eval": max(errs_a), "row_counts": max(errs_b)}
     say("kernel_parity", ok=True, shapes={"S": S, "W": W, "R": R,
@@ -523,10 +538,48 @@ def kernel_parity(S: int, depth: int, R: int):
         checks=[f"plan_eval {n} (words, counts)" for n in cases]
         + ["count_and + acc", "count_and flat 2^22",
            "count_and odd size (scalar path)",
-           "row_counts S/1 x filtered/unfiltered"],
+           "row_counts S/1 x filtered/unfiltered",
+           "row_counts_sharded: S = 1, 5, 32, 128 x W = 32768, 1001, 37 x "
+           "no filter, filter words, filter rows (slot -1, shards without a "
+           "tile or a filter row); 150 rows (a device table, three row "
+           "tiles)"],
         instr_words={n: len(c[0].instrs) for n, c in cases.items()},
         plan_eval_forms=ck.plan_eval_config())
     return errs, dict(cases=cases, tile=tile, filt=filt, a=a, b=b)
+
+
+def row_table_parity(rng) -> list:
+    """Kernel B' over address tables against row_counts_sharded_plain:
+    per-shard tiles of 3-11 rows, slots at random with -1 (an absent row),
+    every seventh shard without a tile, and filters none, (S, W) words, or a
+    row a shard with every fifth shard's None; at S = 1, 5, 32 and 128 and
+    W = 32768, 1001 (the 4-byte path) and 37; then 150 rows of 3 shards (a
+    table past the launch's parameters, three row tiles of the kernel)."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    errs = []
+    for W in (32768, 1001, 37):
+        for S in (1, 5, 32, 128):
+            tiles, slots, rows = [], np.full((S, 9), -1), []
+            for s in range(S):
+                if s % 7 == 3:
+                    tiles.append(None)
+                else:
+                    n = 3 + s % 9
+                    tiles.append(rand_words(rng, (n, W)))
+                    slots[s] = rng.integers(-1, n, 9)
+                rows.append(None if s % 5 == 2 else rand_words(rng, (W,)))
+            for name, f in (("none", None),
+                            ("words", rand_words(rng, (S, W))),
+                            ("rows", rows)):
+                errs.append(require_equal(
+                    f"row_counts_sharded W={W} S={S} filter={name}",
+                    ck.row_counts_sharded(tiles, slots, f),
+                    ck.row_counts_sharded_plain(tiles, slots, f)))
+    big = rand_words(rng, (3, 150, 4096))
+    errs.append(require_equal(
+        "row_counts R=150", ck.row_counts(big, big[:, 0]),
+        ck.row_counts_plain(big, big[:, 0])))
+    return errs
 
 
 def kernel_times(timer: Timer, inputs) -> dict:
@@ -570,12 +623,27 @@ def kernel_times(timer: Timer, inputs) -> dict:
             lambda: ck.row_counts(tile, f),
             lambda: ck.row_counts_plain(tile, f),
             (S * R * W + (0 if f is None else S * W)) * 4 + S * R * 8)
-    # the one-shard shape of most of B's launches on the main path (MinRow,
-    # MaxRow and the per-shard GroupBys' level 0: one (1, R, W) tile each)
+    # one shard (a Rows scan's S = 1 launch; the shape of every per-shard
+    # launch before B' read the mirrors in place)
     one = tile[:1].contiguous()
     out[f"row_counts/s1_r{R}"] = measure(
         lambda: ck.row_counts(one), lambda: ck.row_counts_plain(one),
         R * W * 4 + R * 8)
+    # MinRow/MaxRow and the per-shard GroupBys' level 0: one launch over
+    # every shard's (R, W) mirror, beside the one-shard launches it replaces
+    mirrors = [t.clone() for t in tile]
+    slots = np.tile(np.arange(R), (S, 1))
+    r = out[f"row_counts/mirrors_s{S}_r{R}"] = measure(
+        lambda: ck.row_counts_sharded(mirrors, slots),
+        lambda: ck.row_counts_sharded_plain(mirrors, slots),
+        S * R * W * 4 + S * R * 8)
+    r["one_shard_launches_ms"] = timer(
+        lambda: [ck.row_counts(m[None]) for m in mirrors])
+    for name in ("row_counts/filtered", f"row_counts/s1_r{R}",
+                 f"row_counts/mirrors_s{S}_r{R}"):
+        if "Memset" in out[name]["device_ms"]:
+            raise AssertionError(f"{name}: a Memset runs beside kernel B'; "
+                                 "its chunks must add up without one")
     from featurebase_tpu_torch.ops import bsi as bsiops
     group, gfilt = inputs["bsi"]
     gs, planes, gw = group.shape
@@ -587,6 +655,16 @@ def kernel_times(timer: Timer, inputs) -> dict:
     out["bsi_min_max/d14"] = measure(
         lambda: ck.bsi_min_max(group, gfilt),
         lambda: bsiops.min_max_parts_plain(group, gfilt), read + gs * 64)
+    # one shard: the per-shard Sums and Min/Max under a filter the plan
+    # compiler refuses (a launch a shard)
+    g1, f1 = group[:1].contiguous(), gfilt[:1].contiguous()
+    out["bsi_sum_planes/s1_d14"] = measure(
+        lambda: ck.bsi_sum_planes(g1, f1),
+        lambda: bsiops.sum_planes_plain(g1, f1),
+        (planes + 1) * gw * 4 + (2 * planes - 3) * 8)
+    out["bsi_min_max/s1_d14"] = measure(
+        lambda: ck.bsi_min_max(g1, f1),
+        lambda: bsiops.min_max_parts_plain(g1, f1), (planes + 1) * gw * 4 + 64)
     for name, r in out.items():
         say("kernel_time", kernel=name, **r)
     return out, copy_bps
@@ -618,6 +696,89 @@ def ablation(inputs, reps: int) -> dict:
     finally:
         ck._lib = real
     say("ablation", device_ms=out)
+    return out
+
+
+# Builds of kernel B' for its load-path ablation: the row chunks staged in
+# shared memory by TMA bulk copies, beside the default's 16-byte loads
+ROW_ABLATION = ("-DFB_ROWS_STAGED",)
+# and of kernel I' for its search's: the lift over all K thresholds, beside
+# the default's bucket table
+PCT_ABLATION = ("-DFB_PCT_BINARY",)
+
+
+def row_ablation(inputs, reps: int) -> dict:
+    """Phase 4c: kernel B' at the main path's shapes (stacked at S = 128,
+    filtered and not; one shard; one launch over every shard's mirror),
+    built with its row chunks staged by 1-D TMA bulk copies beside the
+    default build's direct 16-byte loads: device time of each, in turns."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    tile, filt = inputs["tile"], inputs["filt"]
+    S, R, _ = tile.shape
+    one = tile[:1].contiguous()
+    mirrors = [t.clone() for t in tile]
+    slots = np.tile(np.arange(R), (S, 1))
+    cases = {"filtered": lambda: ck.row_counts(tile, filt),
+             "unfiltered": lambda: ck.row_counts(tile),
+             f"s1_r{R}": lambda: ck.row_counts(one),
+             f"mirrors_s{S}": lambda: ck.row_counts_sharded(mirrors, slots)}
+    real, out = ck._lib, {}
+    try:
+        for name, flags in (("direct", ()), ("staged", ROW_ABLATION),
+                            ("direct_again", ()), ("staged_again",
+                                                   ROW_ABLATION)):
+            ck._lib = lambda flags=flags: real(flags)
+            for case, fn in cases.items():
+                dev = kernel_device_ms(fn, reps)
+                out.setdefault(case, {})[name] = sum(
+                    v for k, v in dev.items() if k.startswith("row_counts"))
+    finally:
+        ck._lib = real
+    say("row_ablation", device_ms=out)
+    return out
+
+
+def pct_ablation(inputs, reps: int) -> dict:
+    """Phase 4f: kernel I' over the slice's values at a round of 129
+    thresholds (the bisection's) and of 512, built with the lift over all
+    K thresholds beside the default build's bucket table: device time of
+    each, in turns."""
+    from featurebase_tpu_torch.ops import build
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import decode
+    group, vals, filt = inputs
+    exists = group[:, 0]
+    lo, hi = -(1 << 14), 1 << 14
+    rng = np.random.default_rng(37)
+    lists = {"round_129": sorted({lo, hi, *decode.pivot_tree(
+                 lo, hi, decode.PERCENTILE_LEVELS)}),
+             "k512": sorted(rng.integers(lo, hi, 512).tolist())}
+    real, out = ck._decode_lib, {}
+
+    def typed(flags):
+        lib = build.load(ck.DECODE_SOURCE, flags)
+        if flags and not getattr(lib, "_fb_typed", False):
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64,
+                                                 i32, i64, i32, vp, i32, vp,
+                                                 vp]
+            lib.fb_percentile_counts.restype = i32
+            lib._fb_typed = True
+        return lib if flags else real()
+    try:
+        for name, flags in (("buckets", ()), ("binary", PCT_ABLATION),
+                            ("buckets_again", ()), ("binary_again",
+                                                    PCT_ABLATION)):
+            ck._decode_lib = lambda flags=flags: typed(flags)
+            for case, t in lists.items():
+                dev = kernel_device_ms(
+                    lambda t=t: ck.percentile_counts(vals, exists, filt, 0, t),
+                    reps)
+                out.setdefault(case, {})[name] = sum(
+                    v for k, v in dev.items() if k.startswith("percentile"))
+    finally:
+        ck._decode_lib = real
+    say("pct_ablation", device_ms=out)
     return out
 
 
@@ -1155,6 +1316,30 @@ def decode_parity(S: int) -> tuple:
                           ck.percentile_counts(vals, exists, fw[:s], base, t),
                           decode.percentile_counts_plain(vals, exists,
                                                          fw[:s], base, t))
+    # each form of kernel I' (the prep pass; K <= 4 in registers; wider
+    # rounds through the bucket table) at K = 0, 1, 2, 129 and 512: random
+    # thresholds, duplicated ones, every value below them, every value
+    # above them; bases that shift value + base and that wrap it in int32
+    vals, exists = decoded["random_d14"][:16], cases["random_d14"][:16, 0]
+    fw = filters["random"][:16]
+    x = vals[decode.expand_bits(exists & fw).bool()]
+    lo, hi = int(x.min()), int(x.max())
+    for K in (0, 1, 2, 129, 512):
+        kinds = {"random": sorted(rng.integers(lo, hi, K).tolist()),
+                 "duplicates": sorted(rng.choice(
+                     rng.integers(lo, hi, max(K // 3, 1)), K).tolist()),
+                 "all_below": sorted(rng.integers(
+                     hi + 1, (1 << 31) - 1, K).tolist()),
+                 "all_above": sorted(rng.integers(
+                     -(1 << 31), lo, K).tolist())} if K else {"prep": []}
+        for kind, t in kinds.items():
+            for base in (0, -7, (1 << 31) - 5):
+                # at base 2^31 - 5 most values wrap: the kind names where
+                # they lie at base 0
+                check("percentile_counts", f"K={K} {kind} base={base}",
+                      ck.percentile_counts(vals, exists, fw, base, t),
+                      decode.percentile_counts_plain(vals, exists, fw,
+                                                     base, t))
     vals, exists = decoded["random_d14"], cases["random_d14"][:, 0]
     fw = filters["random"][:S]
     for nth in (0, 0.5, 20.2, 50, 99.9, 100):
@@ -1180,7 +1365,10 @@ def decode_parity(S: int) -> tuple:
         cases={n: list(g.shape) for n, g in cases.items()},
         gather_n=[1, 37, 1 << 16], filters=list(filters),
         threshold_lists=["prep", "duplicates", "min_max", "round_129",
-                         "full_512"])
+                         "full_512"],
+        widths=[0, 1, 2, 129, 512],
+        kinds=["random", "duplicates", "all_below", "all_above"],
+        bases=[0, -7, (1 << 31) - 5])
     return {k: max(v) for k, v in errs.items()}, (cases["random_d14"],
                                                   decoded["random_d14"],
                                                   filters["random"][:S])
@@ -1225,7 +1413,13 @@ def decode_times(timer: Timer, inputs, reps: int) -> dict:
                 n * 4 + words * P * 4 + n * 8)
     exists = group[:, 0]
     lo, hi = -(1 << 14), 1 << 14
+    x = vals[decode.expand_bits(exists & filt).bool()]
+    mn, mx = int(x.min()), int(x.max())
+    del x
     for name, t in (("prep", []),
+                    # nth 0 and 100: the min and the max, every value
+                    # between or at them
+                    ("k2", [mn, mx]),
                     ("round_129", sorted({lo, hi, *decode.pivot_tree(
                         lo, hi, decode.PERCENTILE_LEVELS)}))):
         r = measure(f"percentile_counts/s{S}_{name}",
@@ -1763,7 +1957,9 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     say("latency_p50_ms", **latency)
     per = query_profile(queries, timed, latency)
     # each new query ran the kernels it is meant to run
-    meant = {"Rows(f)": ("row_counts",),
+    meant = {"MinRow(field=f)": ("row_counts",),
+             "MaxRow(field=f)": ("row_counts",),
+             "Rows(f)": ("row_counts",),
              "UnionRows(Rows(g))": ("row_counts", "plan_eval"),
              "GroupBy(Rows(f))": ("row_counts",),
              "GroupBy(Rows(f), Rows(g))": ("pair_counts",),
@@ -2005,7 +2201,8 @@ def main() -> int:
                tk.SOURCE)
     builds = [*((src, ()) for src in sources),
               *((src, f) for src in (ck.SOURCE, ck.GROUP_SOURCE)
-                for f in ABLATIONS.values())]
+                for f in ABLATIONS.values()),
+              (ck.SOURCE, ROW_ABLATION), (ck.DECODE_SOURCE, PCT_ABLATION)]
     procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
     probe = build.compile_source(WGMMA_PROBE_SOURCE)
     for src, f, proc in procs:
@@ -2022,7 +2219,8 @@ def main() -> int:
         if src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE) and not report[src]:
             raise AssertionError(f"no ptxas report for {src}")
         for fn, r in report[src].items():
-            if ("plan_eval_kernel" in fn or "bsi_" in fn
+            if ("plan_eval_kernel" in fn or "row_counts_kernel" in fn
+                    or "bsi_" in fn
                     or src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE)) and (
                     r["spill_stores"] or r["spill_loads"]
                     or r["stack_bytes"]):
@@ -2042,8 +2240,10 @@ def main() -> int:
     rates = tc_rate(args.reps, popc_rate(args.reps))
     times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
     times.update(decode_times(timer, decode_inputs, args.reps))
+    pct_ablation(decode_inputs, args.reps)
     del decode_inputs
     ablation(inputs, args.reps)
+    row_ablation(inputs, args.reps)
     group_ablation(args.reps)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs

@@ -40,14 +40,44 @@
 //   Shapes TMA cannot take (W % 4 != 0, a plane or stride not 16-byte
 //   aligned) run the same tiles with scalar loads from global memory.
 //
-// row_counts (kernel B) replaces pallas_kernels.py count_and_rows_pallas and
-//   popcount_rows_pallas: per-row popcount(tile & filter) for an (S, R, W)
-//   tile against an optional (S, W) filter, giving (S, R) int64.  One block
-//   per (row, shard) reads its row once with 16-byte loads (filter re-reads
-//   across the R rows of a shard come mostly from L2), reduces in the block
-//   and writes one count: no atomics, so counts are deterministic.
-//   Bound: bytes, (S x R x W + S x W) x 4 bytes; TopN over 8 rows at S=64 is
-//   67 MB (20 us at 3.35 TB/s) unfiltered, 75.5 MB (22.5 us) filtered.
+// row_counts (kernel B') replaces pallas_kernels.py count_and_rows_pallas
+//   (:172) and popcount_rows_pallas (:203): per-row popcount(row & filter)
+//   of S x R rows against an optional filter row a shard, giving (S, R)
+//   int64.  Rows are named by a table of addresses (0 for an absent row,
+//   whose count is 0), so one launch reads every shard's fragment mirror in
+//   place; a stacked (S, R, W) tile's table is its base and strides.
+//   Bound: bytes, (present rows + filter rows) x W x 4 read once and 8
+//   bytes a count written: 151 MB (45.1 us at 3.35 TB/s) for 8 filtered rows
+//   over 128 shards.  The first kernel B, a block per (shard, row), used 8
+//   of 132 SMs at S = 1 and made every per-shard caller launch once a
+//   shard.  The design:
+//   - work is (shard, chunk of words) items: each stages its filter chunk
+//     in shared memory once (the filter is read once, not once a row) and
+//     ANDs and popcounts every row of its shard against it;
+//   - the chunk halves from 4,096 words until every SM has an item (128
+//     words at S = 1, W = 32,768: 256 items), and a persistent grid (no
+//     more blocks than the occupancy calculator's resident ones, each with
+//     as many items) walks items b, b + grid, ... at large S;
+//   - the 8 warps split each row chunk into parts and read it in pieces
+//     of 4 KB, every lane's 8 16-byte loads of a piece (two pieces, the
+//     loop unrolled) in flight before its popcounts, with no block barrier
+//     between rows (one an item, after the filter); the loads do not
+//     allocate in L1 (ld.global.nc.L1::no_allocate), and each item's row
+//     and filter addresses are loaded an item ahead;
+//   - a unit's count is added to a per-stream accumulator with a fire and
+//     forget atomic (red.add), and the last block to finish (a ticket it
+//     resets, kernel A's pattern) copies the sums out and zeroes them, so
+//     no memset precedes the launch and a call is one device operation;
+//     a row that is a single unit (one chunk, one part) is written as is;
+//   - the next item's filter chunk is copied by one TMA bulk copy while
+//     this item's rows are read;
+//   - tables of up to 440 entries (S = 1 at any R up to 439) ride in the
+//     launch's parameters, as does a stacked tile's base and strides;
+//     larger ones are copied to the device first.
+//   -DFB_ROWS_STAGED builds the same kernel with each warp's row pieces
+//   staged in shared memory by 1-D TMA bulk copies (cp.async.bulk, any
+//   16-byte aligned address, no tensor map) through a ring of 4 pieces a
+//   warp; chip_smoke.py times both (`row_ablation`).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -480,53 +510,294 @@ plan_eval_kernel(const __grid_constant__ Program p, const Tiling g,
   if (tid == 0) *ticket = 0;  // ready for the next launch on this stream
 }
 
-// ---- kernel B ---------------------------------------------------------------
+// ---- kernel B' --------------------------------------------------------------
 
 constexpr int kRowThreads = 256;
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kPieceGroups = 8;        // groups a lane loads of a piece
+constexpr int kRowChunkMax = 4096;     // words of a row in an item (VEC 4)
+constexpr int kInlineAddrs = 440;      // table entries carried in the launch
+constexpr int kRowStages = 4;          // each warp's TMA ring (staged build)
+// chip_smoke.py builds B' both ways and times them: each warp's row pieces
+// staged in shared memory by 1-D TMA bulk copies (-DFB_ROWS_STAGED), or
+// read with 16-byte ld.global.nc loads straight into registers (the
+// default).
+#ifdef FB_ROWS_STAGED
+constexpr bool kRowsStaged = true;
+#else
+constexpr bool kRowsStaged = false;
+#endif
 
-template <bool VEC4, bool FILT>
-__global__ void __launch_bounds__(kRowThreads)
-row_counts_kernel(const int32_t* __restrict__ tile,
-                  const int32_t* __restrict__ filt, int R, long long W,
-                  long long* __restrict__ out) {
-  const int r = blockIdx.x;
-  const long long s = blockIdx.y;
-  const int32_t* row = tile + (s * R + r) * W;
-  const int32_t* f = FILT ? filt + s * W : nullptr;
-  unsigned int pc = 0;
-  if constexpr (VEC4) {
-    const uint4* row4 = reinterpret_cast<const uint4*>(row);
-    const uint4* f4 = reinterpret_cast<const uint4*>(f);
-    const long long n4 = W / 4;
-#pragma unroll 4
-    for (long long i = threadIdx.x; i < n4; i += kRowThreads) {
-      uint4 v = __ldg(row4 + i);
-      if constexpr (FILT) {
-        const uint4 m = __ldg(f4 + i);
-        v.x &= m.x; v.y &= m.y; v.z &= m.z; v.w &= m.w;
-      }
-      pc += __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
-    }
+// One launch of B': the address table (row r of shard s at entry s * R + r,
+// 0 for an absent row; with `filtered`, shard s's filter row at entry
+// S * R + s, 0 for a shard without one) and how the launch cuts the work:
+// items of `chunk` words of one shard, and each row's chunk in `parts`
+// parts (a warp each; up to 8, as its pieces allow).  A table of up
+// to kInlineAddrs entries rides in the launch itself, a larger one is a
+// device array, and a stacked tile's (every row present, at fixed strides)
+// is its base and strides.
+struct RowArgs {
+  unsigned long long addrs[kInlineAddrs];
+  const unsigned long long* table;   // device table, or null: addrs
+  // affine table (stacked tiles): row (s, r) at base + s * s_step + r *
+  // r_step, filter row s at f_base + s * f_step (bytes)
+  int affine;
+  unsigned long long base, f_base;
+  long long s_step, r_step, f_step;
+  long long W;
+  int chunk;             // words of each row in an item
+  int n_chunks;          // items a shard
+  long long n_items;
+  int S, R;
+  int filtered;
+  int parts;             // warps a row chunk (1, 2, 4 or 8)
+};
+static_assert(sizeof(RowArgs) + 64 < 4096, "B's arguments must fit the "
+              "kernel's parameter space");
+
+template <int VEC>
+__device__ __forceinline__ Vec<VEC> global_words(const uint32_t* p) {
+  if constexpr (VEC == 4) {
+    uint4 v;
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w) : "l"(p));
+    return Vec<4>{{v.x, v.y, v.z, v.w}};
   } else {
-    for (long long i = threadIdx.x; i < W; i += kRowThreads) {
-      uint32_t v = (uint32_t)__ldg(row + i);
-      if constexpr (FILT) v &= (uint32_t)__ldg(f + i);
-      pc += __popc(v);
+    uint32_t v;
+    asm volatile("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n"
+                 : "=r"(v) : "l"(p));
+    return Vec<1>{{v}};
+  }
+}
+
+__device__ __forceinline__ void red_add(unsigned int* p, unsigned int v) {
+  asm volatile("red.relaxed.gpu.global.add.u32 [%0], %1;\n"
+               :: "l"(p), "r"(v) : "memory");
+}
+
+// VEC: words a group (4: 16-byte loads, every address 16-byte aligned and
+// W % 4 == 0; else 1).  An item's row chunk is read in pieces of 32 x
+// kPieceGroups groups: lane l loads groups 32 q + l of a piece, every load
+// of a piece in flight before its popcounts, ANDs them with the filter
+// chunk in shared memory and popcounts.  Warp w takes units w, w + 8, ...
+// of an item: unit u is part u % parts of row u / parts.  A unit's count
+// is added to acc[s * R + r] (fire and forget), unless it is the row's
+// only unit (one chunk, one part: written to out).  STAGED: each warp's
+// pieces come through its own TMA ring (VEC 4 only).
+template <int VEC, bool STAGED>
+__global__ void __launch_bounds__(kRowThreads)
+row_counts_kernel(const __grid_constant__ RowArgs a,
+                  long long* __restrict__ out,
+                  unsigned int* __restrict__ acc,
+                  unsigned int* __restrict__ ticket) {
+  constexpr int kPiece = 32 * kPieceGroups * VEC;   // words
+  extern __shared__ __align__(128) uint32_t row_smem[];
+  __shared__ __align__(8) uint64_t fbar[2];
+  __shared__ __align__(8) uint64_t full[kRowWarps][kRowStages];
+  __shared__ int last_block;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned long long* addrs = a.table != nullptr ? a.table : a.addrs;
+  const long long filt_at = (long long)a.S * a.R;
+  auto row_at = [&](long long s, int r) -> unsigned long long {
+    return a.affine ? a.base + s * a.s_step + r * a.r_step
+                    : addrs[s * a.R + r];
+  };
+  auto filter_of = [&](long long s) -> unsigned long long {
+    return !a.filtered ? 0ull
+           : a.affine  ? a.f_base + s * a.f_step
+                       : addrs[filt_at + s];
+  };
+  const int C = a.chunk;
+  const int part_pieces = (C + kPiece - 1) / kPiece / a.parts;
+  const int units = a.R * a.parts;
+  // items blockIdx.x, + gridDim.x, ...
+  const long long i_begin = blockIdx.x;
+  const long long i_step = gridDim.x;
+  const int n_local = (int)((a.n_items - blockIdx.x + gridDim.x - 1) / gridDim.x);
+  const bool direct = a.n_chunks * a.parts == 1;
+  // the filter chunks of two items: this one's, and the next one's in
+  // flight (one TMA bulk copy, VEC 4) while this one's rows are read
+  const bool prefetch = VEC == 4 && a.filtered;
+  auto stage_filter = [&](int i) {   // one thread
+    const long long item = i_begin + i * i_step;
+    const long long s = item / a.n_chunks;
+    const long long w0 = (item - s * a.n_chunks) * C;
+    const unsigned long long fa = filter_of(s);
+    const uint32_t bytes = fa != 0 ? (uint32_t)(min((long long)C, a.W - w0) * 4) : 0u;
+    const uint32_t bar = smem_addr(&fbar[i & 1]);
+    // the buffer's last reads (item i - 2) were generic; the copy is async
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_expect_tx(bar, bytes);
+    if (bytes != 0)
+      bulk_copy(smem_addr(row_smem + (i & 1) * C),
+                reinterpret_cast<const uint32_t*>(fa) + w0, bytes, bar);
+  };
+
+  // Staged form: lane 0 of each warp keeps its ring full.  The warp's
+  // pieces, in order: per item, per unit of the warp whose row is present,
+  // the unit's pieces.  (n_i, n_unit, n_piece) is the producer's position.
+  uint32_t* ring = row_smem + (a.filtered ? 2 * C : 0) +
+                   warp * kRowStages * kPiece;
+  int n_i = 0, n_unit = warp, n_piece = 0;
+  auto unit_addr = [&](int i, int u) -> unsigned long long {
+    const long long s = (i_begin + i * i_step) / a.n_chunks;
+    if (a.filtered && filter_of(s) == 0) return 0ull;
+    return row_at(s, u / a.parts);
+  };
+  auto settle = [&]() {   // move the producer to a piece that exists
+    while (n_i < n_local) {
+      if (n_unit < units && unit_addr(n_i, n_unit) != 0) return;
+      n_unit += kRowWarps;
+      n_piece = 0;
+      if (n_unit >= units) {
+        ++n_i;
+        n_unit = warp;
+      }
+    }
+  };
+  auto issue = [&](int st) {   // stage the producer's piece into slot st
+    const long long item = i_begin + n_i * i_step;
+    const long long s = item / a.n_chunks;
+    const long long w0 = (item - s * a.n_chunks) * C;
+    const long long n = min((long long)C, a.W - w0);
+    const long long p0 = (long long)((n_unit % a.parts) * part_pieces + n_piece) * kPiece;
+    const uint32_t bytes = (uint32_t)(max(0LL, min((long long)kPiece, n - p0)) * 4);
+    const uint32_t bar = smem_addr(&full[warp][st]);
+    mbar_expect_tx(bar, bytes);
+    if (bytes != 0)
+      bulk_copy(smem_addr(ring + st * kPiece),
+                reinterpret_cast<const uint32_t*>(unit_addr(n_i, n_unit)) +
+                    w0 + p0, bytes, bar);
+    if (++n_piece == part_pieces) {
+      n_piece = 0;
+      n_unit += kRowWarps;
+      if (n_unit >= units) {
+        ++n_i;
+        n_unit = warp;
+      }
+    }
+    settle();
+  };
+
+  if (prefetch && tid == 0) {
+    mbar_init(smem_addr(&fbar[0]), 1);
+    mbar_init(smem_addr(&fbar[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    stage_filter(0);
+  }
+  if (STAGED && lane == 0) {
+    for (int st = 0; st < kRowStages; ++st) mbar_init(smem_addr(&full[warp][st]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    settle();
+    for (int st = 0; st < kRowStages && n_i < n_local; ++st) issue(st);
+  }
+
+  // the addresses of each item's filter row and of the warp's first row,
+  // loaded an item ahead
+  auto first_addrs = [&](int i, unsigned long long& fa, unsigned long long& ra) {
+    const long long s = (i_begin + i * i_step) / a.n_chunks;
+    fa = a.filtered ? filter_of(s) : 0ull;
+    ra = warp < units ? row_at(s, warp / a.parts) : 0ull;
+  };
+  unsigned long long fa_next = 0ull, ra_next = 0ull;
+  if (n_local > 0) first_addrs(0, fa_next, ra_next);
+  int k = 0;   // this warp's piece (staged form)
+  for (int i = 0; i < n_local; ++i) {
+    const long long item = i_begin + i * i_step;
+    const long long s = item / a.n_chunks;
+    const long long w0 = (item - s * a.n_chunks) * C;
+    const int n = (int)min((long long)C, a.W - w0);   // words of this chunk
+    const unsigned long long fa = fa_next, ra_first = ra_next;
+    if (i + 1 < n_local) first_addrs(i + 1, fa_next, ra_next);
+    uint32_t* fsm = row_smem + (i & 1) * C;
+    if (a.filtered) {
+      // every warp is done with item i - 1, whose buffer item i + 1 takes
+      __syncthreads();
+      if (prefetch) {
+        if (tid == 0 && i + 1 < n_local) stage_filter(i + 1);
+        mbar_wait(smem_addr(&fbar[i & 1]), (uint32_t)(i >> 1) & 1u);
+      } else {   // the 4-byte path: the filter chunk with plain loads
+        for (int g = tid; g < n; g += kRowThreads)
+          fsm[g] = fa != 0 ? __ldg(reinterpret_cast<const uint32_t*>(fa) + w0 + g) : 0u;
+        __syncthreads();
+      }
+    }
+    const bool live = !a.filtered || fa != 0;
+    for (int u = warp; u < units; u += kRowWarps) {
+      const int r = u / a.parts;
+      const unsigned long long ra =
+          !live ? 0ull : u == warp ? ra_first : row_at(s, r);
+      uint32_t pc = 0;
+      if (ra != 0) {   // warp-uniform
+        const int pb = (u % a.parts) * part_pieces;
+#pragma unroll 2
+        for (int p = pb; p < pb + part_pieces; ++p) {
+          const int p0 = p * kPiece;
+          const uint32_t* src;
+          if constexpr (STAGED) {
+            const int st = k % kRowStages;
+            mbar_wait(smem_addr(&full[warp][st]), (uint32_t)(k / kRowStages) & 1u);
+            src = ring + st * kPiece - p0;   // indexed by the chunk's word
+          } else {
+            src = reinterpret_cast<const uint32_t*>(ra) + w0;
+          }
+          Vec<VEC> x[kPieceGroups];
+#pragma unroll
+          for (int q = 0; q < kPieceGroups; ++q) {   // every load first
+            const int g = p0 + (q * 32 + lane) * VEC;
+            x[q] = splat<VEC>(0u);
+            if (g < n) {
+              if constexpr (STAGED) x[q] = load_words<VEC>(src + g, 0, false);
+              else x[q] = global_words<VEC>(src + g);
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kPieceGroups; ++q) {
+            const int g = p0 + (q * 32 + lane) * VEC;
+            const Vec<VEC> f = a.filtered && g < n
+                                   ? load_words<VEC>(fsm + g, 0, false)
+                                   : splat<VEC>(0xFFFFFFFFu);
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) pc += __popc(x[q].w[j] & f.w[j]);
+          }
+          if constexpr (STAGED) {
+            __syncwarp();   // every lane is done with stage k % stages
+            if (lane == 0 && n_i < n_local) {
+              asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+              issue(k % kRowStages);
+            }
+            __syncwarp();
+            ++k;
+          }
+        }
+      }
+      pc = __reduce_add_sync(0xFFFFFFFFu, pc);
+      if (lane == 0) {
+        if (direct) out[s * a.R + r] = (long long)pc;
+        else if (pc != 0u) red_add(acc + s * a.R + r, pc);
+      }
     }
   }
-  // per-thread counts fit in 32 bits: a row holds at most 32 * W bits and
-  // each thread sees W / 256 words of it
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) pc += __shfl_down_sync(0xFFFFFFFFu, pc, off);
-  __shared__ unsigned long long warp_sum[kRowThreads / 32];
-  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = pc;
+  if (direct) return;
+  // release this block's sums; the last block to finish (a ticket it
+  // resets, kernel A's pattern) copies them out and zeroes them, so they
+  // are zero again for the next launch on this stream
+  __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) {
-    unsigned long long total = 0;
-#pragma unroll
-    for (int i = 0; i < kRowThreads / 32; ++i) total += warp_sum[i];
-    out[s * R + r] = (long long)total;
+  if (tid == 0) {
+    unsigned int prev;
+    asm volatile("atom.acq_rel.gpu.global.add.u32 %0, [%1], 1;\n"
+                 : "=r"(prev) : "l"(ticket) : "memory");
+    last_block = prev == gridDim.x - 1;
   }
+  __syncthreads();
+  if (!last_block) return;
+  const long long pairs = (long long)a.S * a.R;
+  for (long long p = tid; p < pairs; p += kRowThreads) {
+    out[p] = (long long)__ldcg(acc + p);
+    acc[p] = 0u;
+  }
+  if (tid == 0) *ticket = 0u;
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -647,6 +918,77 @@ cudaError_t device_info(DeviceInfo** out) {
   return cudaSuccess;
 }
 
+// Dynamic shared memory of B': two filter buffers of `chunk` words when
+// filtered (chunk 0 otherwise), and each warp's TMA ring in the staged form.
+size_t row_smem_bytes(int form, long long chunk) {
+  return (size_t)(2 * chunk * 4) +
+         (form == 2 && kRowsStaged ? (size_t)kRowWarps * kRowStages * 32 *
+                                         kPieceGroups * 4 * 4
+                                   : 0);
+}
+
+// Per device: SMs and the resident blocks a SM of each form of B' (VEC 4,
+// VEC 1, VEC 4 staged) at the largest shared memory a launch asks for.
+struct RowInfo {
+  int sms = 0;
+  int blocks[3] = {};
+};
+RowInfo g_row_devices[64];
+
+cudaError_t row_info(RowInfo** out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  RowInfo& d = g_row_devices[dev];
+  if (d.sms == 0) {
+    int sms = 0;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess)
+      return e;
+    const void* forms[3] = {
+        (const void*)row_counts_kernel<4, false>,
+        (const void*)row_counts_kernel<1, false>,
+        (const void*)row_counts_kernel<4, kRowsStaged>};
+    const long long chunk_max[3] = {kRowChunkMax, kRowChunkMax / 4, kRowChunkMax};
+    for (int f = 0; f < 3; ++f) {
+      const size_t smem = row_smem_bytes(f, chunk_max[f]);
+      if ((e = cudaFuncSetAttribute(forms[f],
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess)
+        return e;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&d.blocks[f], forms[f],
+                                                        kRowThreads, smem);
+      if (e != cudaSuccess) return e;
+      if (d.blocks[f] < 1) return cudaErrorInvalidConfiguration;
+    }
+    d.sms = sms;
+  }
+  *out = &d;
+  return cudaSuccess;
+}
+
+// The chunk: the largest power of two times 32 groups, at most
+// kRowChunkMax words (VEC 4; a quarter of that for VEC 1), no larger than
+// W needs, that gives every SM an item, or the warps plenty of rows.  Then
+// the parts a row chunk splits into, up to one a warp: a block's warps read
+// neighbouring pieces of one row at a time, which streamed faster on the
+// H100 than a row a warp (PERF.md).
+void row_plan(int S, int R, long long W, int vec, int sms, int* chunk,
+              int* parts) {
+  const long long lo = 32LL * vec, hi = vec == 4 ? kRowChunkMax : kRowChunkMax / 4;
+  long long c = hi;
+  while (c > lo && c / 2 >= W) c /= 2;
+  auto items = [&](long long c) { return (long long)S * ((W + c - 1) / c); };
+  while (c > lo && items(c) < sms && items(c) * R < 32LL * sms) c /= 2;
+  const long long piece = 32LL * kPieceGroups * vec;
+  const long long pieces = c > piece ? c / piece : 1;
+  int p = 1;
+  while (p * 2 <= kRowWarps && p * 2 <= pieces) p *= 2;
+  *chunk = (int)c;
+  *parts = p;
+}
+
 }  // namespace
 
 extern "C" {
@@ -743,26 +1085,85 @@ int fb_plan_eval(const uint32_t* instr, int n_instr, int result_reg,
   return (int)cudaGetLastError();
 }
 
-// Per-row popcount of tile ((S, R, W) int32, contiguous) ANDed with filt
-// ((S, W) int32, contiguous) or unfiltered when filt is null, into out
-// ((S, R) int64).
-int fb_row_counts(const void* tile, const void* filt, int S, int R,
-                  long long W, void* out, void* stream) {
-  if (S <= 0 || S > 65535 || R <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int32_t* t = static_cast<const int32_t*>(tile);
-  const int32_t* f = static_cast<const int32_t*>(filt);
-  long long* o = static_cast<long long*>(out);
-  const bool vec4 = (W % 4) == 0 && aligned16(t) && (f == nullptr || aligned16(f));
-  dim3 grid((unsigned)R, (unsigned)S);
-  if (f != nullptr) {
-    if (vec4) row_counts_kernel<true, true><<<grid, kRowThreads, 0, st>>>(t, f, R, W, o);
-    else row_counts_kernel<false, true><<<grid, kRowThreads, 0, st>>>(t, f, R, W, o);
-  } else {
-    if (vec4) row_counts_kernel<true, false><<<grid, kRowThreads, 0, st>>>(t, f, R, W, o);
-    else row_counts_kernel<false, false><<<grid, kRowThreads, 0, st>>>(t, f, R, W, o);
+// Kernel B' over an address table of S x R rows (and S filter rows when
+// `filtered`): host_table when it has at most kInlineAddrs entries (it rides
+// in the launch), else dev_table, the same entries on the device, or for a
+// stacked tile `affine`: {base, shard step, row step, filter base, filter
+// step} in bytes, every row present.  vec is 4
+// when W % 4 == 0 and every address is 16-byte aligned, else 1.  out is
+// (S, R) int64.  When fb_row_counts_plan says `summed`, acc is S * R
+// uint32 and ticket a uint32, all 0 before the launch and 0 again after it.
+int fb_row_counts(const unsigned long long* host_table, const void* dev_table,
+                  const long long* affine, int S, int R, int filtered,
+                  long long W, int vec, void* out, void* acc, void* ticket,
+                  void* stream) {
+  // a row's count (at most 32 W) must fit the kernel's 32-bit sums
+  if (S <= 0 || R <= 0 || W <= 0 || W >= (1LL << 27) ||
+      (vec != 4 && vec != 1) || (vec == 4 && W % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long entries = (long long)S * R + (filtered ? S : 0);
+  if (affine == nullptr && dev_table == nullptr &&
+      (host_table == nullptr || entries > kInlineAddrs))
+    return (int)cudaErrorInvalidValue;
+  RowInfo* info = nullptr;
+  cudaError_t e = row_info(&info);
+  if (e != cudaSuccess) return (int)e;
+  RowArgs a;
+  a.table = static_cast<const unsigned long long*>(dev_table);
+  a.affine = affine != nullptr;
+  a.base = a.f_base = 0;
+  a.s_step = a.r_step = a.f_step = 0;
+  if (a.affine) {
+    a.base = (unsigned long long)affine[0];
+    a.s_step = affine[1];
+    a.r_step = affine[2];
+    a.f_base = (unsigned long long)affine[3];
+    a.f_step = affine[4];
+  } else if (a.table == nullptr) {
+    for (long long i = 0; i < entries; ++i) a.addrs[i] = host_table[i];
   }
+  a.W = W;
+  a.S = S;
+  a.R = R;
+  a.filtered = filtered ? 1 : 0;
+  row_plan(S, R, W, vec, info->sms, &a.chunk, &a.parts);
+  a.n_chunks = (int)((W + a.chunk - 1) / a.chunk);
+  a.n_items = (long long)a.n_chunks * S;
+  if (a.n_chunks * a.parts > 1 && (acc == nullptr || ticket == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int form = vec == 4 ? (kRowsStaged ? 2 : 0) : 1;
+  const long long slots = (long long)info->sms * info->blocks[form];
+  // as many blocks as give each the same count of items, within the
+  // resident slots
+  const long long per_block = (a.n_items + slots - 1) / slots;
+  const unsigned grid = (unsigned)((a.n_items + per_block - 1) / per_block);
+  const size_t smem = row_smem_bytes(form, a.filtered ? a.chunk : 0);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long* o = static_cast<long long*>(out);
+  auto* ac = static_cast<unsigned int*>(acc);
+  auto* tk = static_cast<unsigned int*>(ticket);
+  if (form == 0) row_counts_kernel<4, false><<<grid, kRowThreads, smem, st>>>(a, o, ac, tk);
+  else if (form == 1) row_counts_kernel<1, false><<<grid, kRowThreads, smem, st>>>(a, o, ac, tk);
+  else row_counts_kernel<4, kRowsStaged><<<grid, kRowThreads, smem, st>>>(a, o, ac, tk);
   return (int)cudaGetLastError();
+}
+
+// How B' cuts S shards of R rows of W words (fb_row_counts): the chunk,
+// whether the counts are summed across units (then the launch needs the
+// accumulator and the ticket), and how many table entries ride in the
+// launch.
+int fb_row_counts_plan(int S, int R, long long W, int vec, int* chunk,
+                       int* summed, int* inline_addrs) {
+  if (S <= 0 || R <= 0 || W <= 0 || (vec != 4 && vec != 1))
+    return (int)cudaErrorInvalidValue;
+  RowInfo* info = nullptr;
+  const cudaError_t e = row_info(&info);
+  if (e != cudaSuccess) return (int)e;
+  int parts = 1;
+  row_plan(S, R, W, vec, info->sms, chunk, &parts);
+  *summed = (W + *chunk - 1) / *chunk * parts > 1;
+  *inline_addrs = kInlineAddrs;
+  return 0;
 }
 
 }  // extern "C"

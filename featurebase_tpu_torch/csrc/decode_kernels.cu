@@ -31,7 +31,7 @@
 //   c >> 5 of the exists, sign and D magnitude planes and takes bit c & 31.
 //   Bound: latency (N is at most a shard's matched columns); what matters
 //   is one launch a shard, not one a column.
-// percentile_counts (kernel I) is the counterpart of the counting passes
+// percentile_counts (kernel I') is the counterpart of the counting passes
 //   of percentile_fused (:491-607).  Over stacked (S, 32 W) int32 values
 //   (the cached decode), their (S, W) exists words and an (S, W) filter,
 //   with x = value + base (int32) for every column whose exists and filter
@@ -43,17 +43,35 @@
 //   as prefix sums of the bins (ops/decode.py), where JAX compares every
 //   value with 31 pivots twice.  K = 0 is the prep pass: bin 0 is the total.
 //   Bound: bytes, 4 bytes a column of values and 1/4 byte of exists and
-//   filter words (570 MB at S = 128: 170 us); a column costs a binary
-//   search of the thresholds in shared memory (log2 K steps), which at
-//   K = 129 (a round of 7 levels) stays under the bytes.  Design: as G, a
-//   warp takes 1,024 columns, loads their exists & filter words (32 lanes,
-//   one word each) and skips the values of a block of 4 columns none of
-//   which is present; a lane reads its 4 values with one 16-byte load.
-//   Values below t_0 or above t_{K-1} (most of them in the later rounds,
-//   whose pivots crowd together) count in registers; the rest go to a
-//   per-block histogram in shared memory.  Each block adds its nonzero bins
-//   to the output with int64 atomics once, after a grid-stride loop over
-//   every chunk, so a launch makes a few hundred thousand atomics at most.
+//   filter words (570 MB at S = 128: 170 us).  The first kernel I ran a round
+//   of 129 thresholds at 28% of that: a data-dependent binary search a
+//   value (8 dependent shared loads), a branch and a shared atomic into one
+//   histogram for the block's 8 warps, and one 16-byte load in flight a
+//   lane.  The design of I':
+//   - as G, a warp takes 1,024 columns and loads their exists & filter
+//     words (32 lanes, one word each); a lane then issues all 8 of its
+//     16-byte value loads, each predicated on its 4 columns' present bits,
+//     before any compare;
+//   - values below t_0 or above t_{K-1} (most of them in the later rounds,
+//     whose pivots crowd together) count in registers with predicated
+//     adds, as do the min and the max; a warp searches only when one of
+//     its values lies between (a ballot);
+//   - the search is a bucket table over [t_0, t_{K-1}]: a value whose
+//     bucket holds no threshold (most of them) has its bin from one shared
+//     load, the rest finish with a branchless lift over the bucket's few
+//     thresholds, padded with INT_MAX (see kPctBuckets);
+//   - each warp has its own histogram in shared memory (8 x (2K + 1) x 4
+//     bytes, 33 KB at K = 512), summed once at the end of the block, and
+//     each nonzero bin is added to the output with one int64 atomic, after
+//     a grid-stride loop over every chunk;
+//   - a round of at most 4 thresholds (the K = 2 rounds of nth 0 and 100,
+//     which send almost every value to one bin) counts in registers
+//     instead: per threshold, a lane's values above it and equal to it, 2K
+//     predicated adds a value and no shared memory (kRegK).  Merging a
+//     warp's equal bins with __match_any_sync before a shared atomic was
+//     measured slower (PERF.md);
+//   - the prep pass (K = 0) counts the present columns with a popcount of
+//     their words and keeps only the min and the max.
 //   The wrapper zeroes the bins and seeds the min and max.
 
 #include <climits>
@@ -134,6 +152,62 @@ bsi_decode_gather_kernel(const uint32_t* __restrict__ group,
   ok[i] = (int32_t)((__ldg(g) >> bit) & 1u);
 }
 
+// Kernel I' finds each value's bin with a search of a bounded number of
+// steps.  By default a table of kBuckets buckets over [t_0, t_{K-1}]
+// (built by each block) gives, for the value's bucket, the first threshold
+// at or past the bucket's start and how many thresholds lie inside it: a
+// bucket with none (most of them) is the bin itself, one with some takes a
+// branchless lift over those few.  -DFB_PCT_BINARY builds the lift over all
+// K thresholds instead (ceil(log2(K + 1)) steps, padded with INT_MAX).
+// chip_smoke.py times both (`pct_ablation`).
+#ifdef FB_PCT_BINARY
+constexpr bool kPctBuckets = false;
+#else
+constexpr bool kPctBuckets = true;
+#endif
+constexpr int kBucketBits = 11;
+constexpr int kBuckets = 1 << kBucketBits;
+// rounds of at most this many thresholds count in registers: each lane
+// keeps, for every threshold, how many of its values lie above it and how
+// many equal it (2 K compares a value, no shared memory); the bins follow
+// at the end of the block.  The K = 2 rounds of nth 0 and 100 send almost
+// every value to one bin, which shared atomics would serialize.
+constexpr int kRegK = 4;
+// the forms of kernel I': the prep pass (K = 0: the count, the min and the
+// max), a narrow round (K <= kRegK) and a wide one
+enum PctForm { PCT_PREP = 0, PCT_REGS = 1, PCT_WIDE = 2 };
+
+__host__ __device__ inline int bit_length(unsigned x) {
+  int n = 0;
+  while (x) {
+    ++n;
+    x >>= 1;
+  }
+  return n;
+}
+
+// Shared memory of kernel I' at K thresholds, in 4-byte words: the
+// thresholds padded with INT_MAX past every index a search reads, a
+// histogram a warp, and the bucket table.
+__host__ __device__ inline int pct_padded(int K) { return K + (1 << bit_length(K)); }
+__host__ __device__ inline int pct_smem_words(int K) {
+  return K == 0      ? 0
+         : K <= kRegK ? pct_padded(K)
+                      : pct_padded(K) + kWarps * (2 * K + 1) +
+                            (kPctBuckets ? kBuckets + 1 : 0);
+}
+
+// The first k in [0, K) with t[k] >= x, else K (the bucket table only).
+__device__ __forceinline__ int first_at_least(const int* t, int K, long long x) {
+  int lo = 0, hi = K;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if ((long long)t[mid] < x) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+template <int FORM>
 __global__ void __launch_bounds__(kThreads)
 percentile_counts_kernel(const int32_t* __restrict__ vals, long long vals_stride,
                          const uint32_t* __restrict__ exists,
@@ -143,20 +217,79 @@ percentile_counts_kernel(const int32_t* __restrict__ vals, long long vals_stride
                          const int32_t* __restrict__ thresholds, int K,
                          long long* __restrict__ out) {
   extern __shared__ int smem[];
-  int* t = smem;                                             // K thresholds
-  unsigned* hist = reinterpret_cast<unsigned*>(smem + K);    // 2K + 1 bins
-  __shared__ int block_min, block_max;
   const int n_bins = 2 * K + 1;
-  for (int i = threadIdx.x; i < K; i += kThreads) t[i] = thresholds[i];
-  for (int i = threadIdx.x; i < n_bins; i += kThreads) hist[i] = 0u;
+  const int padded = pct_padded(K);
+  int* t = smem;
+  unsigned* hist = reinterpret_cast<unsigned*>(smem + padded);
+  int* table = smem + padded + kWarps * n_bins;
+  __shared__ int block_min, block_max;
+  __shared__ unsigned long long block_count;
+  __shared__ unsigned int reg_sums[2 * kRegK];
   if (threadIdx.x == 0) {
     block_min = INT_MAX;
     block_max = INT_MIN;
+    block_count = 0;
+  }
+  if (threadIdx.x < 2 * kRegK) reg_sums[threadIdx.x] = 0u;
+  int shift = 0;
+  if constexpr (FORM != PCT_PREP) {
+    for (int i = threadIdx.x; i < padded; i += kThreads)
+      t[i] = i < K ? thresholds[i] : INT_MAX;
+  }
+  if constexpr (FORM == PCT_WIDE) {
+    for (int i = threadIdx.x; i < kWarps * n_bins; i += kThreads) hist[i] = 0u;
+    __syncthreads();
+    if (kPctBuckets) {
+      // table[b]: the first k with t_k >= t_0 + b << shift (low 16 bits) and
+      // the thresholds below the next bucket's start from there (high 16)
+      const unsigned span = (unsigned)t[K - 1] - (unsigned)t[0];
+      shift = max(bit_length(span) - kBucketBits, 0);
+      const int nb = (int)(span >> shift) + 1;   // buckets in use
+      for (int b = threadIdx.x; b <= nb; b += kThreads)
+        table[b] = first_at_least(t, K, (long long)t[0] + ((long long)b << shift));
+      __syncthreads();
+      int packed[(kBuckets + kThreads - 1) / kThreads];
+#pragma unroll
+      for (int i = 0; i < (kBuckets + kThreads - 1) / kThreads; ++i) {
+        const int b = threadIdx.x + i * kThreads;
+        packed[i] = b < nb ? table[b] | ((table[b + 1] - table[b]) << 16) : 0;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < (kBuckets + kThreads - 1) / kThreads; ++i) {
+        const int b = threadIdx.x + i * kThreads;
+        if (b < nb) table[b] = packed[i];
+      }
+    }
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int src = lane >> 3, shift = (lane & 7) * 4;
   const int t_lo = K ? t[0] : 0, t_hi = K ? t[K - 1] : 0;
+  const int full_steps = bit_length((unsigned)K);
+  // the bin of x, t_lo <= x <= t_hi (wide form)
+  auto bin_of = [&](int x) {
+    int k = 0, steps = full_steps;
+    if (kPctBuckets) {
+      const int e = table[((unsigned)x - (unsigned)t_lo) >> shift];
+      k = e & 0xFFFF;
+      steps = bit_length((unsigned)e >> 16);
+      if (steps == 0) return 2 * k;   // no threshold in x's bucket
+    }
+    for (int st = 1 << (steps - 1); st > 0; st >>= 1)
+      k += t[k + st - 1] < x ? st : 0;
+    return 2 * k + (t[k] == x ? 1 : 0);
+  };
+  // narrow form: the thresholds in registers, and per threshold the lane's
+  // values above it and equal to it
+  int tr[kRegK];
+  unsigned gt[kRegK], eq[kRegK];
+#pragma unroll
+  for (int k = 0; k < kRegK; ++k) {
+    tr[k] = FORM == PCT_REGS && k < K ? t[k] : INT_MAX;
+    gt[k] = eq[k] = 0u;
+  }
+  unsigned* h = hist + (threadIdx.x >> 5) * n_bins;   // this warp's bins
+  const int lane = threadIdx.x & 31;
+  const int src = lane >> 3, nib_shift = (lane & 7) * 4;
   unsigned below = 0u, above = 0u;
   int v_min = INT_MAX, v_max = INT_MIN;
   const long long per_shard = (W + 31) / 32;
@@ -170,31 +303,50 @@ percentile_counts_kernel(const int32_t* __restrict__ vals, long long vals_stride
     const uint32_t e = w < W ? __ldg(exists + s * exists_stride + w) &
                                    __ldg(filt + s * filt_stride + w)
                              : 0u;
-    if (__ballot_sync(kFull, e != 0u) == 0u) continue;
+    if (__ballot_sync(kFull, e != 0u) == 0u) continue;   // warp-uniform
     const int32_t* v = vals + s * vals_stride + w0 * 32 + lane * 4;
+    // every 16-byte load of the chunk in flight before any compare; bit
+    // 4 j + b of `pres`: value b of block j is present
+    uint32_t pres = 0u;
+    int4 q[kBlocks];
 #pragma unroll
     for (int j = 0; j < kBlocks; ++j) {
-      const unsigned nib = (__shfl_sync(kFull, e, j * 4 + src) >> shift) & 0xFu;
-      if (nib == 0u) continue;
-      const int4 q = __ldg(reinterpret_cast<const int4*>(v + j * 128));
-      const int xs[4] = {q.x, q.y, q.z, q.w};
+      const uint32_t nib = (__shfl_sync(kFull, e, j * 4 + src) >> nib_shift) & 0xFu;
+      pres |= nib << (4 * j);
+      q[j] = nib ? __ldg(reinterpret_cast<const int4*>(v + j * 128))
+                 : make_int4(0, 0, 0, 0);
+    }
+    below += __popc(pres);   // less those at or above t_lo (not prep)
+#pragma unroll
+    for (int j = 0; j < kBlocks; ++j) {
+      const int xs[4] = {q[j].x, q[j].y, q[j].z, q[j].w};
+      unsigned mid = 0u;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        if (!((nib >> b) & 1u)) continue;
+        const bool present = (pres >> (4 * j + b)) & 1u;
         const int x = (int)((unsigned)xs[b] + (unsigned)base);
-        v_min = min(v_min, x);
-        v_max = max(v_max, x);
-        if (K == 0 || x < t_lo) {
-          ++below;
-        } else if (x > t_hi) {
-          ++above;
-        } else {   // t_lo <= x <= t_hi: the first k with t[k] >= x
-          int lo = 0, hi = K - 1;
-          while (lo < hi) {
-            const int mid = (lo + hi) >> 1;
-            if (t[mid] < x) lo = mid + 1; else hi = mid;
+        v_min = present ? min(v_min, x) : v_min;
+        v_max = present ? max(v_max, x) : v_max;
+        if constexpr (FORM == PCT_REGS) {
+#pragma unroll
+          for (int k = 0; k < kRegK; ++k) {
+            gt[k] += present && x > tr[k];
+            eq[k] += present && x == tr[k];
           }
-          atomicAdd(&hist[t[lo] == x ? 2 * lo + 1 : 2 * lo], 1u);
+        } else if constexpr (FORM == PCT_WIDE) {
+          below -= present && x >= t_lo;
+          above += present && x > t_hi;
+          mid |= (unsigned)(present && x >= t_lo && x <= t_hi) << b;
+        }
+      }
+      if constexpr (FORM == PCT_WIDE) {
+        // warp-uniform: search only where some lane has a value between
+        if (__any_sync(kFull, mid != 0u)) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int x = (int)((unsigned)xs[b] + (unsigned)base);
+            if ((mid >> b) & 1u) atomicAdd(&h[bin_of(x)], 1u);
+          }
         }
       }
     }
@@ -203,17 +355,57 @@ percentile_counts_kernel(const int32_t* __restrict__ vals, long long vals_stride
   above = __reduce_add_sync(kFull, above);
   v_min = __reduce_min_sync(kFull, v_min);
   v_max = __reduce_max_sync(kFull, v_max);
+  if constexpr (FORM == PCT_REGS) {
+#pragma unroll
+    for (int k = 0; k < kRegK; ++k) {
+      gt[k] = __reduce_add_sync(kFull, gt[k]);
+      eq[k] = __reduce_add_sync(kFull, eq[k]);
+    }
+  }
   if (lane == 0) {
-    if (below) atomicAdd(&hist[0], below);
-    if (above) atomicAdd(&hist[n_bins - 1], above);
+    if (FORM == PCT_WIDE) {
+      if (below) atomicAdd(&h[0], below);
+      if (above) atomicAdd(&h[n_bins - 1], above);
+    } else {
+      atomicAdd(&block_count, (unsigned long long)below);   // the present
+    }
+    if constexpr (FORM == PCT_REGS) {
+#pragma unroll
+      for (int k = 0; k < kRegK; ++k) {
+        if (k < K && gt[k]) atomicAdd(&reg_sums[2 * k], gt[k]);
+        if (k < K && eq[k]) atomicAdd(&reg_sums[2 * k + 1], eq[k]);
+      }
+    }
     atomicMin(&block_min, v_min);
     atomicMax(&block_max, v_max);
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n_bins; i += kThreads)
-    if (hist[i])
-      atomicAdd(reinterpret_cast<unsigned long long*>(out + i),
-                (unsigned long long)hist[i]);
+  if (FORM == PCT_PREP) {
+    if (threadIdx.x == 0 && block_count)
+      atomicAdd(reinterpret_cast<unsigned long long*>(out), block_count);
+  } else if (FORM == PCT_REGS) {
+    // bin 2k + 1: x == t_k (empty for a repeat); bin 2k: t_{k-1} < x < t_k
+    // (empty for a repeat), the values above t_{k-1} less those above or at
+    // t_k; bin 0 the present less those at or above t_0; bin 2K above t_{K-1}
+    if (threadIdx.x < (unsigned)n_bins) {
+      const int i = threadIdx.x, k = i >> 1;
+      const bool repeat = k > 0 && k < K && t[k] == t[k - 1];
+      long long c;
+      if (i == n_bins - 1) c = reg_sums[2 * (K - 1)];
+      else if (i & 1) c = repeat ? 0 : reg_sums[2 * k + 1];
+      else if (k == 0) c = (long long)block_count - reg_sums[0] - reg_sums[1];
+      else c = repeat ? 0 : (long long)reg_sums[2 * (k - 1)] - reg_sums[2 * k] - reg_sums[2 * k + 1];
+      if (c) atomicAdd(reinterpret_cast<unsigned long long*>(out + i),
+                       (unsigned long long)c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < n_bins; i += kThreads) {
+      unsigned long long c = 0;
+#pragma unroll
+      for (int wp = 0; wp < kWarps; ++wp) c += hist[wp * n_bins + i];
+      if (c) atomicAdd(reinterpret_cast<unsigned long long*>(out + i), c);
+    }
+  }
   if (threadIdx.x == 0) {
     atomicMin(out + n_bins, (long long)block_min);
     atomicMax(out + n_bins + 1, (long long)block_max);
@@ -266,24 +458,41 @@ int fb_percentile_counts(const void* vals, long long vals_stride,
                          void* out, void* stream) {
   if (S <= 0 || W <= 0 || K < 0 || K > kMaxThresholds)
     return cudaErrorInvalidValue;
-  const size_t smem = (size_t)(3 * K + 1) * sizeof(int);
+  const size_t smem = (size_t)pct_smem_words(K) * sizeof(int);
+  const int form = K == 0 ? PCT_PREP : K <= kRegK ? PCT_REGS : PCT_WIDE;
+  const void* fn = form == PCT_PREP   ? (const void*)percentile_counts_kernel<PCT_PREP>
+                   : form == PCT_REGS ? (const void*)percentile_counts_kernel<PCT_REGS>
+                                      : (const void*)percentile_counts_kernel<PCT_WIDE>;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, percentile_counts_kernel, kThreads, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads,
+                                                        smem);
   if (err != cudaSuccess) return (int)err;
   const long long chunks = (long long)S * ((W + 31) / 32);
   long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long needed = grid_for(chunks);
   if (blocks > needed) blocks = needed;
-  percentile_counts_kernel<<<(unsigned)blocks, kThreads, smem,
-                             (cudaStream_t)stream>>>(
-      (const int32_t*)vals, vals_stride, (const uint32_t*)exists, exists_stride,
-      (const uint32_t*)filt, filt_stride, S, W, base,
-      (const int32_t*)thresholds, K, (long long*)out);
+  cudaStream_t st = (cudaStream_t)stream;
+  const int32_t* v = (const int32_t*)vals;
+  const uint32_t* ex = (const uint32_t*)exists;
+  const uint32_t* fw = (const uint32_t*)filt;
+  const int32_t* th = (const int32_t*)thresholds;
+  long long* o = (long long*)out;
+  if (form == PCT_PREP)
+    percentile_counts_kernel<PCT_PREP><<<(unsigned)blocks, kThreads, smem, st>>>(
+        v, vals_stride, ex, exists_stride, fw, filt_stride, S, W, base, th, K, o);
+  else if (form == PCT_REGS)
+    percentile_counts_kernel<PCT_REGS><<<(unsigned)blocks, kThreads, smem, st>>>(
+        v, vals_stride, ex, exists_stride, fw, filt_stride, S, W, base, th, K, o);
+  else
+    percentile_counts_kernel<PCT_WIDE><<<(unsigned)blocks, kThreads, smem, st>>>(
+        v, vals_stride, ex, exists_stride, fw, filt_stride, S, W, base, th, K, o);
   return (int)cudaGetLastError();
 }
 

@@ -703,19 +703,41 @@ class Executor:
             for si, shard in enumerate(missing):
                 add_shard(shard, row_ids, pc[si])
             return
-        for shard in missing:
-            srows = sorted({int(r) for fr in frags_of(shard)
-                            for r in fr.row_ids()})
-            if not srows:
-                continue
-            tile = pe.stacked_field_rows(index, f.name, names, tuple(srows),
-                                         [shard])[0]
-            if filt_call is not None:
-                fw = self._bitmap_call_shard(index, filt_call, shard)
-                pc1 = bw.count_and_rows(tile, fw)
-            else:
-                pc1 = bw.popcount_rows(tile)
-            add_shard(shard, srows, pc1.cpu().numpy())
+        # per shard: kernel B over every shard of each residency batch in one
+        # launch, each reading its fragment's mirror in place (a fresh tile
+        # of the union where the call spans several views), under the
+        # interpreter's words of each shard
+        dev = self.device
+        parts = []
+        for batch in self._residency_batches(
+                missing, [f.view(vn) for vn in names]):
+            live, tiles, slots, fws = [], [], [], []
+            for shard in batch:
+                frs = frags_of(shard)
+                srows = sorted({int(r) for fr in frs for r in fr.row_ids()})
+                if not srows:
+                    continue
+                if len(frs) == 1:
+                    tile, sl = frs[0].device_slots(row_ids, dev)
+                else:
+                    tile = pe.stacked_field_rows(index, f.name, names,
+                                                 tuple(srows), [shard])[0]
+                    at = {r: i for i, r in enumerate(srows)}
+                    sl = np.array([at.get(r, -1) for r in row_ids],
+                                  dtype=np.int64)
+                live.append(shard)
+                tiles.append(tile)
+                slots.append(sl)
+                if filt_call is not None:
+                    fws.append(self._bitmap_call_shard(index, filt_call,
+                                                       shard))
+            if live:
+                parts.append((live, ck.row_counts_sharded(
+                    tiles, np.stack(slots),
+                    fws if filt_call is not None else None)))
+        for (live, _), pc in zip(parts, _fetch([p for _, p in parts])):
+            for si, shard in enumerate(live):
+                add_shard(shard, row_ids, pc[si])
 
     # ----------------------------------------------------- Sum / Min / Max
 
@@ -815,25 +837,36 @@ class Executor:
                              shards: Optional[List[int]], is_min: bool
                              ) -> PairField:
         """MinRow/MaxRow (reference executor.go:1604,1643; JAX
-        executor.py:1238): per shard, the row counts of the fragment's
-        device tile with kernel B, unfiltered; the smallest (largest) row
-        with a set bit.  Ties across shards add counts.  The counts of
-        every shard are fetched once, after the loop."""
+        executor.py:1238): the row counts of every shard's device mirror of
+        the field, unfiltered, with one kernel-B launch per residency batch
+        (_residency_batches) and one fetch; per shard the smallest
+        (largest) row with a set bit.  Ties across shards add counts."""
         fld = call.args.get("_field") or call.args.get("field")
         f = self._field_or_err(index, fld)
         v = f.view(VIEW_STANDARD)
-        per_shard = []
-        for shard in self._shards(index, shards):
-            frag = v.fragment(shard) if v else None
-            if frag is None or frag.num_rows == 0:
-                continue
-            tile = frag.device_tile(self.device)
-            slot_rows = frag.slot_rows()[: tile.shape[0]]
-            per_shard.append((slot_rows, ck.row_counts(tile[None])[0]))
-        counts = _fetch([c for _, c in per_shard])
+        shard_rows, launches = [], []
+        batches = self._residency_batches(self._shards(index, shards), [v]) \
+            if v is not None else []
+        for batch in batches:
+            tiles = []
+            for shard in batch:
+                frag = v.fragment(shard)
+                if frag is None or frag.num_rows == 0:
+                    continue
+                tile = frag.device_tile(self.device)
+                tiles.append(tile)
+                shard_rows.append(frag.slot_rows()[: tile.shape[0]])
+            if tiles:
+                n = [t.shape[0] for t in tiles]
+                slots = np.where(np.arange(max(n))[None, :]
+                                 < np.array(n)[:, None],
+                                 np.arange(max(n))[None, :], -1)
+                launches.append(ck.row_counts_sharded(tiles, slots))
+        counts = [row for c in _fetch(launches) for row in c]
         best_row, best_count = None, 0
-        for (slot_rows, _), cnt in zip(per_shard, counts):
+        for slot_rows, cnt in zip(shard_rows, counts):
             rows = np.array(slot_rows, dtype=np.int64)
+            cnt = cnt[: rows.size]
             nz = cnt > 0
             if not nz.any():
                 continue
@@ -962,9 +995,11 @@ class Executor:
                                          dim_rows_global, filt_call,
                                          agg_kind, agg_field, groups)):
             pending: list = []
-            for shard in shard_list:
+            level0 = self._group_level0(index, shard_list, rows_calls,
+                                        dim_rows_global, filt_call)
+            for shard, (counts0, fw) in level0.items():
                 self._group_by_shard_device(index, shard, rows_calls,
-                                            dim_rows_global, filt_call,
+                                            dim_rows_global, counts0, fw,
                                             agg_kind, agg_field, pending)
             self._add_pending(pending, groups)
 
@@ -1204,14 +1239,57 @@ class Executor:
         return ck.pair_counts_sharded(mt, ms, rt, rs, filt,
                                       mid[0] if mid else None)
 
+    def _group_level0(self, index: Index, shard_list: List[int], rows_calls,
+                      dim_rows_global, filt_call) -> Dict[int, tuple]:
+        """Level 0 of the per-shard GroupBy for every shard at once: the
+        first dimension's rows [& the filter] of each shard that holds a row
+        of every dimension, counted by one kernel-B launch per residency
+        batch over the fragments' mirrors and fetched once.  The filter is
+        _mesh_filter's words, or each shard's interpreter words when the
+        plan compiler refuses it.  Returns {shard: (counts over
+        dim_rows_global[0], the shard's filter words or None)} for the
+        shards with a nonzero count, in shard order."""
+        dev = self.device
+        views = [self._field_or_err(
+            index, rc.args.get("_field") or rc.args.get("field")).view(
+                VIEW_STANDARD) for rc in rows_calls]
+        live = [s for s in shard_list if all(
+            v is not None and (fr := v.fragment(s)) is not None
+            and any(fr.has_row(r) for r in grows)
+            for v, grows in zip(views, dim_rows_global))]
+        parts = []
+        for batch in self._residency_batches(live, views[:1]):
+            tiles, slots = [], []
+            for s in batch:
+                tile, sl = views[0].fragment(s).device_slots(
+                    dim_rows_global[0], dev)
+                tiles.append(tile)
+                slots.append(sl)
+            fws = None
+            if isinstance(filt_call, Call):
+                filt = self._mesh_filter(index, filt_call, batch)
+                fws = list(filt) if filt is not None else [
+                    self._bitmap_call_shard(index, filt_call, s)
+                    for s in batch]
+            parts.append((batch, fws, ck.row_counts_sharded(
+                tiles, np.stack(slots), fws)))
+        out: Dict[int, tuple] = {}
+        for (batch, fws, _), counts in zip(
+                parts, _fetch([c for _, _, c in parts])):
+            for i, s in enumerate(batch):
+                if counts[i].any():
+                    out[s] = (counts[i], None if fws is None else fws[i])
+        return out
+
     def _group_by_shard_device(self, index: Index, shard: int, rows_calls,
-                               dim_rows_global, filt_call, agg_kind,
-                               agg_field, pending: list) -> None:
+                               dim_rows_global, counts0: np.ndarray, fw,
+                               agg_kind, agg_field, pending: list) -> None:
         """One shard's cross product by level-wise pruning (JAX
-        executor.py:1923; reference groupByIterator executor.go:8617,8651):
-        each level's (F, R) counts (kernel E) are fetched to keep the
-        nonzero combinations, and one gather builds their masks.  Small
-        cross products never come here: _group_by_stacked or
+        executor.py:1923; reference groupByIterator executor.go:8617,8651),
+        from its level-0 counts (_group_level0; fw its filter words or
+        None): each later level's (F, R) counts (kernel E) are fetched to
+        keep the nonzero combinations, and one gather builds their masks.
+        Small cross products never come here: _group_by_stacked or
         _group_by_launch take them over every shard at once.  Appends
         (keys, kind, counts or sums) to `pending`; sums stay on the
         device."""
@@ -1220,29 +1298,19 @@ class Executor:
         dim_rows: List[List[int]] = []
         for rc, grows in zip(rows_calls, dim_rows_global):
             fname = rc.args.get("_field") or rc.args.get("field")
-            v = self._field_or_err(index, fname).view(VIEW_STANDARD)
-            frag = v.fragment(shard) if v else None
-            if frag is None:
-                return
-            rows = [r for r in grows if frag.has_row(r)]
-            if not rows:
-                return
+            frag = self._field_or_err(index, fname).view(
+                VIEW_STANDARD).fragment(shard)
+            if not dim_tiles:   # level 0: the rows with a nonzero count
+                rows = [grows[i] for i in np.nonzero(counts0)[0]]
+            else:
+                rows = [r for r in grows if frag.has_row(r)]
             dim_tiles.append(frag.device_rows(rows, dev)[0])
             dim_rows.append(rows)
-
-        # level 0: the first dimension's rows under the filter
         masks = dim_tiles[0]
-        if isinstance(filt_call, Call):
-            masks = masks & self._bitmap_call_shard(index, filt_call,
-                                                    shard)[None, :]
-        counts = bw.popcount_rows(masks).cpu().numpy()
-        keep = np.nonzero(counts)[0]
-        if keep.size == 0:
-            return
-        prefixes: List[tuple] = [(dim_rows[0][i],) for i in keep]
-        if keep.size < masks.shape[0]:
-            masks = masks.index_select(0, torch.as_tensor(keep, device=dev))
-        counts = counts[keep]
+        if fw is not None:
+            masks = masks & fw[None, :]
+        prefixes: List[tuple] = [(r,) for r in dim_rows[0]]
+        counts = counts0[counts0 != 0]
         for lvl in range(1, len(dim_tiles)):
             tile = dim_tiles[lvl]
             pc = bw.count_and_pairs(masks, tile).cpu().numpy()  # (F, R)
@@ -1405,23 +1473,30 @@ class Executor:
                 pc = bw.stacked_filtered_row_counts(tiles, filt)
                 return Row.from_columns(
                     [r for r, c in zip(row_ids, pc.cpu().numpy()) if c])
-        per_shard = []
-        for shard in shard_list:
-            frag = v.fragment(shard) if v else None
-            if frag is None:
+        # per shard: kernel B over every shard of each residency batch in one
+        # launch, the mirrors read in place, under the interpreter's words
+        # of each shard
+        row_ids = sorted({int(r) for s in shard_list if v is not None
+                          and (fr := v.fragment(s)) is not None
+                          for r in fr.row_ids()})
+        parts = []
+        for batch in self._residency_batches(shard_list, [v]) if row_ids \
+                else []:
+            frags = [v.fragment(s) for s in batch]
+            live = [s for s, fr in zip(batch, frags)
+                    if fr is not None and fr.num_rows]
+            if not live:
                 continue
-            rows = [int(r) for r in frag.row_ids()]
-            if not rows:
-                continue
-            tile, _ = frag.device_rows(rows, self.device)
-            pc = bw.popcount_rows(tile) if filt_call is None else \
-                bw.count_and_rows(tile, self._bitmap_call_shard(
-                    index, filt_call, shard))
-            per_shard.append((rows, pc))
-        out = set()
-        for (rows, _), pc in zip(per_shard, _fetch([p for _, p in per_shard])):
-            out.update(r for r, c in zip(rows, pc) if c > 0)
-        return Row.from_columns(sorted(out))
+            tiles, slots = zip(*(v.fragment(s).device_slots(
+                row_ids, self.device) for s in live))
+            fws = None if filt_call is None else [
+                self._bitmap_call_shard(index, filt_call, s) for s in live]
+            parts.append(ck.row_counts_sharded(list(tiles), np.stack(slots),
+                                               fws))
+        seen = np.zeros(len(row_ids), dtype=bool)
+        for pc in _fetch(parts):
+            seen |= (pc > 0).any(0)
+        return Row.from_columns([r for r, hit in zip(row_ids, seen) if hit])
 
     # ------------------------------------------ IncludesColumn / FieldValue
 

@@ -13,11 +13,14 @@ ops/build.py and loaded with ctypes):
   renumbers registers to the fewest, and the kernel picks its smallest
   register file that holds them.  Bound: bytes — TMA stages each plane of
   a tile once, and count mode writes nothing but S counts.
-- ``row_counts`` (kernel B) gives per-row popcounts of an (S, R, W) tile,
-  optionally ANDed with an (S, W) filter.  It replaces
+- ``row_counts`` (kernel B') gives per-row popcounts of S x R rows,
+  optionally ANDed with a filter row a shard.  It replaces
   ``count_and_rows_pallas`` (:172-195) and ``popcount_rows_pallas``
-  (:203-222).  Bound: bytes — the tile is read once, the filter once per
-  row (mostly from L2).
+  (:203-222).  Rows are named by a table of addresses, so
+  ``row_counts_sharded`` reads every shard's fragment mirror in place in
+  one launch, and ``row_counts`` takes a stacked (S, R, W) tile as the
+  table of its rows.  Bound: bytes — every row and filter word is read
+  once (the header note of the source).
 
 Two more kernels (csrc/bsi_kernels.cu) have no Pallas original: they are
 the counterparts of XLA programs of featurebase_tpu/ops/bsi.py, whose work
@@ -427,8 +430,12 @@ def _lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
         lib.fb_plan_eval.restype = i32
         lib.fb_plan_eval_config.argtypes = [ctypes.POINTER(i32)] * 2
         lib.fb_plan_eval_config.restype = i32
-        lib.fb_row_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
+        lib.fb_row_counts.argtypes = [vp, vp, ctypes.POINTER(i64), i32, i32,
+                                      i32, i64, i32, vp, vp, vp, vp]
         lib.fb_row_counts.restype = i32
+        lib.fb_row_counts_plan.argtypes = [i32, i32, i64, i32] + \
+            [ctypes.POINTER(i32)] * 3
+        lib.fb_row_counts_plan.restype = i32
         lib.fb_limits.argtypes = [ctypes.POINTER(i32)] * 5
         lib.fb_limits.restype = i32
         lim = [i32() for _ in range(5)]
@@ -457,9 +464,9 @@ def _is_cpu(tensors: Sequence[torch.Tensor]) -> bool:
     return False
 
 
-# plan_eval's completion ticket per (device, stream): zero between launches,
-# since the last block of each launch resets it; launches on one stream run
-# in order, so they never share it at once.
+# plan_eval's and row_counts' completion ticket per (device, stream): zero
+# between launches, since the last block of each launch resets it; launches
+# on one stream run in order, so they never share it at once.
 _tickets: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -538,9 +545,74 @@ def plan_eval(prog: Program, want_words: bool = True,
 plan_eval.launches = 0
 
 
+# row_counts' accumulator per (device, stream): a count a row, zero between
+# launches, since the last block of each launch copies its sums out and
+# zeroes them (it grows, zeroed, when a launch needs more rows).
+_row_accs: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _row_acc(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _row_accs.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = _row_accs[(dev.index, stream)] = torch.zeros(
+            max(n, 4096), dtype=torch.int32, device=dev)
+    return t
+
+
+def _row_launch(addrs: Optional[np.ndarray], faddrs: Optional[np.ndarray],
+                W: int, dev: torch.device, S: int, R: int,
+                affine: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """One launch of kernel B' over S x R rows: an (S, R) uint64 table of
+    row addresses (0: an absent row) [and (S,) filter addresses, 0: a shard
+    without a filter row], or for a stacked tile `affine` = (base, shard
+    step, row step, filter base or 0, filter step) in bytes -> (S, R)
+    int64.  The caller holds the tensors the addresses point into until
+    this returns, when the launch is enqueued."""
+    if S == 0 or R == 0 or W == 0:
+        return torch.zeros((S, R), dtype=torch.int64, device=dev)
+    filtered = faddrs is not None if affine is None else affine[3] != 0
+    if affine is None:
+        parts = [addrs.reshape(-1)] + ([] if faddrs is None
+                                       else [faddrs.reshape(-1)])
+        table = np.ascontiguousarray(np.concatenate(parts), dtype=np.uint64)
+        aligned = not (table % np.uint64(16)).any()
+    else:
+        table = None
+        aligned = not any(int(x) % 16 for x in affine)
+    vec = 4 if W % 4 == 0 and aligned else 1
+    lib = _lib()
+    chunk, summed, inline = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    out = torch.empty((S, R), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        _check(lib.fb_row_counts_plan(S, R, W, vec, ctypes.byref(chunk),
+                                      ctypes.byref(summed),
+                                      ctypes.byref(inline)), "row_counts")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        acc = ticket = dev_table = None
+        if summed.value:
+            acc = _row_acc(dev, stream, S * R)
+            ticket = _ticket(dev, stream)
+        if table is not None and table.size > inline.value:
+            dev_table = torch.from_numpy(table.view(np.int64)).pin_memory() \
+                .to(dev, non_blocking=True)
+        rc = lib.fb_row_counts(
+            table.ctypes.data if table is not None and dev_table is None
+            else None,
+            dev_table.data_ptr() if dev_table is not None else None,
+            (ctypes.c_longlong * 5)(*affine) if affine is not None else None,
+            S, R, int(filtered), W, vec, out.data_ptr(),
+            acc.data_ptr() if acc is not None else None,
+            ticket.data_ptr() if ticket is not None else None, stream)
+    _check(rc, "row_counts")
+    row_counts.launches += 1
+    return out
+
+
 def row_counts(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
-    """(S, R, W) int32 tile [& (S, W) int32 filter] -> (S, R) int64."""
+    """(S, R, W) int32 tile [& (S, W) int32 filter] -> (S, R) int64: kernel
+    B' with the tile's rows as an affine table, its base and strides (views
+    with a unit word stride are taken as they are)."""
     if tile.dtype != torch.int32 or tile.dim() != 3:
         raise ValueError(f"tile must be (S, R, W) int32, got "
                          f"{tuple(tile.shape)} {tile.dtype}")
@@ -551,23 +623,62 @@ def row_counts(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
                          f"{tuple(filt.shape)} {filt.dtype}")
     if _is_cpu([tile] if filt is None else [tile, filt]):
         return row_counts_plain(tile, filt)
-    if not tile.is_contiguous() or (filt is not None
-                                    and not filt.is_contiguous()):
-        raise ValueError("row_counts needs contiguous tile and filter")
-    out = torch.empty((S, R), dtype=torch.int64, device=tile.device)
-    if S == 0 or R == 0:
-        return out
-    with torch.cuda.device(tile.device):
-        stream = torch.cuda.current_stream(tile.device).cuda_stream
-        rc = _lib().fb_row_counts(
-            tile.data_ptr(), filt.data_ptr() if filt is not None else None,
-            S, R, W, out.data_ptr(), stream)
-    _check(rc, "row_counts")
-    row_counts.launches += 1
-    return out
+    if tile.stride(2) != 1 or (filt is not None and filt.stride(1) != 1):
+        raise ValueError("row_counts needs a unit word stride")
+    affine = (tile.data_ptr(), tile.stride(0) * 4, tile.stride(1) * 4,
+              0 if filt is None else filt.data_ptr(),
+              0 if filt is None else filt.stride(0) * 4)
+    return _row_launch(None, None, W, tile.device, S, R, affine)
 
 
 row_counts.launches = 0
+
+
+def row_counts_sharded(tiles, slots, filt=None) -> torch.Tensor:
+    """Kernel B' over every shard in one launch, the rows read in place:
+    tiles a list of per-shard (n_s, W) int32 tiles (a fragment's device
+    mirror, or None for a shard without one), slots (S, R) int64 the slot of
+    each row in its shard's tile (-1 absent), filt None, (S, W) words or
+    per-shard (W,) words (None for a shard without a filter row) -> (S, R)
+    int64, entry (s, r) the set bits of row r of shard s [& its filter]; 0
+    for an absent row, and for every row of a shard whose filter row is
+    None.  Counts as a row_counts launch."""
+    S = len(tiles)
+    sl = _slot_table(slots, S, "row")
+    tensors = [t for t in tiles if t is not None]
+    if filt is not None:
+        tensors += [filt] if isinstance(filt, torch.Tensor) else \
+            [f for f in filt if f is not None]
+    if _all_cpu(tensors):
+        return row_counts_sharded_plain(tiles, slots, filt)
+    if all(t is None for t in tiles):
+        return torch.zeros(sl.shape, dtype=torch.int64,
+                           device=tensors[0].device)
+    W = _words_per_row([t for t in tiles if t is not None]
+                       + ([filt] if isinstance(filt, torch.Tensor) else []))
+    dev = tensors[0].device
+    return _row_launch(_dim_addrs(tiles, sl, W, "rows"),
+                       None if filt is None
+                       else _filter_addrs(filt, S, W)[:, 0], W, dev, S,
+                       sl.shape[1])
+
+
+def row_counts_sharded_plain(tiles, slots, filt=None) -> torch.Tensor:
+    """row_counts_sharded shard by shard with torch ops."""
+    S = len(tiles)
+    sl = _slot_table(slots, S, "row")
+    present = [t for t in tiles if t is not None]
+    dev = _device_of(present)
+    out = torch.zeros((S, sl.shape[1]), dtype=torch.int64, device=dev)
+    if not present:
+        return out
+    W = _words_per_row(present)
+    for s in range(S):
+        rows = _gather_rows(tiles[s], sl[s], W, dev)
+        f = _filter_row(filt, s, W, dev)
+        out[s] = row_counts_plain(rows[None], None if f is None
+                                  else f[None])[0]
+    return out
 
 
 def _bsi_lib() -> ctypes.CDLL:

@@ -1,0 +1,161 @@
+"""Kernels B and I of an earlier commit beside this tree's B' and I', on one
+card, in turns (parent, change, change, parent).
+
+    python3 -m featurebase_tpu_torch.tools.compare_parent PARENT [--reps 10]
+
+PARENT is the root of an unpacked earlier commit of this repository (for
+example ``git archive <rev> | tar -x -C _scratch/parent``), whose
+``featurebase_tpu_torch/csrc/bitmap_kernels.cu`` and ``decode_kernels.cu``
+hold the first kernel B (a block per (shard, row) of a stacked tile,
+``fb_row_counts(tile, filt, S, R, W, out, stream)``) and kernel I (the same
+C interface as I').  Both are built with this tree's nvcc flags into
+``featurebase_tpu_torch/build/``.  Each shape's device time (torch.profiler,
+L2 flushed before each call) and event time (CUDA events, chip_smoke.py's
+Timer) is printed as one JSON line, and the card's name and power limit on
+the line before the last.  B's shapes: a stacked (128, 8, 32768) tile with
+and without a filter, one shard of it, and 128 one-shard mirrors (the
+earlier kernel launched once a shard there, B' once).  I's: the prep pass
+and rounds of 2 (the min and the max), 4, 129 (a bisection round's pivots)
+and 512 thresholds over 128 shards of values.  Every result is held
+against the plain version, exactly.  Exits nonzero without CUDA.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import torch
+
+
+def build_parent(parent: str, source: str) -> ctypes.CDLL:
+    """The parent's csrc/`source` built into this tree's build directory."""
+    from featurebase_tpu_torch.ops import build
+    src = os.path.join(parent, "featurebase_tpu_torch", "csrc", source)
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(build.BUILD_DIR,
+                       f"libparent_{os.path.splitext(source)[0]}.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", out, src],
+                   check=True, capture_output=True, text=True)
+    return ctypes.CDLL(out)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_parent: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as c
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import decode
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    old_b = build_parent(args.parent, ck.SOURCE)
+    old_b.fb_row_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
+    old_b.fb_row_counts.restype = i32
+    old_i = build_parent(args.parent, ck.DECODE_SOURCE)
+    old_i.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64, i32,
+                                           i64, i32, vp, i32, vp, vp]
+    old_i.fb_percentile_counts.restype = i32
+    old_i._fb_typed = True
+
+    def old_row_counts(tile, filt=None):
+        S, R, W = tile.shape
+        out = torch.empty((S, R), dtype=torch.int64, device="cuda")
+        rc = old_b.fb_row_counts(
+            tile.data_ptr(), None if filt is None else filt.data_ptr(), S, R,
+            W, out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent row_counts: CUDA error {rc}")
+        return out
+
+    rng = np.random.default_rng(43)
+    timer = c.Timer(args.reps)
+    S, R, W = 128, 8, 32768
+    tile = c.rand_words(rng, (S, R, W))
+    filt = c.rand_words(rng, (S, W))
+    one = tile[:1].contiguous()
+    mirrors = [t.clone() for t in tile]
+    slots = np.tile(np.arange(R), (S, 1))
+    b_cases = {
+        "row_counts/s128_filtered": (
+            lambda: old_row_counts(tile, filt),
+            lambda: ck.row_counts(tile, filt),
+            lambda: ck.row_counts_plain(tile, filt),
+            (S * R * W + S * W) * 4 + S * R * 8),
+        "row_counts/s128_unfiltered": (
+            lambda: old_row_counts(tile), lambda: ck.row_counts(tile),
+            lambda: ck.row_counts_plain(tile), S * R * W * 4 + S * R * 8),
+        "row_counts/s1_r8": (
+            lambda: old_row_counts(one), lambda: ck.row_counts(one),
+            lambda: ck.row_counts_plain(one), R * W * 4 + R * 8),
+        "row_counts/mirrors_s128_r8": (
+            lambda: torch.cat([old_row_counts(m[None]) for m in mirrors]),
+            lambda: ck.row_counts_sharded(mirrors, slots),
+            lambda: ck.row_counts_plain(tile), S * R * W * 4 + S * R * 8),
+    }
+    # launches a call: the parent launched once a mirror
+    calls = {("row_counts/mirrors_s128_r8", "parent"): S}
+    vals = torch.from_numpy(rng.integers(-1000, 10000, (S, 32 * W),
+                                         dtype=np.int32)).cuda()
+    exists = c.rand_words(rng, (S, W))
+    ones = torch.full((S, W), -1, dtype=torch.int32, device="cuda")
+    x = vals[decode.expand_bits(exists).bool()]
+    mn, mx = int(x.min()), int(x.max())
+    del x
+    lo, hi = -(1 << 14), 1 << 14
+    lists = {"prep": [], "k2": [mn, mx],
+             "k4": sorted(rng.integers(mn, mx, 4).tolist()),
+             "round_129": sorted({lo, hi, *decode.pivot_tree(
+                 lo, hi, decode.PERCENTILE_LEVELS)}),
+             "k512": sorted(rng.integers(mn, mx, 512).tolist())}
+    real = ck._decode_lib
+
+    def pct(lib, t):
+        def run():
+            ck._decode_lib = lambda: lib
+            try:
+                return ck.percentile_counts(vals, exists, ones, 0, t)
+            finally:
+                ck._decode_lib = real
+        return run
+    new_i = real()
+    i_cases = {f"percentile_counts/s128_{n}": (
+        pct(old_i, t), pct(new_i, t),
+        lambda t=t: decode.percentile_counts_plain(vals, exists, ones, 0, t),
+        S * 32 * W * 4 + 2 * S * W * 4 + (2 * len(t) + 3) * 8 + len(t) * 4)
+        for n, t in lists.items()}
+    for name, (old, new, plain, nbytes) in {**b_cases, **i_cases}.items():
+        want = plain()
+        for what, fn in (("parent", old), ("change", new)):
+            got = fn()
+            if not torch.equal(got.cpu(), want.cpu()):
+                raise AssertionError(f"{name}: {what} disagrees with the "
+                                     "plain version")
+        times = {}
+        for what, fn in (("parent", old), ("change", new), ("change", new),
+                         ("parent", old)):
+            dev = c.kernel_device_ms(fn, args.reps)
+            kernel = [k for k in dev if k.startswith(("row_counts",
+                                                      "percentile"))]
+            times.setdefault(what, []).append(dict(
+                ms=timer(fn), device_ms=calls.get((name, what), 1)
+                * sum(dev[k] for k in kernel)))
+        print(json.dumps({"shape": name, "bytes": nbytes,
+                          "bound_ms": nbytes / c.HBM_BYTES_PER_S * 1e3,
+                          **times}), flush=True)
+    print(c.card_line())
+    print(json.dumps({"ok": True}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
