@@ -24,13 +24,17 @@ Phases, one status line each; any failure raises and exits nonzero:
      (row_counts) over stacked tiles at S and 1, and over address tables
      of per-shard tiles (row_table_parity): slot -1, shards without a tile,
      filter words, filter rows with a shard's missing, no filter, W = 32768,
-     1001 and 37, S = 1, 5, 32 and 128, and 150 rows.  Kernels C and D
-     (bsi_sum_planes, bsi_min_max) on random groups at the slice's shape
-     and on encoded values at depths 1, 14, 31, 32 and 63: ties across
-     shards, sign-set zeros, all-negative groups, empty and all-ones
-     filters, an odd W and S = 131 and 7.  Kernels E and F (pair_counts,
-     bsi_sum_groups; `group_parity`; the product on the tensor cores'
-     1-bit form): over stacked operands, E
+     1001 and 37, S = 1, 5, 32 and 128, and 150 rows.  Kernels C' and D'
+     (bsi_sum_planes, bsi_min_max; D' as a Min and as a Max) on random
+     groups at the slice's shape and on encoded values at depths 1, 14, 31,
+     32 and 63: ties across shards, sign-set zeros, all-negative groups,
+     empty and all-ones filters, an odd W and S = 131 and 7; stacked,
+     through strided views (the affine table, 16- and 4-byte forms), and
+     over address tables of per-shard mirrors (bsi_sharded_cases: planes
+     out of order, absent planes, a shard without data, None filter rows,
+     S = 1 at depths 1-63, 2 at depth 43, 7 at W = 1001, 128 and 131).
+     Kernels E and F (pair_counts, bsi_sum_groups; `group_parity`; the
+     product on the tensor cores' 1-bit form): over stacked operands, E
      at S = 1, 32 and 128 with F and R each 1, 8 and 33, with and without
      a filter, F at depths 1, 14, 31, 32 and 63 with G = 1, 8, 32 and 33
      at S = 1 and 32, both at an odd W, on all-ones words, empty masks and
@@ -45,8 +49,10 @@ Phases, one status line each; any failure raises and exits nonzero:
      --reps; and each CUDA kernel's own device time from torch.profiler)
      beside the bound (bytes at 3.35 TB/s or, for E and F, bit products at
      the tensor cores' measured rate when that is longer), the measured
-     device-to-device copy ceiling and the plain version's time (kernels C
-     and D at depth 14, 128 shards and one shard; B' stacked at S = 128 filtered and
+     device-to-device copy ceiling and the plain version's time (kernels C'
+     and D' at depth 14, 128 shards and one shard, at depth 43 over two
+     shards, and in one launch over 128 shards' mirrors beside the 128
+     one-shard launches it replaces; B' stacked at S = 128 filtered and
      not, at S = 1, and in one launch over 128 shards' mirrors beside the
      128 one-shard launches it replaces; E and F at the main path's
      one-launch shapes over 128 shards, beside 128 launches of one shard
@@ -59,7 +65,7 @@ Phases, one status line each; any failure raises and exits nonzero:
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
      program; B' built with its rows staged by TMA bulk copies beside the
-     default's direct loads (row_ablation), and I' built with its search a
+     default's direct loads (row_ablation), I' built with its search a
      lift over every threshold beside the default's bucket table
      (pct_ablation);
   5. the slice: a --shards table (625,000 records per shard; set fields f
@@ -71,8 +77,10 @@ Phases, one status line each; any failure raises and exits nonzero:
      Executor(holder) on cuda, every answer equal
      to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)), TopN(f, n=5), Sum(field=v),
-     Min(field=v), Max(Row(g=2), field=v) and the two per-shard GroupBys
-     (count, and Sum of v); every kernel's launch counter must rise, by
+     Min(field=v), Max(Row(g=2), field=v), Min and Max under the
+     unplannable Union(Row(g=1), Row(f=null)) (one sharded D' launch each)
+     and the two per-shard GroupBys (count, and Sum of v); every kernel's
+     launch counter must rise, by
      pass_launches() a pass of the full mix;
      TopN's per-shard branch must give the stacked answers; p50 latency per
      query; then a pass under torch.profiler, each query labelled: each
@@ -92,7 +100,7 @@ Phases, one status line each; any failure raises and exits nonzero:
      the two-stream read ceiling beside the copy ceiling; then each tuning
      kernel at its best shape timed like phase 4, at 256 MB and at the
      slice's (S, W) beside plan_eval's AND;
-  8. kernels C and D beside the two-stream read ceiling of phase 7;
+  8. kernels C' and D' beside the two-stream read ceiling of phase 7;
   9. no process started by the run is left running.
 The line before the last is a JSON summary of the kernels; the last line is
 {"ok": true, "device": {...}}.  Without CUDA it exits nonzero at once.
@@ -158,6 +166,8 @@ QUERIES = [
     "GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))",
     "Count(Union(Row(f=1), Row(f=null)))",
     "Sum(Row(f=null), field=v)",
+    "Min(Union(Row(g=1), Row(f=null)), field=v)",
+    "Max(Union(Row(g=1), Row(f=null)), field=v)",
     "Options(Limit(Row(f=3), limit=5, offset=2), shards=[0])",
     # the per-shard level-wise GroupBy loop: at the default caps for one
     # dimension under a filter the plan compiler refuses; with both GroupBy
@@ -238,10 +248,11 @@ def pass_launches(S: int, percentile_rounds: int, extract_shards: int
     times for TopN and once more for the union's, once each for MinRow and
     MaxRow (one launch over every shard's mirror), once each for Rows(f),
     Rows(g) in UnionRows and GroupBy(Rows(f)), and once for each of the
-    three per-shard GroupBys (level 0 of every shard); kernel C twice
-    and once for the union, plus once a shard under the unplannable
-    filter; kernel E once for each GroupBy of f and g (one launch over
-    every shard, or stacked), once for the stacked one of 32 shards, and
+    three per-shard GroupBys (level 0 of every shard); kernel C' twice
+    and once for the union, and once over every shard's mirror for the Sum
+    under the unplannable filter; kernel E once for each GroupBy of f and g
+    (one launch over every shard, or stacked), once for the stacked one of
+    32 shards, and
     once a shard for each per-shard GroupBy of f and g (level 1); kernel F
     once for GroupBy+Sum, once for the stacked one, and 32 times for the
     per-shard GroupBy+Sum.
@@ -251,14 +262,15 @@ def pass_launches(S: int, percentile_rounds: int, extract_shards: int
     each of the 4 groups of GroupBy's Count(Distinct), and 56 times for the
     depth-43 Percentile's host bisection (its Counts; the limits index draws
     from its own seed); kernel B once for each set-field Distinct (3 on the
-    bench index, 2 on the keyed one); kernel D for that bisection's Min
-    and Max; kernel G once for the bench index's stacked decode (cached for
+    bench index, 2 on the keyed one); kernel D' for that bisection's Min
+    and Max, besides three times for Min and Max and once each over every
+    shard's mirror for the Min and the Max under the unplannable filter; kernel G once for the bench index's stacked decode (cached for
     every later query) and once for the keyed index's; kernel G' once a
     shard that the first 1000 records of Row(f=1) reach, and once for each
     of the keyed index's 32 shards; kernel I once for each round of the
     four Percentiles (percentile_rounds, from oracle_percentile)."""
     return {"plan_eval": 109, "row_counts": 17,
-            "bsi_sum_planes": 3 + S, "bsi_min_max": 5,
+            "bsi_sum_planes": 4, "bsi_min_max": 7,
             "pair_counts": 35 + S, "bsi_sum_groups": 34,
             "bsi_decode": 2, "bsi_decode_gather": extract_shards + 32,
             "percentile_counts": percentile_rounds}
@@ -644,30 +656,62 @@ def kernel_times(timer: Timer, inputs) -> dict:
         if "Memset" in out[name]["device_ms"]:
             raise AssertionError(f"{name}: a Memset runs beside kernel B'; "
                                  "its chunks must add up without one")
-    from featurebase_tpu_torch.ops import bsi as bsiops
-    group, gfilt = inputs["bsi"]
-    gs, planes, gw = group.shape
-    read = (planes + 1) * gs * gw * 4   # the group and the filter, once
-    out["bsi_sum_planes/d14"] = measure(
-        lambda: ck.bsi_sum_planes(group, gfilt),
-        lambda: bsiops.sum_planes_plain(group, gfilt),
-        read + (2 * planes - 3) * 8)
-    out["bsi_min_max/d14"] = measure(
-        lambda: ck.bsi_min_max(group, gfilt),
-        lambda: bsiops.min_max_parts_plain(group, gfilt), read + gs * 64)
-    # one shard: the per-shard Sums and Min/Max under a filter the plan
-    # compiler refuses (a launch a shard)
-    g1, f1 = group[:1].contiguous(), gfilt[:1].contiguous()
-    out["bsi_sum_planes/s1_d14"] = measure(
-        lambda: ck.bsi_sum_planes(g1, f1),
-        lambda: bsiops.sum_planes_plain(g1, f1),
-        (planes + 1) * gw * 4 + (2 * planes - 3) * 8)
-    out["bsi_min_max/s1_d14"] = measure(
-        lambda: ck.bsi_min_max(g1, f1),
-        lambda: bsiops.min_max_parts_plain(g1, f1), (planes + 1) * gw * 4 + 64)
+    out.update(bsi_times(measure, timer, inputs["bsi"]))
     for name, r in out.items():
         say("kernel_time", kernel=name, **r)
     return out, copy_bps
+
+
+def bsi_times(measure, timer: Timer, group_filter) -> dict:
+    """Kernels C' and D' (D' as a Min) at the main path's shapes: the
+    stacked group at S = 128, D = 14; one shard (a shard's launch before
+    the per-shard Sum and Min/Max read every mirror in one); two shards at
+    depth 43 (the limits index's Percentile bisection, its Min and Max);
+    and one launch over 128 shards' mirrors, beside the 128 one-shard
+    launches it replaces."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    group, gfilt = group_filter
+    gs, planes, gw = group.shape
+    out = {}
+
+    def both(key, g, f, nbytes_c, nbytes_d):
+        out[f"bsi_sum_planes/{key}"] = measure(
+            lambda: ck.bsi_sum_planes(g, f),
+            lambda: bsiops.sum_planes_plain(g, f), nbytes_c)
+        out[f"bsi_min_max/{key}"] = measure(
+            lambda: ck.bsi_min_max(g, f, True),
+            lambda: bsiops.min_max_parts_plain(g, f, True), nbytes_d)
+
+    def nbytes(S, P, W):   # the group and the filter once; the outputs
+        read = (P + 1) * S * W * 4
+        return read + (2 * P - 3) * 8, read + S * 64
+    both("d14", group, gfilt, *nbytes(gs, planes, gw))
+    g1, f1 = group[:1].contiguous(), gfilt[:1].contiguous()
+    both("s1_d14", g1, f1, *nbytes(1, planes, gw))
+    rng = np.random.default_rng(17)
+    g43, f43 = rand_words(rng, (2, 45, gw)), rand_words(rng, (2, gw))
+    both("s2_d43", g43, f43, *nbytes(2, 45, gw))
+    mirrors = [g.clone() for g in group]
+    rows = [f.clone() for f in gfilt]
+    nc, nd = nbytes(gs, planes, gw)
+    r = out[f"bsi_sum_planes/mirrors_s{gs}_d14"] = measure(
+        lambda: ck.bsi_sum_planes_sharded(mirrors, rows),
+        lambda: ck.bsi_sum_planes_sharded_plain(mirrors, rows), nc)
+    r["one_shard_launches_ms"] = timer(
+        lambda: [ck.bsi_sum_planes(m[None], f[None])
+                 for m, f in zip(mirrors, rows)])
+    r = out[f"bsi_min_max/mirrors_s{gs}_d14"] = measure(
+        lambda: ck.bsi_min_max_sharded(mirrors, rows, True),
+        lambda: ck.bsi_min_max_sharded_plain(mirrors, rows, True), nd)
+    r["one_shard_launches_ms"] = timer(
+        lambda: [ck.bsi_min_max(m[None], f[None], True)
+                 for m, f in zip(mirrors, rows)])
+    for name, r in out.items():
+        if "Memset" in r["device_ms"]:
+            raise AssertionError(f"{name}: a Memset runs beside the kernel; "
+                                 "a call must be one device operation")
+    return out
 
 
 # Builds of kernel A for the ablation: without its copies (the program
@@ -896,22 +940,85 @@ def bsi_cases(S: int) -> dict:
     return cases
 
 
+def shard_mirrors(group: torch.Tensor, rng, absent_p: float = 0.1):
+    """Per-shard inputs of the sharded kernels C' and D' from a stacked
+    group: shard s a fragment-like tile of its planes in random row order
+    with two spare rows of random words and a slot a plane, about
+    `absent_p` of the magnitude and sign planes absent (slot -1, read as
+    zeros); shard 1 without data (None) when S > 1."""
+    S, P, W = group.shape
+    groups = []
+    for s in range(S):
+        if s == 1:
+            groups.append(None)
+            continue
+        order = torch.from_numpy(rng.permutation(P + 2)).cuda()
+        tile = rand_words(rng, (P + 2, W))
+        tile[order[:P]] = group[s]
+        slots = order[:P].cpu().numpy().astype(np.int64)
+        slots[1:][rng.random(P - 1) < absent_p] = -1
+        groups.append((tile, slots))
+    return groups
+
+
+def bsi_sharded_cases(cases: dict, rng) -> dict:
+    """The sharded forms' cases: name -> (groups, filter), the filter (S, W)
+    words or a row a shard with every fifth shard's None.  From bsi_cases:
+    S = 128 and 131 (an odd W), depths 1 to 63, sign-set zeros, ties and
+    empty filters; and S = 1 at every depth, S = 2 at depth 43 and S = 7 at
+    depth 63 with W = 1001 (the plain-staging form)."""
+    out = {}
+    for name, (group, f) in cases.items():
+        groups = shard_mirrors(group, rng)
+        rows = [None if s % 5 == 3 else f[s] for s in range(f.shape[0])]
+        out[f"mirrors_{name}"] = (groups, f if "s131" in name else rows)
+    for depth in (1, 14, 31, 32, 43, 63):
+        g, f = rand_words(rng, (1, depth + 2, 32768)), \
+            rand_words(rng, (1, 32768))
+        out[f"mirrors_s1_d{depth}"] = (shard_mirrors(g, rng), [f[0]])
+    g, f = rand_words(rng, (2, 45, 32768)), rand_words(rng, (2, 32768))
+    out["mirrors_s2_d43"] = (shard_mirrors(g, rng, 0.0), f)
+    g, f = rand_words(rng, (7, 65, 1001)), rand_words(rng, (7, 1001))
+    out["mirrors_s7_d63_w1001"] = (shard_mirrors(g, rng), f)
+    return out
+
+
 def bsi_parity(S: int):
-    """Phase 3b: kernels C and D against their plain versions on the card,
-    exactly, on every case of bsi_cases; returns the errors and the
-    slice-shaped random case for timing."""
+    """Phase 3b: kernels C' and D' against their plain versions on the
+    card, exactly: the stacked forms on every case of bsi_cases and on
+    strided views of one (the affine table at a vector and a scalar
+    shape), the sharded forms on bsi_sharded_cases; D' as a Min and as a
+    Max each time.  Returns the errors and the slice-shaped random case for
+    timing."""
     from featurebase_tpu_torch.ops import bsi as bsiops
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     cases = bsi_cases(S)
+    rng = np.random.default_rng(13)
+    wide, wf = cases["values_d14"]
+    cases["view_w32764_d14"] = (wide[:, :, 4:], wf[:, 4:])
+    cases["view_w32767_d14"] = (wide[:, :, 1:], wf[:, 1:])
     errs_c, errs_d, shapes = [], [], {}
     for name, (group, f) in cases.items():
         errs_c.append(require_equal(f"bsi_sum_planes {name}",
                                     ck.bsi_sum_planes(group, f),
                                     bsiops.sum_planes_plain(group, f)))
-        errs_d.append(require_equal(f"bsi_min_max {name}",
-                                    ck.bsi_min_max(group, f),
-                                    bsiops.min_max_parts_plain(group, f)))
+        for is_min in (True, False):
+            errs_d.append(require_equal(
+                f"bsi_min_max {name} is_min={is_min}",
+                ck.bsi_min_max(group, f, is_min),
+                bsiops.min_max_parts_plain(group, f, is_min)))
         shapes[name] = list(group.shape)
+    del cases["view_w32764_d14"], cases["view_w32767_d14"]
+    for name, (groups, f) in bsi_sharded_cases(cases, rng).items():
+        errs_c.append(require_equal(
+            f"bsi_sum_planes {name}", ck.bsi_sum_planes_sharded(groups, f),
+            ck.bsi_sum_planes_sharded_plain(groups, f)))
+        for is_min in (True, False):
+            errs_d.append(require_equal(
+                f"bsi_min_max {name} is_min={is_min}",
+                ck.bsi_min_max_sharded(groups, f, is_min),
+                ck.bsi_min_max_sharded_plain(groups, f, is_min)))
+        shapes[name] = [len(groups)]
     torch.cuda.synchronize()
     say("bsi_parity", ok=True, cases=shapes)
     timing = cases["random_d14"]
@@ -1869,7 +1976,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
             raise AssertionError(f"{q}: cuda {answers[q][1]!r:.200} != "
                                  f"cpu {want[1]!r:.200}")
     f, g, v = gen["f"], gen["g"], gen["v"]
-    at_g2 = v[g == 2]
+    at_g1, at_g2 = v[g == 1], v[g == 2]
     oracle.update({
         "Count(Intersect(Row(f=1), Row(g=2)))":
             ("value", int(((f == 1) & (g == 2)).sum())),
@@ -1879,6 +1986,10 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                       int((v == v.min()).sum()))),
         "Max(Row(g=2), field=v)": ("valcount", (
             int(at_g2.max()), int((at_g2 == at_g2.max()).sum()))),
+        "Min(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
+            int(at_g1.min()), int((at_g1 == at_g1.min()).sum()))),
+        "Max(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
+            int(at_g1.max()), int((at_g1 == at_g1.max()).sum()))),
     })
     top = np.bincount(f, minlength=8)
     order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
@@ -1969,6 +2080,8 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                  ("pair_counts",),
              "Count(Union(Row(f=1), Row(f=null)))": ("plan_eval",),
              "Sum(Row(f=null), field=v)": ("bsi_sum_planes",),
+             "Min(Union(Row(g=1), Row(f=null)), field=v)": ("bsi_min_max",),
+             "Max(Union(Row(g=1), Row(f=null)), field=v)": ("bsi_min_max",),
              "GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))":
                  ("row_counts",),
              PER_SHARD + "GroupBy(Rows(f), Rows(g))":

@@ -20,11 +20,12 @@ shard too, with one fetch after the loop.
 Kernels by family: bitmap calls, Count and every plannable filter run
 kernel A (``plan_eval``), as do the interpreter's BSI rows (at S = 1) and
 its counts; TopN, MinRow/MaxRow, Rows and one-dimension GroupBy kernel B
-(``row_counts``); Sum kernel C (``bsi_sum_planes``); Min/Max kernel D
+(``row_counts``); Sum kernel C' (``bsi_sum_planes``); Min/Max kernel D'
 (``bsi_min_max``); GroupBy's pair counts kernel E (``pair_counts``) and
 its sums kernel F (``bsi_sum_groups``) (ops/cuda_kernels.py), one launch
 over every shard (a residency batch) where the reference's per-shard loop
-would take its one-shot product.  Decoded values come from kernel G
+would take its one-shot product or run its per-shard Sum or Min/Max.
+Decoded values come from kernel G
 (``bsi_decode``: Distinct, Sort and Percentile over the cached stacked
 decode, PlanExecutor.stacked_vals, or one shard's group), Extract's from
 kernel G' (``bsi_decode_gather``, one launch a shard), and Percentile's
@@ -44,7 +45,9 @@ from typing import Any, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
+from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
+                                               BSI_SIGN_ROW, SHARD_WIDTH,
+                                               WORDS_PER_ROW)
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
 from featurebase_tpu_torch.executor.results import (ExtractedTable,
@@ -749,17 +752,30 @@ class Executor:
         filt_call = call.children[0] if call.children else None
         return f, filt_call
 
-    def _shard_groups(self, index: Index, f: Field, filt_call: Call,
-                      shards):
+    def _shard_group_batches(self, index: Index, f: Field, filt_call: Call,
+                             shards):
         """Per-shard inputs of an aggregate whose filter the plan compiler
-        refuses: (group (1, D + 2, W), filter (1, W)) of each shard with
-        data (reference: the map_shards fallbacks, executor.py:1182)."""
-        for shard in shards:
-            data = f.bsi_data(shard, self.device)
-            if data is None:
-                continue
-            fw = self._bitmap_call_shard(index, filt_call, shard)
-            yield data[0][None], fw[None].contiguous()
+        refuses, a residency batch at a time (_residency_batches): (groups,
+        filter rows) of the batch's shards with BSI data, each group its
+        fragment's device mirror and the slots of the planes exists, sign
+        and each magnitude bit (-1 absent) there, each filter row the
+        interpreter's words of the shard (reference: the map_shards
+        fallbacks, executor.py:1182)."""
+        v = f.view(view_bsi_group(f.name))
+        if v is None:
+            return
+        rows = [BSI_EXISTS_ROW, BSI_SIGN_ROW] + \
+            [BSI_OFFSET + i for i in range(max(f.bit_depth, 1))]
+        for batch in self._residency_batches(shards, [v]):
+            groups, fws = [], []
+            for shard in batch:
+                frag = v.fragment(shard)
+                if frag is None or frag.num_rows == 0:
+                    continue
+                groups.append(frag.device_slots(rows, self.device))
+                fws.append(self._bitmap_call_shard(index, filt_call, shard))
+            if groups:
+                yield groups, fws
 
     @staticmethod
     def _wrap_valcount(f: Field, val: int, count: int) -> ValCount:
@@ -774,8 +790,9 @@ class Executor:
     def _execute_sum(self, index: Index, call: Call,
                      shards: Optional[List[int]]) -> ValCount:
         """Sum (reference executor.go Sum; JAX executor.py:1158): one
-        kernel-C launch over every shard, or one a shard under a filter the
-        plan compiler refuses; finished exactly on the host."""
+        kernel-C' launch over the stacked group, or under a filter the plan
+        compiler refuses one over every shard's mirror per residency batch
+        (bsi_sum_planes_sharded); finished exactly on the host."""
         f, filt_call = self._agg_inputs(index, call)
         shard_list = self._shards(index, shards)
         if not shard_list:
@@ -786,11 +803,12 @@ class Executor:
                 index, f.name, max(f.bit_depth, 1), shard_list)
             parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
         else:
-            per_shard = [ck.bsi_sum_planes(g, fw) for g, fw in
-                         self._shard_groups(index, f, filt_call, shard_list)]
-            if not per_shard:
+            per_batch = [ck.bsi_sum_planes_sharded(g, fws) for g, fws in
+                         self._shard_group_batches(index, f, filt_call,
+                                                   shard_list)]
+            if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
-            parts = torch.stack(per_shard).sum(0).cpu().numpy()
+            parts = torch.stack(per_batch).sum(0).cpu().numpy()
         D = (parts.size - 1) // 2
         count = int(parts[2 * D])
         total = finalize_sum(parts[:D], parts[D:2 * D]) + f.base * count
@@ -799,12 +817,14 @@ class Executor:
     def _execute_min_max(self, index: Index, call: Call,
                          shards: Optional[List[int]], is_min: bool
                          ) -> ValCount:
-        """Min/Max (JAX executor.py:1199): one kernel-D launch over every
-        shard.  Up to depth 31 under a plannable filter the answer has
-        min_max_stacked's semantics; deeper, or under a filter the plan
-        compiler refuses (one launch a shard then), the reference's
-        per-shard min_host/max_host merged with ValCount.smaller/larger
-        (ops/bsi.py)."""
+        """Min/Max (JAX executor.py:1199): one kernel-D' launch over the
+        stacked group, or under a filter the plan compiler refuses one over
+        every shard's mirror per residency batch (bsi_min_max_sharded),
+        each running the two descents a Min or a Max needs.  Up to depth 31
+        under a plannable filter the answer has min_max_stacked's
+        semantics; deeper, or under a filter the plan compiler refuses, the
+        reference's per-shard min_host/max_host merged with
+        ValCount.smaller/larger (ops/bsi.py)."""
         f, filt_call = self._agg_inputs(index, call)
         shard_list = self._shards(index, shards)
         if not shard_list:
@@ -813,18 +833,19 @@ class Executor:
         if filt is not None:
             group = self.plan_executor.stacked_bsi(
                 index, f.name, max(f.bit_depth, 1), shard_list)
-            parts = ck.bsi_min_max(group, filt).cpu().numpy()
+            parts = ck.bsi_min_max(group, filt, is_min).cpu().numpy()
             if max(f.bit_depth, 1) <= 31:
                 v, c = bsiops.min_max_stacked_finish(parts, is_min)
                 if c == 0:
                     return self._wrap_valcount(f, 0, 0)
                 return self._wrap_valcount(f, v + f.base, c)
         else:
-            per_shard = [ck.bsi_min_max(g, fw) for g, fw in
-                         self._shard_groups(index, f, filt_call, shard_list)]
-            if not per_shard:
+            per_batch = [ck.bsi_min_max_sharded(g, fws, is_min) for g, fws
+                         in self._shard_group_batches(index, f, filt_call,
+                                                      shard_list)]
+            if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
-            parts = torch.cat(per_shard).cpu().numpy()
+            parts = torch.cat(per_batch).cpu().numpy()
         acc = ValCount()
         for v, c in bsiops.min_max_per_shard(parts, is_min):
             if c == 0:

@@ -10,11 +10,13 @@ values are stored relative to the field's base, as sign and magnitude.
 
 - ``sum_planes_plain``: (2D + 1,) int64, the set-bit counts of each plane
   under the positive columns, then under the negative columns, then of the
-  columns, over every shard, with e = exists & filter (kernel C's output).
+  columns, over every shard, with e = exists & filter (the output of
+  kernel C').
 - ``min_max_parts_plain``: (S, 4, 2) int64: per shard the greedy descents
   pos-min, pos-max, neg-min, neg-max, each as (magnitude, count of the
-  columns at it); a count of 0 means that side of the shard is empty
-  (kernel D's output).
+  columns at it); a Min runs the first and the last, a Max the middle two;
+  a count of 0 means that side of the shard is empty or that the descent
+  did not run (the output of kernel D').
 - ``min_max_stacked_finish`` and ``min_max_per_shard``: the reference
   executor's two semantics for Min/Max, which it picks by depth
   (executor/executor.py).
@@ -86,15 +88,18 @@ def _descend(c: torch.Tensor, group: torch.Tensor, maximize: bool
     return mag, popcount_words(c).sum(1)
 
 
-def min_max_parts_plain(group: torch.Tensor, filt: torch.Tensor
-                        ) -> torch.Tensor:
+def min_max_parts_plain(group: torch.Tensor, filt: torch.Tensor,
+                        is_min: bool) -> torch.Tensor:
     """(S, D + 2, W) group, (S, W) filter -> (S, 4, 2) int64: per shard
-    (magnitude, count) of the descents pos-min, pos-max, neg-min, neg-max."""
+    (magnitude, count) of the descents pos-min, pos-max, neg-min, neg-max.
+    A Min (is_min) runs pos-min and neg-max, a Max pos-max and neg-min; the
+    other two are (0, 0)."""
     _, pos, neg = _split(group, filt)
-    out = torch.empty((group.shape[0], 4, 2), dtype=torch.int64,
+    out = torch.zeros((group.shape[0], 4, 2), dtype=torch.int64,
                       device=group.device)
-    for k, (c, maximize) in enumerate(((pos, False), (pos, True),
-                                       (neg, False), (neg, True))):
+    runs = ((POS_MIN, pos, False), (NEG_MAX, neg, True)) if is_min else \
+        ((POS_MAX, pos, True), (NEG_MIN, neg, False))
+    for k, c, maximize in runs:
         out[:, k, 0], out[:, k, 1] = _descend(c, group, maximize)
     return out
 
@@ -132,9 +137,12 @@ def min_max_per_shard(parts: np.ndarray, is_min: bool
     (bsi.py:228-249): Min takes the shard's negatives first when it has
     any, Max its positives; a sign-set zero is not merged with the shard's
     positive zeros.  (0, 0) for a shard with no column.  Unbased."""
+    # a descent never empties its set: the count of either descent of a
+    # sign class says whether the shard has a column of it
+    kp, kn = (POS_MIN, NEG_MAX) if is_min else (POS_MAX, NEG_MIN)
     out = []
     for s in range(parts.shape[0]):
-        has_pos, has_neg = parts[s, POS_MIN, 1] > 0, parts[s, NEG_MIN, 1] > 0
+        has_pos, has_neg = parts[s, kp, 1] > 0, parts[s, kn, 1] > 0
         if is_min:
             k, sign = (NEG_MAX, -1) if has_neg else (POS_MIN, 1)
         else:

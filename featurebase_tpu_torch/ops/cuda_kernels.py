@@ -26,13 +26,16 @@ Two more kernels (csrc/bsi_kernels.cu) have no Pallas original: they are
 the counterparts of XLA programs of featurebase_tpu/ops/bsi.py, whose work
 is popcounts and bit-sliced descents that torch has no op for:
 
-- ``bsi_sum_planes`` (kernel C) replaces ``sum_planes_stacked``
-  (bsi.py:378): Sum's per-plane popcounts over a stacked BSI group under a
-  filter.
-- ``bsi_min_max`` (kernel D) replaces ``min_max_stacked`` (bsi.py:399) and
-  the per-shard descents of ``minmax_parts_kernel`` (:200-278): four greedy
-  descents per shard, without a decode.
-Their plain versions are in ops/bsi.py.  Bound: bytes — each reads the
+- ``bsi_sum_planes`` (kernel C') replaces ``sum_planes_stacked``
+  (bsi.py:378): Sum's per-plane popcounts over a BSI group under a filter.
+- ``bsi_min_max`` (kernel D') replaces ``min_max_stacked`` (bsi.py:399) and
+  the per-shard descents of ``minmax_parts_kernel`` (:200-278): per shard
+  the two greedy descents a Min or a Max needs, without a decode.
+Planes are named by a table of addresses, so ``bsi_sum_planes_sharded`` and
+``bsi_min_max_sharded`` read every shard's fragment mirror in place in one
+launch, and ``bsi_sum_planes`` and ``bsi_min_max`` take a stacked (S, D + 2,
+W) group as the table of its planes.  Their plain versions are in
+ops/bsi.py and ``*_sharded_plain`` below.  Bound: bytes — each reads the
 group and the filter once.
 
 Two more (csrc/group_kernels.cu) serve GroupBy, again for XLA programs.
@@ -682,22 +685,27 @@ def row_counts_sharded_plain(tiles, slots, filt=None) -> torch.Tensor:
 
 
 def _bsi_lib() -> ctypes.CDLL:
-    """Kernels C and D's library, built on first use."""
+    """The library of kernels C' and D', built on first use."""
     from featurebase_tpu_torch.ops import build
     from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
     lib = build.load(BSI_SOURCE)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.fb_bsi_sum_planes, lib.fb_bsi_min_max):
-            fn.argtypes = [vp, vp, i32, i32, i64, vp, vp, i64, vp, vp]
+        pi32, pi64 = ctypes.POINTER(i32), ctypes.POINTER(i64)
+        lib.fb_bsi_sum_planes.argtypes = [vp, vp, pi64, i32, i32, i64, i32,
+                                          vp, vp, i64, vp, vp]
+        lib.fb_bsi_min_max.argtypes = [vp, vp, pi64, i32, i32, i64, i32, i32,
+                                       vp, vp, i64, vp, vp]
+        lib.fb_bsi_scratch.argtypes = [i32, i32, i32, i64, i32, i32, pi64]
+        lib.fb_bsi_limits.argtypes = [pi32] * 2
+        for fn in (lib.fb_bsi_sum_planes, lib.fb_bsi_min_max,
+                   lib.fb_bsi_scratch, lib.fb_bsi_limits):
             fn.restype = i32
-        lib.fb_bsi_limits.argtypes = [ctypes.POINTER(i32)] * 2
-        lib.fb_bsi_limits.restype = i32
-        depth, tile = i32(), i32()
-        lib.fb_bsi_limits(ctypes.byref(depth), ctypes.byref(tile))
+        depth, inline = i32(), i32()
+        lib.fb_bsi_limits(ctypes.byref(depth), ctypes.byref(inline))
         if depth.value != MAX_DEPTH:
             raise RuntimeError("kernel depth limit differs from ops/bsi.py")
-        lib._fb_scalar_tile = tile.value
+        lib._fb_inline = inline.value
         lib._fb_typed = True
     return lib
 
@@ -717,62 +725,212 @@ def _bsi_inputs(group: torch.Tensor, filt: torch.Tensor) -> bool:
                          f"{tuple(filt.shape)} {filt.dtype}")
     if _is_cpu([group, filt]):
         return True
-    if not group.is_contiguous() or not filt.is_contiguous():
-        raise ValueError("the BSI kernels need a contiguous group and filter")
+    if group.stride(2) != 1 or filt.stride(1) != 1:
+        raise ValueError("the BSI kernels need a unit word stride")
     return False
 
 
-def _bsi_launch(name: str, group: torch.Tensor, filt: torch.Tensor,
-                out_shape: Tuple[int, ...], slots_per_tile: int
-                ) -> torch.Tensor:
+def _bsi_affine(group: torch.Tensor, filt: torch.Tensor) -> Tuple[int, ...]:
+    """A stacked group's table: (base, shard step, plane step, filter base,
+    filter step) in bytes."""
+    return (group.data_ptr(), group.stride(0) * 4, group.stride(1) * 4,
+            filt.data_ptr(), filt.stride(0) * 4)
+
+
+# the counters of kernel C' per (device, stream): zero between launches, since
+# the last block of each launch copies them out and zeroes them.
+_bsi_accs: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _bsi_acc(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    t = _bsi_accs.get((dev.index, stream))
+    if t is None or t.numel() < n:
+        t = _bsi_accs[(dev.index, stream)] = torch.zeros(
+            max(n, 128), dtype=torch.int64, device=dev)
+    return t
+
+
+def _bsi_launch(kernel, addrs: Optional[np.ndarray],
+                faddrs: Optional[np.ndarray], affine: Optional[Sequence[int]],
+                S: int, D: int, W: int, dev: torch.device,
+                is_min: bool = False) -> torch.Tensor:
+    """One launch of kernel C' (`kernel` bsi_sum_planes) or D'
+    (bsi_min_max) over S shards of D + 2 planes: an (S, D + 2) uint64
+    table of plane addresses and (S, 1) filter addresses (0: absent), or
+    for a stacked group `affine` (_bsi_affine) -> C' (2D + 1,) int64, D'
+    (S, 4, 2) int64.  The caller holds the tensors the addresses point into
+    until this returns, when the launch is enqueued."""
     lib = _bsi_lib()
-    S, P, W = group.shape
-    dev = group.device
-    tiles = S * -(-W // lib._fb_scalar_tile)   # the most any launch cuts
-    out = torch.empty(out_shape, dtype=torch.int64, device=dev)
-    slots = torch.empty(slots_per_tile * tiles, dtype=torch.int64,
-                        device=dev)
+    if affine is None:
+        table = np.ascontiguousarray(np.concatenate(
+            [addrs.reshape(-1), faddrs.reshape(-1)]), dtype=np.uint64)
+        aligned = not (table % np.uint64(16)).any()
+    else:
+        table = None
+        aligned = not any(int(x) % 16 for x in affine)
+    vec = 4 if W % 4 == 0 and aligned else 1
+    which = 0 if kernel is bsi_sum_planes else 1
+    n = ctypes.c_longlong()
     with torch.cuda.device(dev):
+        _check(lib.fb_bsi_scratch(which, S, D, W, vec, int(is_min),
+                                  ctypes.byref(n)), kernel.__name__)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = getattr(lib, name)(
-            group.data_ptr(), filt.data_ptr(), S, P - 2, W, out.data_ptr(),
-            slots.data_ptr(), slots.numel(), _ticket(dev, stream).data_ptr(),
-            stream)
-    _check(rc, name)
+        if which == 0:
+            out = torch.empty(2 * D + 1, dtype=torch.int64, device=dev)
+            scratch = _bsi_acc(dev, stream, n.value)
+        else:
+            out = torch.empty((S, 4, 2), dtype=torch.int64, device=dev)
+            scratch = torch.empty(n.value, dtype=torch.int64, device=dev)
+        dev_table = None
+        if table is not None and table.size > lib._fb_inline:
+            dev_table = torch.from_numpy(table.view(np.int64)).pin_memory() \
+                .to(dev, non_blocking=True)
+        args = (table.ctypes.data if table is not None and dev_table is None
+                else None,
+                dev_table.data_ptr() if dev_table is not None else None,
+                (ctypes.c_longlong * 5)(*affine) if affine is not None
+                else None, S, D, W, vec)
+        tail = (out.data_ptr(), scratch.data_ptr(), scratch.numel(),
+                _ticket(dev, stream).data_ptr(), stream)
+        rc = lib.fb_bsi_sum_planes(*args, *tail) if which == 0 else \
+            lib.fb_bsi_min_max(*args, int(is_min), *tail)
+    _check(rc, kernel.__name__)
+    kernel.launches += 1
     return out
 
 
 def bsi_sum_planes(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Kernel C: an (S, D + 2, W) int32 group under an (S, W) int32 filter
+    """Kernel C': an (S, D + 2, W) int32 group under an (S, W) int32 filter
     -> (2D + 1,) int64: each plane's set bits under the positive columns,
-    then under the negative columns, then the count of the columns."""
+    then under the negative columns, then the count of the columns.  The
+    group is an affine table (views with a unit word stride are taken as
+    they are)."""
     if _bsi_inputs(group, filt):
         from featurebase_tpu_torch.ops.bsi import sum_planes_plain
         return sum_planes_plain(group, filt)
-    D = group.shape[1] - 2
-    out = _bsi_launch("fb_bsi_sum_planes", group, filt, (2 * D + 1,),
-                      2 * D + 1)
-    bsi_sum_planes.launches += 1
-    return out
+    S, P, W = group.shape
+    return _bsi_launch(bsi_sum_planes, None, None, _bsi_affine(group, filt),
+                       S, P - 2, W, group.device)
 
 
 bsi_sum_planes.launches = 0
 
 
-def bsi_min_max(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
-    """Kernel D: an (S, D + 2, W) int32 group under an (S, W) int32 filter
+def bsi_min_max(group: torch.Tensor, filt: torch.Tensor, is_min: bool
+                ) -> torch.Tensor:
+    """Kernel D': an (S, D + 2, W) int32 group under an (S, W) int32 filter
     -> (S, 4, 2) int64: per shard the descents pos-min, pos-max, neg-min,
-    neg-max, each as (magnitude, count of the columns at it)."""
+    neg-max, each as (magnitude, count of the columns at it); a Min
+    (is_min) runs pos-min and neg-max, a Max pos-max and neg-min, and the
+    other two are (0, 0)."""
     if _bsi_inputs(group, filt):
         from featurebase_tpu_torch.ops.bsi import min_max_parts_plain
-        return min_max_parts_plain(group, filt)
-    out = _bsi_launch("fb_bsi_min_max", group, filt,
-                      (group.shape[0], 4, 2), 8)
-    bsi_min_max.launches += 1
-    return out
+        return min_max_parts_plain(group, filt, is_min)
+    S, P, W = group.shape
+    return _bsi_launch(bsi_min_max, None, None, _bsi_affine(group, filt), S,
+                       P - 2, W, group.device, is_min)
 
 
 bsi_min_max.launches = 0
+
+
+def _bsi_group_inputs(groups, filt):
+    """Check per-shard BSI groups and their filter -> (tiles, (S, D + 2)
+    slots, D, W, every tensor).  A group is None (a shard without data), a
+    (D + 2, W) tensor, or a (tile, slots) pair: the slot of each plane in a
+    fragment's device mirror, -1 for an absent plane."""
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    tiles, slots = [], []
+    for g in groups:
+        if g is None:
+            tiles.append(None)
+            slots.append(None)
+        elif isinstance(g, torch.Tensor):
+            _words(g, "BSI group", 2)
+            tiles.append(g)
+            slots.append(np.arange(g.shape[0], dtype=np.int64))
+        else:
+            tiles.append(g[0])
+            slots.append(np.asarray(g[1], dtype=np.int64).reshape(-1))
+    Ps = {len(sl) for sl in slots if sl is not None}
+    if len(Ps) > 1 or (Ps and not 3 <= min(Ps) <= MAX_DEPTH + 2):
+        raise ValueError(f"BSI groups must share one depth D + 2 planes with "
+                         f"1 <= D <= {MAX_DEPTH}, got {sorted(Ps)}")
+    P = Ps.pop() if Ps else 3
+    sl = np.stack([np.full(P, -1, dtype=np.int64) if s is None else s
+                   for s in slots]) if slots else np.zeros((0, P), np.int64)
+    if filt is None:
+        raise ValueError("the BSI kernels need a filter")
+    rows = [filt] if isinstance(filt, torch.Tensor) else \
+        [f for f in filt if f is not None]
+    tensors = [t for t in tiles if t is not None] + rows
+    W = _words_per_row(tensors) if tensors else 1
+    return tiles, sl, P - 2, W, tensors
+
+
+def bsi_sum_planes_sharded_plain(groups, filt) -> torch.Tensor:
+    """bsi_sum_planes_sharded shard by shard with torch ops."""
+    from featurebase_tpu_torch.ops.bsi import sum_planes_plain
+    tiles, sl, D, W, tensors = _bsi_group_inputs(groups, filt)
+    dev = _device_of(tensors)
+    out = torch.zeros(2 * D + 1, dtype=torch.int64, device=dev)
+    for s, tile in enumerate(tiles):
+        if tile is not None:
+            out += sum_planes_plain(_gather_rows(tile, sl[s], W, dev)[None],
+                                    _filter_row(filt, s, W, dev)[None])
+    return out
+
+
+def bsi_min_max_sharded_plain(groups, filt, is_min: bool) -> torch.Tensor:
+    """bsi_min_max_sharded shard by shard with torch ops."""
+    from featurebase_tpu_torch.ops.bsi import min_max_parts_plain
+    tiles, sl, D, W, tensors = _bsi_group_inputs(groups, filt)
+    dev = _device_of(tensors)
+    out = torch.zeros((len(tiles), 4, 2), dtype=torch.int64, device=dev)
+    for s, tile in enumerate(tiles):
+        if tile is not None:
+            out[s] = min_max_parts_plain(
+                _gather_rows(tile, sl[s], W, dev)[None],
+                _filter_row(filt, s, W, dev)[None], is_min)[0]
+    return out
+
+
+def bsi_sum_planes_sharded(groups, filt) -> torch.Tensor:
+    """Kernel C' over every shard in one launch, the planes read in place:
+    groups a list of per-shard BSI groups (None for a shard without data,
+    a (D + 2, W) int32 tensor or view, or a (tile, slots) pair naming each
+    plane's row of a fragment's device mirror, -1 absent), filt (S, W)
+    words or per-shard (W,) words (None for a shard without a filter row)
+    -> (2D + 1,) int64 as bsi_sum_planes gives, over every shard.  An absent
+    plane reads as zeros; a shard without its exists plane or filter row
+    adds nothing.  Counts as a bsi_sum_planes launch."""
+    tiles, sl, D, W, tensors = _bsi_group_inputs(groups, filt)
+    if _all_cpu(tensors):
+        return bsi_sum_planes_sharded_plain(groups, filt)
+    dev = tensors[0].device
+    addrs = _dim_addrs(tiles, sl, W, "BSI group")
+    faddrs = _filter_addrs(filt, len(tiles), W)
+    live = (addrs[:, 0] != 0) & (faddrs[:, 0] != 0)
+    if not live.any():
+        return torch.zeros(2 * D + 1, dtype=torch.int64, device=dev)
+    return _bsi_launch(bsi_sum_planes, addrs[live], faddrs[live], None,
+                       int(live.sum()), D, W, dev)
+
+
+def bsi_min_max_sharded(groups, filt, is_min: bool) -> torch.Tensor:
+    """Kernel D' over every shard in one launch, the planes read in place:
+    groups and filt as bsi_sum_planes_sharded takes them -> (S, 4, 2) int64
+    as bsi_min_max gives, a shard without columns (0, 0) in every entry.
+    Counts as a bsi_min_max launch."""
+    tiles, sl, D, W, tensors = _bsi_group_inputs(groups, filt)
+    if _all_cpu(tensors):
+        return bsi_min_max_sharded_plain(groups, filt, is_min)
+    dev = tensors[0].device
+    if not tiles:
+        return torch.zeros((0, 4, 2), dtype=torch.int64, device=dev)
+    return _bsi_launch(bsi_min_max, _dim_addrs(tiles, sl, W, "BSI group"),
+                       _filter_addrs(filt, len(tiles), W), None, len(tiles),
+                       D, W, dev, is_min)
 
 
 def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:

@@ -1,23 +1,36 @@
-"""Kernels B and I of an earlier commit beside this tree's B' and I', on one
-card, in turns (parent, change, change, parent).
+"""Kernels of an earlier commit beside this tree's, on one card, in turns
+(parent, change, change, parent).
 
-    python3 -m featurebase_tpu_torch.tools.compare_parent PARENT [--reps 10]
+    python3 -m featurebase_tpu_torch.tools.compare_parent PARENT \
+        [--kernels bsi|rows] [--reps 10]
 
 PARENT is the root of an unpacked earlier commit of this repository (for
-example ``git archive <rev> | tar -x -C _scratch/parent``), whose
-``featurebase_tpu_torch/csrc/bitmap_kernels.cu`` and ``decode_kernels.cu``
-hold the first kernel B (a block per (shard, row) of a stacked tile,
-``fb_row_counts(tile, filt, S, R, W, out, stream)``) and kernel I (the same
-C interface as I').  Both are built with this tree's nvcc flags into
-``featurebase_tpu_torch/build/``.  Each shape's device time (torch.profiler,
-L2 flushed before each call) and event time (CUDA events, chip_smoke.py's
-Timer) is printed as one JSON line, and the card's name and power limit on
-the line before the last.  B's shapes: a stacked (128, 8, 32768) tile with
-and without a filter, one shard of it, and 128 one-shard mirrors (the
-earlier kernel launched once a shard there, B' once).  I's: the prep pass
-and rounds of 2 (the min and the max), 4, 129 (a bisection round's pivots)
-and 512 thresholds over 128 shards of values.  Every result is held
-against the plain version, exactly.  Exits nonzero without CUDA.
+example ``git archive <rev> | tar -x -C _scratch/parent``).  Its sources are
+built with this tree's nvcc flags into ``featurebase_tpu_torch/build/``.
+
+``--kernels bsi`` (the default): the parent's
+``featurebase_tpu_torch/csrc/bsi_kernels.cu`` holds the first kernels C
+and D (a stacked (S, D + 2, W) group and an (S, W) filter,
+``fb_bsi_sum_planes(group, filt, S, D, W, out, slots, n_slots, ticket,
+stream)`` and ``fb_bsi_min_max`` alike, D running all four descents),
+timed beside C' and D' (D' as a Min, held against the parent's pos-min and
+neg-max): one shard at depth 14, two shards at depth 43, 128 stacked
+shards at depth 14, and 128 shards' mirrors (the parent launched once a
+shard there, C' and D' once).
+
+``--kernels rows``: the parent's ``bitmap_kernels.cu`` and
+``decode_kernels.cu`` hold the first kernel B (a block per (shard, row) of
+a stacked tile, ``fb_row_counts(tile, filt, S, R, W, out, stream)``) and
+kernel I (the same C interface as I').  B's shapes: a stacked (128, 8,
+32768) tile with and without a filter, one shard of it, and 128 one-shard
+mirrors.  I's: the prep pass and rounds of 2 (the min and the max), 4, 129
+(a bisection round's pivots) and 512 thresholds over 128 shards of values.
+
+Each shape's device time (torch.profiler, L2 flushed before each call) and
+event time (CUDA events, chip_smoke.py's Timer) is printed as one JSON
+line, and the card's name and power limit on the line before the last.
+Every result is held against the plain version, exactly.  Exits nonzero
+without CUDA.
 """
 from __future__ import annotations
 
@@ -44,24 +57,19 @@ def build_parent(parent: str, source: str) -> ctypes.CDLL:
     return ctypes.CDLL(out)
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("parent")
-    ap.add_argument("--reps", type=int, default=10)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("compare_parent: CUDA is not available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.getcwd())
+def rows_cases(parent: str):
+    """Kernels B and I of the parent beside B' and I': name -> (parent,
+    change, plain, bytes), and the parent's launches a call where more than
+    one."""
     import chip_smoke as c
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     from featurebase_tpu_torch.ops import decode
 
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    old_b = build_parent(args.parent, ck.SOURCE)
+    old_b = build_parent(parent, ck.SOURCE)
     old_b.fb_row_counts.argtypes = [vp, vp, i32, i32, i64, vp, vp]
     old_b.fb_row_counts.restype = i32
-    old_i = build_parent(args.parent, ck.DECODE_SOURCE)
+    old_i = build_parent(parent, ck.DECODE_SOURCE)
     old_i.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64, i32,
                                            i64, i32, vp, i32, vp, vp]
     old_i.fb_percentile_counts.restype = i32
@@ -78,7 +86,6 @@ def main() -> int:
         return out
 
     rng = np.random.default_rng(43)
-    timer = c.Timer(args.reps)
     S, R, W = 128, 8, 32768
     tile = c.rand_words(rng, (S, R, W))
     filt = c.rand_words(rng, (S, W))
@@ -102,8 +109,6 @@ def main() -> int:
             lambda: ck.row_counts_sharded(mirrors, slots),
             lambda: ck.row_counts_plain(tile), S * R * W * 4 + S * R * 8),
     }
-    # launches a call: the parent launched once a mirror
-    calls = {("row_counts/mirrors_s128_r8", "parent"): S}
     vals = torch.from_numpy(rng.integers(-1000, 10000, (S, 32 * W),
                                          dtype=np.int32)).cuda()
     exists = c.rand_words(rng, (S, W))
@@ -133,7 +138,106 @@ def main() -> int:
         lambda t=t: decode.percentile_counts_plain(vals, exists, ones, 0, t),
         S * 32 * W * 4 + 2 * S * W * 4 + (2 * len(t) + 3) * 8 + len(t) * 4)
         for n, t in lists.items()}
-    for name, (old, new, plain, nbytes) in {**b_cases, **i_cases}.items():
+    return {**b_cases, **i_cases}, {"row_counts/mirrors_s128_r8": S}
+
+
+def bsi_cases(parent: str):
+    """Kernels C and D of the parent beside C' and D' (D' as a Min):
+    name -> (parent, change, plain, bytes), and the parent's launches a
+    call where more than one."""
+    import chip_smoke as c
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    old = build_parent(parent, ck.BSI_SOURCE)
+    for fn in (old.fb_bsi_sum_planes, old.fb_bsi_min_max):
+        fn.argtypes = [vp, vp, i32, i32, i64, vp, vp, i64, vp, vp]
+        fn.restype = i32
+    ticket = torch.zeros(1, dtype=torch.int32, device="cuda")
+
+    def old_launch(name, group, filt, out_shape):
+        S, P, W = group.shape
+        out = torch.empty(out_shape, dtype=torch.int64, device="cuda")
+        # the parent's tiles are 512 words at the least, 2D + 1 (C) or 8
+        # (D) slots each
+        slots = torch.empty(max(2 * P - 3, 8) * S * -(-W // 512),
+                            dtype=torch.int64, device="cuda")
+        rc = getattr(old, name)(
+            group.data_ptr(), filt.data_ptr(), S, P - 2, W, out.data_ptr(),
+            slots.data_ptr(), slots.numel(), ticket.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent {name}: CUDA error {rc}")
+        return out
+
+    def old_sum(group, filt):
+        return old_launch("fb_bsi_sum_planes", group, filt,
+                          (2 * group.shape[1] - 3,))
+
+    def old_min(group, filt):
+        """The parent's four descents with pos-max and neg-min zeroed: a
+        Min's output."""
+        out = old_launch("fb_bsi_min_max", group, filt,
+                         (group.shape[0], 4, 2))
+        out[:, 1:3] = 0
+        return out
+
+    rng = np.random.default_rng(29)
+    W = 32768
+    g128, f128 = c.rand_words(rng, (128, 16, W)), c.rand_words(rng, (128, W))
+    g1, f1 = g128[:1].contiguous(), f128[:1].contiguous()
+    g43, f43 = c.rand_words(rng, (2, 45, W)), c.rand_words(rng, (2, W))
+    mirrors, rows = [g.clone() for g in g128], [f.clone() for f in f128]
+
+    def nbytes(S, P, out_bytes):
+        return (P + 1) * S * W * 4 + out_bytes
+    cases = {}
+    for key, g, f in (("s1_d14", g1, f1), ("s2_d43", g43, f43),
+                      ("s128_d14", g128, f128)):
+        S, P, _ = g.shape
+        cases[f"bsi_sum_planes/{key}"] = (
+            lambda g=g, f=f: old_sum(g, f),
+            lambda g=g, f=f: ck.bsi_sum_planes(g, f),
+            lambda g=g, f=f: bsiops.sum_planes_plain(g, f),
+            nbytes(S, P, (2 * P - 3) * 8))
+        cases[f"bsi_min_max/{key}"] = (
+            lambda g=g, f=f: old_min(g, f),
+            lambda g=g, f=f: ck.bsi_min_max(g, f, True),
+            lambda g=g, f=f: bsiops.min_max_parts_plain(g, f, True),
+            nbytes(S, P, S * 64))
+    cases["bsi_sum_planes/mirrors_s128_d14"] = (
+        lambda: torch.stack([old_sum(m[None], f[None])
+                             for m, f in zip(mirrors, rows)]).sum(0),
+        lambda: ck.bsi_sum_planes_sharded(mirrors, rows),
+        lambda: bsiops.sum_planes_plain(g128, f128), nbytes(128, 16, 29 * 8))
+    cases["bsi_min_max/mirrors_s128_d14"] = (
+        lambda: torch.cat([old_min(m[None], f[None])
+                           for m, f in zip(mirrors, rows)]),
+        lambda: ck.bsi_min_max_sharded(mirrors, rows, True),
+        lambda: bsiops.min_max_parts_plain(g128, f128, True),
+        nbytes(128, 16, 128 * 64))
+    calls = {(k, "parent"): 128 for k in cases if "mirrors" in k}
+    return cases, calls
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent")
+    ap.add_argument("--kernels", choices=("bsi", "rows"), default="bsi")
+    ap.add_argument("--reps", type=int, default=10)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_parent: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as c
+
+    make = bsi_cases if args.kernels == "bsi" else rows_cases
+    cases, calls = make(args.parent)
+    timer = c.Timer(args.reps)
+    prefixes = ("row_counts", "percentile", "bsi_sum_planes", "bsi_min_max")
+    for name, (old, new, plain, nbytes) in cases.items():
         want = plain()
         for what, fn in (("parent", old), ("change", new)):
             got = fn()
@@ -144,8 +248,7 @@ def main() -> int:
         for what, fn in (("parent", old), ("change", new), ("change", new),
                          ("parent", old)):
             dev = c.kernel_device_ms(fn, args.reps)
-            kernel = [k for k in dev if k.startswith(("row_counts",
-                                                      "percentile"))]
+            kernel = [k for k in dev if k.startswith(prefixes)]
             times.setdefault(what, []).append(dict(
                 ms=timer(fn), device_ms=calls.get((name, what), 1)
                 * sum(dev[k] for k in kernel)))

@@ -214,8 +214,9 @@ def test_unknown_field_errors(fuzz, pql):
                                  "Max(Row(g=null), field=w31)"])
 def test_unplannable_filter_is_not_ported(fuzz, pql):
     """A filter the plan compiler refuses runs through the per-shard
-    interpreter, one kernel launch a shard, with the reference's per-shard
-    semantics."""
+    interpreter, whose words of each shard filter one launch of kernel C'
+    or D' over every shard's BSI mirror per residency batch, with the
+    reference's per-shard semantics."""
     jax_e, port_e, _ = fuzz
     assert norm(port_e.execute("fz", pql)[0]) == \
         norm(jax_e.execute("fz", pql)[0])

@@ -118,7 +118,7 @@ def test_stacked_finish_matches_min_max_stacked(depth, kind, is_min):
     group, filt, _ = make_group(depth, kind)
     v, c = jbsi.min_max_stacked(group, filt, depth, is_min)
     want = (int(v), int(c)) if int(c) else (0, 0)
-    parts = bsi.min_max_parts_plain(t(group), t(filt)).numpy()
+    parts = bsi.min_max_parts_plain(t(group), t(filt), is_min).numpy()
     assert bsi.min_max_stacked_finish(parts, is_min) == want
 
 
@@ -127,27 +127,31 @@ def test_stacked_finish_matches_min_max_stacked(depth, kind, is_min):
 @pytest.mark.parametrize("is_min", (True, False))
 def test_per_shard_finish_matches_min_host_max_host(depth, kind, is_min):
     group, filt, _ = make_group(depth, kind)
-    parts = bsi.min_max_parts_plain(t(group), t(filt)).numpy()
+    parts = bsi.min_max_parts_plain(t(group), t(filt), is_min).numpy()
     assert port_min_max_per_shard(parts, is_min) == \
         jax_min_max_per_shard(group, filt, depth, is_min)
 
 
 @pytest.mark.parametrize("depth", DEPTHS)
 def test_descents_match_minmax_parts_kernel(depth):
-    """Each of the four descents of every shard, bit for bit, against the
-    reference's minmax_parts_kernel (bsi.py:200)."""
+    """Each descent of every shard, bit for bit, against the reference's
+    minmax_parts_kernel (bsi.py:200): a Min's pos-min and neg-max, a Max's
+    pos-max and neg-min, and (0, 0) for the two a call does not run."""
     group, filt, _ = make_group(depth, "sign_zero")
-    parts = bsi.min_max_parts_plain(t(group), t(filt)).numpy()
-    for s in range(S):
-        p = jbsi.minmax_parts_kernel(group[s, 2:], group[s, 0], group[s, 1],
-                                     filt[s], depth)
-        for k, name in enumerate(("pos_min", "pos_max", "neg_min",
-                                  "neg_max")):
-            bits, cnt = p[name]
-            assert (int(parts[s, k, 0]), int(parts[s, k, 1])) == \
-                (jbsi._bits_to_int(bits), int(cnt)), (s, name)
-        assert bool(p["has_pos"]) == (parts[s, 0, 1] > 0)
-        assert bool(p["has_neg"]) == (parts[s, 2, 1] > 0)
+    names = ("pos_min", "pos_max", "neg_min", "neg_max")
+    for is_min, ran in ((True, (0, 3)), (False, (1, 2))):
+        parts = bsi.min_max_parts_plain(t(group), t(filt), is_min).numpy()
+        for s in range(S):
+            p = jbsi.minmax_parts_kernel(group[s, 2:], group[s, 0],
+                                         group[s, 1], filt[s], depth)
+            for k, name in enumerate(names):
+                bits, cnt = p[name]
+                want = (jbsi._bits_to_int(bits), int(cnt)) if k in ran \
+                    else (0, 0)
+                assert (int(parts[s, k, 0]), int(parts[s, k, 1])) == want, \
+                    (s, name)
+            assert bool(p["has_pos"]) == (parts[s, ran[0], 1] > 0)
+            assert bool(p["has_neg"]) == (parts[s, ran[1], 1] > 0)
 
 
 def test_sign_set_zero_semantics_differ_by_depth():
@@ -163,12 +167,13 @@ def test_sign_set_zero_semantics_differ_by_depth():
     planes = [ex, ex & neg] + [np.zeros((1, C), dtype=bool)] * depth
     group = np.stack([pack(p) for p in planes], axis=1)
     filt = pack(np.ones((1, C), dtype=bool))
-    parts = bsi.min_max_parts_plain(t(group), t(filt)).numpy()
+    parts = bsi.min_max_parts_plain(t(group), t(filt), True).numpy()
     stacked = jbsi.min_max_stacked(group, filt, depth, True)
     assert bsi.min_max_stacked_finish(parts, True) == \
         (int(stacked[0]), int(stacked[1])) == (0, 10)
     assert port_min_max_per_shard(parts, True) == \
         jax_min_max_per_shard(group, filt, depth, True) == (0, 3)
+    parts = bsi.min_max_parts_plain(t(group), t(filt), False).numpy()
     assert port_min_max_per_shard(parts, False) == \
         jax_min_max_per_shard(group, filt, depth, False) == (0, 7)
 
@@ -183,7 +188,9 @@ def test_wrappers_run_the_plain_versions_on_cpu(depth):
     g, f = t(group), t(filt)
     ck.reset_launches()
     assert torch.equal(ck.bsi_sum_planes(g, f), bsi.sum_planes_plain(g, f))
-    assert torch.equal(ck.bsi_min_max(g, f), bsi.min_max_parts_plain(g, f))
+    for is_min in (True, False):
+        assert torch.equal(ck.bsi_min_max(g, f, is_min),
+                           bsi.min_max_parts_plain(g, f, is_min))
     assert ck.launches()["bsi_sum_planes"] == 0
     assert ck.launches()["bsi_min_max"] == 0
 
@@ -198,4 +205,4 @@ def test_wrappers_validate_inputs():
         with pytest.raises(ValueError):
             ck.bsi_sum_planes(bad_g, bad_f)
         with pytest.raises(ValueError):
-            ck.bsi_min_max(bad_g, bad_f)
+            ck.bsi_min_max(bad_g, bad_f, True)
