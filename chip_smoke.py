@@ -11,7 +11,8 @@ Phases, one status line each; any failure raises and exits nonzero:
   2. build of every CUDA source with nvcc (sm_90a), and of kernel A's two
      ablation builds, all at once, timed, with the ptxas
      register/stack/spill report of each kernel (it fails if plan_eval_kernel,
-     a BSI kernel or a GroupBy kernel spills or keeps a stack frame);
+     a BSI kernel, a GroupBy kernel or a decode kernel spills or keeps a
+     stack frame);
      cuobjdump's SASS of each tuning kernel must keep the 16-byte loads of
      its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
@@ -42,7 +43,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      every shard), absent rows, a shard without a tile, one to three
      dimensions, 512 groups, filters as words, as per-shard rows and viewed
      one word into a wider row (the 4-byte path), and D = 1 to 63.  Kernels
-     G, G' and I' (decode_parity), I' in each of its forms at K = 0, 1, 2,
+     G'', G''' and I' (decode_parity): G'' and G''' stacked and over
+     address tables of per-shard mirrors (planes out of order, absent
+     planes, a shard without data, views one word off, S = 1 to 131,
+     W = 32768 and 1001, depths 1, 14 and 31, G''' at N = 0, 1, 37 and
+     65,536 columns a shard), I' in each of its forms at K = 0, 1, 2,
      129 and 512 thresholds: random, duplicated, every value below them,
      every value above them, and bases that wrap value + base in int32;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
@@ -56,8 +61,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      not, at S = 1, and in one launch over 128 shards' mirrors beside the
      128 one-shard launches it replaces; E and F at the main path's
      one-launch shapes over 128 shards, beside 128 launches of one shard
-     each, and at the stacked shapes of the earlier slices; G, G' and I',
-     I' at its prep pass and at rounds of 2 and 129); the card's popcount rate
+     each, and at the stacked shapes of the earlier slices; G'' stacked
+     and over 128 shards' mirrors beside 128 one-shard launches, G''' at
+     1,000 and 65,536 columns of a shard and over 128 shards' mirrors
+     beside 128 one-shard launches, I' at its prep pass and at rounds of 2
+     and 129); the card's popcount rate
      from a popcount-only loop and the tensor cores' rate in the 1-bit and
      int8 mma.sync forms (`tc_rate`, with whether ptxas takes the
      warpgroup 1-bit form, csrc/wgmma_b1_probe.cu); kernel A's cases must run
@@ -65,7 +73,7 @@ Phases, one status line each; any failure raises and exits nonzero:
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
      program; B' built with its rows staged by TMA bulk copies beside the
-     default's direct loads (row_ablation), I' built with its search a
+     default's direct loads (row_ablation), and I' built with its search a
      lift over every threshold beside the default's bucket table
      (pct_ablation);
   5. the slice: a --shards table (625,000 records per shard; set fields f
@@ -78,8 +86,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      to a CPU executor over the same Holder and to a numpy oracle on
      Count(Intersect), Count(Row(v > 5000)), TopN(f, n=5), Sum(field=v),
      Min(field=v), Max(Row(g=2), field=v), Min and Max under the
-     unplannable Union(Row(g=1), Row(f=null)) (one sharded D' launch each)
-     and the two per-shard GroupBys (count, and Sum of v); every kernel's
+     unplannable Union(Row(g=1), Row(f=null)) (one sharded D' launch each),
+     the two per-shard GroupBys (count, and Sum of v) and the decode
+     family (decode_oracles: Distinct and Sort under the unplannable
+     union, one sharded G'' launch each, and Extract of the
+     records with v == 42, one G''' launch over every shard); every kernel's
      launch counter must rise, by
      pass_launches() a pass of the full mix;
      TopN's per-shard branch must give the stacked answers; p50 latency per
@@ -108,7 +119,6 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import argparse
-import ctypes
 import glob
 import hashlib
 import json
@@ -180,7 +190,10 @@ QUERIES = [
 ]
 # the decode family: Distinct (a call, under Count, as an operand, as
 # GroupBy's aggregate), Percentile, Sort (a second page through the cursor
-# after the first), Extract, IncludesColumn and FieldValue
+# after the first), Extract, IncludesColumn and FieldValue; Distinct and
+# Sort under filters the plan compiler refuses (one kernel-G'' launch over
+# every shard's mirror) and Extract of about 7,300 records spread over
+# every shard (one kernel-G''' launch)
 DECODE_QUERIES = [
     "Distinct(field=v)",
     "Distinct(Row(f=1), field=g)",
@@ -197,6 +210,9 @@ DECODE_QUERIES = [
     "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))",
     "IncludesColumn(Row(f=1), column={col5})",
     "FieldValue(field=v, column={col5})",
+    "Distinct(Union(Row(g=1), Row(f=null)), field=v)",
+    "Sort(Union(Row(g=1), Row(f=null)), field=v, limit=10)",
+    "Extract(Row(v == 42), Rows(v), Rows(g))",
 ]
 QUERIES += DECODE_QUERIES
 PER_SHARD = "per_shard:"
@@ -236,8 +252,7 @@ KEYED_QUERIES = [
 QUERIES += [f"keyed:{q}" for q in KEYED_QUERIES]
 
 
-def pass_launches(S: int, percentile_rounds: int, extract_shards: int
-                  ) -> dict:
+def pass_launches(S: int, percentile_rounds: int) -> dict:
     """Kernel launches in one pass of the full mix over S shards: kernel A
     19 times for the Count, TopN and aggregate queries, 4 for UnionRows'
     rows, once each for the stacked GroupBy's filter, the interpreter's
@@ -264,15 +279,21 @@ def pass_launches(S: int, percentile_rounds: int, extract_shards: int
     from its own seed); kernel B once for each set-field Distinct (3 on the
     bench index, 2 on the keyed one); kernel D' for that bisection's Min
     and Max, besides three times for Min and Max and once each over every
-    shard's mirror for the Min and the Max under the unplannable filter; kernel G once for the bench index's stacked decode (cached for
-    every later query) and once for the keyed index's; kernel G' once a
-    shard that the first 1000 records of Row(f=1) reach, and once for each
-    of the keyed index's 32 shards; kernel I once for each round of the
-    four Percentiles (percentile_rounds, from oracle_percentile)."""
-    return {"plan_eval": 109, "row_counts": 17,
+    shard's mirror for the Min and the Max under the unplannable filter;
+    kernel G'' once for the bench index's stacked decode (cached for every
+    later query), once for the keyed index's, and once each over every
+    shard's mirror (one residency batch at the default budget) for Distinct
+    and Sort under Union(Row(g=1), Row(f=null)); kernel
+    G''' once for each Extract up to depth 31 (the bench index's two, the
+    keyed index's), over every shard it reaches; kernel I once for each
+    round of the four Percentiles (percentile_rounds, from
+    oracle_percentile).  The filter of Extract(Row(v == 42)) adds one
+    kernel-A launch (the other two new queries' filters run on the
+    interpreter)."""
+    return {"plan_eval": 110, "row_counts": 17,
             "bsi_sum_planes": 4, "bsi_min_max": 7,
             "pair_counts": 35 + S, "bsi_sum_groups": 34,
-            "bsi_decode": 2, "bsi_decode_gather": extract_shards + 32,
+            "bsi_decode": 4, "bsi_decode_gather": 3,
             "percentile_counts": percentile_rounds}
 
 
@@ -787,7 +808,6 @@ def pct_ablation(inputs, reps: int) -> dict:
     thresholds (the bisection's) and of 512, built with the lift over all
     K thresholds beside the default build's bucket table: device time of
     each, in turns."""
-    from featurebase_tpu_torch.ops import build
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     from featurebase_tpu_torch.ops import decode
     group, vals, filt = inputs
@@ -798,22 +818,11 @@ def pct_ablation(inputs, reps: int) -> dict:
                  lo, hi, decode.PERCENTILE_LEVELS)}),
              "k512": sorted(rng.integers(lo, hi, 512).tolist())}
     real, out = ck._decode_lib, {}
-
-    def typed(flags):
-        lib = build.load(ck.DECODE_SOURCE, flags)
-        if flags and not getattr(lib, "_fb_typed", False):
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64,
-                                                 i32, i64, i32, vp, i32, vp,
-                                                 vp]
-            lib.fb_percentile_counts.restype = i32
-            lib._fb_typed = True
-        return lib if flags else real()
     try:
         for name, flags in (("buckets", ()), ("binary", PCT_ABLATION),
                             ("buckets_again", ()), ("binary_again",
                                                     PCT_ABLATION)):
-            ck._decode_lib = lambda flags=flags: typed(flags)
+            ck._decode_lib = lambda flags=flags: real(flags)
             for case, t in lists.items():
                 dev = kernel_device_ms(
                     lambda t=t: ck.percentile_counts(vals, exists, filt, 0, t),
@@ -1317,14 +1326,14 @@ def group_times(timer: Timer, rates: dict, reps: int) -> dict:
     return out
 
 
-# -- kernels G, G' and I ------------------------------------------------------
+# -- kernels G'', G''' and I' ------------------------------------------------
 
 def decode_cases(S: int) -> dict:
-    """The groups kernels G and G' are held on: name -> (S, D + 2, W) group.
-    Encoded values at depths 1, 14 and 31 (every column signed at random,
-    40% absent, 1% sign-set zeros), random words at the slice's shape, and
-    a view one word into a wider group (W - 1 words, the ragged last chunk
-    of the kernel)."""
+    """The groups kernels G'' and G''' are held on: name -> (S, D + 2, W)
+    group.  Encoded values at depths 1, 14 and 31 (every column signed at
+    random, 40% absent, 1% sign-set zeros), random words at the slice's
+    shape, and a view one word into a wider group (W - 1 words, the ragged
+    last item of the kernel, 4-byte copies)."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(23)
     W = 32768
@@ -1345,6 +1354,24 @@ def decode_cases(S: int) -> dict:
     return cases
 
 
+def decode_sharded_cases(cases: dict, rng) -> dict:
+    """The sharded forms' cases (kernels G'' and G'''): name -> per-shard
+    groups.  From decode_cases, through shard_mirrors (each shard's planes
+    in random rows of a tile, about a tenth of the magnitude and sign
+    planes absent, shard 1 without data): the slice-shaped random words at
+    S = 128, the encoded values at depths 1, 14 and 31 over 16 shards, and
+    per-shard views one word into a wider group (4-byte copies); and random
+    words at S = 131 (depth 31) and 7 (depth 1) with W = 1001, and at
+    S = 1."""
+    out = {f"mirrors_s{g.shape[0]}_{name}": shard_mirrors(g, rng)
+           for name, g in cases.items() if name != "offset_d14"}
+    out["views_s8_d14_w32767"] = list(cases["offset_d14"])
+    for S, D, W in ((131, 31, 1001), (7, 1, 1001), (1, 14, 32768)):
+        out[f"mirrors_s{S}_d{D}_w{W}"] = shard_mirrors(
+            rand_words(rng, (S, D + 2, W)), rng)
+    return out
+
+
 def percentile_reduction(vals, exists, filt, base: int, pivots) -> list:
     """The plain torch-reduction form of a Percentile round, as the JAX
     program counts it (bsi.py:571): for each pivot, the present values below
@@ -1357,9 +1384,13 @@ def percentile_reduction(vals, exists, filt, base: int, pivots) -> list:
 
 
 def decode_parity(S: int) -> tuple:
-    """Phase 3d: kernels G, G' and I against their plain versions on the
-    card, exactly.  G on every decode_cases group; G' at N = 1, 37 and
-    65,536 columns of one shard at each depth and one word off alignment; I
+    """Phase 3d: kernels G'', G''' and I' against their plain versions on
+    the card, exactly.  G'' on every decode_cases group (stacked: the affine
+    table) and G''' at N = 1, 37 and 65,536 columns of one shard of each;
+    both over the address tables of decode_sharded_cases (planes out of
+    order, absent planes, a shard without data, S = 1, 7, 8, 16, 128 and
+    131, W = 32768, 32767 and 1001, depths 1, 14 and 31), G''' with N = 0,
+    1, 37 and 65,536 columns a shard in turn; I
     over the decode of the slice-shaped group and of the depth-31 values,
     under random and empty filters and exists words viewed one word into a
     wider row, with threshold lists: none (the prep pass), sorted random
@@ -1390,10 +1421,27 @@ def decode_parity(S: int) -> tuple:
         shard = group[0]
         C = 32 * shard.shape[1]
         for n in (1, 37, 1 << 16):
-            cols = torch.from_numpy(rng.choice(C, n, replace=False)).cuda()
+            cols = rng.choice(C, n, replace=False)
             check("bsi_decode_gather", f"{name} N={n}",
                   ck.bsi_decode_gather(shard, cols),
-                  decode.decode_gather_plain(shard, cols))
+                  decode.decode_gather_plain(shard,
+                                             torch.from_numpy(cols).cuda()))
+    # the sharded forms over address tables: N = 0, 1, 37 and 65,536
+    # columns a shard in turn (all of a shard's columns where it has
+    # fewer), 65,536 at S = 1
+    sharded = []
+    for name, groups in decode_sharded_cases(cases, rng).items():
+        sharded.append(f"{name} S={len(groups)}")
+        check("bsi_decode", name, ck.bsi_decode_sharded(groups),
+              ck.bsi_decode_sharded_plain(groups))
+        C = 32 * next(g[0] if isinstance(g, tuple) else g
+                      for g in groups if g is not None).shape[1]
+        cols = [rng.choice(C, min((0, 1, 37, 1 << 16)[s % 4]
+                                  if len(groups) > 1 else 1 << 16, C),
+                           replace=False) for s in range(len(groups))]
+        check("bsi_decode_gather", name,
+              ck.bsi_decode_gather_sharded(groups, cols),
+              ck.bsi_decode_gather_sharded_plain(groups, cols))
     W, nf = 32768, max(S, 16)
     wide = rand_words(rng, (nf, W + 1))
     filters = {"random": rand_words(rng, (nf, W)),
@@ -1470,7 +1518,8 @@ def decode_parity(S: int) -> tuple:
     torch.cuda.synchronize()
     say("decode_parity", ok=True, checks=len(checks),
         cases={n: list(g.shape) for n, g in cases.items()},
-        gather_n=[1, 37, 1 << 16], filters=list(filters),
+        gather_n=[0, 1, 37, 1 << 16], filters=list(filters),
+        sharded=sharded,
         threshold_lists=["prep", "duplicates", "min_max", "round_129",
                          "full_512"],
         widths=[0, 1, 2, 129, 512],
@@ -1482,10 +1531,13 @@ def decode_parity(S: int) -> tuple:
 
 
 def decode_times(timer: Timer, inputs, reps: int) -> dict:
-    """Phase 4e: kernels G, G' and I beside their plain versions and their
-    bytes bounds, at the main path's shapes: G over the slice-shaped group
-    (S = 128, D = 14: D + 1 planes read, 4 bytes a column written); G' at
-    N = 1,000 and 65,536 columns of one shard; I over the slice's values,
+    """Phase 4e: kernels G'', G''' and I' beside their plain versions and
+    their bytes bounds, at the main path's shapes: G'' over the
+    slice-shaped group (S = 128, D = 14: D + 1 planes read, 4 bytes a
+    column written), stacked and over 128 shards' mirrors beside the 128
+    one-shard launches that route made before; G''' at N = 1,000 and
+    65,536 columns of one shard, and at 1,000 columns a shard over 128
+    shards' mirrors beside 128 one-shard launches; I' over the slice's values,
     exists and filter words with no thresholds (the prep pass) and with a
     round's 129, beside the torch-reduction form's time for the 31 pivots of
     a JAX round (62 reductions)."""
@@ -1505,19 +1557,44 @@ def decode_times(timer: Timer, inputs, reps: int) -> dict:
         say("kernel_time", kernel=name, **r)
         return r
 
+    decode_bytes = (D + 1) * S * W * 4 + S * C * 4
     measure(f"bsi_decode/s{S}_d{D}", lambda: ck.bsi_decode(group),
-            lambda: decode.decode_values_plain(group),
-            (D + 1) * S * W * 4 + S * C * 4, slow_plain=True)
+            lambda: decode.decode_values_plain(group), decode_bytes,
+            slow_plain=True)
+    mirrors = [g.clone() for g in group]
+    r = measure(f"bsi_decode/mirrors_s{S}_d{D}",
+                lambda: ck.bsi_decode_sharded(mirrors),
+                lambda: ck.bsi_decode_sharded_plain(mirrors), decode_bytes,
+                slow_plain=True)
+    r["one_shard_launches_ms"] = timer(
+        lambda: [ck.bsi_decode(m[None]) for m in mirrors])
+    say("one_shard_launches", kernel=f"bsi_decode/mirrors_s{S}_d{D}",
+        one_launch_ms=r["ms"], ms=r["one_shard_launches_ms"])
     rng = np.random.default_rng(31)
     shard = group[0]
+
+    def gather_bytes(per_shard):   # ids in, D + 2 words a word, 8 bytes out
+        n = sum(c.size for c in per_shard)
+        words = sum(np.unique(c >> 5).size for c in per_shard)
+        return n * 4 + words * P * 4 + n * 8
     for n in (1000, 1 << 16):
-        cols = torch.from_numpy(np.sort(rng.choice(C, n, replace=False))
-                                ).cuda()
-        words = np.unique(cols.cpu().numpy() >> 5).size
+        cols = np.sort(rng.choice(C, n, replace=False))
         measure(f"bsi_decode_gather/n{n}_d{D}",
                 lambda: ck.bsi_decode_gather(shard, cols),
-                lambda: decode.decode_gather_plain(shard, cols),
-                n * 4 + words * P * 4 + n * 8)
+                lambda: decode.decode_gather_plain(
+                    shard, torch.from_numpy(cols).cuda()),
+                gather_bytes([cols]))
+    per = [np.sort(rng.choice(C, 1000, replace=False)) for _ in range(S)]
+    r = measure(f"bsi_decode_gather/mirrors_s{S}_n1000_d{D}",
+                lambda: ck.bsi_decode_gather_sharded(mirrors, per),
+                lambda: ck.bsi_decode_gather_sharded_plain(mirrors, per),
+                gather_bytes(per))
+    r["one_shard_launches_ms"] = timer(
+        lambda: [ck.bsi_decode_gather(m, c) for m, c in zip(mirrors, per)])
+    say("one_shard_launches",
+        kernel=f"bsi_decode_gather/mirrors_s{S}_n1000_d{D}",
+        one_launch_ms=r["ms"], ms=r["one_shard_launches_ms"])
+    del mirrors
     exists = group[:, 0]
     lo, hi = -(1 << 14), 1 << 14
     x = vals[decode.expand_bits(exists & filt).bool()]
@@ -1715,9 +1792,8 @@ def oracle_percentile(x: np.ndarray, nth) -> tuple:
 
 def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
     """numpy oracles of the decode family's queries over the bench table
-    (keys as in QUERIES, placeholders included), the launches of kernel I
-    that a pass of the mix makes (oracle_percentile's rounds), and the
-    shards Extract's first 1000 records of Row(f=1) reach."""
+    (keys as in QUERIES, placeholders included), and the launches of
+    kernel I that a pass of the mix makes (oracle_percentile's rounds)."""
     f, g, v, cols = gen["f"], gen["g"], gen["v"], gen["cols"]
 
     def signed(vals):
@@ -1734,8 +1810,10 @@ def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
                                              [int(x) for x in v[order]]])))
     asc_f1 = np.flatnonzero(f == 1)[np.lexsort((cols[f == 1], v[f == 1]))]
     d_f = np.unique(f[g == 2])
+    asc_g1 = np.flatnonzero(g == 1)[np.lexsort((cols[g == 1], v[g == 1]))]
     at5 = np.flatnonzero(cols == col5)[0]
     ext = np.flatnonzero(f == 1)[:1000]
+    at42 = np.flatnonzero(v == 42)
     oracle = {
         "Distinct(field=v)": signed(v),
         "Distinct(Row(f=1), field=g)": row(g[f == 1]),
@@ -1758,6 +1836,15 @@ def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
                   [int(x) for x in v[ext]]]]))),
         "IncludesColumn(Row(f=1), column={col5})": ("value", bool(f[at5] == 1)),
         "FieldValue(field=v, column={col5})": ("valcount", (int(v[at5]), 1)),
+        # every record has an f bit: the union is Row(g=1)
+        "Distinct(Union(Row(g=1), Row(f=null)), field=v)": signed(v[g == 1]),
+        "Sort(Union(Row(g=1), Row(f=null)), field=v, limit=10)":
+            sort(asc_g1[:10]),
+        "Extract(Row(v == 42), Rows(v), Rows(g))": (
+            "table", (int(at42.size), digest(
+                [[["v", "int64"], ["g", "[]id"]],
+                 [int(c) for c in cols[at42]],
+                 [[42] * int(at42.size), [[int(x)] for x in g[at42]]]]))),
     }
     rounds = 0
     for q, x in (("Percentile(field=v, nth=50)", v),
@@ -1768,7 +1855,7 @@ def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
         answer, n = oracle_percentile(x, nth)
         oracle[q] = ("valcount", answer)
         rounds += n
-    return oracle, rounds, int(np.unique(cols[ext] >> 20).size)
+    return oracle, rounds
 
 
 def ptxas_report(log: str) -> dict:
@@ -1961,8 +2048,8 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
-    oracle, rounds, extract_shards = decode_oracles(gen, col5, desc)
-    want = pass_launches(n_shards, rounds, extract_shards)
+    oracle, rounds = decode_oracles(gen, col5, desc)
+    want = pass_launches(n_shards, rounds)
     if len(queries) == len(QUERIES) and launches != want:
         raise AssertionError(f"launches in one pass of the mix {launches} "
                              f"!= {want}")
@@ -2103,6 +2190,11 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         "limits:Percentile(field=w, nth=50)": ("plan_eval", "bsi_min_max"),
         "limits:Extract(Limit(All(), limit=20), Rows(f), Rows(w))":
             ("plan_eval",),
+        "Distinct(Union(Row(g=1), Row(f=null)), field=v)": ("bsi_decode",),
+        "Sort(Union(Row(g=1), Row(f=null)), field=v, limit=10)":
+            ("bsi_decode",),
+        "Extract(Row(v == 42), Rows(v), Rows(g))":
+            ("plan_eval", "bsi_decode_gather"),
         "keyed:Extract(All(), Rows(kf), Rows(n))": ("bsi_decode_gather",),
         "keyed:Distinct(field=kf)": ("row_counts",),
         "keyed:Sort(All(), field=n, limit=3)": ("plan_eval",)})
@@ -2329,12 +2421,12 @@ def main() -> int:
               for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
     for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE):
-        if src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE) and not report[src]:
+        whole = src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE)
+        if whole and not report[src]:
             raise AssertionError(f"no ptxas report for {src}")
         for fn, r in report[src].items():
             if ("plan_eval_kernel" in fn or "row_counts_kernel" in fn
-                    or "bsi_" in fn
-                    or src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE)) and (
+                    or "bsi_" in fn or whole) and (
                     r["spill_stores"] or r["spill_loads"]
                     or r["stack_bytes"]):
                 raise AssertionError(f"ptxas spills or keeps a stack frame "

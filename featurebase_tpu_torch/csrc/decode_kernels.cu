@@ -9,28 +9,59 @@
 // Values are sign and magnitude relative to the field's base, and the
 // decode is int32, so D <= 31.
 //
-// bsi_decode (kernel G) is the counterpart of the XLA programs
+// Kernels G'' and G''' name each shard's planes by a table of addresses in
+// device memory: entry s * (D + 2) + p is plane p of shard s, 0 an absent
+// plane, which reads as zeros.  So one launch reads every shard's fragment
+// mirror in place, and a stacked (S, D + 2, W) group's table is its base
+// and strides (`affine`), with nothing to copy.
+//
+// bsi_decode (kernel G'') is the counterpart of the XLA programs
 //   featurebase_tpu/ops/bsi.py decode_values (:759) and decode_values_jit
-//   (:482): a stacked (S, D + 2, W) group -> (S, 32 W) int32 values, each
-//   the magnitude, negated where the sign bit is set (-acc, as
-//   decode_values does), whatever the exists bit says.
-//   Bound: bytes.  It reads the sign and D magnitude planes once and
-//   writes 4 bytes a column: at S = 128, D = 14, 252 MB in and 537 MB out
-//   (235 us at 3.35 TB/s); two thirds of the bytes are the writes.  It is a
-//   bit-matrix transpose, so the design is about coalescing both sides: a
-//   warp takes 32 consecutive words (1,024 columns), lane l loads word l of
-//   each plane (one 128-byte load a plane), and lane l owns columns
-//   128 j + 4 l .. + 3 of each of 8 blocks j, which it writes as one 16-byte
-//   store a block (a warp's stores cover 512 consecutive bytes).  The
-//   word holding a lane's 4 columns of block j is fetched from its owner
-//   with one __shfl_sync a plane and block: 8 shuffles a plane for 32
-//   columns, and the 32 values stay in registers until the stores.
-// bsi_decode_gather (kernel G') is the counterpart of decode_gather
-//   (:367): one shard's (D + 2, W) group and N columns -> (vals int32,
-//   ok int32) of those columns.  One thread a column reads the word
-//   c >> 5 of the exists, sign and D magnitude planes and takes bit c & 31.
-//   Bound: latency (N is at most a shard's matched columns); what matters
-//   is one launch a shard, not one a column.
+//   (:482): S shards' groups -> (S, 32 W) int32 values, each the
+//   magnitude, negated where the sign bit is set (-acc, as decode_values
+//   does), whatever the exists bit says; a shard without data decodes to
+//   zeros.  Bound: bytes.  It reads the sign and D magnitude planes once
+//   and writes 4 bytes a column: at S = 128, D = 14, 252 MB in and 537 MB
+//   out (235 us at 3.35 TB/s); two thirds of the bytes are the writes.
+//   The first kernel G ran at 42% of that: a lane had about two plane
+//   loads in flight, scattered each plane into its values bit by bit
+//   (about 45 operations a value, with 8 shuffles a plane), and stored
+//   nothing before it had read every plane.  The design of G'':
+//   - work is (shard, 16 words) items, one a warp at a time, over a
+//     persistent grid of the resident blocks;
+//   - each warp keeps a ring of kStages items' planes in shared memory,
+//     filled by cp.async (16-byte copies where every address allows, a
+//     zero fill for an absent plane or a word past the row): the copies of
+//     the next three items are in flight while it decodes one, with no
+//     registers held for them (a form that loaded an item's D + 1 words
+//     into registers, all at once, was read-bound: too few bytes in
+//     flight, one item a warp);
+//   - lanes 2i and 2i + 1 take word i, columns 0-15 and 16-31: each packs
+//     its halves of planes r and r + 16 into register r (one byte permute)
+//     and turns the 16 registers into the 16 values of its columns with
+//     the last four stages of the 32 x 32 bit transpose of Hacker's
+//     Delight 7-3 (about 10 operations a value, no shuffle; the first
+//     stage is the packing), so the transpose holds 16 registers, not 32;
+//   - the values go to the warp's 2 KB of shared memory in column order
+//     through conflict-free addresses (each lane's four 16-byte chunks
+//     permuted in registers, chunk q written at q ^ ((l >> 1) & 3)), and
+//     one lane writes them out with one bulk copy (cp.async.bulk, shared
+//     -> global), waited on just before the warp's next values go there
+//     (faster on the card than reading them back for 16-byte streaming
+//     stores, st.global.cs.v4: PERF.md).
+// bsi_decode_gather (kernel G''') is the counterpart of decode_gather
+//   (:367): S shards' groups (the same tables, exists plane included, in
+//   device memory) and N columns, each an in-shard column id of one shard,
+//   -> (vals int32, ok int32) of those columns, every shard in one launch.
+//   A block takes an item of at most 256 columns of one shard (an item
+//   table the host uploads with the address table and the columns in one
+//   copy) and its shard's plane addresses into shared memory; one thread
+//   a column reads word c >> 5 of the exists, sign and D magnitude planes,
+//   every load issued before any is used, and takes bit c & 31; a shard
+//   without data gives ok = 0.  Bound: latency (N is at most a few
+//   thousand columns a shard); the first G' made one launch, a
+//   device-synchronising range check and a fetch a shard, G''' one launch
+//   and no sync over every shard.
 // percentile_counts (kernel I') is the counterpart of the counting passes
 //   of percentile_fused (:491-607).  Over stacked (S, 32 W) int32 values
 //   (the cached decode), their (S, W) exists words and an (S, W) filter,
@@ -87,69 +118,211 @@ constexpr int kMaxThresholds = 512;    // kernel I's thresholds a launch
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kBlocks = 8;             // 16-byte blocks of a lane in a chunk
 
-__global__ void __launch_bounds__(kThreads)
-bsi_decode_kernel(const uint32_t* __restrict__ group, long long shard_stride,
-                  long long plane_stride, int S, int D, long long W,
-                  int32_t* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const long long per_shard = (W + 31) / 32;
-  const long long n_chunks = (long long)S * per_shard;
-  const long long n_warps = (long long)gridDim.x * kWarps;
-  const int src = lane >> 3;          // word of a 4-word block this lane reads
-  const int shift = (lane & 7) * 4;   // its first bit in that word
-  const long long C = W * 32;
-  for (long long chunk = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
-       chunk < n_chunks; chunk += n_warps) {
-    const long long s = chunk / per_shard;
-    const long long w0 = (chunk - s * per_shard) * 32;
-    const bool in = w0 + lane < W;
-    const uint32_t* g = group + s * shard_stride + w0 + lane;
-    uint32_t acc[kBlocks][4];
+constexpr int kGatherItem = kThreads;  // columns of a kernel G''' item
+constexpr int kStages = 4;             // items in a G'' warp's load ring
+
+// One launch of kernel G'': the plane-address table (a device array, or a
+// stacked group's base and strides).
+struct DecodeArgs {
+  const unsigned long long* table;   // device table, or null: affine
+  unsigned long long base;           // plane p of shard s at base +
+  long long s_step, p_step;          // s * s_step + p * p_step (bytes)
+  long long W;
+  int S, D, P;                       // P = D + 2 planes a shard
+};
+
+__device__ __forceinline__ unsigned long long plane_addr(const DecodeArgs& a,
+                                                         long long s, int p) {
+  if (a.table == nullptr) return a.base + s * a.s_step + p * a.p_step;
+  return a.table[s * a.P + p];
+}
+
+// Word i of the row at `addr` (bytes), not allocated in L1; 0 for an absent
+// row or a word past the row.
+__device__ __forceinline__ uint32_t row_word(unsigned long long addr,
+                                             long long i, bool in) {
+  uint32_t r = 0u;
+  if (addr != 0 && in)
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];\n"
+        : "=r"(r) : "l"(reinterpret_cast<const uint32_t*>(addr) + i));
+  return r;
+}
+
+// One stage of the bit transpose of a lane's 16 registers: for rows k with
+// bit J clear, the bits of row k whose column has bit J set trade places
+// with the bits of row k + J whose column has it clear.  Register k holds
+// row k (its low 16 bits) and row k + 16 (its high 16 bits) of a 32 x 16
+// matrix, plane p's 16 bits in row p: that is the 32 x 32 transpose of
+// Hacker's Delight 7-3 after its first stage, when columns 16-31 are zero,
+// and the four stages left leave bit p of register c = bit c of row p.
+template <int J, uint32_t MASK>
+__device__ __forceinline__ void transpose_stage(uint32_t (&m)[16]) {
 #pragma unroll
-    for (int j = 0; j < kBlocks; ++j)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[j][b] = 0u;
-#pragma unroll 2
-    for (int p = 0; p < D; ++p) {
-      const uint32_t word = in ? __ldg(g + (2LL + p) * plane_stride) : 0u;
-#pragma unroll
-      for (int j = 0; j < kBlocks; ++j) {
-        const uint32_t x = __shfl_sync(kFull, word, j * 4 + src) >> shift;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[j][b] |= ((x >> b) & 1u) << p;
-      }
-    }
-    const uint32_t sign = in ? __ldg(g + plane_stride) : 0u;
-    int32_t* o = out + s * C + w0 * 32 + lane * 4;
-#pragma unroll
-    for (int j = 0; j < kBlocks; ++j) {
-      const uint32_t x = __shfl_sync(kFull, sign, j * 4 + src) >> shift;
-      int4 v;
-      v.x = (int32_t)((x & 1u) ? 0u - acc[j][0] : acc[j][0]);
-      v.y = (int32_t)((x & 2u) ? 0u - acc[j][1] : acc[j][1]);
-      v.z = (int32_t)((x & 4u) ? 0u - acc[j][2] : acc[j][2]);
-      v.w = (int32_t)((x & 8u) ? 0u - acc[j][3] : acc[j][3]);
-      if (w0 + j * 4 + src < W) *reinterpret_cast<int4*>(o + j * 128) = v;
-    }
+  for (int k = 0; k < 16; ++k) {
+    if (k & J) continue;
+    const uint32_t t = ((m[k] >> J) ^ m[k + J]) & MASK;
+    m[k] ^= t << J;
+    m[k + J] ^= t;
   }
 }
 
+__device__ __forceinline__ void cswap(uint32_t& a, uint32_t& b, bool c) {
+  const uint32_t x = c ? b : a, y = c ? a : b;
+  a = x;
+  b = y;
+}
+
+// Copy V words (4: 16 bytes, 1: 4 bytes) from global to shared memory
+// asynchronously (cp.async); `bytes` 0 copies nothing and zero-fills.
+template <int V>
+__device__ __forceinline__ void copy_async(uint32_t* dst, const void* src,
+                                           int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(bytes) : "memory");
+}
+
+// Shared memory of kernel G'' a warp, in words: the load ring (kStages
+// items of D + 1 planes of 16 words) and the 2 KB the values leave from.
+__host__ __device__ inline int decode_warp_words(int D) {
+  return kStages * (D + 1) * 16 + 512;
+}
+
+// A warp's item is 16 words of one shard (512 columns); lanes 2i and
+// 2i + 1 take word i, columns 0-15 and 16-31.  ROWS: the planes the form
+// holds (16 or 32); rows from ROWS up are zeros at compile time, rows from
+// D up at run time.  V: the words of each copy into the ring (4 when W %
+// 4 == 0 and every plane address is 16-byte aligned, else 1).
+template <int ROWS, int V>
+__global__ void __launch_bounds__(kThreads, 4)
+bsi_decode_kernel(const __grid_constant__ DecodeArgs a,
+                  int32_t* __restrict__ out, int per_shard, int n_items) {
+  extern __shared__ int smem[];   // kernel I' shares the declaration
+  const int lane = threadIdx.x & 31, half = lane & 1, wl = lane >> 1;
+  const int swz = wl & 3;   // the lane's swizzle of its 4 chunks
+  const int P1 = a.D + 1;   // planes read: the sign and D magnitudes
+  uint32_t* ring = reinterpret_cast<uint32_t*>(smem) +
+                   (threadIdx.x >> 5) * decode_warp_words(a.D);
+  uint4* st = reinterpret_cast<uint4*>(ring + kStages * P1 * 16);
+  const uint32_t pick = half ? 0x7632u : 0x5410u;   // its half of 2 words
+  const int stride = gridDim.x * kWarps;
+  // the copies of item `it` into ring slot `k`, one commit group (empty
+  // past the last item)
+  auto issue = [&](int it, int k) {
+    if (it < n_items) {
+      const int s = it / per_shard;
+      const int w0 = (it - s * per_shard) * 16;
+      uint32_t* dst = ring + k * P1 * 16;
+      constexpr int per_plane = 16 / V;
+      for (int j = lane; j < P1 * per_plane; j += 32) {
+        const int q = j / per_plane, w = w0 + (j % per_plane) * V;
+        const unsigned long long addr = plane_addr(a, s, 1 + q);
+        const bool live = addr != 0 && w < a.W;
+        copy_async<V>(dst + q * 16 + (j % per_plane) * V,
+                      live ? reinterpret_cast<const uint32_t*>(addr) + w
+                           : reinterpret_cast<const uint32_t*>(out),
+                      live ? 4 * V : 0);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  const int first = blockIdx.x * kWarps + (threadIdx.x >> 5);
+#pragma unroll
+  for (int k = 0; k < kStages - 1; ++k) issue(first + k * stride, k);
+  int k = 0;
+  for (int it = first; it < n_items; it += stride) {
+    __syncwarp();   // every lane is done with the slot and the values
+    issue(it + (kStages - 1) * stride, (k + kStages - 1) % kStages);
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(kStages - 1) : "memory");
+    __syncwarp();   // item it's copies, from every lane, have landed
+    const uint32_t* src = ring + k * P1 * 16 + wl;
+    const uint32_t sign = src[0] >> (16 * half);
+    uint32_t m[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const uint32_t lo = r < a.D ? src[(1 + r) * 16] : 0u;
+      const uint32_t hi = ROWS > 16 && r + 16 < a.D ? src[(17 + r) * 16] : 0u;
+      m[r] = __byte_perm(lo, hi, pick);
+    }
+    transpose_stage<8, 0x00FF00FFu>(m);
+    transpose_stage<4, 0x0F0F0F0Fu>(m);
+    transpose_stage<2, 0x33333333u>(m);
+    transpose_stage<1, 0x55555555u>(m);
+    // m[c]: the magnitude of column 32 w + 16 half + c
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      const uint32_t neg = (uint32_t)((int32_t)(sign << (31 - c)) >> 31);
+      m[c] = (m[c] ^ neg) - neg;
+    }
+    const int s = it / per_shard;
+    const int w0 = (it - s * per_shard) * 16;
+    int32_t* o = out + (long long)s * a.W * 32 + w0 * 32;
+    // register chunk q ^ swz to chunk q, so that the store of register
+    // chunk q at q ^ swz leaves the warp's values in column order
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      cswap(m[e], m[4 + e], swz & 1);
+      cswap(m[8 + e], m[12 + e], swz & 1);
+      cswap(m[e], m[8 + e], swz & 2);
+      cswap(m[4 + e], m[12 + e], swz & 2);
+    }
+    if (lane == 0)   // the last bulk store has read the buffer
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      st[lane * 4 + (q ^ swz)] =
+          make_uint4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncwarp();
+    if (lane == 0) {
+      const int words = a.W - w0 < 16 ? (int)(a.W - w0) : 16;
+      const unsigned saddr = (unsigned)__cvta_generic_to_shared(st);
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+          "cp.async.bulk.commit_group;\n"
+          :: "l"(o), "r"(saddr), "r"((unsigned)words * 128u) : "memory");
+    }
+    k = k + 1 == kStages ? 0 : k + 1;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  if (lane == 0) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// items: (shard, first column, count) a block, count <= kGatherItem; table:
+// P plane addresses a shard, in device memory beside them.
 __global__ void __launch_bounds__(kThreads)
-bsi_decode_gather_kernel(const uint32_t* __restrict__ group,
-                         long long plane_stride, int D,
-                         const int32_t* __restrict__ cols, long long n,
+bsi_decode_gather_kernel(const unsigned long long* __restrict__ table, int P,
+                         const int* __restrict__ items,
+                         const int32_t* __restrict__ cols,
                          int32_t* __restrict__ vals, int32_t* __restrict__ ok) {
-  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const int c = cols[i];
-  const uint32_t* g = group + (c >> 5);
+  __shared__ unsigned long long addr[kMaxDepth + 2];   // the block's shard's
+  const int s = __ldg(items + 3 * blockIdx.x);
+  const int first = __ldg(items + 3 * blockIdx.x + 1);
+  const int count = __ldg(items + 3 * blockIdx.x + 2);
+  if ((int)threadIdx.x < P)
+    addr[threadIdx.x] = __ldg(table + (long long)s * P + threadIdx.x);
+  const int i = first + threadIdx.x;
+  const int c = (int)threadIdx.x < count ? __ldg(cols + i) : 0;
+  __syncthreads();
+  if ((int)threadIdx.x >= count) return;
+  const long long w = c >> 5;
   const int bit = c & 31;
+  // every plane's load in flight before any is used
+  uint32_t x[kMaxDepth + 2];
+#pragma unroll
+  for (int p = 0; p < kMaxDepth + 2; ++p)
+    x[p] = p < P ? row_word(addr[p], w, true) : 0u;
   uint32_t mag = 0u;
-  for (int p = 0; p < D; ++p)
-    mag |= ((__ldg(g + (2LL + p) * plane_stride) >> bit) & 1u) << p;
-  const bool neg = (__ldg(g + plane_stride) >> bit) & 1u;
+#pragma unroll
+  for (int p = 0; p < kMaxDepth; ++p) mag |= ((x[2 + p] >> bit) & 1u) << p;
+  const bool neg = (x[1] >> bit) & 1u;
   vals[i] = (int32_t)(neg ? 0u - mag : mag);
-  ok[i] = (int32_t)((__ldg(g) >> bit) & 1u);
+  ok[i] = (int32_t)((x[0] >> bit) & 1u);
 }
 
 // Kernel I' finds each value's bin with a search of a bounded number of
@@ -412,6 +585,64 @@ percentile_counts_kernel(const int32_t* __restrict__ vals, long long vals_stride
   }
 }
 
+// A launch's table: the device table's address, or the affine table.
+cudaError_t fill_args(const void* dev_table, const long long* affine, int S,
+                      int D, long long W, DecodeArgs* a) {
+  if (S <= 0 || W <= 0 || W >= (1LL << 31) || D < 1 || D > kMaxDepth ||
+      (dev_table == nullptr) == (affine == nullptr))
+    return cudaErrorInvalidValue;
+  a->table = static_cast<const unsigned long long*>(dev_table);
+  a->base = 0;
+  a->s_step = a->p_step = 0;
+  if (affine != nullptr) {
+    a->base = (unsigned long long)affine[0];
+    a->s_step = affine[1];
+    a->p_step = affine[2];
+  }
+  a->W = W;
+  a->S = S;
+  a->D = D;
+  a->P = D + 2;
+  return cudaSuccess;
+}
+
+// The forms of kernel G'': (planes it holds, words a copy) -> its entry.
+using DecodeKernel = void (*)(DecodeArgs, int32_t*, int, int);
+constexpr DecodeKernel kDecodeForms[4] = {
+    bsi_decode_kernel<16, 4>, bsi_decode_kernel<16, 1>,
+    bsi_decode_kernel<32, 4>, bsi_decode_kernel<32, 1>};
+
+// The resident blocks of kernel G'' form `form` at depth D on the current
+// device (its SMs times the occupancy calculator's blocks a SM with that
+// depth's shared memory), cached a device.
+cudaError_t decode_blocks(int form, int D, int* blocks) {
+  static int cache[64][4][kMaxDepth + 1];
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev][form][D] == 0) {
+    const void* fn = (const void*)kDecodeForms[form];
+    const int most = kWarps * decode_warp_words(kMaxDepth) * 4;
+    if ((e = cudaFuncSetAttribute(
+             fn, cudaFuncAttributeMaxDynamicSharedMemorySize, most)) !=
+            cudaSuccess ||
+        (e = cudaFuncSetAttribute(
+             fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+             (int)cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                    dev)) != cudaSuccess ||
+        (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, fn, kThreads, kWarps * decode_warp_words(D) * 4)) !=
+            cudaSuccess)
+      return e;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev][form][D] = sms * per_sm;
+  }
+  *blocks = cache[dev][form][D];
+  return cudaSuccess;
+}
+
 int grid_for(long long warps_of_work) {
   const long long blocks = (warps_of_work + kWarps - 1) / kWarps;
   return (int)(blocks < 1 ? 1 : (blocks > INT_MAX ? INT_MAX : blocks));
@@ -421,33 +652,59 @@ int grid_for(long long warps_of_work) {
 
 extern "C" {
 
-int fb_decode_limits(int* max_depth, int* max_thresholds) {
+// The deepest group kernels G'' and G''' take, kernel I's thresholds a
+// launch and the columns of a G''' item.
+int fb_decode_limits(int* max_depth, int* max_thresholds, int* gather_item) {
   *max_depth = kMaxDepth;
   *max_thresholds = kMaxThresholds;
+  *gather_item = kGatherItem;
   return 0;
 }
 
-int fb_bsi_decode(const void* group, long long shard_stride,
-                  long long plane_stride, int S, int D, long long W, void* out,
-                  void* stream) {
-  if (S <= 0 || W <= 0 || D < 1 || D > kMaxDepth) return cudaErrorInvalidValue;
-  const long long chunks = (long long)S * ((W + 31) / 32);
-  bsi_decode_kernel<<<grid_for(chunks), kThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)group, shard_stride, plane_stride, S, D, W,
-      (int32_t*)out);
+// Kernel G'' over S shards of D magnitude planes of W words, named by the
+// address table: dev_table, an (S, D + 2) array in device memory, or for a
+// stacked group `affine`: {base, shard step, plane step} in bytes (exactly
+// one of the two); vec 4 when W % 4 == 0 and every plane address is
+// 16-byte aligned, else 1.  out: (S, 32 W) int32, 16-byte aligned.
+int fb_bsi_decode(const void* dev_table, const long long* affine, int S,
+                  int D, long long W, int vec, void* out, void* stream) {
+  DecodeArgs a;
+  cudaError_t e = fill_args(dev_table, affine, S, D, W, &a);
+  if (e != cudaSuccess) return (int)e;
+  if (out == nullptr || (uintptr_t)out % 16 || (vec != 4 && vec != 1) ||
+      (vec == 4 && W % 4 != 0))
+    return (int)cudaErrorInvalidValue;
+  const long long per_shard = (W + 15) / 16;
+  const long long n_items = (long long)S * per_shard;
+  if (n_items > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  const int form = (D <= 16 ? 0 : 2) + (vec == 4 ? 0 : 1);
+  int blocks = 0;
+  if ((e = decode_blocks(form, D, &blocks)) != cudaSuccess) return (int)e;
+  long long grid = (n_items + kWarps - 1) / kWarps;
+  if (grid > blocks) grid = blocks;
+  kDecodeForms[form]<<<(unsigned)grid, kThreads,
+                       kWarps * decode_warp_words(D) * 4,
+                       (cudaStream_t)stream>>>(a, (int32_t*)out,
+                                               (int)per_shard, (int)n_items);
   return (int)cudaGetLastError();
 }
 
-int fb_bsi_decode_gather(const void* group, long long plane_stride, int D,
-                         const void* cols, long long n, void* vals, void* ok,
-                         void* stream) {
-  if (n <= 0) return 0;
-  if (D < 1 || D > kMaxDepth) return cudaErrorInvalidValue;
-  const long long blocks = (n + kThreads - 1) / kThreads;
-  bsi_decode_gather_kernel<<<(unsigned)blocks, kThreads, 0,
+// Kernel G''' over an (S, D + 2) table of plane addresses in device memory
+// (0: absent): n_items items of (shard, first column, count <=
+// kGatherItem) as int32 triples, cols the in-shard column ids (each below
+// 32 W, checked by the caller), vals and ok one int32 a column.
+int fb_bsi_decode_gather(const void* table, int S, int D, const void* items,
+                         long long n_items, const void* cols, void* vals,
+                         void* ok, void* stream) {
+  if (n_items == 0) return 0;
+  if (S <= 0 || D < 1 || D > kMaxDepth || n_items < 0 || n_items > INT_MAX ||
+      table == nullptr || items == nullptr || cols == nullptr ||
+      vals == nullptr || ok == nullptr)
+    return (int)cudaErrorInvalidValue;
+  bsi_decode_gather_kernel<<<(unsigned)n_items, kGatherItem, 0,
                              (cudaStream_t)stream>>>(
-      (const uint32_t*)group, plane_stride, D, (const int32_t*)cols, n,
-      (int32_t*)vals, (int32_t*)ok);
+      (const unsigned long long*)table, D + 2, (const int*)items,
+      (const int32_t*)cols, (int32_t*)vals, (int32_t*)ok);
   return (int)cudaGetLastError();
 }
 

@@ -25,11 +25,13 @@ its counts; TopN, MinRow/MaxRow, Rows and one-dimension GroupBy kernel B
 its sums kernel F (``bsi_sum_groups``) (ops/cuda_kernels.py), one launch
 over every shard (a residency batch) where the reference's per-shard loop
 would take its one-shot product or run its per-shard Sum or Min/Max.
-Decoded values come from kernel G
+Decoded values come from kernel G''
 (``bsi_decode``: Distinct, Sort and Percentile over the cached stacked
-decode, PlanExecutor.stacked_vals, or one shard's group), Extract's from
-kernel G' (``bsi_decode_gather``, one launch a shard), and Percentile's
-bisection counts from kernel I (``percentile_counts``); a field deeper
+decode, PlanExecutor.stacked_vals; under a filter the plan compiler
+refuses, ``bsi_decode_sharded`` over every shard's mirror), Extract's from
+kernel G''' (``bsi_decode_gather_sharded``, one launch over every shard's
+matched columns), and Percentile's bisection counts from kernel I
+(``percentile_counts``), each one launch a residency batch; a field deeper
 than 31 planes decodes on the host in int64 (Field.values_dense_host), and
 its Percentile bisects over kernel-A Counts.
 
@@ -86,6 +88,14 @@ _NOT_PORTED = {
     "Delete": "Delete", "Var": "Var/Corr", "Corr": "Var/Corr",
     "Apply": "Apply", "Arrow": "Arrow", "ExternalLookup": "ExternalLookup",
 }
+
+# a shard's decode (kernel G''): 4 bytes a column, 32 rows of W words, held
+# against the residency budget beside the mirrors a launch reads
+DECODE_ROWS = 32
+# the Sort route's rows a shard: the decode, its present mask (a byte a
+# column) and decode.sort_stacked's int64 temporaries (64 rows each, at most
+# four alive at once)
+SORT_ROWS = DECODE_ROWS + 8 + 4 * 64
 
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
@@ -752,30 +762,34 @@ class Executor:
         filt_call = call.children[0] if call.children else None
         return f, filt_call
 
-    def _shard_group_batches(self, index: Index, f: Field, filt_call: Call,
-                             shards):
-        """Per-shard inputs of an aggregate whose filter the plan compiler
-        refuses, a residency batch at a time (_residency_batches): (groups,
-        filter rows) of the batch's shards with BSI data, each group its
-        fragment's device mirror and the slots of the planes exists, sign
-        and each magnitude bit (-1 absent) there, each filter row the
-        interpreter's words of the shard (reference: the map_shards
+    def _shard_group_batches(self, index: Index, f: Field,
+                             filt_call: Optional[Call], shards,
+                             out_rows: int = 0):
+        """Per-shard inputs of a BSI call whose filter the plan compiler
+        refuses, a residency batch at a time (_residency_batches, with
+        `out_rows` rows of output a shard): (shards, groups, filter rows) of
+        the batch's shards with BSI data, each group its fragment's device
+        mirror and the slots of the planes exists, sign and each magnitude
+        bit (-1 absent) there, each filter row the interpreter's words of
+        the shard, or None without a filter (reference: the map_shards
         fallbacks, executor.py:1182)."""
         v = f.view(view_bsi_group(f.name))
         if v is None:
             return
         rows = [BSI_EXISTS_ROW, BSI_SIGN_ROW] + \
             [BSI_OFFSET + i for i in range(max(f.bit_depth, 1))]
-        for batch in self._residency_batches(shards, [v]):
-            groups, fws = [], []
+        for batch in self._residency_batches(shards, [v], out_rows):
+            live, groups, fws = [], [], []
             for shard in batch:
                 frag = v.fragment(shard)
                 if frag is None or frag.num_rows == 0:
                     continue
+                live.append(shard)
                 groups.append(frag.device_slots(rows, self.device))
-                fws.append(self._bitmap_call_shard(index, filt_call, shard))
+                fws.append(None if filt_call is None else
+                           self._bitmap_call_shard(index, filt_call, shard))
             if groups:
-                yield groups, fws
+                yield live, groups, fws
 
     @staticmethod
     def _wrap_valcount(f: Field, val: int, count: int) -> ValCount:
@@ -803,7 +817,7 @@ class Executor:
                 index, f.name, max(f.bit_depth, 1), shard_list)
             parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
         else:
-            per_batch = [ck.bsi_sum_planes_sharded(g, fws) for g, fws in
+            per_batch = [ck.bsi_sum_planes_sharded(g, fws) for _, g, fws in
                          self._shard_group_batches(index, f, filt_call,
                                                    shard_list)]
             if not per_batch:
@@ -840,9 +854,9 @@ class Executor:
                     return self._wrap_valcount(f, 0, 0)
                 return self._wrap_valcount(f, v + f.base, c)
         else:
-            per_batch = [ck.bsi_min_max_sharded(g, fws, is_min) for g, fws
-                         in self._shard_group_batches(index, f, filt_call,
-                                                      shard_list)]
+            per_batch = [ck.bsi_min_max_sharded(g, fws, is_min)
+                         for _, g, fws in self._shard_group_batches(
+                             index, f, filt_call, shard_list)]
             if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
             parts = torch.cat(per_batch).cpu().numpy()
@@ -1201,17 +1215,20 @@ class Executor:
         return True
 
     @staticmethod
-    def _residency_batches(shard_list, views) -> List[List[int]]:
-        """Shards in runs whose mirrors of `views` (and a filter row each)
-        fit the residency budget together, so that one launch can read
-        them all at once; a shard larger than the budget runs alone."""
+    def _residency_batches(shard_list, views,
+                           out_rows: int = 0) -> List[List[int]]:
+        """Shards in runs whose mirrors of `views` (and a filter row and
+        `out_rows` rows of a launch's output each) fit the residency budget
+        together, so that one launch can read them all at once; a shard
+        larger than the budget runs alone."""
         from featurebase_tpu_torch.storage.residency import residency
         budget = residency().budget
         batches: List[List[int]] = []
         cur, cur_bytes = [], 0
         for s in shard_list:
-            rows = 1 + sum(fr.num_rows for v in views if v is not None
-                           and (fr := v.fragment(s)) is not None)
+            rows = 1 + out_rows + sum(
+                fr.num_rows for v in views if v is not None
+                and (fr := v.fragment(s)) is not None)
             nbytes = rows * WORDS_PER_ROW * 4
             if cur and cur_bytes + nbytes > budget:
                 batches.append(cur)
@@ -1419,6 +1436,18 @@ class Executor:
                               device=self.device)
         return self._bitmap_call_shard(index, filt_call, shard)
 
+    def _present_words(self, groups, fws) -> torch.Tensor:
+        """(n, W) words of the columns that hold a value under the filter:
+        each (tile, slots) group's exists row (zeros where the fragment
+        lacks it) & its filter row (None: no filter)."""
+        ex = torch.stack([tile[int(sl[0])] if sl[0] >= 0 else self._zero()
+                          for tile, sl in groups])
+        if all(fw is None for fw in fws):
+            return ex
+        ones = torch.full((WORDS_PER_ROW,), -1, dtype=torch.int32,
+                          device=self.device)
+        return ex & torch.stack([ones if fw is None else fw for fw in fws])
+
     def _execute_distinct(self, index: Index, call: Call,
                           shards: Optional[List[int]]):
         """Distinct(filter?, field=f) (reference executeDistinct
@@ -1428,8 +1457,10 @@ class Executor:
         under a filter the plan compiler refuses), as a Row.  A BSI field
         gives its distinct values as a SignedRow: up to depth 31,
         torch.unique over the present columns of the cached stacked decode
-        (kernel G) under the stacked filter, or of each shard's decode under
-        its interpreted filter; deeper, each shard's host decode."""
+        (kernel G'') under the stacked filter, or under a filter the plan
+        compiler refuses of one decode over every shard's mirror a residency
+        batch (bsi_decode_sharded) under each shard's interpreted filter;
+        deeper, each shard's host decode."""
         fld = call.args.get("_field") or call.args.get("field")
         f = self._field_or_err(index, fld)
         filt_call = call.children[0] if call.children else None
@@ -1447,23 +1478,24 @@ class Executor:
             vals = pe.stacked_vals(index, f.name, depth, shard_list)
             present = decode.expand_bits(exists & filt).bool()
             parts = _fetch([torch.unique(vals[present])])
-        else:
+        elif depth <= decode.DEVICE_MAX_DEPTH:
             dev_parts = []
+            for _, groups, fws in self._shard_group_batches(
+                    index, f, filt_call, shard_list, DECODE_ROWS):
+                vals = ck.bsi_decode_sharded(groups)
+                present = decode.expand_bits(
+                    self._present_words(groups, fws)).bool()
+                dev_parts.append(torch.unique(vals[present]))
+            parts = _fetch(dev_parts)
+        else:
             for shard in shard_list:
-                data = f.bsi_data(shard, self.device)
-                if data is None:
+                dense = f.values_dense_host(shard)
+                if dense is None:
                     continue
-                group = data[0]
+                vals, exists_b = dense
                 fw = self._shard_filter(index, filt_call, shard)
-                if depth <= decode.DEVICE_MAX_DEPTH:
-                    present = decode.expand_bits(group[0] & fw).bool()
-                    vals = ck.bsi_decode(group[None])[0]
-                    dev_parts.append(torch.unique(vals[present]))
-                    continue
-                vals, exists_b = f.values_dense_host(shard)
                 present = exists_b & decode.expand_bits_host(host_words(fw))
                 parts.append(np.unique(vals[present]))
-            parts += _fetch(dev_parts)
         uniq = np.unique(np.concatenate(parts)) if parts else \
             np.zeros(0, dtype=np.int64)
         uniq = uniq.astype(np.int64) + f.base
@@ -1642,12 +1674,15 @@ class Executor:
         """Sort(filter, field=f, limit=, offset=, sort-desc=, after=[value,
         column]) -> {"columns", "values"} in (value, column) order
         (reference executeSort executor.go:9321; JAX executor.py:2569).
-        With a limit, up to depth 31 under a filter the plan compiler takes,
-        every shard's top offset + limit at once over the cached stacked
-        decode (kernel G), the cursor's mask ANDed into the filter; else a
-        sort a shard, of its decode (kernel G) or, past depth 31, its host
-        decode; then one merge.  `after` keeps only records strictly after
-        the cursor."""
+        Up to depth 31 the values come from the cached stacked decode
+        (kernel G'') under a filter the plan compiler takes, else from one
+        decode over every shard's mirror a residency batch
+        (bsi_decode_sharded) under each shard's interpreted filter; with a
+        limit (and a stacked filter), every shard's top offset + limit at
+        once (_sort_top), the cursor's mask ANDed into the filter; without
+        one, a sort a shard.  Past depth 31, a sort a shard of its host
+        decode.  Then one fetch and one merge.  `after` keeps only records
+        strictly after the cursor."""
         fld = call.args.get("_field") or call.args.get("field")
         f = self._field_or_err(index, fld)
         if not f.is_bsi():
@@ -1667,53 +1702,53 @@ class Executor:
         if shard_list and depth <= decode.DEVICE_MAX_DEPTH \
                 and take is not None:
             filt = self._mesh_filter(index, filt_call, shard_list)
+        cut = None if take is None else min(take, SHARD_WIDTH)
+        cursor = None if after is None else (after_raw, after_col)
+        tops, runs = [], []   # (shards, device top-k); (shard, sorted run)
         if filt is not None:
             pe = self.plan_executor
-            exists = pe.stacked_bsi(index, fld, depth, shard_list)[:, 0]
-            vals = pe.stacked_vals(index, fld, depth, shard_list)
-            cut = min(take, SHARD_WIDTH)
-            if after is not None:
-                col0 = torch.tensor(shard_list, dtype=torch.int64,
-                                    device=self.device) * SHARD_WIDTH
-                av = int(np.clip(after_raw, -(2**31), 2**31 - 1))
-                filt = filt & decode.after_mask_stacked(vals, col0, av,
-                                                        after_col, desc)
-            idx, keys, n_present = _fetch(list(decode.sort_stacked(
-                vals, exists, desc, cut, filt)))
-            cols_parts, vals_parts = [], []
-            for si, shard in enumerate(shard_list):
+            tops.append((shard_list, self._sort_top(
+                pe.stacked_vals(index, fld, depth, shard_list),
+                pe.stacked_bsi(index, fld, depth, shard_list)[:, 0] & filt,
+                shard_list, cut, desc, cursor)))
+        elif depth <= decode.DEVICE_MAX_DEPTH:
+            for live, groups, fws in self._shard_group_batches(
+                    index, f, filt_call, shard_list, SORT_ROWS):
+                vals = ck.bsi_decode_sharded(groups)
+                present = self._present_words(groups, fws)
+                if cut is not None:
+                    tops.append((live, self._sort_top(vals, present, live,
+                                                      cut, desc, cursor)))
+                    continue
+                present = decode.expand_bits(present).bool()
+                runs += [(shard, decode.sort_shard(vals[i], present[i], desc))
+                         for i, shard in enumerate(live)]
+        else:
+            for shard in shard_list:
+                dense = f.values_dense_host(shard)
+                if dense is None:
+                    continue
+                vals_d, exists_b = dense
+                if filt_call is not None:
+                    fw = self._bitmap_call_shard(index, filt_call, shard)
+                    exists_b = exists_b & decode.expand_bits_host(
+                        host_words(fw))
+                cols = np.nonzero(exists_b)[0].astype(np.int64)
+                v = vals_d[cols]
+                order = np.lexsort((cols, -v if desc else v))
+                runs.append((shard, (cols[order], v[order])))
+        dev = [x for _, top in tops for x in top] + \
+            [x for _, run in runs for x in run if isinstance(x, torch.Tensor)]
+        host = iter(_fetch(dev))
+        cols_parts, vals_parts = [], []
+        for shards_of, _ in tops:
+            idx, keys, n_present = next(host), next(host), next(host)
+            for si, shard in enumerate(shards_of):
                 n = min(int(n_present[si]), cut)
                 if n:
                     cols_parts.append(idx[si, :n] + shard * SHARD_WIDTH)
                     vals_parts.append(-keys[si, :n] if desc
                                       else keys[si, :n])
-            return self._sort_merge(f, cols_parts, vals_parts, desc, offset,
-                                    limit)
-        runs = []
-        for shard in shard_list:
-            data = f.bsi_data(shard, self.device)
-            if data is None:
-                continue
-            group = data[0]
-            fw = None if filt_call is None else \
-                self._bitmap_call_shard(index, filt_call, shard)
-            if depth <= decode.DEVICE_MAX_DEPTH:
-                ex = group[0] if fw is None else group[0] & fw
-                runs.append((shard, decode.sort_shard(
-                    ck.bsi_decode(group[None])[0],
-                    decode.expand_bits(ex).bool(), desc)))
-                continue
-            vals_d, exists_b = f.values_dense_host(shard)
-            if fw is not None:
-                exists_b = exists_b & decode.expand_bits_host(host_words(fw))
-            cols = np.nonzero(exists_b)[0].astype(np.int64)
-            v = vals_d[cols]
-            order = np.lexsort((cols, -v if desc else v))
-            runs.append((shard, (cols[order], v[order])))
-        dev = [x for _, run in runs for x in run
-               if isinstance(x, torch.Tensor)]
-        host = iter(_fetch(dev))
-        cols_parts, vals_parts = [], []
         for shard, (cols, v) in runs:
             if isinstance(cols, torch.Tensor):
                 cols, v = next(host), next(host)
@@ -1729,6 +1764,21 @@ class Executor:
                 vals_parts.append(v)
         return self._sort_merge(f, cols_parts, vals_parts, desc, offset,
                                 limit)
+
+    def _sort_top(self, vals: torch.Tensor, present: torch.Tensor, shards,
+                  cut: int, desc: bool, cursor) -> tuple:
+        """Device (columns, keys, present counts) of each shard's first
+        `cut` columns in (value, column) order (decode.sort_stacked) over
+        (S, C) decoded values and (S, W) words of the columns to sort, the
+        keyset cursor's mask ANDed in when `cursor` = (unbased value,
+        column) is given."""
+        filt = None
+        if cursor is not None:
+            col0 = torch.tensor(shards, dtype=torch.int64,
+                                device=self.device) * SHARD_WIDTH
+            av = int(np.clip(cursor[0], -(2**31), 2**31 - 1))
+            filt = decode.after_mask_stacked(vals, col0, av, cursor[1], desc)
+        return decode.sort_stacked(vals, present, desc, cut, filt)
 
     @staticmethod
     def _sort_merge(f: Field, cols_parts, vals_parts, desc: bool,
@@ -1761,7 +1811,10 @@ class Executor:
         each matched record's value of each field, columnar, in column
         order.  The filter's words come from the host existence rows for
         All(), else from one stacked plan (kernel A) fetched once, else
-        from the interpreter a shard."""
+        from the interpreter a shard.  With every shard's matched columns
+        in hand, each BSI field up to depth 31 takes one kernel-G'''
+        launch a residency batch over every shard's mirror, and one fetch
+        brings all of them back (_bsi_column_values)."""
         if not call.children or \
                 call.children[0].name not in self._EXTRACT_FILTERS:
             raise ExecError("Extract() requires a filter call")
@@ -1789,15 +1842,18 @@ class Executor:
             if stacked is not None:
                 arr = host_words(stacked)
                 filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
+        shard_cols = []
         for shard in shard_list:
             words = filt_rows[shard] if filt_rows is not None else \
                 host_words(self._bitmap_call_shard(index, filt_call, shard))
             cols = bw.words_to_cols(words).astype(np.int64)
-            if cols.size == 0:
-                continue
+            if cols.size:
+                shard_cols.append((shard, cols))
+        on_device = self._bsi_column_values(flds, shard_cols)
+        for shard, cols in shard_cols:
             for fi, f in enumerate(flds):
-                field_values[fi].extend(
-                    self._extract_field_values(f, shard, cols))
+                field_values[fi].extend(self._extract_field_values(
+                    f, shard, cols, on_device.get(fi)))
             col_ids.extend((cols + shard * SHARD_WIDTH).tolist())
         if index.options.keys and col_ids:
             keys = index.translate_store.translate_ids(col_ids)
@@ -1819,11 +1875,52 @@ class Executor:
         return ExtractedTable(tfields, col_ids=col_ids,
                               field_values=field_values)
 
-    def _extract_field_values(self, f: Field, shard: int,
-                              cols: np.ndarray) -> List[Any]:
+    def _bsi_column_values(self, flds: List[Field], shard_cols
+                           ) -> Dict[int, Dict[int, tuple]]:
+        """Kernel G''' values of each BSI field up to depth 31 at every
+        shard's matched columns (shard_cols: (shard, columns) pairs): one
+        launch per field and residency batch over the mirrors of the
+        shards with data, one fetch for all -> {field index: {shard:
+        (values, null)}}; a shard without data is left out."""
+        shards = [s for s, _ in shard_cols]
+        cols_of = dict(shard_cols)
+        launches = []
+        for fi, f in enumerate(flds):
+            if not f.is_bsi() or \
+                    max(f.bit_depth, 1) > decode.DEVICE_MAX_DEPTH:
+                continue
+            for live, groups, _ in self._shard_group_batches(
+                    None, f, None, shards):
+                launches.append((fi, live, ck.bsi_decode_gather_sharded(
+                    groups, [cols_of[s] for s in live])))
+        host = iter(_fetch([x for *_, pair in launches for x in pair]))
+        out: Dict[int, Dict[int, tuple]] = {}
+        for fi, live, _ in launches:
+            va, ok = next(host), next(host)
+            f, at = flds[fi], 0
+            for s in live:
+                n = cols_of[s].size
+                vals, null = va[at:at + n] + f.base, ok[at:at + n] == 0
+                if f.options.type == TYPE_DECIMAL:
+                    vals = vals / float(10 ** f.options.scale)
+                out.setdefault(fi, {})[s] = (vals, null)
+                at += n
+        return out
+
+    def _extract_field_values(self, f: Field, shard: int, cols: np.ndarray,
+                              on_device: Optional[Dict[int, tuple]] = None
+                              ) -> List[Any]:
         """One field's values at a shard's matched columns, as a list: a
         BSI, bool or mutex field's value (None where it has none), a set or
-        time field's sorted row ids."""
+        time field's sorted row ids.  `on_device`: the field's
+        _bsi_column_values, when it has them."""
+        if f.is_bsi() and on_device is not None:
+            vals, null = on_device.get(shard) or (
+                np.zeros(cols.size, np.int64), np.ones(cols.size, bool))
+            out = vals.tolist()
+            if null.any():
+                out = [None if m else v for v, m in zip(out, null.tolist())]
+            return out
         if f.is_bsi() or f.options.type in (TYPE_BOOL, TYPE_MUTEX):
             vals, null = self._field_shard_columns(f, shard, cols)
             out = vals.tolist()
@@ -1852,25 +1949,17 @@ class Executor:
 
     def _field_shard_columns(self, f: Field, shard: int, cols: np.ndarray):
         """(values, null) arrays of one field at a shard's matched columns
-        (JAX executor.py:634): a BSI field's values through kernel G' (one
-        launch a shard) up to depth 31 and the host decode past it; a bool
+        (JAX executor.py:634): a BSI field's values past depth 31 from the
+        host decode (shallower ones come from _bsi_column_values); a bool
         or mutex field's first set row."""
         n = cols.size
         absent = np.zeros(n, np.int64), np.ones(n, dtype=bool)
         if f.is_bsi():
-            if max(f.bit_depth, 1) <= decode.DEVICE_MAX_DEPTH:
-                data = f.bsi_data(shard, self.device)
-                if data is None:
-                    return absent
-                va, ok = _fetch(list(ck.bsi_decode_gather(
-                    data[0], torch.from_numpy(cols).to(self.device))))
-                vals, null = va + f.base, ok == 0
-            else:
-                dense = f.values_dense_host(shard)
-                if dense is None:
-                    return absent
-                vals_d, exists_b = dense
-                vals, null = vals_d[cols] + f.base, ~exists_b[cols]
+            dense = f.values_dense_host(shard)
+            if dense is None:
+                return absent
+            vals_d, exists_b = dense
+            vals, null = vals_d[cols] + f.base, ~exists_b[cols]
             if f.options.type == TYPE_DECIMAL:
                 return vals / float(10 ** f.options.scale), null
             return vals, null

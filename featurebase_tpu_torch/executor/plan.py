@@ -20,7 +20,7 @@ a subtree that does not fit kernel A's limits is evaluated first and enters
 as a leaf too, ops/lowering.py) and runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
 per-shard counts for Count.  ``stacked_vals`` caches a field's decoded
-values (kernel G, ``bsi_decode``) the same way, for Distinct, Percentile
+values (kernel G'', ``bsi_decode``) the same way, for Distinct, Percentile
 and Sort.
 """
 from __future__ import annotations
@@ -437,7 +437,7 @@ class PlanExecutor:
     def stacked_vals(self, index: Index, fname: str, depth: int,
                      shards: List[int]) -> torch.Tensor:
         """(S, 2^20) int32 decoded values of a field (depth <= 31), unbased
-        and undefined where the exists bit is clear: kernel G over the
+        and undefined where the exists bit is clear: kernel G'' over the
         stacked group, cached by fragment generation beside the leaves and
         registered with the residency LRU (JAX plan.py:512).  Under a pin
         that has diverged from the live fragments the decode is returned

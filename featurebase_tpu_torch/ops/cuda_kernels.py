@@ -60,13 +60,17 @@ bytes (the header note of the source).  The plain versions are
 Three more (csrc/decode_kernels.cu) decode BSI values, again for XLA
 programs of featurebase_tpu/ops/bsi.py:
 
-- ``bsi_decode`` (kernel G) replaces ``decode_values`` (bsi.py:759) and
-  ``decode_values_jit`` (:482): a stacked group to (S, 2^20) int32 values.
-- ``bsi_decode_gather`` (kernel G') replaces ``decode_gather`` (:367): one
-  shard's values and exists bits at N columns.
+- ``bsi_decode`` (kernel G'') replaces ``decode_values`` (bsi.py:759) and
+  ``decode_values_jit`` (:482): S shards' groups to (S, 2^20) int32 values.
+- ``bsi_decode_gather`` (kernel G''') replaces ``decode_gather`` (:367):
+  each shard's values and exists bits at its columns.
 - ``percentile_counts`` (kernel I) replaces the counting passes of
   ``percentile_fused`` (:491-607): a histogram of the present values over
   the bins of K sorted thresholds, with their min and max.
+G'' and G''' name planes by a table of addresses, as C' and D' do:
+``bsi_decode_sharded`` and ``bsi_decode_gather_sharded`` read every shard's
+mirror in place in one launch, ``bsi_decode`` takes a stacked group as an
+affine table, and ``bsi_decode_gather`` one shard's group.
 Bound: bytes (the header note of the source).  Their plain versions are in
 ops/decode.py, with the Percentile bisection that drives kernel I.
 
@@ -834,12 +838,11 @@ def bsi_min_max(group: torch.Tensor, filt: torch.Tensor, is_min: bool
 bsi_min_max.launches = 0
 
 
-def _bsi_group_inputs(groups, filt):
-    """Check per-shard BSI groups and their filter -> (tiles, (S, D + 2)
-    slots, D, W, every tensor).  A group is None (a shard without data), a
-    (D + 2, W) tensor, or a (tile, slots) pair: the slot of each plane in a
-    fragment's device mirror, -1 for an absent plane."""
-    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+def _bsi_groups(groups, max_depth: int):
+    """Per-shard BSI groups -> (tiles, (S, D + 2) slots, D).  A group is
+    None (a shard without data), a (D + 2, W) tensor, or a (tile, slots)
+    pair: the slot of each plane in a fragment's device mirror, -1 for an
+    absent plane.  Every group has the same depth, 1 <= D <= max_depth."""
     tiles, slots = [], []
     for g in groups:
         if g is None:
@@ -850,22 +853,33 @@ def _bsi_group_inputs(groups, filt):
             tiles.append(g)
             slots.append(np.arange(g.shape[0], dtype=np.int64))
         else:
+            sl = np.asarray(g[1], dtype=np.int64).reshape(-1)
+            if sl.size and (sl.min() < -1 or sl.max() >= g[0].shape[0]):
+                raise ValueError("BSI group: a slot past its tile")
             tiles.append(g[0])
-            slots.append(np.asarray(g[1], dtype=np.int64).reshape(-1))
+            slots.append(sl)
     Ps = {len(sl) for sl in slots if sl is not None}
-    if len(Ps) > 1 or (Ps and not 3 <= min(Ps) <= MAX_DEPTH + 2):
+    if len(Ps) > 1 or (Ps and not 3 <= min(Ps) <= max_depth + 2):
         raise ValueError(f"BSI groups must share one depth D + 2 planes with "
-                         f"1 <= D <= {MAX_DEPTH}, got {sorted(Ps)}")
+                         f"1 <= D <= {max_depth}, got {sorted(Ps)}")
     P = Ps.pop() if Ps else 3
     sl = np.stack([np.full(P, -1, dtype=np.int64) if s is None else s
                    for s in slots]) if slots else np.zeros((0, P), np.int64)
+    return tiles, sl, P - 2
+
+
+def _bsi_group_inputs(groups, filt):
+    """Check per-shard BSI groups (_bsi_groups) and their filter ->
+    (tiles, (S, D + 2) slots, D, W, every tensor)."""
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    tiles, sl, D = _bsi_groups(groups, MAX_DEPTH)
     if filt is None:
         raise ValueError("the BSI kernels need a filter")
     rows = [filt] if isinstance(filt, torch.Tensor) else \
         [f for f in filt if f is not None]
     tensors = [t for t in tiles if t is not None] + rows
     W = _words_per_row(tensors) if tensors else 1
-    return tiles, sl, P - 2, W, tensors
+    return tiles, sl, D, W, tensors
 
 
 def bsi_sum_planes_sharded_plain(groups, filt) -> torch.Tensor:
@@ -1333,31 +1347,34 @@ def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 bsi_sum_groups.launches = 0
 
 
-# -- kernels G, G' and I: the decode family (csrc/decode_kernels.cu) ---------
+# -- kernels G'', G''' and I': the decode family (csrc/decode_kernels.cu) ----
 
 MAX_DECODE_DEPTH = 31      # int32 values; must match csrc/decode_kernels.cu
 MAX_THRESHOLDS = 512
 
 
-def _decode_lib() -> ctypes.CDLL:
-    """Kernels G, G' and I's library, built on first use."""
+def _decode_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The library of kernels G'', G''' and I', built on first use (with
+    extra nvcc `flags` if any)."""
     from featurebase_tpu_torch.ops import build
-    lib = build.load(DECODE_SOURCE)
+    lib = build.load(DECODE_SOURCE, flags)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.fb_bsi_decode.argtypes = [vp, i64, i64, i32, i32, i64, vp, vp]
-        lib.fb_bsi_decode_gather.argtypes = [vp, i64, i32, vp, i64, vp, vp,
-                                             vp]
+        lib.fb_bsi_decode.argtypes = [vp, ctypes.POINTER(i64), i32, i32, i64,
+                                      i32, vp, vp]
+        lib.fb_bsi_decode_gather.argtypes = [vp, i32, i32, vp, i64, vp, vp,
+                                             vp, vp]
         lib.fb_percentile_counts.argtypes = [vp, i64, vp, i64, vp, i64, i32,
                                              i64, i32, vp, i32, vp, vp]
-        lib.fb_decode_limits.argtypes = [ctypes.POINTER(i32)] * 2
+        lib.fb_decode_limits.argtypes = [ctypes.POINTER(i32)] * 3
         for fn in (lib.fb_bsi_decode, lib.fb_bsi_decode_gather,
                    lib.fb_percentile_counts, lib.fb_decode_limits):
             fn.restype = i32
-        depth, thr = i32(), i32()
-        lib.fb_decode_limits(ctypes.byref(depth), ctypes.byref(thr))
-        if (depth.value, thr.value) != (MAX_DECODE_DEPTH, MAX_THRESHOLDS):
+        lim = [i32() for _ in range(3)]
+        lib.fb_decode_limits(*[ctypes.byref(x) for x in lim])
+        if (lim[0].value, lim[1].value) != (MAX_DECODE_DEPTH, MAX_THRESHOLDS):
             raise RuntimeError("kernel limits differ from cuda_kernels.py")
+        lib._fb_item = lim[2].value
         lib._fb_typed = True
     return lib
 
@@ -1376,62 +1393,191 @@ def _group_planes(group: torch.Tensor, dims: int) -> Tuple[int, int]:
     return P - 2, W
 
 
-def bsi_decode(group: torch.Tensor) -> torch.Tensor:
-    """Kernel G: an (S, D + 2, W) int32 group -> (S, 32 W) int32 values,
-    unbased, negated where the sign bit is set; undefined (the decode of
-    whatever bits are there) where exists is clear."""
-    D, W = _group_planes(group, 3)
-    if _is_cpu([group]):
-        from featurebase_tpu_torch.ops.decode import decode_values_plain
-        return decode_values_plain(group)
-    S = group.shape[0]
-    out = torch.empty((S, 32 * W), dtype=torch.int32, device=group.device)
+def _decode_groups(groups):
+    """Per-shard groups of the decode kernels (_bsi_groups, D <= 31) ->
+    (tiles, (S, D + 2) slots, D, W, the tiles present); at least one shard
+    must have data."""
+    tiles, sl, D = _bsi_groups(groups, MAX_DECODE_DEPTH)
+    tensors = [t for t in tiles if t is not None]
+    if not tensors:
+        raise ValueError("the decode kernels need a shard with data")
+    return tiles, sl, D, _words_per_row(tensors), tensors
+
+
+def _decode_launch(addrs: Optional[np.ndarray],
+                   affine: Optional[Sequence[int]], S: int, D: int, W: int,
+                   dev: torch.device) -> torch.Tensor:
+    """One launch of kernel G'' over S shards of D + 2 planes: an
+    (S, D + 2) uint64 table of plane addresses (0: absent), or for a
+    stacked group `affine` = (base, shard step, plane step) in bytes ->
+    (S, 32 W) int32.  The caller holds the tensors the addresses point into
+    until this returns, when the launch is enqueued."""
+    out = torch.empty((S, 32 * W), dtype=torch.int32, device=dev)
     if S == 0:
         return out
-    with torch.cuda.device(group.device):
-        stream = torch.cuda.current_stream(group.device).cuda_stream
-        rc = _decode_lib().fb_bsi_decode(
-            group.data_ptr(), group.stride(0), group.stride(1), S, D, W,
-            out.data_ptr(), stream)
+    lib = _decode_lib()
+    if addrs is not None:
+        table = np.ascontiguousarray(addrs.reshape(-1), dtype=np.uint64)
+        aligned = not (table % np.uint64(16)).any()
+    else:
+        aligned = not any(int(x) % 16 for x in affine)
+    vec = 4 if W % 4 == 0 and aligned else 1
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        dev_table = None if addrs is None else torch.from_numpy(
+            table.view(np.int64)).pin_memory().to(dev, non_blocking=True)
+        rc = lib.fb_bsi_decode(
+            None if dev_table is None else dev_table.data_ptr(),
+            None if affine is None else (ctypes.c_longlong * 3)(*affine),
+            S, D, W, vec, out.data_ptr(), stream)
     _check(rc, "bsi_decode")
     bsi_decode.launches += 1
     return out
 
 
+def bsi_decode(group: torch.Tensor) -> torch.Tensor:
+    """Kernel G'': an (S, D + 2, W) int32 group -> (S, 32 W) int32 values,
+    unbased, negated where the sign bit is set; undefined (the decode of
+    whatever bits are there) where exists is clear.  The group is an affine
+    table (views with a unit word stride are taken as they are)."""
+    D, W = _group_planes(group, 3)
+    if _is_cpu([group]):
+        from featurebase_tpu_torch.ops.decode import decode_values_plain
+        return decode_values_plain(group)
+    return _decode_launch(None, (group.data_ptr(), group.stride(0) * 4,
+                                 group.stride(1) * 4),
+                          group.shape[0], D, W, group.device)
+
+
 bsi_decode.launches = 0
 
 
-def bsi_decode_gather(group: torch.Tensor, cols: torch.Tensor
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel G': one shard's (D + 2, W) int32 group and (N,) column ids
-    (within the shard, on the group's device) -> (vals (N,) int32, ok (N,)
-    int32): each column's signed, unbased value and its exists bit."""
-    D, W = _group_planes(group, 2)
-    if cols.dim() != 1 or cols.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"cols must be (N,) int32 or int64, got "
-                         f"{tuple(cols.shape)} {cols.dtype}")
-    if cols.numel():
-        lo, hi = (int(x) for x in torch.aminmax(cols))   # one sync
-        if lo < 0 or hi >= 32 * W:
-            raise ValueError(f"columns must lie in [0, {32 * W})")
-    if _is_cpu([group, cols]):
-        from featurebase_tpu_torch.ops.decode import decode_gather_plain
-        return decode_gather_plain(group, cols)
-    n = cols.numel()
-    dev = group.device
-    vals = torch.empty(n, dtype=torch.int32, device=dev)
-    ok = torch.empty(n, dtype=torch.int32, device=dev)
-    if n == 0:
+def bsi_decode_sharded(groups) -> torch.Tensor:
+    """Kernel G'' over every shard in one launch, the planes read in place:
+    groups a list of per-shard BSI groups (None for a shard without data, a
+    (D + 2, W) int32 tensor or view, or a (tile, slots) pair naming each
+    plane's row of a fragment's device mirror, -1 absent; D <= 31, at least
+    one shard with data) -> (S, 32 W) int32 as bsi_decode gives, an absent
+    plane read as zeros and a shard without data all zeros.  Counts as a
+    bsi_decode launch."""
+    tiles, sl, D, W, tensors = _decode_groups(groups)
+    if _is_cpu(tensors):
+        return bsi_decode_sharded_plain(groups)
+    return _decode_launch(_dim_addrs(tiles, sl, W, "BSI group"), None,
+                          len(tiles), D, W, tensors[0].device)
+
+
+def bsi_decode_sharded_plain(groups) -> torch.Tensor:
+    """bsi_decode_sharded shard by shard with torch ops."""
+    from featurebase_tpu_torch.ops.decode import decode_values_plain
+    tiles, sl, D, W, tensors = _decode_groups(groups)
+    dev = tensors[0].device
+    out = torch.zeros((len(tiles), 32 * W), dtype=torch.int32, device=dev)
+    for s, tile in enumerate(tiles):
+        if tile is not None:
+            out[s] = decode_values_plain(_gather_rows(tile, sl[s], W, dev))
+    return out
+
+
+def _host_columns(cols_per_shard, S: int, W: int) -> List[np.ndarray]:
+    """Each shard's in-shard column ids as int64 numpy, checked on the host
+    to lie in [0, 32 W): numpy arrays or CPU tensors, never device tensors
+    (their check would wait on the card)."""
+    if len(cols_per_shard) != S:
+        raise ValueError(f"{len(cols_per_shard)} column lists for {S} shards")
+    out = []
+    for c in cols_per_shard:
+        if isinstance(c, torch.Tensor):
+            if c.device.type != "cpu":
+                raise ValueError("columns must be host ids (numpy or a CPU "
+                                 "tensor)")
+            c = c.numpy()
+        a = np.asarray(c)
+        if a.ndim != 1 or (a.size and a.dtype.kind not in "iu"):
+            raise ValueError(f"columns must be (N,) integers, got {a.shape} "
+                             f"{a.dtype}")
+        out.append(a.astype(np.int64, copy=False))
+    every = np.concatenate(out) if out else np.zeros(0, np.int64)
+    if every.size and (every.min() < 0 or every.max() >= 32 * W):
+        raise ValueError(f"columns must lie in [0, {32 * W})")
+    return out
+
+
+def bsi_decode_gather_sharded(groups, cols_per_shard
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G''' over every shard in one launch, the planes read in
+    place: groups as bsi_decode_sharded takes them, cols_per_shard a list of
+    each shard's in-shard column ids (host arrays) -> (vals (N,) int32, ok
+    (N,) int32) of every shard's columns in turn: each column's signed,
+    unbased value and its exists bit, ok = 0 in a shard without data.  The
+    columns are checked on the host and uploaded with the address table
+    and the item table (at most 256 columns of one shard a block) in one
+    pinned copy; no sync.  Counts as a bsi_decode_gather launch."""
+    tiles, sl, D, W, tensors = _decode_groups(groups)
+    cols = _host_columns(cols_per_shard, len(tiles), W)
+    if _is_cpu(tensors):
+        return bsi_decode_gather_sharded_plain(groups, cols)
+    dev = tensors[0].device
+    counts = np.array([c.size for c in cols], dtype=np.int64)
+    N = int(counts.sum())
+    vals = torch.empty(N, dtype=torch.int32, device=dev)
+    ok = torch.empty(N, dtype=torch.int32, device=dev)
+    if N == 0:
         return vals, ok
-    c32 = cols.to(torch.int32).contiguous()
+    if N >= 1 << 31:
+        raise ValueError("at most 2^31 - 1 columns a launch")
+    lib = _decode_lib()
+    item = lib._fb_item
+    per = -(-counts // item)
+    shard = np.repeat(np.arange(len(cols)), per)
+    first_item = np.concatenate([[0], np.cumsum(per)[:-1]])
+    first_col = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    start = first_col[shard] + item * (np.arange(shard.size)
+                                       - first_item[shard])
+    n = np.minimum(item, first_col[shard] + counts[shard] - start)
+    items = np.stack([shard, start, n], axis=1).astype(np.int32).reshape(-1)
+    addrs = np.ascontiguousarray(_dim_addrs(tiles, sl, W, "BSI group"),
+                                 dtype=np.uint64).reshape(-1)
+    host = torch.from_numpy(np.concatenate(
+        [addrs.view(np.int32), items,
+         np.concatenate(cols).astype(np.int32)])).pin_memory()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _decode_lib().fb_bsi_decode_gather(
-            group.data_ptr(), group.stride(0), D, c32.data_ptr(), n,
-            vals.data_ptr(), ok.data_ptr(), stream)
+        buf = host.to(dev, non_blocking=True)
+        at = buf.data_ptr() + addrs.size * 8
+        rc = lib.fb_bsi_decode_gather(
+            buf.data_ptr(), len(tiles), D, at, shard.size,
+            at + items.size * 4, vals.data_ptr(), ok.data_ptr(), stream)
     _check(rc, "bsi_decode_gather")
     bsi_decode_gather.launches += 1
     return vals, ok
+
+
+def bsi_decode_gather_sharded_plain(groups, cols_per_shard
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """bsi_decode_gather_sharded shard by shard with torch ops."""
+    from featurebase_tpu_torch.ops.decode import decode_gather_plain
+    tiles, sl, D, W, tensors = _decode_groups(groups)
+    cols = _host_columns(cols_per_shard, len(tiles), W)
+    dev = tensors[0].device
+    parts = [decode_gather_plain(_gather_rows(tile, sl[s], W, dev),
+                                 torch.from_numpy(c).to(dev))
+             for s, (tile, c) in enumerate(zip(tiles, cols))]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([o for _, o in parts]))
+
+
+def bsi_decode_gather(group: torch.Tensor, cols
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel G''' for one shard: a (D + 2, W) int32 group and (N,) host
+    column ids (numpy or a CPU tensor) -> (vals (N,) int32, ok (N,)
+    int32): each column's signed, unbased value and its exists bit."""
+    D, W = _group_planes(group, 2)
+    (c,) = _host_columns([cols], 1, W)
+    if _is_cpu([group]):
+        from featurebase_tpu_torch.ops.decode import decode_gather_plain
+        return decode_gather_plain(group, torch.from_numpy(c))
+    return bsi_decode_gather_sharded([group], [c])
 
 
 bsi_decode_gather.launches = 0

@@ -8,8 +8,8 @@ to the field's base, and column c of a shard is bit c & 31 of word c >> 5.
 
 - ``expand_bits`` (bsi.py:281) and ``pack_bits`` (:706): words to one
   uint8 a column and back, as torch ops.
-- ``decode_values_plain`` (kernel G's plain version; ``decode_values``
-  :759, ``decode_values_jit`` :482), ``decode_gather_plain`` (kernel G';
+- ``decode_values_plain`` (the plain kernel G''; ``decode_values``
+  :759, ``decode_values_jit`` :482), ``decode_gather_plain`` (kernel G''';
   ``decode_gather`` :367) and ``percentile_counts_plain`` (kernel I; the
   counting passes of ``percentile_fused`` :491-607).  The wrappers in
   ops/cuda_kernels.py run these on CPU tensors and the kernels on CUDA

@@ -2,7 +2,7 @@
 (parent, change, change, parent).
 
     python3 -m featurebase_tpu_torch.tools.compare_parent PARENT \
-        [--kernels bsi|rows] [--reps 10]
+        [--kernels bsi|rows|decode] [--reps 10]
 
 PARENT is the root of an unpacked earlier commit of this repository (for
 example ``git archive <rev> | tar -x -C _scratch/parent``).  Its sources are
@@ -25,6 +25,16 @@ kernel I (the same C interface as I').  B's shapes: a stacked (128, 8,
 32768) tile with and without a filter, one shard of it, and 128 one-shard
 mirrors.  I's: the prep pass and rounds of 2 (the min and the max), 4, 129
 (a bisection round's pivots) and 512 thresholds over 128 shards of values.
+
+``--kernels decode``: the parent's ``decode_kernels.cu`` holds the first
+kernels G (a stacked group, ``fb_bsi_decode(group, shard_stride,
+plane_stride, S, D, W, out, stream)``) and G' (one shard's group and device
+columns, ``fb_bsi_decode_gather(group, plane_stride, D, cols, n, vals, ok,
+stream)``), timed beside G'' and G''' (host columns, which the wrapper
+uploads): G at depth 14 over 128 stacked shards, one shard and 128 shards'
+mirrors (the parent launched once a shard there); G' at 1,000 and 65,536
+columns of one shard and at 1,000 columns a shard over 128 shards' mirrors
+(the parent launched once a shard).
 
 Each shape's device time (torch.profiler, L2 flushed before each call) and
 event time (CUDA events, chip_smoke.py's Timer) is printed as one JSON
@@ -221,10 +231,100 @@ def bsi_cases(parent: str):
     return cases, calls
 
 
+def decode_cases(parent: str):
+    """Kernels G and G' of the parent beside G'' and G''': name -> (parent,
+    change, plain, bytes), and the parent's launches a call where more than
+    one."""
+    import chip_smoke as c
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import decode
+
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    old = build_parent(parent, ck.DECODE_SOURCE)
+    old.fb_bsi_decode.argtypes = [vp, i64, i64, i32, i32, i64, vp, vp]
+    old.fb_bsi_decode_gather.argtypes = [vp, i64, i32, vp, i64, vp, vp, vp]
+    old.fb_bsi_decode.restype = old.fb_bsi_decode_gather.restype = i32
+
+    def old_decode(group):
+        S, P, W = group.shape
+        out = torch.empty((S, 32 * W), dtype=torch.int32, device="cuda")
+        rc = old.fb_bsi_decode(group.data_ptr(), group.stride(0),
+                               group.stride(1), S, P - 2, W, out.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent bsi_decode: CUDA error {rc}")
+        return out
+
+    def old_gather(group, cols):
+        """The parent's (vals, ok) of device columns, as one tensor."""
+        n = cols.numel()
+        out = torch.empty(2 * n, dtype=torch.int32, device="cuda")
+        rc = old.fb_bsi_decode_gather(
+            group.data_ptr(), group.stride(0), group.shape[0] - 2,
+            cols.data_ptr(), n, out.data_ptr(), out[n:].data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if rc:
+            raise RuntimeError(f"parent bsi_decode_gather: CUDA error {rc}")
+        return out
+
+    rng = np.random.default_rng(59)
+    S, P, W = 128, 16, 32768
+    group = c.rand_words(rng, (S, P, W))
+    one = group[:1].contiguous()
+    mirrors = [g.clone() for g in group]
+
+    def nbytes(S):   # the sign and magnitude planes once; the values
+        return (P - 1) * S * W * 4 + S * 32 * W * 4
+    cases = {
+        "bsi_decode/s128_d14": (
+            lambda: old_decode(group), lambda: ck.bsi_decode(group),
+            lambda: decode.decode_values_plain(group), nbytes(S)),
+        "bsi_decode/s1_d14": (
+            lambda: old_decode(one), lambda: ck.bsi_decode(one),
+            lambda: decode.decode_values_plain(one), nbytes(1)),
+        "bsi_decode/mirrors_s128_d14": (
+            lambda: torch.cat([old_decode(m[None]) for m in mirrors]),
+            lambda: ck.bsi_decode_sharded(mirrors),
+            lambda: decode.decode_values_plain(group), nbytes(S)),
+    }
+
+    def gather_bytes(cols_per_shard):   # ids in, P words a word, 8 out
+        words = sum(np.unique(x >> 5).size for x in cols_per_shard)
+        n = sum(x.size for x in cols_per_shard)
+        return n * 4 + words * P * 4 + n * 8
+    for n in (1000, 1 << 16):
+        cols = np.sort(rng.choice(32 * W, n, replace=False))
+        dcols = torch.from_numpy(cols).to(torch.int32).cuda()
+        cases[f"bsi_decode_gather/n{n}_d14"] = (
+            lambda dcols=dcols: old_gather(group[0], dcols),
+            lambda cols=cols: torch.cat(ck.bsi_decode_gather(group[0], cols)),
+            lambda cols=cols: torch.cat(decode.decode_gather_plain(
+                group[0], torch.from_numpy(cols).cuda())),
+            gather_bytes([cols]))
+    per = [np.sort(rng.choice(32 * W, 1000, replace=False))
+           for _ in range(S)]
+    dper = [torch.from_numpy(x).to(torch.int32).cuda() for x in per]
+
+    def old_sharded():
+        """The parent's launch a shard, as (vals of every shard, ok of
+        every shard)."""
+        parts = [old_gather(m, x).reshape(2, -1) for m, x in zip(mirrors, dper)]
+        return torch.cat([torch.cat([p[0] for p in parts]),
+                          torch.cat([p[1] for p in parts])])
+    cases["bsi_decode_gather/mirrors_s128_n1000_d14"] = (
+        old_sharded,
+        lambda: torch.cat(ck.bsi_decode_gather_sharded(mirrors, per)),
+        lambda: torch.cat(ck.bsi_decode_gather_sharded_plain(mirrors, per)),
+        gather_bytes(per))
+    calls = {(k, "parent"): S for k in cases if "mirrors" in k}
+    return cases, calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
-    ap.add_argument("--kernels", choices=("bsi", "rows"), default="bsi")
+    ap.add_argument("--kernels", choices=("bsi", "rows", "decode"),
+                    default="bsi")
     ap.add_argument("--reps", type=int, default=10)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -233,10 +333,12 @@ def main() -> int:
     sys.path.insert(0, os.getcwd())
     import chip_smoke as c
 
-    make = bsi_cases if args.kernels == "bsi" else rows_cases
+    make = {"bsi": bsi_cases, "rows": rows_cases,
+            "decode": decode_cases}[args.kernels]
     cases, calls = make(args.parent)
     timer = c.Timer(args.reps)
-    prefixes = ("row_counts", "percentile", "bsi_sum_planes", "bsi_min_max")
+    prefixes = ("row_counts", "percentile", "bsi_sum_planes", "bsi_min_max",
+                "bsi_decode")
     for name, (old, new, plain, nbytes) in cases.items():
         want = plain()
         for what, fn in (("parent", old), ("change", new)):
