@@ -49,7 +49,13 @@ Phases, one status line each; any failure raises and exits nonzero:
      W = 32768 and 1001, depths 1, 14 and 31, G''' at N = 0, 1, 37 and
      65,536 columns a shard), I' in each of its forms at K = 0, 1, 2,
      129 and 512 thresholds: random, duplicated, every value below them,
-     every value above them, and bases that wrap value + base in int32;
+     every value above them, and bases that wrap value + base in int32.
+     Kernel H (var_moments, corr_moments; moments_parity): Var at depths
+     1, 5, 14 and 31 and Corr at (1, 1), (5, 3), (14, 12) and (31, 31), at
+     S = 1 and 3 and at the slice's S, with absent planes, planes not under
+     exists, encoded values, all-ones and empty filters, W = 1001 and a
+     view one word off (the 4-byte forms), stacked and over per-shard
+     mirrors with the filter as words, as rows with some None, and absent;
   4. kernel times (CUDA events, L2 flushed before each launch, median of
      --reps; and each CUDA kernel's own device time from torch.profiler)
      beside the bound (bytes at 3.35 TB/s or, for E and F, bit products at
@@ -65,7 +71,8 @@ Phases, one status line each; any failure raises and exits nonzero:
      and over 128 shards' mirrors beside 128 one-shard launches, G''' at
      1,000 and 65,536 columns of a shard and over 128 shards' mirrors
      beside 128 one-shard launches, I' at its prep pass and at rounds of 2
-     and 129); the card's popcount rate
+     and 129; H for Var at depth 14 and Corr at depths 14 and 12 over S
+     stacked shards, moments_times); the card's popcount rate
      from a popcount-only loop and the tensor cores' rate in the 1-bit and
      int8 mma.sync forms (`tc_rate`, with whether ptxas takes the
      warpgroup 1-bit form, csrc/wgmma_b1_probe.cu); kernel A's cases must run
@@ -77,10 +84,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      lift over every threshold beside the default's bucket table
      (pct_ablation);
   5. the slice: a --shards table (625,000 records per shard; set fields f
-     and g, int field v in [-1000, 10000]) built through the port's import
-     API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow, MaxRow,
-     Rows, UnionRows, Limit, GroupBy, and calls only the per-shard
-     interpreter runs), and LIMIT_QUERIES over a small second index (plans
+     and g, int fields v in [-1000, 10000] and u in [-500, 4000], a third
+     of v plus noise on nine records in ten) built through the port's
+     import API, the query mix (Count, Row, TopN, Sum, Min, Max, MinRow,
+     MaxRow, Rows, UnionRows, Limit, GroupBy, Var, Corr, and calls only the
+     per-shard interpreter runs), and LIMIT_QUERIES over a small second index (plans
      past kernel A's limits, BSI predicates at depth 43), through
      Executor(holder) on cuda, every answer equal
      to a CPU executor over the same Holder and to a numpy oracle on
@@ -100,7 +108,13 @@ Phases, one status line each; any failure raises and exits nonzero:
      residency phase: every device cache dropped, and the whole mix again
      under a residency budget of half the bytes the first pass left
      resident, with every answer unchanged, evictions, and the bytes
-     within the budget after each query;
+     within the budget after each query; then the writes phase, after
+     every read: PQL Set, Clear, ClearRow, Store and Delete on the bench
+     and keyed indexes after reads that filled every device cache, then
+     the reads again, each equal to the CPU executor and to a numpy model
+     of the writes, at the default budget and again under half the
+     resident bytes; the p50 of a Set, Store and Delete and the first
+     read after the writes beside the cached p50;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -215,6 +229,21 @@ DECODE_QUERIES = [
     "Extract(Row(v == 42), Rows(v), Rows(g))",
 ]
 QUERIES += DECODE_QUERIES
+# Var and Corr: kernel H over the stacked groups (v, depth 14; u, depth 12)
+# under no filter and filters the plan compiler takes; the float64 host
+# route under a filter it refuses and past depth 31 (w, depth 43)
+MOMENT_QUERIES = [
+    "Var(field=v)",
+    "Var(field=v, filter=Row(f=1))",
+    "Var(field=v, filter=Row(v > 5000))",
+    "Corr(field=v, field2=u)",
+    "Corr(field=v, field2=u, filter=Row(g=2))",
+    f"Options(Var(field=v, filter=Union(Row(g=1), Row(f=null))), "
+    f"shards=[{SHARDS_0_31}])",
+    "limits:Var(field=w)",
+    "limits:Corr(field=w, field2=a)",
+]
+QUERIES += MOMENT_QUERIES
 PER_SHARD = "per_shard:"
 # Plans past kernel A's limits and BSI walks past 32 planes, over the small
 # "limits" index (limits_index): 3000 records over two shards, a set field
@@ -289,12 +318,17 @@ def pass_launches(S: int, percentile_rounds: int) -> dict:
     round of the four Percentiles (percentile_rounds, from
     oracle_percentile).  The filter of Extract(Row(v == 42)) adds one
     kernel-A launch (the other two new queries' filters run on the
-    interpreter)."""
-    return {"plan_eval": 110, "row_counts": 17,
+    interpreter).
+    MOMENT_QUERIES add kernel H once for each of the three Vars and the two
+    Corrs on the stacked route, and kernel A once for each of their three
+    filters (Row(f=1), Row(v > 5000), Row(g=2)); the union-filtered Var
+    and the depth-43 ones sum on the host."""
+    return {"plan_eval": 113, "row_counts": 17,
             "bsi_sum_planes": 4, "bsi_min_max": 7,
             "pair_counts": 35 + S, "bsi_sum_groups": 34,
             "bsi_decode": 4, "bsi_decode_gather": 3,
-            "percentile_counts": percentile_rounds}
+            "percentile_counts": percentile_rounds,
+            "var_moments": 3, "corr_moments": 2}
 
 
 T0 = time.perf_counter()
@@ -381,7 +415,8 @@ def kernel_device_ms(fn, reps: int) -> dict:
         torch.cuda.synchronize()
     names = ("plan_eval_kernel", "row_counts_kernel", "bsi_sum_planes_kernel",
              "bsi_min_max_kernel", "pair_counts_kernel",
-             "bsi_sum_groups_kernel", "bsi_decode_gather_kernel",
+             "bsi_sum_groups_kernel", "moments_kernel",
+             "bsi_decode_gather_kernel",
              "bsi_decode_kernel", "percentile_counts_kernel",
              "tune_ceiling_kernel",
              "tune_csa_scalar_kernel", "tune_direct_partial_kernel",
@@ -1326,6 +1361,138 @@ def group_times(timer: Timer, rates: dict, reps: int) -> dict:
     return out
 
 
+# -- kernel H -----------------------------------------------------------------
+
+def moments_cases(S: int) -> dict:
+    """The inputs kernel H is held on: name -> (groups, filter), one group
+    for Var and two for Corr.  Random words (planes not under exists) at
+    S = 1 and 3 for Var at depths 1, 5, 14 and 31 and Corr at (1, 1),
+    (5, 3), (14, 12) and (31, 31), each with a plane all zero; at the
+    slice's S for Var at depths 14 and 31 and Corr at (14, 12) and
+    (31, 31); encoded values with signs and sign-set zeros at depth 14;
+    all-ones and empty filters; an odd W (the 4-byte form) at S = 7; and a
+    view one word into a wider group (the 4-byte form at W = 32767)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    W, cases = 32768, {}
+
+    def grp(S_, D, W_=W):
+        g = gpu_words(gen, (S_, D + 2, W_))
+        g[:, 2 + D // 2] = 0   # an absent plane
+        return g
+    for S_ in (1, 3):
+        for D in (1, 5, 14, 31):
+            cases[f"var_s{S_}_d{D}"] = ([grp(S_, D)], gpu_words(gen, (S_, W)))
+        for Dx, Dy in ((1, 1), (5, 3), (14, 12), (31, 31)):
+            cases[f"corr_s{S_}_d{Dx}x{Dy}"] = (
+                [grp(S_, Dx), grp(S_, Dy)], gpu_words(gen, (S_, W)))
+    cases[f"var_s{S}_d14"] = ([grp(S, 14)], gpu_words(gen, (S, W)))
+    cases[f"var_s{S}_d31"] = ([grp(S, 31)], gpu_words(gen, (S, W)))
+    cases[f"corr_s{S}_d14x12"] = ([grp(S, 14), grp(S, 12)],
+                                  gpu_words(gen, (S, W)))
+    cases[f"corr_s{S}_d31x31"] = ([grp(S, 31), grp(S, 31)],
+                                  gpu_words(gen, (S, W)))
+    C = 32 * W
+
+    def values(S_, depth):
+        mag = torch.randint(0, 1 << depth, (S_, C), generator=gen,
+                            device="cuda", dtype=torch.int64)
+        rand = torch.rand((3, S_, C), generator=gen, device="cuda")
+        mag = torch.where(rand[0] < 0.01, 0, mag)
+        return encode_group(mag, rand[1] < 0.4, rand[2] < 0.6, depth)
+    vx, vy = values(16, 14), values(16, 12)
+    ones = torch.full((16, W), -1, dtype=torch.int32, device="cuda")
+    cases["var_values_d14_ones"] = ([vx], ones)
+    cases["corr_values_d14x12_ones"] = ([vx, vy], ones)
+    cases["corr_values_d14x12_empty"] = ([vx, vy], torch.zeros_like(ones))
+    cases["var_odd_w_s7_d9"] = ([grp(7, 9, 1001)], gpu_words(gen, (7, 1001)))
+    cases["corr_odd_w_s7_d9x4"] = ([grp(7, 9, 1001), grp(7, 4, 1001)],
+                                   gpu_words(gen, (7, 1001)))
+    wide = grp(5, 14, W + 1)
+    cases["var_view_s5_d14"] = ([wide[:, :, 1:]],
+                                gpu_words(gen, (5, W + 1))[:, 1:])
+    return cases
+
+
+def moments_parity(S: int) -> dict:
+    """Phase 3e: kernel H (var_moments, corr_moments) against its plain
+    versions on the card, exactly, on every case of moments_cases: stacked
+    (the table pointing into the stacked groups), and over per-shard
+    mirrors (var_moments_sharded, corr_moments_sharded: shuffled planes,
+    absent planes, a shard without data; the filter as words, as rows with
+    every fifth shard's None, and absent)."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    rng = np.random.default_rng(23)
+    errs = {"var_moments": 0, "corr_moments": 0}
+    checked = []
+
+    def same(name, got, want, key):
+        for i, (a, b) in enumerate(zip(got, want)):
+            errs[key] = max(errs[key], require_equal(f"{name}[{i}]", a, b))
+        checked.append(name)
+    for name, (groups, f) in moments_cases(S).items():
+        key = "var_moments" if len(groups) == 1 else "corr_moments"
+        plain = bsiops.var_moments_plain if key == "var_moments" else \
+            bsiops.corr_moments_plain
+        same(name, getattr(ck, key)(*groups, f), plain(*groups, f), key)
+        torch.cuda.synchronize()
+        if "view" in name or groups[0].shape[0] > 32 and "d31" in name:
+            continue
+        mirrors = [shard_mirrors(g, rng) for g in groups]
+        dense = [torch.stack([
+            torch.zeros_like(g[0]) if m is None else
+            torch.where(torch.as_tensor(m[1] >= 0, device="cuda")[:, None],
+                        m[0][torch.as_tensor(np.maximum(m[1], 0),
+                                             device="cuda")], 0)
+            for m in ms]) for g, ms in zip(groups, mirrors)]
+        rows = [None if s % 5 == 3 else f[s] for s in range(f.shape[0])]
+        row_dense = torch.stack([torch.zeros_like(f[0]) if r is None else r
+                                 for r in rows])
+        sharded = getattr(ck, f"{key}_sharded")
+        for fname, filt, fd in (("words", f, f), ("rows", rows, row_dense),
+                                ("none", None, torch.full_like(f, -1))):
+            same(f"{name}/mirrors_{fname}", sharded(*mirrors, filt),
+                 plain(*dense, fd), key)
+        torch.cuda.synchronize()
+    say("moments_parity", checks=len(checked), cases=checked, errors=errs)
+    return errs
+
+
+def moments_times(timer: Timer, rates: dict, reps: int, S: int) -> dict:
+    """Phase 4d: kernel H at the main path's shapes beside its plain
+    version and its bound, the larger of bytes (the groups and the filter
+    read once, the (K, K) product written once) at 3.35 TB/s and the bit
+    products ((2D + 1)^2 or K^2 a column: the classes' product) at the
+    tensor cores' measured 1-bit rate: Var at depth 14 (the bench table's
+    v) and Corr at depths 14 and 12 (v and u) over S stacked shards."""
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29)
+    W, out = 32768, {}
+    f = gpu_words(gen, (S, W))
+    gx, gy = gpu_words(gen, (S, 16, W)), gpu_words(gen, (S, 14, W))
+    for name, fn, plain, rows, K in (
+            (f"var_moments/s{S}_d14", lambda: ck.var_moments(gx, f),
+             lambda: bsiops.var_moments_plain(gx, f), 17, 29),
+            (f"corr_moments/s{S}_d14x12", lambda: ck.corr_moments(gx, gy, f),
+             lambda: bsiops.corr_moments_plain(gx, gy, f), 31, 54)):
+        nbytes = rows * S * W * 4 + K * K * 8
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bit_products = K * K * S * W * 32
+        o_ms = bit_products / rates["b1_mma_sync"] * 1e3
+        r = dict(bytes=nbytes, bit_products=bit_products, bytes_ms=b_ms,
+                 ops_ms=o_ms, popc_unit_ms=bit_products / rates["popc"] * 1e3,
+                 bound_ms=max(b_ms, o_ms),
+                 bound_by="bytes" if b_ms >= o_ms else "operations",
+                 ms=timer(fn), device_ms=kernel_device_ms(fn, reps),
+                 plain_ms=Timer(3)(plain))
+        out[name] = r
+        say("kernel_time", kernel=name, **r)
+    return out
+
+
 # -- kernels G'', G''' and I' ------------------------------------------------
 
 def decode_cases(S: int) -> dict:
@@ -1636,6 +1803,9 @@ def build_table(n_shards: int, seed: int = 0):
     f_rows = rng.integers(0, 8, size=n)
     g_rows = rng.integers(0, 4, size=n)
     vals = rng.integers(-1000, 10000, size=n)
+    # u, for Corr: a third of v plus noise, on nine records in ten
+    u_has = rng.random(n) < 0.9
+    u = np.clip(vals // 3 + rng.integers(-600, 600, size=n), -500, 4000)
     holder = Holder()
     idx = holder.create_index("bench")
     idx.create_field("f")
@@ -1644,17 +1814,22 @@ def build_table(n_shards: int, seed: int = 0):
     idx.field("f").import_bits(f_rows, cols)
     idx.field("g").import_bits(g_rows, cols)
     idx.field("v").import_values(cols, vals)
+    t0 = time.perf_counter()
+    idx.create_field("u", FieldOptions(type="int", min=-500, max=4000))
+    idx.field("u").import_values(cols[u_has], u[u_has])
+    u_s = time.perf_counter() - t0
     idx.mark_exists(cols)
     # the small indexes draw from their own seeds, so their data (and the
     # launches of their queries) do not depend on --shards
     limits = limits_index(holder, np.random.default_rng(seed + 1))
     keyed_index(holder, np.random.default_rng(seed + 2))
-    return holder, dict(f=f_rows, g=g_rows, v=vals, cols=cols, limits=limits)
+    return holder, dict(f=f_rows, g=g_rows, v=vals, u=u, u_has=u_has,
+                        cols=cols, limits=limits, u_import_s=u_s)
 
 
 def limits_index(holder, rng) -> dict:
-    """The "limits" index of LIMIT_QUERIES; returns its w values and their
-    columns."""
+    """The "limits" index of LIMIT_QUERIES; returns its w and a values and
+    their columns."""
     from featurebase_tpu_torch.core.consts import SHARD_WIDTH
     from featurebase_tpu_torch.model.field import FieldOptions
     n = 3000
@@ -1666,16 +1841,17 @@ def limits_index(holder, rng) -> dict:
     half = rng.random(n) < 0.5
     idx.field("g").import_bits(rng.integers(0, 3, int(half.sum())),
                                cols[half])
+    ab = {}
     for name in "ab":
         idx.create_field(name, FieldOptions(type="int", min=0, max=1 << 30))
-        idx.field(name).import_values(cols, rng.integers(0, 1 << 30, n,
-                                                         endpoint=True))
+        ab[name] = rng.integers(0, 1 << 30, n, endpoint=True)
+        idx.field(name).import_values(cols, ab[name])
     top = (1 << 43) - 1
     idx.create_field("w", FieldOptions(type="int", min=-top, max=top))
     w = rng.integers(0, 500, n) * (1 << 34) - 5
     idx.field("w").import_values(cols, w)
     idx.mark_exists(cols)
-    return dict(w=w, cols=cols)
+    return dict(w=w, a=ab["a"], cols=cols)
 
 
 def keyed_index(holder, rng) -> None:
@@ -1752,6 +1928,8 @@ def canon(result):
              result.field_values])))
     if result is None or isinstance(result, bool):
         return ("value", result)
+    if isinstance(result, float):   # Var, Corr
+        return ("float", result)
     if isinstance(result, list):   # Rows' ids or GroupBy's groups
         return ("list", [(tuple(fr.row_id for fr in x.group), x.count, x.agg)
                          if isinstance(x, GroupCount) else int(x)
@@ -2014,7 +2192,9 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     build_s = time.perf_counter() - t0
     idx = holder.index("bench")
     say("table", shards=n_shards, records=int(gen["f"].size),
-        bit_depth=idx.field("v").bit_depth, build_s=build_s)
+        bit_depth=idx.field("v").bit_depth,
+        u_bit_depth=idx.field("u").bit_depth, build_s=build_s,
+        u_import_s=gen["u_import_s"])
     from featurebase_tpu_torch.core.consts import SHARD_WIDTH
     cols = gen["cols"]
     col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
@@ -2117,6 +2297,16 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         if q in answers and answers[q] != want:
             raise AssertionError(f"{q}: engine {answers[q]!r:.300} != "
                                  f"oracle {want!r:.300}")
+    moments = moment_oracles(gen)
+    for q, (want, tol, rel) in moments.items():
+        got = answers.get(q)
+        if got is None:
+            continue
+        if got[0] != "float" or abs(got[1] - want) > tol * (
+                abs(want) if rel else 1):
+            raise AssertionError(f"{q}: engine {got} != numpy {want} "
+                                 f"within {tol}{' relative' if rel else ''}")
+        oracle[q] = got
     say("answers", equal_to_cpu=True,
         equal_to_oracle=sorted(
             q for q in (k.replace("{col5}", str(col5)).replace(
@@ -2198,6 +2388,14 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         "keyed:Extract(All(), Rows(kf), Rows(n))": ("bsi_decode_gather",),
         "keyed:Distinct(field=kf)": ("row_counts",),
         "keyed:Sort(All(), field=n, limit=3)": ("plan_eval",)})
+    # Var and Corr on the stacked route: kernel H, after kernel A's filter
+    meant.update({
+        "Var(field=v)": ("var_moments",),
+        "Var(field=v, filter=Row(f=1))": ("plan_eval", "var_moments"),
+        "Var(field=v, filter=Row(v > 5000))": ("plan_eval", "var_moments"),
+        "Corr(field=v, field2=u)": ("corr_moments",),
+        "Corr(field=v, field2=u, filter=Row(g=2))":
+            ("plan_eval", "corr_moments")})
     for q in queries:
         if q.startswith("Options(GroupBy(Rows(f), Rows(g)"):
             meant[q] = ("plan_eval", "pair_counts")
@@ -2215,7 +2413,38 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                 if q in per})
     residency_phase(holder, queries, answers, run, resident["bytes"] // 2,
                     decode_queries)
+    writes_phase(holder, gen, resident["bytes"] // 2)
     return launches
+
+
+def moment_oracles(gen) -> dict:
+    """numpy's answers to MOMENT_QUERIES: query -> (value, tolerance,
+    relative).  Absolute 1e-6 (the answers are rounded to 6 places);
+    relative 1e-9 for the depth-43 Var, whose float64 sums of squares near
+    2.5e25 cancel to a variance near 2e24 (the engine's float64 route, as
+    the reference's, is exact to about 1e-15 of it)."""
+    f, g, v, u, uh = gen["f"], gen["g"], gen["v"], gen["u"], gen["u_has"]
+    lim = gen["limits"]
+    first32 = (gen["cols"] >> 20) < 32
+
+    def var(x):
+        return float(np.var(x.astype(np.float64)))
+
+    def corr(x, y):
+        return float(np.corrcoef(x.astype(np.float64),
+                                 y.astype(np.float64))[0, 1])
+    return {
+        "Var(field=v)": (var(v), 1e-6, False),
+        "Var(field=v, filter=Row(f=1))": (var(v[f == 1]), 1e-6, False),
+        "Var(field=v, filter=Row(v > 5000))": (var(v[v > 5000]), 1e-6, False),
+        "Corr(field=v, field2=u)": (corr(v[uh], u[uh]), 1e-6, False),
+        "Corr(field=v, field2=u, filter=Row(g=2))": (
+            corr(v[uh & (g == 2)], u[uh & (g == 2)]), 1e-6, False),
+        MOMENT_QUERIES[5]: (var(v[(g == 1) & first32]), 1e-6, False),
+        "limits:Var(field=w)": (var(lim["w"]), 1e-9, True),
+        "limits:Corr(field=w, field2=a)": (corr(lim["w"], lim["a"]), 1e-6,
+                                           False),
+    }
 
 
 def group_paths(holder, queries, answers, run, reps: int) -> dict:
@@ -2317,6 +2546,255 @@ def residency_phase(holder, queries, answers, run, budget: int,
     return st
 
 
+# the reads of the writes phase, before and after the writes
+WRITE_READS = [
+    "Count(Row(f=1))",
+    "Count(Row(f=9))",
+    "Count(All())",
+    "TopN(f, n=5)",
+    "Sum(field=v)",
+    "Min(field=v)",
+    "Max(field=v)",
+    "MinRow(field=f)",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    "Distinct(field=v)",
+    "Percentile(field=v, nth=50)",
+    "Var(field=v)",
+    "Corr(field=v, field2=u)",
+    "keyed:Count(All())",
+    "keyed:Extract(All(), Rows(kf), Rows(n))",
+    "keyed:Distinct(field=kf)",
+]
+WRITE_ROWS = 10   # rows of f after the writes: 0-8 set, 9 stored
+# the reads every round of writes changes (Distinct, Percentile, Min and
+# Max of v may keep their answers)
+WRITES_CHANGE = [q for q in WRITE_READS if "Distinct" not in q and
+                 "Percentile" not in q and not q.startswith(("Min(", "Max("))]
+
+
+class WriteModel:
+    """The bench table's records as numpy arrays that follow the writes:
+    f and g as (records, rows) bits, v and u with their presence, and the
+    records that exist."""
+
+    def __init__(self, gen):
+        n = gen["f"].size
+        self.cols = gen["cols"]
+        self.F = np.zeros((n, WRITE_ROWS), dtype=bool)
+        self.F[np.arange(n), gen["f"]] = True
+        self.G = np.zeros((n, 4), dtype=bool)
+        self.G[np.arange(n), gen["g"]] = True
+        self.v = gen["v"].astype(np.int64).copy()
+        self.u = gen["u"]
+        self.u_has = gen["u_has"].copy()
+        self.alive = np.ones(n, dtype=bool)
+
+    def oracle(self) -> dict:
+        """The reads of WRITE_READS on the bench index, by numpy: canon
+        forms, and (value, tolerance) for Var and Corr."""
+        F, G, v, alive = self.F, self.G, self.v, self.alive
+        top = F.sum(0)
+        va = v[alive]
+        pairs = [(r, q, F[:, r] & G[:, q]) for r in range(WRITE_ROWS)
+                 for q in range(4)]
+        by_count = [((r, q), int(m.sum()), 0) for r, q, m in pairs
+                    if m.any()]
+        by_sum = [((r, q), int(m.sum()), int(v[m].sum())) for r, q, m in
+                  pairs if m.any()]
+        r0 = int(np.flatnonzero(top)[0])
+        uv = alive & self.u_has
+        vals = [int(x) for x in np.unique(va)]
+        return {
+            "Count(Row(f=1))": ("value", int(top[1])),
+            "Count(Row(f=9))": ("value", int(top[9])),
+            "Count(All())": ("value", int(alive.sum())),
+            "TopN(f, n=5)": ("pairs", [
+                (r, int(top[r])) for r in sorted(
+                    range(WRITE_ROWS), key=lambda r: (-top[r], r))[:5]
+                if top[r]]),
+            "Sum(field=v)": ("valcount", (int(va.sum()), int(va.size))),
+            "Min(field=v)": ("valcount", (int(va.min()),
+                                          int((va == va.min()).sum()))),
+            "Max(field=v)": ("valcount", (int(va.max()),
+                                          int((va == va.max()).sum()))),
+            "MinRow(field=f)": ("pair", (r0, int(top[r0]))),
+            "GroupBy(Rows(f), Rows(g))": ("list", by_count),
+            "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))":
+                ("list", by_sum),
+            "Distinct(field=v)": ("signed", (len(vals), digest(vals))),
+            "Percentile(field=v, nth=50)":
+                ("valcount", oracle_percentile(va, 50)[0]),
+            "Var(field=v)": (float(np.var(va.astype(np.float64))), 1e-6),
+            "Corr(field=v, field2=u)": (float(np.corrcoef(
+                v[uv].astype(np.float64),
+                self.u[uv].astype(np.float64))[0, 1]), 1e-6),
+        }
+
+
+def write_round(gpu, model: WriteModel, rng, rnd: int) -> dict:
+    """One round of PQL writes through `gpu`, each answer held against the
+    model, which follows them: 1000 Sets of f over every shard, 200 Sets
+    of v (one out of range: an error, and no change), 100 Clears of f,
+    ClearRow(f=7), Store(Intersect(Row(f=1), Row(g=2)), f=9) (three times:
+    the first writes), Delete(Row(v == 42 + rnd)) (three times: the first
+    deletes), and on the keyed index a Set with a new record key and a
+    Delete.  Returns the host ms of each kind."""
+    cols = model.cols
+    live = np.flatnonzero(model.alive)
+    times = {"set_ms": [], "set_int_ms": [], "clear_ms": []}
+
+    def run(q, key=None):
+        t0 = time.perf_counter()
+        got = gpu.execute("bench", q)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if key is not None:
+            times[key].append(ms)
+        return got, ms
+    for i, r in zip(rng.choice(live, 1000, replace=False),
+                    rng.integers(0, 9, 1000)):
+        got, _ = run(f"Set({int(cols[i])}, f={int(r)})", "set_ms")
+        if got != [not model.F[i, r]]:
+            raise AssertionError(f"Set f={r} at record {i}: {got}")
+        model.F[i, r] = True
+    picks = rng.choice(live, 200, replace=False)
+    for k, i in enumerate(picks):
+        new = 20000 if k == 100 else int(rng.integers(-1000, 10000))
+        try:
+            got, _ = run(f"Set({int(cols[i])}, v={new})", "set_int_ms")
+        except Exception as e:   # ExecError: above the field's maximum
+            if new != 20000 or "maximum" not in str(e):
+                raise
+            continue
+        if new == 20000:
+            raise AssertionError("an out-of-range Set was taken")
+        if got != [bool(model.v[i] != new)]:
+            raise AssertionError(f"Set v={new} at record {i}: {got}")
+        model.v[i] = new
+    has = live[model.F[live].any(1)]
+    for i in rng.choice(has, 100, replace=False):
+        r = int(np.flatnonzero(model.F[i])[0])
+        got, _ = run(f"Clear({int(cols[i])}, f={r})", "clear_ms")
+        if got != [True]:
+            raise AssertionError(f"Clear f={r} at record {i}: {got}")
+        model.F[i, r] = False
+    got, times["clear_row_ms"] = run("ClearRow(f=7)")
+    if got != [bool(model.F[:, 7].any())]:
+        raise AssertionError(f"ClearRow(f=7): {got}")
+    model.F[:, 7] = False
+    times["store_ms"] = []
+    for _ in range(3):
+        got, ms = run("Store(Intersect(Row(f=1), Row(g=2)), f=9)")
+        times["store_ms"].append(ms)
+        if got != [True]:
+            raise AssertionError(f"Store: {got}")
+    model.F[:, 9] = model.F[:, 1] & model.G[:, 2]
+    gone = model.alive & (model.v == 42 + rnd)
+    times["delete_ms"] = []
+    for k in range(3):
+        got, ms = run(f"Delete(Row(v == {42 + rnd}))")
+        times["delete_ms"].append(ms)
+        if got != [bool(gone.any()) and k == 0]:
+            raise AssertionError(f"Delete #{k}: {got}")
+    model.F[gone] = False
+    model.G[gone] = False
+    model.u_has[gone] = False
+    model.alive[gone] = False
+    k0 = gpu.execute("keyed", f'Set("new-{rnd}", kf="delta")')
+    k1 = gpu.execute("keyed", f"Delete(Row(s={rnd}))")
+    store = gpu.holder.index("keyed").translate_store
+    if f"new-{rnd}" not in store.find_keys([f"new-{rnd}"]):
+        raise AssertionError("the keyed Set created no record key")
+    say("writes_round", round=rnd, keyed_answers=[k0, k1],
+        deleted_records=int(gone.sum()),
+        **{k: (v if len(v) <= 3 else dict(n=len(v), p50=float(np.median(v)),
+                                          max=float(np.max(v))))
+           for k, v in times.items() if isinstance(v, list)},
+        clear_row_ms=times["clear_row_ms"])
+    return times
+
+
+def writes_phase(holder, gen, budget: int) -> dict:
+    """Phase 5c, after every read phase: PQL writes on the bench and keyed
+    indexes, and the reads of WRITE_READS before and after them.  Round 1
+    at the default residency budget: the reads first fill every device
+    cache (the plan executor's leaves and its stacked decode, the rank
+    cache, the fragment mirrors), then the writes (write_round), then the
+    reads again: each answer equal to a CPU executor's over the same Holder
+    and to the numpy model of the writes; the first read after the writes
+    timed beside the p50 of five more (the gap is the caches' refresh).
+    Round 2 the same under `budget` bytes, with a fresh executor and new
+    writes."""
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.storage import residency
+    model = WriteModel(gen)
+    rng = np.random.default_rng(41)
+    out = {}
+    for rnd, bud in ((1, None), (2, budget)):
+        residency.residency().set_budget(0)
+        mgr = residency.reset(bud)
+        gpu, cpu = Executor(holder), Executor(holder, device="cpu")
+
+        def timed(q) -> tuple:
+            t0 = time.perf_counter()
+            got = canon(execute(gpu, q))
+            torch.cuda.synchronize()
+            return got, (time.perf_counter() - t0) * 1e3
+        before = {q: timed(q)[0] for q in WRITE_READS}
+        cached = dict(leaves=len(gpu.plan_executor._leaf_cache),
+                      rank_cache=len(holder.index("bench").field("f")
+                                     ._topn_cache),
+                      resident=mgr.stats()["bytes"])
+        times = write_round(gpu, model, rng, rnd)
+        want = model.oracle()
+        first, p50, cpu_s, after = {}, {}, {}, {}
+        for q in WRITE_READS:   # the card's reads first: the CPU executor
+            # moves the fragment mirrors it reads to the host
+            after[q], first[q] = timed(q)
+            again = [timed(q) for _ in range(5)]
+            p50[q] = float(np.median([ms for _, ms in again]))
+            if any(a != after[q] for a, _ in again):
+                raise AssertionError(f"{q} after writes: answers differ "
+                                     "between runs")
+        for q in WRITE_READS:
+            got = after[q]
+            t0 = time.perf_counter()
+            c = canon(execute(cpu, q))
+            cpu_s[q] = time.perf_counter() - t0
+            if got != c:
+                raise AssertionError(f"{q} after writes (round {rnd}): cuda "
+                                     f"{got[1]!r:.200} != cpu {c[1]!r:.200}")
+            w = want.get(q)
+            if isinstance(w, tuple) and isinstance(w[1], float):
+                if got[0] != "float" or abs(got[1] - w[0]) > w[1]:
+                    raise AssertionError(f"{q} after writes: {got} != "
+                                         f"numpy {w[0]} within {w[1]}")
+            elif w is not None and got != w:
+                raise AssertionError(f"{q} after writes: {got!r:.300} != "
+                                     f"numpy {w!r:.300}")
+            if bud is not None and mgr.stats()["bytes"] > bud and \
+                    mgr.stats()["entries"] > 1:
+                raise AssertionError(f"{q}: over the budget {bud}: "
+                                     f"{mgr.stats()}")
+        changed = sorted(q for q in WRITE_READS if after[q] != before[q])
+        out[rnd] = dict(budget=mgr.budget, caches_before_writes=cached,
+                        first_read_ms=first, cached_p50_ms=p50,
+                        cpu_executor_s=cpu_s, changed_by_writes=changed,
+                        residency=mgr.stats(),
+                        set_p50_ms=float(np.median(times["set_ms"])),
+                        set_int_p50_ms=float(np.median(times["set_int_ms"])),
+                        store_p50_ms=float(np.median(times["store_ms"])),
+                        delete_ms=times["delete_ms"])
+        say("writes", round=rnd, equal_to_cpu=True, equal_to_numpy=sorted(
+            q for q in WRITE_READS if q in want), **out[rnd])
+        missed = set(WRITES_CHANGE) - set(changed)
+        if missed:
+            raise AssertionError(f"round {rnd}: the writes left {missed} "
+                                 "unchanged")
+    return out
+
+
 def query_profile(queries, timed, latency) -> dict:
     """The query mix under one torch.profiler window, each query under a
     record_function label: a warm-up pass, then the measured pass.  Device
@@ -2400,7 +2878,8 @@ def main() -> int:
     card = card_line()
     say("card", nvidia_smi=card, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-        max_sm_clock_mhz=max_sm_clock_hz() / 1e6)
+        max_sm_clock_mhz=max_sm_clock_hz() / 1e6, numpy=np.__version__,
+        host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
     t0 = time.perf_counter()
     sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE,
                tk.SOURCE)
@@ -2438,12 +2917,15 @@ def main() -> int:
     bsi_errs, inputs["bsi"] = bsi_parity(S)
     errs.update(bsi_errs)
     errs.update(group_parity())
+    errs.update(moments_parity(S))
     decode_errs, decode_inputs = decode_parity(S)
     errs.update(decode_errs)
     timer = Timer(args.reps)
     times, copy_bps = kernel_times(timer, inputs)
     rates = tc_rate(args.reps, popc_rate(args.reps))
     times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
+    times.update(moments_times(timer, rates["bit_products_per_s"], args.reps,
+                               S))
     times.update(decode_times(timer, decode_inputs, args.reps))
     pct_ablation(decode_inputs, args.reps)
     del decode_inputs
@@ -2490,6 +2972,10 @@ def main() -> int:
              ck.GROUP_SOURCE,
              "featurebase_tpu/ops/bsi.py:611, "
              "featurebase_tpu/ops/bsi.py:333"),
+            ("var_moments", f"var_moments/s{S}_d14", ck.GROUP_SOURCE,
+             "featurebase_tpu/ops/bsi.py:782"),
+            ("corr_moments", f"corr_moments/s{S}_d14x12", ck.GROUP_SOURCE,
+             "featurebase_tpu/ops/bsi.py:815"),
             ("bsi_decode", f"bsi_decode/s{S}_d14", ck.DECODE_SOURCE,
              "featurebase_tpu/ops/bsi.py:759, "
              "featurebase_tpu/ops/bsi.py:482"),

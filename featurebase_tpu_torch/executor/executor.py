@@ -6,9 +6,10 @@ families: every bitmap call (Row, Range, Union, Intersect, Difference, Xor,
 Not, All, Shift, ConstRow, Rows, UnionRows, Limit), Count, TopN/TopK,
 Sum, Min/Max, MinRow/MaxRow, Rows, GroupBy, Distinct (also under Count, as
 a bitmap operand and as GroupBy's aggregate=Count(Distinct(...))),
-Percentile, Sort, Extract, IncludesColumn, FieldValue and
-Options(shards=).  Every other family (Var/Corr, the writes, Apply, Arrow,
-ExternalLookup) raises NotImplementedError.
+Percentile, Sort, Extract, IncludesColumn, FieldValue, Var, Corr,
+Options(shards=) and the writes Set, Clear, ClearRow, Store and Delete.
+Every other family (Apply, Arrow, ExternalLookup) raises
+NotImplementedError.
 
 Calls the plan compiler accepts run over stacked (S, W) shard tiles; the
 rest (Row(f=null), Rows, UnionRows or Limit as an operand) run through the
@@ -33,7 +34,15 @@ kernel G''' (``bsi_decode_gather_sharded``, one launch over every shard's
 matched columns), and Percentile's bisection counts from kernel I
 (``percentile_counts``), each one launch a residency batch; a field deeper
 than 31 planes decodes on the host in int64 (Field.values_dense_host), and
-its Percentile bisects over kernel-A Counts.
+its Percentile bisects over kernel-A Counts.  Var and Corr under a filter
+the plan compiler takes run kernel H (``var_moments``, ``corr_moments``)
+over the stacked groups, one launch a query; otherwise, or past depth 31,
+they sum in float64 on the host, as the reference does.
+
+Writes change the host masters (model/fragment.py) and run under the
+index's mutate gate, not a snapshot pin; every device cache follows them
+by fragment generation (the plan executor's leaves and decodes, the rank
+cache) or by dirty slots (the fragment mirrors).
 
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
@@ -42,6 +51,7 @@ unavailable; the CPU runs only when the caller asks for it with
 from __future__ import annotations
 
 import itertools
+import math
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -52,6 +62,7 @@ from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
                                                WORDS_PER_ROW)
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
+from featurebase_tpu_torch.executor.qcontext import check_interrupt
 from featurebase_tpu_torch.executor.results import (ExtractedTable,
                                                     ExtractedTableField,
                                                     FieldRow, GroupCount,
@@ -70,7 +81,7 @@ from featurebase_tpu_torch.ops import bsi as bsiops
 from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.ops import decode
 from featurebase_tpu_torch.parallel.agg import finalize_sum
-from featurebase_tpu_torch.pql.ast import Call, Condition
+from featurebase_tpu_torch.pql.ast import WRITE_CALLS, Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
 
 
@@ -83,11 +94,7 @@ class FieldNotFound(ExecError):
 
 
 # call families of featurebase_tpu's executor that this package does not run
-_NOT_PORTED = {
-    "Set": "Set", "Clear": "Clear", "ClearRow": "ClearRow", "Store": "Store",
-    "Delete": "Delete", "Var": "Var/Corr", "Corr": "Var/Corr",
-    "Apply": "Apply", "Arrow": "Arrow", "ExternalLookup": "ExternalLookup",
-}
+_NOT_PORTED = {"Apply", "Arrow", "ExternalLookup"}
 
 # a shard's decode (kernel G''): 4 bytes a column, 32 rows of W words, held
 # against the residency budget beside the mirrors a launch reads
@@ -161,23 +168,35 @@ class Executor:
     def execute(self, index_name: str, query,
                 shards: Optional[List[int]] = None) -> List[Any]:
         """Execute a PQL query string or pql.Query; returns a result per
-        top-level call, read from one pinned snapshot of the index."""
+        top-level call.  A query that writes runs under the index's mutate
+        gate, shared with other writers; any other reads one pinned
+        snapshot of the index (model/snapshot.py)."""
         index = self.holder.index(index_name)
         if index is None:
             raise ExecError(f"index not found: {index_name}")
         if isinstance(query, str):
             query = pql_parse(query)
+
+        def run():
+            results = []
+            for call in query.calls:
+                self._validate_call(index, call)
+                c = self._pre_translate(index, call)
+                result = self._execute_call(index, c, shards)
+                results.append(self._translate_result(index, c, result))
+            return results
+
+        if any(c.name in WRITE_CALLS for c in query.calls):
+            # writers run shared: per-fragment locks serialize the
+            # mutation, and pinned readers never exclude them (reference:
+            # one-writer RBF Tx with MVCC readers, rbf/db.go:607)
+            with index.mutate_gate.shared():
+                return run()
         from featurebase_tpu_torch.model import snapshot
         pin = snapshot.pin_index(index)
         try:
             with snapshot.pinned(pin):
-                results = []
-                for call in query.calls:
-                    self._validate_call(index, call)
-                    c = self._pre_translate(index, call)
-                    result = self._execute_call(index, c, shards)
-                    results.append(self._translate_result(index, c, result))
-                return results
+                return run()
         finally:
             snapshot.release(pin)
 
@@ -185,9 +204,11 @@ class Executor:
         """Unknown field names error regardless of data presence."""
         if call.name in ("Row", "Range", "Rows", "Sum", "Min", "Max",
                          "MinRow", "MaxRow", "Distinct", "TopN", "TopK",
-                         "Percentile", "Sort", "FieldValue"):
+                         "Percentile", "Sort", "FieldValue", "Set", "Clear",
+                         "Store", "ClearRow"):
             fld = call.args.get("_field") or call.args.get("field")
-            if fld is None and call.name in ("Row", "Range"):
+            if fld is None and call.name in ("Row", "Range", "Set", "Clear",
+                                             "Store", "ClearRow"):
                 fld, _ = call.field_arg()
             if fld is not None:
                 self._field_or_err(index, fld)
@@ -206,8 +227,20 @@ class Executor:
     # ------------------------------------------------- key pre-translation
 
     def _pre_translate(self, index: Index, call: Call) -> Call:
-        """Convert string row keys to IDs in place (reference
-        executor.go:6814 preTranslate; reads only)."""
+        """Convert string keys to IDs in place (reference executor.go:6814
+        preTranslate / translateCall:7215): a write creates the column,
+        row and foreign-index keys it names, a read only finds them."""
+        is_write = call.name in WRITE_CALLS
+        col = call.args.get("_col")
+        if isinstance(col, str):
+            if not index.options.keys:
+                raise ExecError("string column key on unkeyed index")
+            if is_write:
+                call.args["_col"] = index.translate_store.create_keys(
+                    [col])[col]
+            else:
+                call.args["_col"] = index.translate_store.find_keys(
+                    [col]).get(col, -1)
         if index.options.keys:
             cols_arg = call.args.get("columns")
             if call.name == "ConstRow" and isinstance(cols_arg, list) and \
@@ -226,8 +259,20 @@ class Executor:
             if f is None:
                 continue
             if isinstance(v, str) and f.options.keys:
-                call.args[k] = index.row_translation(k).find_keys(
-                    [v]).get(v, -1)
+                store = index.row_translation(k)
+                call.args[k] = store.create_keys([v])[v] if is_write else \
+                    store.find_keys([v]).get(v, -1)
+            elif isinstance(v, str) and f.options.foreign_index:
+                # a foreign-index field's string values are record keys of
+                # the index it references (reference translationStrategy
+                # executor.go:7548)
+                fidx = self.holder.index(f.options.foreign_index)
+                if fidx is None:
+                    raise ExecError(
+                        f"foreign index not found: {f.options.foreign_index}")
+                store = fidx.translate_store
+                call.args[k] = store.create_keys([v])[v] if is_write else \
+                    store.find_keys([v]).get(v, -1)
             elif isinstance(v, bool) and f.options.type == TYPE_BOOL:
                 call.args[k] = 1 if v else 0
             elif isinstance(v, str) and not f.is_bsi():
@@ -294,6 +339,7 @@ class Executor:
 
     def _execute_call(self, index: Index, call: Call,
                       shards: Optional[List[int]]):
+        check_interrupt()
         name = call.name
         if name == "Options":
             # Options(call, shards=[...]) restricts execution to the listed
@@ -305,6 +351,16 @@ class Executor:
                     opt_shards = sorted(set(opt_shards) & set(shards))
                 shards = opt_shards
             return self._execute_call(index, call.children[0], shards)
+        if name == "Set":
+            return self._execute_set(index, call)
+        if name == "Clear":
+            return self._execute_clear(index, call)
+        if name == "ClearRow":
+            return self._execute_clear_row(index, call, shards)
+        if name == "Store":
+            return self._execute_store(index, call, shards)
+        if name == "Delete":
+            return self._execute_delete(index, call, shards)
         if name == "Count":
             return self._execute_count(index, call, shards)
         if name in ("TopN", "TopK"):
@@ -337,8 +393,12 @@ class Executor:
             return self._execute_includes_column(index, call)
         if name == "FieldValue":
             return self._execute_field_value(index, call)
+        if name == "Var":
+            return self._execute_var(index, call, shards)
+        if name == "Corr":
+            return self._execute_corr(index, call, shards)
         if name in _NOT_PORTED:
-            raise _not_ported(_NOT_PORTED[name])
+            raise _not_ported(name)
         return self._execute_bitmap_call(index, call, shards)
 
     def _shards(self, index: Index, shards: Optional[List[int]]
@@ -867,6 +927,226 @@ class Executor:
             vc = ValCount(v + f.base, c)
             acc = acc.smaller(vc) if is_min else acc.larger(vc)
         return self._wrap_valcount(f, acc.val, acc.count)
+
+    # --------------------------------------------------- Var / Corr (SQL)
+
+    def _host_filter_bits(self, index: Index, filt, shard: int):
+        """A shard's filter as (SHARD_WIDTH,) bools from the interpreter's
+        words, or None without a filter call."""
+        if not isinstance(filt, Call):
+            return None
+        words = self._bitmap_call_shard(index, filt, shard)
+        return decode.expand_bits_host(host_words(words))
+
+    def _var_moments(self, index: Index, f: Field, filt,
+                     shards: Optional[List[int]]):
+        """(n, Sum x, Sum x^2) of the true values (JAX executor.py:1380):
+        exact Python ints from one kernel-H launch over the stacked group
+        when the filter is plannable and the depth at most 31, else float64
+        sums on the host (the reference accumulates in float64,
+        expressionagg.go:1130)."""
+        shard_list = self._shards(index, shards)
+        depth = max(f.bit_depth, 1)
+        if shard_list and depth <= bsiops.MAX_MOMENTS_DEPTH:
+            filt_words = self._mesh_filter(
+                index, filt if isinstance(filt, Call) else None, shard_list)
+            if filt_words is not None:
+                bsi = self.plan_executor.stacked_bsi(index, f.name, depth,
+                                                     shard_list)
+                cnt, p, n_, sq = _fetch(list(ck.var_moments(bsi,
+                                                            filt_words)))
+                return bsiops.finalize_var_moments(cnt, p, n_, sq, f.base)
+        n, tot, tot_sq = 0, 0, 0.0
+        for shard in shard_list:
+            dense = f.values_dense_host(shard)
+            if dense is None:
+                continue
+            vals_d, mask = dense
+            fbits = self._host_filter_bits(index, filt, shard)
+            if fbits is not None:
+                mask = mask & fbits
+            v = vals_d[mask].astype(np.float64) + f.base
+            n += int(mask.sum())
+            tot += float(v.sum())
+            tot_sq += float((v * v).sum())
+        return n, tot, tot_sq
+
+    def _execute_var(self, index: Index, call: Call,
+                     shards: Optional[List[int]]):
+        """Var(field=v[, filter=...]): population variance to 6 decimal
+        places, or None without values (JAX executor.py:1424; reference
+        sql3 VAR aggregate, expressionagg.go:1110)."""
+        fld = call.args.get("_field") or call.args.get("field")
+        f = self._field_or_err(index, fld)
+        if not f.is_bsi():
+            raise ExecError("Var() requires an int-like field")
+        n, tot, tot_sq = self._var_moments(index, f, call.args.get("filter"),
+                                           shards)
+        if n == 0:
+            return None
+        scale = 10.0 ** f.options.scale
+        mean = tot / n / scale
+        var = tot_sq / n / (scale * scale) - mean * mean
+        return round(max(var, 0.0), 6)
+
+    def _execute_corr(self, index: Index, call: Call,
+                      shards: Optional[List[int]]):
+        """Corr(field=a, field2=b[, filter=...]): the Pearson correlation
+        over the records where both values exist, to 6 decimal places, or
+        None without them or with a zero variance (JAX executor.py:1444;
+        reference sql3 CORR aggregate, expressionagg.go:950-1045)."""
+        fx_name = call.args.get("_field") or call.args.get("field")
+        fy_name = call.args.get("field2") or call.args.get("other")
+        if not fx_name or not fy_name:
+            raise ExecError("Corr() requires field= and field2=")
+        fx = self._field_or_err(index, fx_name)
+        fy = self._field_or_err(index, fy_name)
+        if not fx.is_bsi() or not fy.is_bsi():
+            raise ExecError("Corr() requires int-like fields")
+        filt = call.args.get("filter")
+        shard_list = self._shards(index, shards)
+        dx, dy = max(fx.bit_depth, 1), max(fy.bit_depth, 1)
+        n = tx = ty = txy = txx = tyy = 0
+        done = False
+        if shard_list and max(dx, dy) <= bsiops.MAX_MOMENTS_DEPTH:
+            filt_words = self._mesh_filter(
+                index, filt if isinstance(filt, Call) else None, shard_list)
+            if filt_words is not None:
+                pe = self.plan_executor
+                bx = pe.stacked_bsi(index, fx.name, dx, shard_list)
+                by = pe.stacked_bsi(index, fy.name, dy, shard_list)
+                (cnt, xp, xn, yp, yn, sqx, sqy, pp, pm, mp, mm) = _fetch(
+                    list(ck.corr_moments(bx, by, filt_words)))
+                n = int(cnt)
+                _, _, txx = bsiops.finalize_var_moments(cnt, xp, xn, sqx,
+                                                        fx.base)
+                _, _, tyy = bsiops.finalize_var_moments(cnt, yp, yn, sqy,
+                                                        fy.base)
+                tx, ty, txy = bsiops.finalize_cross_moments(
+                    xp, xn, yp, yn, (pp, pm, mp, mm), fx.base, fy.base, n)
+                done = True
+        if not done:
+            for shard in shard_list:
+                d1 = fx.values_dense_host(shard)
+                d2 = fy.values_dense_host(shard)
+                if d1 is None or d2 is None:
+                    continue
+                v1, e1 = d1
+                v2, e2 = d2
+                mask = e1 & e2
+                fbits = self._host_filter_bits(index, filt, shard)
+                if fbits is not None:
+                    mask = mask & fbits
+                a = v1[mask].astype(np.float64) + fx.base
+                b = v2[mask].astype(np.float64) + fy.base
+                n += int(mask.sum())
+                tx += float(a.sum())
+                ty += float(b.sum())
+                txy += float((a * b).sum())
+                txx += float((a * a).sum())
+                tyy += float((b * b).sum())
+        if n == 0:
+            return None
+        sx = 10.0 ** fx.options.scale
+        sy = 10.0 ** fy.options.scale
+        num = (n * txy - tx * ty) / (sx * sy)
+        den2 = (n * txx - tx * tx) / (sx * sx) \
+            * ((n * tyy - ty * ty) / (sy * sy))
+        if den2 <= 0:
+            return None   # zero variance: the reference divides to NaN
+        return round(num / math.sqrt(den2), 6)
+
+    # -------------------------------------------------------------- writes
+
+    def _execute_set(self, index: Index, call: Call) -> bool:
+        """Set(col, f=row[, timestamp]) (reference executor.go executeSet;
+        JAX executor.py:765)."""
+        col = call.args.get("_col")
+        if col is None or col == -1:
+            raise ExecError("Set() requires a column")
+        fld, val = call.field_arg()
+        if fld is None:
+            raise ExecError("Set() requires a field=value argument")
+        f = self._field_or_err(index, fld)
+        if f.is_bsi():
+            try:
+                changed = f.set_value(int(col), val)
+            except ValueError as e:   # out of range: a user error
+                raise ExecError(str(e))
+        else:
+            changed = f.set_bit(int(val), int(col),
+                                timestamp=call.args.get("_timestamp"))
+        index.mark_exists(np.array([int(col)]))
+        return changed
+
+    def _execute_clear(self, index: Index, call: Call) -> bool:
+        """Clear(col, f=row) (reference executor.go executeClearBit)."""
+        col = call.args.get("_col")
+        fld, val = call.field_arg()
+        f = self._field_or_err(index, fld)
+        if col is None or col == -1:
+            return False
+        if f.is_bsi():
+            return f.clear_value(int(col))
+        return f.clear_bit(int(val), int(col))
+
+    def _execute_clear_row(self, index: Index, call: Call,
+                           shards: Optional[List[int]]) -> bool:
+        """ClearRow(f=row) (reference executor.go executeClearRow): True
+        when some shard's row had a bit, read from the host master."""
+        fld, val = call.field_arg()
+        f = self._field_or_err(index, fld)
+        row = int(val)
+        v = f.view(VIEW_STANDARD)
+        changed = False
+        for shard in self._shards(index, shards):
+            frag = v.fragment(shard) if v else None
+            if frag is not None and frag.has_row(row):
+                changed |= bool(frag.host_row(row).any())
+                frag.clear_row(row)
+        return changed
+
+    def _execute_store(self, index: Index, call: Call,
+                       shards: Optional[List[int]]) -> bool:
+        """Store(bitmap, f=row) (reference executor.go executeSetRow): the
+        child's words a shard, one device-to-host copy each, replace the
+        row."""
+        fld, val = call.field_arg()
+        f = self._field_or_err(index, fld)
+        row = int(val)
+        for shard in self._shards(index, shards):
+            words = self._bitmap_call_shard(index, call.children[0], shard)
+            frag = f.standard_view().create_fragment_if_not_exists(shard)
+            frag.write_row_words(row, host_words(words))
+        return True
+
+    def _execute_delete(self, index: Index, call: Call,
+                        shards: Optional[List[int]]) -> bool:
+        """Delete(filter): clear the matching records from every fragment
+        of the index, and on a keyed index their keys (reference
+        executor.go:9050 executeDeleteRecords)."""
+        if not call.children:
+            raise ExecError("Delete() requires a filter")
+        changed = False
+        for shard in self._shards(index, shards):
+            words = host_words(
+                self._bitmap_call_shard(index, call.children[0], shard))
+            if not words.any():
+                continue
+            changed = True
+            for f in index.fields.values():
+                for v in f.views.values():
+                    frag = v.fragment(shard)
+                    if frag is not None:
+                        frag.clear_columns(words)
+            if index.options.keys:
+                cols = bw.words_to_cols(words, base=shard * SHARD_WIDTH)
+                for part in index.translate_store.partitions.values():
+                    for c in cols:
+                        k = part.id_to_key.pop(int(c), None)
+                        if k is not None:
+                            part.key_to_id.pop(k, None)
+        return changed
 
     def _execute_min_max_row(self, index: Index, call: Call,
                              shards: Optional[List[int]], is_min: bool

@@ -1,9 +1,12 @@
 """Field: a typed column of the data model (host masters and write API).
 
 Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
-uses: options, value encoding and decoding, views, point and bulk writes,
-the TopN rank cache, the per-shard BSI group on the fragment mirror, and
-one column's value or a shard's values decoded on the host.  Mirrors
+uses: options, value encoding and decoding, views, point writes (a bit or
+a value, set or cleared) and bulk writes, the TopN rank cache, the
+per-shard BSI group on the fragment mirror, and one column's value or a
+shard's values decoded on the host.  The JAX package's placement gate
+(``_writable``/``note_shard``, the multi-process mesh) is not part of the
+port: every write lands here.  Mirrors
 reference field.go:73 (Field), field types field.go:42-50 and the
 bsiGroup value encoding (field.go:2394 bsiGroup, 2412 baseValue).
 
@@ -52,6 +55,18 @@ _TIME_UNIT_NS = {
     "m": 60 * 1_000_000_000, "h": 3600 * 1_000_000_000,
     "d": 86400 * 1_000_000_000,
 }
+
+
+def _by_shard(cols: np.ndarray):
+    """(shard, indices of its columns in input order) for each shard the
+    columns reach, in shard order: one stable sort, where a mask a shard
+    would scan every column once per shard."""
+    shards = cols >> 20
+    order = np.argsort(shards, kind="stable")
+    uniq, starts = np.unique(shards[order], return_index=True)
+    bounds = np.append(starts, order.size)
+    return [(int(s), order[bounds[i]:bounds[i + 1]])
+            for i, s in enumerate(uniq)]
 
 
 class FieldOptions:
@@ -208,6 +223,18 @@ class Field:
             self._topn_cache_adjust(shard, VIEW_STANDARD, row, +1)
         return out
 
+    def clear_bit(self, row: int, col: int) -> bool:
+        """Clear a bit in every view of the column's shard (reference
+        field.ClearBit)."""
+        shard = col >> 20
+        changed = False
+        for vn, v in list(self.views.items()):
+            frag = v.fragment(shard)
+            if frag is not None and frag.clear_bit(row, col):
+                changed = True
+                self._topn_cache_adjust(shard, vn, row, -1)
+        return changed
+
     def _topn_cache_adjust(self, shard: int, view_name: str, row: int,
                            delta: int):
         """Incremental rank-cache maintenance for single-bit writes
@@ -268,6 +295,41 @@ class Field:
             raise ValueError(
                 f"value {stored_with_base} above field maximum {o.max}")
 
+    # -- BSI point writes (reference fragment.setValue:615) -----------------
+
+    def set_value(self, col: int, value) -> bool:
+        """Write one column's value; raises ValueError outside [min, max].
+        The depth grows to the value's magnitude."""
+        stored = self.encode_value(value) - self.base
+        self._check_value_range(stored + self.base)
+        frag = self.bsi_view().create_fragment_if_not_exists(col >> 20)
+        mag = abs(stored)
+        depth = max(self.bit_depth, mag.bit_length(), 1)
+        self.bit_depth = depth
+        changed = frag.set_bit(BSI_EXISTS_ROW, col)
+        if stored < 0:
+            changed |= frag.set_bit(BSI_SIGN_ROW, col)
+        else:
+            changed |= frag.clear_bit(BSI_SIGN_ROW, col)
+        for i in range(depth):
+            if (mag >> i) & 1:
+                changed |= frag.set_bit(BSI_OFFSET + i, col)
+            else:
+                changed |= frag.clear_bit(BSI_OFFSET + i, col)
+        return changed
+
+    def clear_value(self, col: int) -> bool:
+        """Remove one column's value; True when it had one."""
+        v = self.views.get(view_bsi_group(self.name))
+        frag = v.fragment(col >> 20) if v else None
+        if frag is None:
+            return False
+        changed = frag.clear_bit(BSI_EXISTS_ROW, col)
+        frag.clear_bit(BSI_SIGN_ROW, col)
+        for i in range(self.bit_depth):
+            frag.clear_bit(BSI_OFFSET + i, col)
+        return changed
+
     def import_bits(self, rows: np.ndarray, cols: np.ndarray,
                     timestamps=None, clear: bool = False):
         """Bulk set-bit import (reference fragment.bulkImport:1498; mutex
@@ -276,11 +338,9 @@ class Field:
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         o = self.options
-        shards = cols >> 20
-        for s in np.unique(shards):
-            m = shards == s
+        for s, m in _by_shard(cols):
             r, c = rows[m], cols[m] % SHARD_WIDTH
-            frag = self.standard_view().create_fragment_if_not_exists(int(s))
+            frag = self.standard_view().create_fragment_if_not_exists(s)
             if o.type in (TYPE_MUTEX, TYPE_BOOL) and not clear:
                 # clear the imported columns across all rows first
                 frag.clear_columns(cols_to_words(np.unique(c)))
@@ -291,7 +351,7 @@ class Field:
                                        o.time_quantum) for t in ts]
                 for vn in {v for vs in per_t for v in vs}:
                     tf = self.create_view_if_not_exists(vn) \
-                        .create_fragment_if_not_exists(int(s))
+                        .create_fragment_if_not_exists(s)
                     sel = np.array([vn in vs for vs in per_t])
                     tf.import_bits(r[sel], c[sel], clear=clear)
 
@@ -340,10 +400,8 @@ class Field:
         depth = max(self.bit_depth,
                     int(mags.max()).bit_length() if mags.size else 1, 1)
         self.bit_depth = depth
-        shards = cols >> 20
-        for s in np.unique(shards):
-            m = shards == s
-            frag = self.bsi_view().create_fragment_if_not_exists(int(s))
+        for s, m in _by_shard(cols):
+            frag = self.bsi_view().create_fragment_if_not_exists(s)
             delta = self._bsi_delta(cols[m] % SHARD_WIDTH, stored[m],
                                     mags[m].astype(np.uint64), depth)
             frag.clear_columns(delta[0])

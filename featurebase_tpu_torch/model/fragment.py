@@ -230,6 +230,45 @@ class Fragment:
 
     # -- bulk ops (reference fragment.bulkImport:1498, importPositions:1731) -
 
+    def merge_row_words(self, row: int, words: np.ndarray,
+                        clear: bool = False):
+        """OR (or ANDNOT if clear) a dense word vector into a row."""
+        with self._lock:
+            if clear:
+                slot = self._slot_of_row.get(row)
+                if slot is None:
+                    return
+                with self._mutating():
+                    self._cow(slot)
+                    np.bitwise_and(self._words[slot], ~words,
+                                   out=self._words[slot])
+            else:
+                slot = self._ensure_slot(row)
+                with self._mutating():
+                    self._cow(slot)
+                    np.bitwise_or(self._words[slot], words,
+                                  out=self._words[slot])
+            self._dirty.add(slot)
+
+    def write_row_words(self, row: int, words: np.ndarray):
+        """Replace a row wholesale (reference Store)."""
+        with self._lock:
+            slot = self._ensure_slot(row)
+            with self._mutating():
+                self._cow(slot)
+                self._words[slot] = words
+            self._dirty.add(slot)
+
+    def clear_row(self, row: int):
+        """Zero a row; its slot stays, as an all-zero row."""
+        with self._lock:
+            slot = self._slot_of_row.get(row)
+            if slot is not None:
+                with self._mutating():
+                    self._cow(slot)
+                    self._words[slot] = 0
+                self._dirty.add(slot)
+
     def import_bits(self, rows: np.ndarray, cols: np.ndarray,
                     clear: bool = False):
         """Bulk set bits given parallel (row, col-in-shard) arrays."""

@@ -2,7 +2,7 @@
 
 Own copy of featurebase_tpu/model/index.py trimmed to the port's slice
 (reference index.go:27 Index, holder.go:58 Holder): fields, translate
-stores, existence tracking and schema apply.
+stores, existence tracking, the writers' gate and schema apply.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import numpy as np
 from featurebase_tpu_torch.model.field import TYPE_SET, Field, FieldOptions
 from featurebase_tpu_torch.storage.translate import (FieldTranslateStore,
                                                      IndexTranslateStore)
+from featurebase_tpu_torch.utils.rwlock import ShardedGate
 
 # reference: index.go existenceFieldName = "_exists"
 EXISTENCE_FIELD = "_exists"
@@ -35,6 +36,9 @@ class Index:
         self.name = name
         self.options = options or IndexOptions()
         self._lock = threading.RLock()
+        # writers hold it shared (utils/rwlock.py); pinned readers never
+        # take it
+        self.mutate_gate = ShardedGate()
         self.fields: Dict[str, Field] = {}
         self.translate_store = IndexTranslateStore(name)
         self.field_translate_stores: Dict[str, FieldTranslateStore] = {}

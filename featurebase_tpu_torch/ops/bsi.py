@@ -24,12 +24,17 @@ values are stored relative to the field's base, as sign and magnitude.
   G masks (kernel F's output; ``sum_groups_stacked`` bsi.py:611 and
   ``sum_groups_kernel`` :333), and ``finish_groups``, each group's exact
   (sum, count).
+- ``var_moments_plain`` and ``corr_moments_plain``: the raw counts of
+  Var and Corr (``var_moments_stacked`` bsi.py:782 and
+  ``corr_moments_stacked`` :815; kernel H's output), and
+  ``finalize_var_moments`` and ``finalize_cross_moments``, their exact
+  finishes in Python ints.
 - ``range_eq`` ... ``range_between`` (bsi.py:114-160): the static-predicate
   comparators of one shard's group, lowered with ops/bsi_traced.py onto
   kernel A at S = 1 in word mode (the per-shard interpreter's BSI rows).
 
-The wrappers ``bsi_sum_planes``, ``bsi_min_max`` and ``bsi_sum_groups`` in
-ops/cuda_kernels.py run these on CPU tensors and the kernels on CUDA
+The wrappers ``bsi_sum_planes``, ``bsi_min_max``, ``bsi_sum_groups``,
+``var_moments`` and ``corr_moments`` in ops/cuda_kernels.py run these on CPU tensors and the kernels on CUDA
 tensors.
 """
 from __future__ import annotations
@@ -183,6 +188,99 @@ def finish_groups(parts: np.ndarray) -> List[Tuple[int, int]]:
     (sum_groups_host, bsi.py:353).  Sums are unbased."""
     D = (parts.shape[1] - 1) // 2
     return [(finalize_sum(p[:D], p[D:2 * D]), int(p[2 * D])) for p in parts]
+
+
+# ---------------------------------------------------------------------------
+# Statistical moments (kernel H's plain versions and finishes; SQL VAR/CORR)
+# ---------------------------------------------------------------------------
+
+# the deepest group kernel H and the moments' device route take (the
+# reference runs deeper fields on the host, executor.py:1388, :1452)
+MAX_MOMENTS_DEPTH = 31
+
+
+def _square(planes: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """(D, D) int64: entry (i, j) the set bits of plane i & plane j & keep
+    over every shard, a shard at a time (its temporaries stay small) and
+    the upper triangle mirrored."""
+    D = planes.shape[1]
+    out = torch.zeros((D, D), dtype=torch.int64, device=planes.device)
+    for s in range(planes.shape[0]):
+        kept = planes[s] & keep[s]
+        for i in range(D):
+            out[i, i:] += popcount_words(kept[i:] & planes[s, i]).sum(1)
+    low = torch.tril_indices(D, D, -1, device=planes.device)
+    out[low[0], low[1]] = out[low[1], low[0]]
+    return out
+
+
+def _counts(x: torch.Tensor) -> torch.Tensor:
+    """(D,) int64 set bits of each plane of (S, D, W) words."""
+    return popcount_words(x).sum((0, 2))
+
+
+def var_moments_plain(group: torch.Tensor, filt: torch.Tensor):
+    """(S, D + 2, W) group, (S, W) filter -> (cnt (), p (D,), n (D,),
+    sq (D, D)), int64, as var_moments_stacked (bsi.py:782) lays them out:
+    with e = exists & filter, cnt its set bits, p[i] and n[i] plane i's
+    under e & ~sign and e & sign, sq[i][j] those of plane i & plane j & e."""
+    e, pos, neg = _split(group, filt)
+    planes = group[:, 2:]
+    return (popcount_words(e).sum(), _counts(planes & pos[:, None]),
+            _counts(planes & neg[:, None]), _square(planes, e))
+
+
+def corr_moments_plain(gx: torch.Tensor, gy: torch.Tensor,
+                       filt: torch.Tensor):
+    """Two (S, D + 2, W) groups, (S, W) filter -> (cnt, xp, xn, yp, yn,
+    sqx, sqy, pp, pm, mp, mm), int64, as corr_moments_stacked (bsi.py:815)
+    lays them out, over present = exists_x & exists_y & filter: each
+    field's var_moments_plain terms, and the (Dx, Dy) matrices of plane
+    x_i & plane y_j under each sign class (x positive or not, y positive or
+    not), a shard at a time."""
+    present, xp, xn = _split(gx, gy[:, 0] & filt)
+    _, yp, yn = _split(gy, present)
+    X, Y = gx[:, 2:], gy[:, 2:]
+    xs = (X & xp[:, None], X & xn[:, None])
+    ys = (Y & yp[:, None], Y & yn[:, None])
+    cross = torch.zeros((4, X.shape[1], Y.shape[1]), dtype=torch.int64,
+                        device=X.device)
+    for s in range(X.shape[0]):
+        for i in range(X.shape[1]):
+            for k, (a, b) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+                cross[k, i] += popcount_words(xs[a][s, i] & ys[b][s]).sum(1)
+    return (popcount_words(present).sum(), _counts(xs[0]), _counts(xs[1]),
+            _counts(ys[0]), _counts(ys[1]), _square(X, present),
+            _square(Y, present), *cross)
+
+
+def finalize_var_moments(cnt, p, n, sq, base: int):
+    """Exact (n, sum, sum of squares) of the true values from raw counts
+    (Python big ints; x = stored + base, stored sign-magnitude)
+    (bsi.py:868)."""
+    cnt = int(cnt)
+    s_stored = sum((1 << i) * (int(p[i]) - int(n[i])) for i in range(len(p)))
+    sq_stored = sum((1 << (i + j)) * int(sq[i][j])
+                    for i in range(len(p)) for j in range(len(p)))
+    total = s_stored + base * cnt
+    total_sq = sq_stored + 2 * base * s_stored + base * base * cnt
+    return cnt, total, total_sq
+
+
+def finalize_cross_moments(xp, xn, yp, yn, classes, base_x: int,
+                           base_y: int, cnt: int):
+    """Exact (sum x, sum y, sum xy) of the true values from raw counts
+    (bsi.py:880)."""
+    sx = sum((1 << i) * (int(xp[i]) - int(xn[i])) for i in range(len(xp)))
+    sy = sum((1 << j) * (int(yp[j]) - int(yn[j])) for j in range(len(yp)))
+    pp, pm, mp, mm = classes
+    sxy = sum((1 << (i + j)) * (int(pp[i][j]) - int(pm[i][j])
+                                - int(mp[i][j]) + int(mm[i][j]))
+              for i in range(len(xp)) for j in range(len(yp)))
+    tx = sx + base_x * cnt
+    ty = sy + base_y * cnt
+    txy = sxy + base_x * sy + base_y * sx + base_x * base_y * cnt
+    return tx, ty, txy
 
 
 # ---------------------------------------------------------------------------

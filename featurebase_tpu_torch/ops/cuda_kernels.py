@@ -57,6 +57,17 @@ bytes (the header note of the source).  The plain versions are
 ``pair_counts_plain`` and ``*_sharded_plain`` below and
 ``sum_groups_plain`` in ops/bsi.py.
 
+A third form of the same product (kernel H, csrc/group_kernels.cu) serves
+SQL's VAR and CORR, again for XLA programs:
+
+- ``var_moments`` replaces ``var_moments_stacked`` (bsi.py:782) and
+  ``corr_moments`` replaces ``corr_moments_stacked`` (:815): every raw
+  count of a Var or a Corr in one launch, the product of one or two BSI
+  groups' sign classes with themselves, formed on chip under the filter.
+``var_moments_sharded`` and ``corr_moments_sharded`` read per-shard
+groups in place.  The plain versions are ``var_moments_plain`` and
+``corr_moments_plain`` in ops/bsi.py.
+
 Three more (csrc/decode_kernels.cu) decode BSI values, again for XLA
 programs of featurebase_tpu/ops/bsi.py:
 
@@ -328,13 +339,15 @@ def validate(prog: Program) -> None:
 # ---------------------------------------------------------------------------
 
 def popcount_words(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise popcount of int32 words (SWAR, in int64 so no step can
-    overflow); returns int64."""
-    x = x.to(torch.int64) & 0xFFFFFFFF
+    """Elementwise popcount of int32 words (SWAR in int32: every shift is
+    masked, so the arithmetic shift reads as the logical one, and the first
+    step wraps as the uint32 it stands for); returns int32 counts, whose
+    sums torch takes in int64."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    x = x + (x >> 8)
+    return (x + (x >> 16)) & 0x3F
 
 
 def bsi_walk_plain(b: torch.Tensor, planes: Sequence[torch.Tensor],
@@ -951,7 +964,7 @@ def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Kernels E and F's library, built on first use (with extra nvcc
     `flags` if any)."""
     from featurebase_tpu_torch.ops import build
-    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH, MAX_MOMENTS_DEPTH
     lib = build.load(GROUP_SOURCE, flags)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -962,20 +975,25 @@ def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
         lib.fb_popc_rate.argtypes = [vp, i32, i32, vp]
         lib.fb_tc_rate.argtypes = [vp, i32, i32, i32, vp]
         lib.fb_group_limits.argtypes = [pi32, pi32]
+        lib.fb_moments_limits.argtypes = [pi32]
         for fn in (lib.fb_group_product_slots, lib.fb_group_product,
-                   lib.fb_popc_rate, lib.fb_tc_rate, lib.fb_group_limits):
+                   lib.fb_popc_rate, lib.fb_tc_rate, lib.fb_group_limits,
+                   lib.fb_moments_limits):
             fn.restype = i32
-        depth, spec = i32(), i32()
+        depth, spec, mdepth = i32(), i32(), i32()
         lib.fb_group_limits(ctypes.byref(depth), ctypes.byref(spec))
-        if depth.value != MAX_DEPTH or spec.value != _SPEC_WORDS:
+        lib.fb_moments_limits(ctypes.byref(mdepth))
+        if depth.value != MAX_DEPTH or spec.value != _SPEC_WORDS or \
+                mdepth.value != MAX_MOMENTS_DEPTH:
             raise RuntimeError("kernel limits differ from cuda_kernels.py")
         lib._fb_typed = True
     return lib
 
 
 # The group product's modes (csrc/group_kernels.cu): kernel E multiplies A
-# by rows, kernel F by a BSI group's classes.
-MODE_ROWS, MODE_BSI = 0, 1
+# by rows, kernel F by a BSI group's classes, kernel H one or two groups'
+# classes by themselves.
+MODE_ROWS, MODE_BSI, MODE_MOMENTS = 0, 1, 2
 _SPEC_WORDS = 15
 
 # kernels E and F's tickets per (device, stream), one an output region: zero
@@ -1084,21 +1102,33 @@ def _product(mode: int, dims: List[np.ndarray], filt: Optional[np.ndarray],
         return out
     cols = [*dims, *([] if filt is None else [filt]), b]
     table = np.ascontiguousarray(np.concatenate(cols, axis=1)[live])
-    S, P = table.shape
-    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
     col0 = np.cumsum([0] + [d.shape[1] for d in dims])
-    spec = [mode, vec, S, P, len(dims)] \
+    spec = [mode, 0, 0, 0, len(dims)] \
         + [d.shape[1] for d in dims] + [1] * (3 - len(dims)) \
         + [int(c) for c in col0[:len(dims)]] + [0] * (3 - len(dims)) \
         + [-1 if filt is None else int(col0[-1]),
            int(col0[-1]) + (filt is not None), NB, D]
+    _run_product(pair_counts if mode == MODE_ROWS else bsi_sum_groups,
+                 spec, table, W, out)
+    return out
+
+
+def _run_product(kernel, spec: List[int], table: np.ndarray, W: int,
+                 out: torch.Tensor) -> None:
+    """Launch the group product of `spec` (its vec, S and P filled in here)
+    over the (S, P) uint64 address `table` into `out`, and count the launch
+    on `kernel`."""
+    S, P = table.shape
+    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
+    spec[1:4] = [vec, S, P]
     spec_c = (ctypes.c_int * _SPEC_WORDS)(*spec)
     lib = _group_lib()
+    dev = out.device
     n, runs, cw = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
         _check(lib.fb_group_product_slots(spec_c, W, ctypes.byref(n),
                                           ctypes.byref(runs),
-                                          ctypes.byref(cw)), "group product")
+                                          ctypes.byref(cw)), kernel.__name__)
         host = torch.from_numpy(table.view(np.int64)).pin_memory()
         dev_table = host.to(dev, non_blocking=True)
         slots = torch.empty(n.value, dtype=torch.int64, device=dev)
@@ -1108,10 +1138,8 @@ def _product(mode: int, dims: List[np.ndarray], filt: Optional[np.ndarray],
                                   out.data_ptr(), slots.data_ptr(),
                                   slots.numel(), tickets.data_ptr(),
                                   tickets.numel(), stream)
-    kernel = pair_counts if mode == MODE_ROWS else bsi_sum_groups
     _check(rc, kernel.__name__)
     kernel.launches += 1
-    return out
 
 
 def _all_cpu(tensors: List[torch.Tensor]) -> bool:
@@ -1345,6 +1373,191 @@ def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 
 
 bsi_sum_groups.launches = 0
+
+
+# -- kernel H: the moments of Var and Corr (csrc/group_kernels.cu) -----------
+
+def _moments_group(g: torch.Tensor, what: str) -> Tuple[int, int, int]:
+    """(S, D, W) of a stacked (S, D + 2, W) int32 group, 1 <= D <= 31."""
+    from featurebase_tpu_torch.ops.bsi import MAX_MOMENTS_DEPTH
+    if g.dtype != torch.int32 or g.dim() != 3 or \
+            not 3 <= g.shape[1] <= MAX_MOMENTS_DEPTH + 2:
+        raise ValueError(f"{what} must be (S, D + 2, W) int32 with 1 <= D <= "
+                         f"{MAX_MOMENTS_DEPTH}, got {tuple(g.shape)} "
+                         f"{g.dtype}")
+    return g.shape[0], g.shape[1] - 2, g.shape[2]
+
+
+def _moments_filter(filt: torch.Tensor, S: int, W: int) -> None:
+    if filt.dtype != torch.int32 or tuple(filt.shape) != (S, W):
+        raise ValueError(f"filter must be ({S}, {W}) int32, got "
+                         f"{tuple(filt.shape)} {filt.dtype}")
+
+
+def _moments_launch(kernel, groups: List[np.ndarray],
+                    faddrs: Optional[np.ndarray], depths: List[int], W: int,
+                    dev: torch.device) -> torch.Tensor:
+    """One launch of kernel H over address tables: one or two groups'
+    (S, D + 2) plane addresses and the filter's (S, 1), or None for no
+    filter (0: absent) -> the (K, K) int64 product of the K = sum(2D + 1)
+    classes.  Shards whose exists planes or filter rows are absent add
+    nothing and are left out.  The caller holds the tensors the addresses
+    point into until this returns, when the launch is enqueued."""
+    K = sum(2 * d + 1 for d in depths)
+    out = torch.zeros((K, K), dtype=torch.int64, device=dev)
+    live = np.ones(groups[0].shape[0], dtype=bool)
+    for g in groups:
+        live &= g[:, 0] != 0
+    if faddrs is not None:
+        live &= faddrs[:, 0] != 0
+    if not live.any():
+        return out
+    table = np.ascontiguousarray(np.concatenate(
+        ([] if faddrs is None else [faddrs]) + groups, axis=1)[live])
+    x0 = 0 if faddrs is None else 1
+    spec = [MODE_MOMENTS, 0, 0, 0, len(groups), depths[0], depths[-1], 0,
+            x0, x0 + depths[0] + 2, 0, -1 if faddrs is None else 0, 0, 0, 0]
+    _run_product(kernel, spec, table, W, out)
+    return out
+
+
+def _var_parts(m: torch.Tensor, D: int):
+    """var_moments_plain's (cnt, p, n, sq) from kernel H's Var product."""
+    e = 2 * D
+    return m[e, e], m[:D, e], m[D:e, e], m[:D, :D] + m[D:e, D:e]
+
+
+def _corr_parts(m: torch.Tensor, Dx: int, Dy: int):
+    """corr_moments_plain's eleven outputs from kernel H's Corr product."""
+    ex, y0 = 2 * Dx, 2 * Dx + 1
+    ey = y0 + 2 * Dy
+    xp, xn = slice(0, Dx), slice(Dx, ex)
+    yp, yn = slice(y0, y0 + Dy), slice(y0 + Dy, ey)
+    return (m[ex, ex], m[xp, ex], m[xn, ex], m[yp, ey], m[yn, ey],
+            m[xp, xp] + m[xn, xn], m[yp, yp] + m[yn, yn],
+            m[xp, yp], m[xp, yn], m[xn, yp], m[xn, yn])
+
+
+def var_moments(group: torch.Tensor, filt: torch.Tensor):
+    """Kernel H, Var form: an (S, D + 2, W) int32 group (1 <= D <= 31)
+    under an (S, W) int32 filter -> (cnt, p (D,), n (D,), sq (D, D)) int64
+    on the group's device, as var_moments_plain (ops/bsi.py) gives them.
+    One launch, its table pointing into the stacked group (views with a
+    unit word stride are taken as they are)."""
+    S, D, W = _moments_group(group, "group")
+    _moments_filter(filt, S, W)
+    if _is_cpu([group, filt]):
+        from featurebase_tpu_torch.ops.bsi import var_moments_plain
+        return var_moments_plain(group, filt)
+    if group.stride(2) != 1 or filt.stride(1) != 1:
+        raise ValueError("var_moments needs a unit word stride")
+    m = _moments_launch(var_moments, [_stacked_addrs(group)],
+                        _filter_addrs(filt, S, W), [D], W, group.device)
+    return _var_parts(m, D)
+
+
+var_moments.launches = 0
+
+
+def corr_moments(gx: torch.Tensor, gy: torch.Tensor, filt: torch.Tensor):
+    """Kernel H, Corr form: two (S, D + 2, W) int32 groups (depths 1 to 31,
+    each its own) under an (S, W) int32 filter -> corr_moments_plain's
+    eleven int64 outputs on the groups' device.  One launch."""
+    S, Dx, W = _moments_group(gx, "x group")
+    Sy, Dy, Wy = _moments_group(gy, "y group")
+    if (Sy, Wy) != (S, W):
+        raise ValueError(f"y group {tuple(gy.shape)} does not match the x "
+                         f"group {tuple(gx.shape)}")
+    _moments_filter(filt, S, W)
+    if _is_cpu([gx, gy, filt]):
+        from featurebase_tpu_torch.ops.bsi import corr_moments_plain
+        return corr_moments_plain(gx, gy, filt)
+    if gx.stride(2) != 1 or gy.stride(2) != 1 or filt.stride(1) != 1:
+        raise ValueError("corr_moments needs a unit word stride")
+    m = _moments_launch(corr_moments, [_stacked_addrs(gx), _stacked_addrs(gy)],
+                        _filter_addrs(filt, S, W), [Dx, Dy], W, gx.device)
+    return _corr_parts(m, Dx, Dy)
+
+
+corr_moments.launches = 0
+
+
+def _moments_sharded_inputs(fields, filt):
+    """Per-shard groups of one or two fields (_bsi_groups: None, a
+    (D + 2, W) tensor or a (tile, slots) pair; 1 <= D <= 31) and a filter
+    ((S, W) words, per-shard (W,) words or None rows, or None for no
+    filter) -> ([(tiles, slots, D)], W, every tensor)."""
+    from featurebase_tpu_torch.ops.bsi import MAX_MOMENTS_DEPTH
+    parsed = [_bsi_groups(g, MAX_MOMENTS_DEPTH) for g in fields]
+    S = len(fields[0])
+    if any(len(g) != S for g in fields):
+        raise ValueError("the fields' groups cover different shards")
+    tensors = [t for tiles, _, _ in parsed for t in tiles if t is not None]
+    if filt is not None:
+        tensors += [filt] if isinstance(filt, torch.Tensor) else \
+            [f for f in filt if f is not None]
+    W = _words_per_row(tensors) if tensors else 1
+    return parsed, W, tensors
+
+
+def _moments_sharded_plain(parsed, filt, W: int, dev, plain):
+    """A sharded moments wrapper's plain version: `plain` shard by shard
+    over the gathered groups, summed."""
+    parts = None
+    for s in range(len(parsed[0][0])):
+        if any(tiles[s] is None for tiles, _, _ in parsed):
+            continue
+        gs = [_gather_rows(tiles[s], sl[s], W, dev)[None]
+              for tiles, sl, _ in parsed]
+        f = torch.full((1, W), -1, dtype=torch.int32, device=dev) \
+            if filt is None else _filter_row(filt, s, W, dev)[None]
+        got = plain(*gs, f)
+        parts = list(got) if parts is None else \
+            [a + b for a, b in zip(parts, got)]
+    if parts is None:   # no shard with data: zeros of the right shapes
+        parts = plain(*[torch.zeros((1, D + 2, W), dtype=torch.int32,
+                                    device=dev) for _, _, D in parsed],
+                      torch.zeros((1, W), dtype=torch.int32, device=dev))
+    return tuple(parts)
+
+
+def var_moments_sharded(groups, filt=None):
+    """Kernel H, Var form, over every shard in one launch, the planes read
+    in place: groups as bsi_sum_planes_sharded takes them (depth 1 to 31),
+    filt (S, W) words, per-shard (W,) words (None for a shard without a
+    filter row) or None (no filter) -> var_moments' outputs over every
+    shard.  Counts as a var_moments launch."""
+    from featurebase_tpu_torch.ops.bsi import var_moments_plain
+    parsed, W, tensors = _moments_sharded_inputs([groups], filt)
+    dev = _device_of(tensors)
+    if _all_cpu(tensors):
+        return _moments_sharded_plain(parsed, filt, W, dev, var_moments_plain)
+    tiles, sl, D = parsed[0]
+    m = _moments_launch(
+        var_moments, [_dim_addrs(tiles, sl, W, "BSI group")],
+        None if filt is None else _filter_addrs(filt, len(tiles), W), [D],
+        W, dev)
+    return _var_parts(m, D)
+
+
+def corr_moments_sharded(gx, gy, filt=None):
+    """Kernel H, Corr form, over every shard in one launch: gx and gy the
+    two fields' per-shard groups, filt as var_moments_sharded takes it ->
+    corr_moments' outputs over every shard.  Counts as a corr_moments
+    launch."""
+    from featurebase_tpu_torch.ops.bsi import corr_moments_plain
+    parsed, W, tensors = _moments_sharded_inputs([gx, gy], filt)
+    dev = _device_of(tensors)
+    if _all_cpu(tensors):
+        return _moments_sharded_plain(parsed, filt, W, dev,
+                                      corr_moments_plain)
+    (tx, sx, Dx), (ty, sy, Dy) = parsed
+    m = _moments_launch(
+        corr_moments, [_dim_addrs(tx, sx, W, "x group"),
+                       _dim_addrs(ty, sy, W, "y group")],
+        None if filt is None else _filter_addrs(filt, len(tx), W), [Dx, Dy],
+        W, dev)
+    return _corr_parts(m, Dx, Dy)
 
 
 # -- kernels G'', G''' and I': the decode family (csrc/decode_kernels.cu) ----
@@ -1636,7 +1849,8 @@ def percentile_counts(vals: torch.Tensor, exists: torch.Tensor,
 percentile_counts.launches = 0
 
 KERNELS = (plan_eval, row_counts, bsi_sum_planes, bsi_min_max, pair_counts,
-           bsi_sum_groups, bsi_decode, bsi_decode_gather, percentile_counts)
+           bsi_sum_groups, bsi_decode, bsi_decode_gather, percentile_counts,
+           var_moments, corr_moments)
 
 
 def reset_launches() -> None:

@@ -102,3 +102,8 @@ class Query:
     def __repr__(self):
         return "; ".join(repr(c) for c in self.calls)
 
+
+
+# calls that write (reference: executor.go executeCall write dispatch); a
+# query holding one runs under its index's mutate gate, not a snapshot pin
+WRITE_CALLS = {"Set", "Clear", "ClearRow", "Store", "Delete"}

@@ -196,7 +196,8 @@ def test_cpu_aggregates_launch_no_kernel(fuzz):
                              "bsi_sum_planes": 0, "bsi_min_max": 0,
                              "pair_counts": 0, "bsi_sum_groups": 0,
                              "bsi_decode": 0, "bsi_decode_gather": 0,
-                             "percentile_counts": 0}
+                             "percentile_counts": 0, "var_moments": 0,
+                             "corr_moments": 0}
 
 
 @pytest.mark.parametrize("pql", ["Sum(field=nope)", "Min(field=nope)",

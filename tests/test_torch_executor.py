@@ -140,7 +140,7 @@ def test_results_are_port_types(engines):
 
 
 @pytest.mark.parametrize("query,family", [
-    ("Var(field=v)", "Var"), ("Set(5, f=1)", "Set"),
+    ("Arrow()", "Arrow"), ("ExternalLookup(query='x')", "ExternalLookup"),
     ('Apply("v + 1")', "Apply"),
 ])
 def test_unported_families_raise(engines, query, family):
@@ -163,10 +163,12 @@ def _answer(result):
     ("Percentile(field=v, nth=50)", "Percentile"),
     ("Extract(All(), Rows(f))", "Extract"),
     ("Sort(field=v)", "Sort"), ("Count(Distinct(field=v))", "Distinct"),
+    ("Var(field=v)", "Var"), ("Set(5, f=1)", "Set"),
 ])
 def test_ported_families_match_jax(engines, query, family):
     """The families that raised before they were ported (the same queries
-    as test_unported_families_raise had) answer as the JAX executor."""
+    as test_unported_families_raise had) answer as the JAX executor; the
+    Set writes the same bit into both holders."""
     jax_e, port_e = engines
     got = port_e.execute("fz", query)[0]
     assert _answer(got) == _answer(jax_e.execute("fz", query)[0]), family
@@ -202,12 +204,14 @@ def test_cpu_executor_launches_no_kernel(engines):
     _, port_e = engines
     ck.reset_launches()
     port_e.execute("fz", "Count(Row(v > 300)) TopN(f, Row(g=1), n=2) "
-                         "Percentile(field=v, nth=50) Distinct(field=v)")
+                         "Percentile(field=v, nth=50) Distinct(field=v) "
+                         "Var(field=v)")
     assert ck.launches() == {"plan_eval": 0, "row_counts": 0,
                              "bsi_sum_planes": 0, "bsi_min_max": 0,
                              "pair_counts": 0, "bsi_sum_groups": 0,
                              "bsi_decode": 0, "bsi_decode_gather": 0,
-                             "percentile_counts": 0}
+                             "percentile_counts": 0, "var_moments": 0,
+                             "corr_moments": 0}
 
 
 def test_port_imports_neither_jax_nor_featurebase_tpu():

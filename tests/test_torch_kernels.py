@@ -197,4 +197,5 @@ def test_cpu_tensors_launch_nothing():
                              "bsi_sum_planes": 0, "bsi_min_max": 0,
                              "pair_counts": 0, "bsi_sum_groups": 0,
                              "bsi_decode": 0, "bsi_decode_gather": 0,
-                             "percentile_counts": 0}
+                             "percentile_counts": 0, "var_moments": 0,
+                             "corr_moments": 0}
