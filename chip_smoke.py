@@ -8,11 +8,11 @@ Run from the repository root on a machine with one CUDA card:
 Phases, one status line each; any failure raises and exits nonzero:
   1. the card (nvidia-smi name, power limit and maximum SM clock) and the
      torch/CUDA versions;
-  2. build of every CUDA source with nvcc (sm_90a), and of kernel A's two
-     ablation builds, all at once, timed, with the ptxas
-     register/stack/spill report of each kernel (it fails if plan_eval_kernel,
-     a BSI kernel, a GroupBy kernel or a decode kernel spills or keeps a
-     stack frame);
+  2. build of every CUDA source with nvcc (sm_90a), and of the ablation
+     builds, all at once, timed, with the ptxas register/stack/spill report
+     of each kernel (it fails if plan_eval_kernel, a BSI kernel, a GroupBy
+     kernel, a decode kernel or a form of H' spills or keeps a stack
+     frame);
      cuobjdump's SASS of each tuning kernel must keep the 16-byte loads of
      its main loop;
   3. each kernel against its plain PyTorch version on the card, at the
@@ -50,7 +50,7 @@ Phases, one status line each; any failure raises and exits nonzero:
      65,536 columns a shard), I' in each of its forms at K = 0, 1, 2,
      129 and 512 thresholds: random, duplicated, every value below them,
      every value above them, and bases that wrap value + base in int32.
-     Kernel H (var_moments, corr_moments; moments_parity): Var at depths
+     Kernel H' (var_moments, corr_moments; moments_parity): Var at depths
      1, 5, 14 and 31 and Corr at (1, 1), (5, 3), (14, 12) and (31, 31), at
      S = 1 and 3 and at the slice's S, with absent planes, planes not under
      exists, encoded values, all-ones and empty filters, W = 1001 and a
@@ -80,9 +80,10 @@ Phases, one status line each; any failure raises and exits nonzero:
      count case with a Memset fails; then kernel A's staged cases under
      the two ablation builds, one without its copies and one without its
      program; B' built with its rows staged by TMA bulk copies beside the
-     default's direct loads (row_ablation), and I' built with its search a
+     default's direct loads (row_ablation), I' built with its search a
      lift over every threshold beside the default's bucket table
-     (pct_ablation);
+     (pct_ablation), and H' without its copies and without its product at
+     S = 128 (moments_ablation);
   5. the slice: a --shards table (625,000 records per shard; set fields f
      and g, int fields v in [-1000, 10000] and u in [-500, 4000], a third
      of v plus noise on nine records in ten) built through the port's
@@ -1459,13 +1460,44 @@ def moments_parity(S: int) -> dict:
     return errs
 
 
+def moments_plan_of(groups, f) -> dict:
+    """The planner's view of a stacked launch of kernel H' over `groups`
+    under the filter words `f` (ops/cuda_kernels.py moments_plan)."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    S, _, W = groups[0].shape
+    table = np.concatenate([ck._filter_addrs(f, S, W)]
+                           + [ck._stacked_addrs(g) for g in groups], axis=1)
+    depths = [g.shape[1] - 2 for g in groups]
+    return ck.moments_plan(ck._moments_spec(table, W, depths, True), W)
+
+
+def moments_plans(S: int) -> dict:
+    """Phase 4d': one launch of each of the six forms of kernel H' at S shards
+    (Var at depths 14, 20 and 31; Corr at 14 x 12, 1 x 31 and 31 x 31),
+    as the planner lays it out: form, chunk words, ring stages, resident
+    blocks an SM (the occupancy API), grid, shared bytes and staged
+    bytes."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    W, out = 32768, {}
+    ptr = 1 << 20   # any 16-byte aligned addresses: nothing is launched
+    for depths in ((14,), (20,), (31,), (14, 12), (1, 31), (31, 31)):
+        P = 1 + sum(d + 2 for d in depths)
+        table = np.full((S, P), ptr, dtype=np.uint64)
+        out["x".join(map(str, depths))] = ck.moments_plan(
+            ck._moments_spec(table, W, list(depths), True), W)
+    say("moments_plans", shards=S, plans=out)
+    return out
+
+
 def moments_times(timer: Timer, rates: dict, reps: int, S: int) -> dict:
-    """Phase 4d: kernel H at the main path's shapes beside its plain
+    """Phase 4d: kernel H' at the main path's shapes beside its plain
     version and its bound, the larger of bytes (the groups and the filter
-    read once, the (K, K) product written once) at 3.35 TB/s and the bit
-    products ((2D + 1)^2 or K^2 a column: the classes' product) at the
-    tensor cores' measured 1-bit rate: Var at depth 14 (the bench table's
-    v) and Corr at depths 14 and 12 (v and u) over S stacked shards."""
+    read once, the (R, C) product written once) at 3.35 TB/s and the bit
+    products (R x C a column: the basis' product) at the tensor cores'
+    measured 1-bit rate: Var at depth 14 (the bench table's v) and Corr at
+    depths 14 and 12 (v and u) over S stacked shards.  Each launch's plan
+    (resident blocks an SM, staged bytes) is printed beside its time, and
+    Corr's staged bytes must be its 31 rows a shard, each once."""
     from featurebase_tpu_torch.ops import bsi as bsiops
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     gen = torch.Generator(device="cuda")
@@ -1473,23 +1505,57 @@ def moments_times(timer: Timer, rates: dict, reps: int, S: int) -> dict:
     W, out = 32768, {}
     f = gpu_words(gen, (S, W))
     gx, gy = gpu_words(gen, (S, 16, W)), gpu_words(gen, (S, 14, W))
-    for name, fn, plain, rows, K in (
-            (f"var_moments/s{S}_d14", lambda: ck.var_moments(gx, f),
-             lambda: bsiops.var_moments_plain(gx, f), 17, 29),
-            (f"corr_moments/s{S}_d14x12", lambda: ck.corr_moments(gx, gy, f),
-             lambda: bsiops.corr_moments_plain(gx, gy, f), 31, 54)):
-        nbytes = rows * S * W * 4 + K * K * 8
+    for name, groups, fn, plain, rows in (
+            (f"var_moments/s{S}_d14", [gx], lambda: ck.var_moments(gx, f),
+             lambda: bsiops.var_moments_plain(gx, f), 17),
+            (f"corr_moments/s{S}_d14x12", [gx, gy],
+             lambda: ck.corr_moments(gx, gy, f),
+             lambda: bsiops.corr_moments_plain(gx, gy, f), 31)):
+        plan = moments_plan_of(groups, f)
+        if plan["staged_bytes"] != rows * S * W * 4:
+            raise AssertionError(f"{name} stages {plan['staged_bytes']} "
+                                 f"bytes, not {rows} rows a shard once")
+        cells = plan["R"] * plan["C"]
+        nbytes = rows * S * W * 4 + cells * 8
         b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bit_products = K * K * S * W * 32
+        bit_products = cells * S * W * 32
         o_ms = bit_products / rates["b1_mma_sync"] * 1e3
         r = dict(bytes=nbytes, bit_products=bit_products, bytes_ms=b_ms,
                  ops_ms=o_ms, popc_unit_ms=bit_products / rates["popc"] * 1e3,
                  bound_ms=max(b_ms, o_ms),
                  bound_by="bytes" if b_ms >= o_ms else "operations",
                  ms=timer(fn), device_ms=kernel_device_ms(fn, reps),
-                 plain_ms=Timer(3)(plain))
+                 plain_ms=Timer(3)(plain), plan=plan)
         out[name] = r
         say("kernel_time", kernel=name, **r)
+    return out
+
+
+def moments_ablation(reps: int, S: int) -> dict:
+    """Phase 4e: kernel H' at the main path's shapes over S stacked shards
+    (Var at depth 14, Corr at 14 x 12) under the ablation builds of
+    csrc/moments_kernels.cu beside its own, in turns (kernel, copies
+    alone, product on stale rows, kernel again)."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    W = 32768
+    f = gpu_words(gen, (S, W))
+    gx, gy = gpu_words(gen, (S, 16, W)), gpu_words(gen, (S, 14, W))
+    cases = {f"var_moments/s{S}_d14": lambda: ck.var_moments(gx, f),
+             f"corr_moments/s{S}_d14x12": lambda: ck.corr_moments(gx, gy, f)}
+    real, out = ck._moments_lib, {}
+    try:
+        for name, flags in (("kernel", ()), *ABLATIONS.items(),
+                            ("kernel_again", ())):
+            ck._moments_lib = lambda flags=flags: real(flags)
+            for case, fn in cases.items():
+                dev = kernel_device_ms(fn, reps)
+                out.setdefault(case, {})[name] = sum(
+                    v for k, v in dev.items() if k.startswith("moments"))
+    finally:
+        ck._moments_lib = real
+    say("moments_ablation", device_ms=out, shards=S)
     return out
 
 
@@ -2795,6 +2861,12 @@ def writes_phase(holder, gen, budget: int) -> dict:
     return out
 
 
+# The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
+# the forms of kernel H' are moments_kernel<fields, ...>.
+KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
+                  "corr_moments": "moments_kernel<2,"}
+
+
 def query_profile(queries, timed, latency) -> dict:
     """The query mix under one torch.profiler window, each query under a
     record_function label: a warm-up pass, then the measured pass.  Device
@@ -2836,7 +2908,8 @@ def query_profile(queries, timed, latency) -> dict:
         span = labels[i]
         ks = [e for e in device if span.start <= calls[e.id] <= span.end]
         by_kernel = {k: [e.time_range.elapsed_us() for e in ks
-                         if f"{k}_kernel" in e.name] for k in counted[q]}
+                         if KERNEL_SYMBOLS.get(k, f"{k}_kernel") in e.name]
+                     for k in counted[q]}
         busy = sum(e.time_range.elapsed_us() for e in ks)
         span_us = span.elapsed_us()
         per[q] = dict(
@@ -2881,10 +2954,11 @@ def main() -> int:
         max_sm_clock_mhz=max_sm_clock_hz() / 1e6, numpy=np.__version__,
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
     t0 = time.perf_counter()
-    sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE,
-               tk.SOURCE)
+    sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.MOMENTS_SOURCE,
+               ck.DECODE_SOURCE, tk.SOURCE)
     builds = [*((src, ()) for src in sources),
-              *((src, f) for src in (ck.SOURCE, ck.GROUP_SOURCE)
+              *((src, f) for src in (ck.SOURCE, ck.GROUP_SOURCE,
+                                     ck.MOMENTS_SOURCE)
                 for f in ABLATIONS.values()),
               (ck.SOURCE, ROW_ABLATION), (ck.DECODE_SOURCE, PCT_ABLATION)]
     procs = [(src, f, build.compile_source(src, f)) for src, f in builds]
@@ -2899,8 +2973,9 @@ def main() -> int:
     report = {src: ptxas_report(build.build_log.get(src, ""))
               for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
-    for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.DECODE_SOURCE):
-        whole = src in (ck.GROUP_SOURCE, ck.DECODE_SOURCE)
+    for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.MOMENTS_SOURCE,
+                ck.DECODE_SOURCE):
+        whole = src in (ck.GROUP_SOURCE, ck.MOMENTS_SOURCE, ck.DECODE_SOURCE)
         if whole and not report[src]:
             raise AssertionError(f"no ptxas report for {src}")
         for fn, r in report[src].items():
@@ -2924,6 +2999,7 @@ def main() -> int:
     times, copy_bps = kernel_times(timer, inputs)
     rates = tc_rate(args.reps, popc_rate(args.reps))
     times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
+    moments_plans(S)
     times.update(moments_times(timer, rates["bit_products_per_s"], args.reps,
                                S))
     times.update(decode_times(timer, decode_inputs, args.reps))
@@ -2932,6 +3008,7 @@ def main() -> int:
     ablation(inputs, args.reps)
     row_ablation(inputs, args.reps)
     group_ablation(args.reps)
+    moments_ablation(args.reps, S)
     small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
     del inputs
     launches = slice_phase(args.shards, args.reps)
@@ -2957,10 +3034,10 @@ def main() -> int:
     kernels = []
     for name, key, source, replaces in (
             ("plan_eval", "plan_eval/bsi_gt_count", ck.SOURCE,
-             "featurebase_tpu/ops/pallas_kernels.py:135"),
+             "featurebase_tpu/ops/pallas_kernels.py:136"),
             ("row_counts", "row_counts/filtered", ck.SOURCE,
-             "featurebase_tpu/ops/pallas_kernels.py:172, "
-             "featurebase_tpu/ops/pallas_kernels.py:203"),
+             "featurebase_tpu/ops/pallas_kernels.py:173, "
+             "featurebase_tpu/ops/pallas_kernels.py:204"),
             ("bsi_sum_planes", "bsi_sum_planes/d14", ck.BSI_SOURCE,
              "featurebase_tpu/ops/bsi.py:378"),
             ("bsi_min_max", "bsi_min_max/d14", ck.BSI_SOURCE,
@@ -2972,9 +3049,9 @@ def main() -> int:
              ck.GROUP_SOURCE,
              "featurebase_tpu/ops/bsi.py:611, "
              "featurebase_tpu/ops/bsi.py:333"),
-            ("var_moments", f"var_moments/s{S}_d14", ck.GROUP_SOURCE,
+            ("var_moments", f"var_moments/s{S}_d14", ck.MOMENTS_SOURCE,
              "featurebase_tpu/ops/bsi.py:782"),
-            ("corr_moments", f"corr_moments/s{S}_d14x12", ck.GROUP_SOURCE,
+            ("corr_moments", f"corr_moments/s{S}_d14x12", ck.MOMENTS_SOURCE,
              "featurebase_tpu/ops/bsi.py:815"),
             ("bsi_decode", f"bsi_decode/s{S}_d14", ck.DECODE_SOURCE,
              "featurebase_tpu/ops/bsi.py:759, "

@@ -19,18 +19,6 @@
 //   itertools.product order (the last dimension fastest); B holds the
 //   2D + 1 classes of a BSI group: plane p & exists & ~sign (p < D), plane p
 //   & exists & sign, and exists.  The host finishes each group's sum.
-// moments (kernel H) is the counterpart of the XLA programs
-//   featurebase_tpu/ops/bsi.py var_moments_stacked (:782) and
-//   corr_moments_stacked (:815): A and B both hold the classes of one BSI
-//   group (Var) or of two (Corr), formed under present = exists_x
-//   [& exists_y] [& filter]: plane p & present & ~sign, plane p & present &
-//   sign and present, for x and then for y.  The (K, K) product holds every
-//   raw count of the two programs: cnt, each field's per-plane sign-split
-//   counts (a class by present), its square matrix (the positive-by-positive
-//   and negative-by-negative blocks added; the mixed blocks of one field are
-//   zero) and, for Corr, the four sign classes of x_i & y_j (the x-by-y
-//   blocks).  The planes need not lie under exists: every class ANDs
-//   present.  Depths 1 to 31 (the executor's device route).
 //
 // Operands are read where they live.  Each launch gets a table of row
 // addresses, (S, P) uint64: for each shard, the address of every row it may
@@ -52,11 +40,7 @@
 // at 60 us; a GroupBy+Sum of 8 x 4 groups at D = 14 reads 8 + 4 + 16 rows,
 // 470 MB (140 us), and does 3.9e9 popcounts (32 x 29 a column word): 930 us
 // on the popcount unit, about 25 us on the tensor cores, so it is bound by
-// bytes.  So is kernel H: Var at D = 14 reads 17 rows a shard, 285 MB (85
-// us), and does 29 x 29 products a bit, 1.1e11 (about 23 us on the tensor
-// cores, 236 us on the popcount unit); Corr of depths 14 and 12 reads 31
-// rows, 520 MB (155 us), and does 54 x 54 products a bit (78 us).  Its 54
-// classes take two output regions, each staging every row.
+// bytes.
 //
 // Design.  A persistent grid, about one block per SM (more where the
 // occupancy allows), walks the (shard, chunk) tiles of every shard: chunks
@@ -109,8 +93,7 @@ constexpr int kStageMax = 320;      // staged rows a tile, at most
 constexpr int kSmemBudget = 100 * 1024;  // two blocks an SM, at least
 constexpr int kSmemCap = 227 * 1024;
 
-enum { kModeRows = 0, kModeBsi = 1, kModeMoments = 2 };
-constexpr int kMaxMomentsDepth = 31;
+enum { kModeRows = 0, kModeBsi = 1 };
 
 struct ProductArgs {
   const unsigned long long* table;  // (S, P) row addresses, 0 = absent
@@ -123,8 +106,6 @@ struct ProductArgs {
   int filt_col;                     // table column of the filter, or -1
   int b_col;                        // table column of B's first row
   int GA, NB, D;                    // groups, B's outputs, BSI depth
-  int nf, Dy, y_col;                // H: fields (1, 2), y's depth and
-                                    // first table column
   int CW, lcw4;                     // chunk words; log2(CW / 4)
   int chunks;                       // chunks a shard
   unsigned int n_tiles;             // S x chunks
@@ -222,9 +203,7 @@ struct Region {
   int b_pos;              // staged row of B's first row
   int zrow;               // a staged row of zeros
   int side;               // F: rows side, side + 1 hold exists & ~sign,
-                          // exists & sign (formed, after the staged rows);
-                          // H: present, then x's two sides, then y's
-  int y_pos;              // H: staged row of y's exists
+                          // exists & sign (formed, after the staged rows)
   int vr, vc;             // valid groups and outputs of the region
 };
 
@@ -237,81 +216,8 @@ struct RegionTables {
   int last;
 };
 
-// H's class k: the staged or formed rows whose AND it is (plane, side);
-// the zero row past the classes.
-__device__ __forceinline__ void class_rows(const ProductArgs& a,
-                                           const Region& r, int k,
-                                           int& plane, int& side) {
-  plane = side = r.zrow;
-  const int kx = 2 * a.D + 1;
-  int j = k, d = a.D, first = r.b_pos, sd = r.side + 1;
-  if (k >= kx) {
-    if (a.nf != 2 || k >= kx + 2 * a.Dy + 1) return;
-    j = k - kx;
-    d = a.Dy;
-    first = r.y_pos;
-    sd = r.side + 3;
-  }
-  if (j < d) {
-    plane = first + 2 + j;
-    side = sd;
-  } else if (j < 2 * d) {
-    plane = first + 2 + j - d;
-    side = sd + 1;
-  } else {
-    plane = side = r.side;
-  }
-}
-
-// H's region: the filter, x's group, y's group and the zero row staged; the
-// A side's rows per class.
-__device__ void setup_moments(const ProductArgs& a, RegionTables& rt) {
-  const int tid = threadIdx.x;
-  const int rows_a = 16 * a.MT, cols_b = 8 * a.NT;
-  const int ga0 = blockIdx.y / a.regions_b * rows_a;
-  const int cb0 = blockIdx.y % a.regions_b * cols_b;
-  if (tid == 0) {
-    int base = 0;
-    rt.r.filt_pos = -1;
-    if (a.filt_col >= 0) {
-      rt.scol[base] = a.filt_col;
-      rt.r.filt_pos = base++;
-    }
-    rt.r.b_pos = base;
-    for (int j = 0; j < a.D + 2; ++j) rt.scol[base + j] = a.b_col + j;
-    base += a.D + 2;
-    rt.r.y_pos = base;
-    if (a.nf == 2) {
-      for (int j = 0; j < a.Dy + 2; ++j) rt.scol[base + j] = a.y_col + j;
-      base += a.Dy + 2;
-    }
-    rt.scol[base] = -1;
-    rt.r.zrow = base++;
-    rt.r.staged = base;
-    rt.r.side = base;
-    rt.r.d0_rows = 0;
-    rt.r.ga0 = ga0;
-    rt.r.cb0 = cb0;
-    rt.r.vr = min(rows_a, a.GA - ga0);
-    rt.r.vc = min(cols_b, a.NB - cb0);
-  }
-  __syncthreads();
-  if (tid < rows_a) {
-    int plane, side;
-    class_rows(a, rt.r, ga0 + tid, plane, side);
-    rt.pos[tid][0] = (short)plane;
-    rt.pos[tid][1] = (short)side;
-    rt.pos[tid][2] = -1;
-  }
-  __syncthreads();
-}
-
 __device__ void setup_region(const ProductArgs& a, int mode,
                              RegionTables& rt) {
-  if (mode == kModeMoments) {
-    setup_moments(a, rt);
-    return;
-  }
   const int tid = threadIdx.x;
   const int rows_a = 16 * a.MT, cols_b = 8 * a.NT;
   const int ra = blockIdx.y / a.regions_b, rb = blockIdx.y % a.regions_b;
@@ -426,32 +332,6 @@ __device__ __forceinline__ void prepare(const ProductArgs& a, int mode,
                                         const RegionTables& rt,
                                         uint32_t* sb) {
   const int cwp = a.CW + kPad, q = a.CW / 4;
-  if (mode == kModeMoments) {
-    // H: present = exists_x [& exists_y] [& filter], and each field's sides
-    // present & ~sign, present & sign
-    const uint32_t* ex = sb + rt.r.b_pos * cwp;
-    const uint32_t* ey = sb + rt.r.y_pos * cwp;
-    const uint32_t* f = sb + rt.r.filt_pos * cwp;
-    uint32_t* out = sb + rt.r.side * cwp;
-    for (int v = threadIdx.x * 4; v < a.CW; v += kThreads * 4) {
-      uint4 pr = *reinterpret_cast<const uint4*>(ex + v);
-      if (rt.r.filt_pos >= 0)
-        pr = and4(pr, *reinterpret_cast<const uint4*>(f + v));
-      if (a.nf == 2) pr = and4(pr, *reinterpret_cast<const uint4*>(ey + v));
-      *reinterpret_cast<uint4*>(out + v) = pr;
-      const uint4 xs = *reinterpret_cast<const uint4*>(ex + cwp + v);
-      *reinterpret_cast<uint4*>(out + cwp + v) =
-          make_uint4(pr.x & ~xs.x, pr.y & ~xs.y, pr.z & ~xs.z, pr.w & ~xs.w);
-      *reinterpret_cast<uint4*>(out + 2 * cwp + v) = and4(pr, xs);
-      if (a.nf == 2) {
-        const uint4 ys = *reinterpret_cast<const uint4*>(ey + cwp + v);
-        *reinterpret_cast<uint4*>(out + 3 * cwp + v) = make_uint4(
-            pr.x & ~ys.x, pr.y & ~ys.y, pr.z & ~ys.z, pr.w & ~ys.w);
-        *reinterpret_cast<uint4*>(out + 4 * cwp + v) = and4(pr, ys);
-      }
-    }
-    return;
-  }
   if (rt.r.filt_pos >= 0) {
     const uint32_t* f = sb + rt.r.filt_pos * cwp;
     const int n = rt.r.d0_rows << a.lcw4;
@@ -493,11 +373,6 @@ __device__ __forceinline__ void b_rows(const ProductArgs& a,
   if constexpr (MODE == kModeRows) {
     off = (rt.r.b_pos + c) * cwp;
     side = off;
-  } else if constexpr (MODE == kModeMoments) {
-    int plane, sd;
-    class_rows(a, rt.r, rt.r.cb0 + c, plane, sd);
-    off = plane * cwp;
-    side = sd * cwp;
   } else {
     const int k = rt.r.cb0 + c;
     int plane = rt.r.zrow, sd = rt.r.zrow;
@@ -666,14 +541,6 @@ bsi_sum_groups_kernel(const ProductArgs a,
   product<kModeBsi, MT, NT, V>(a, out, slots, tickets);
 }
 
-template <int MT, int NT, int V>
-__global__ void __launch_bounds__(kThreads, 1)
-moments_kernel(const ProductArgs a, unsigned long long* __restrict__ out,
-               unsigned long long* __restrict__ slots,
-               unsigned int* __restrict__ tickets) {
-  product<kModeMoments, MT, NT, V>(a, out, slots, tickets);
-}
-
 // ---- the rates --------------------------------------------------------------
 
 // Eight independent chains of popcount and add a thread, `iters` steps each:
@@ -730,32 +597,20 @@ tc_rate_kernel(unsigned int* __restrict__ out, int iters) {
 
 using ProductKernel = decltype(&pair_counts_kernel<1, 1, 4>);
 
-// Forms: mode x (MT, NT) x V.  H's A and B sides are the same K classes,
-// so it takes only the four shapes that K x K regions need.
+// Forms: mode x (MT, NT) x V.
 constexpr int kShapes = 6;   // (MT, NT) in {1, 2, 4} x {1, 4}
-constexpr int kModeForms = kShapes * 2;
-constexpr int kMomentShapes = 4;   // (1, 1), (1, 4), (2, 4), (4, 4)
-constexpr int kForms = 2 * kModeForms + kMomentShapes * 2;
+constexpr int kForms = 2 * kShapes * 2;
 
 #define FB_FORMS(K)                                                      \
   K<1, 1, 4>, K<1, 4, 4>, K<2, 1, 4>, K<2, 4, 4>, K<4, 1, 4>, K<4, 4, 4>, \
       K<1, 1, 1>, K<1, 4, 1>, K<2, 1, 1>, K<2, 4, 1>, K<4, 1, 1>, K<4, 4, 1>
-#define FB_MOMENT_FORMS(K)                                           \
-  K<1, 1, 4>, K<1, 4, 4>, K<2, 4, 4>, K<4, 4, 4>, K<1, 1, 1>, K<1, 4, 1>, \
-      K<2, 4, 1>, K<4, 4, 1>
 const ProductKernel kTable[kForms] = {FB_FORMS(pair_counts_kernel),
-                                      FB_FORMS(bsi_sum_groups_kernel),
-                                      FB_MOMENT_FORMS(moments_kernel)};
+                                      FB_FORMS(bsi_sum_groups_kernel)};
 #undef FB_FORMS
-#undef FB_MOMENT_FORMS
 
 int form_index(int mode, int MT, int NT, int V) {
-  if (mode == kModeMoments) {
-    const int shape = MT == 1 ? (NT == 1 ? 0 : 1) : MT == 2 ? 2 : 3;
-    return 2 * kModeForms + (V == 4 ? 0 : kMomentShapes) + shape;
-  }
   const int shape = (MT == 1 ? 0 : MT == 2 ? 2 : 4) + (NT == 1 ? 0 : 1);
-  return mode * kModeForms + (V == 4 ? 0 : kShapes) + shape;
+  return mode * (kForms / 2) + (V == 4 ? 0 : kShapes) + shape;
 }
 
 // Per device: SMs, and whether each form may take the large shared memory.
@@ -783,9 +638,7 @@ cudaError_t device_info(DeviceInfo** out) {
 }
 
 // spec: mode, vec, S, P, nd, n0, n1, n2, col0_0, col0_1, col0_2, filt_col,
-// b_col, NB, D (kSpecWords ints).  H (mode 2): mode, vec, S, P, nf, Dx, Dy,
-// -, x's column, y's column, -, filt_col, -, -, - (nf 1 for Var, 2 for
-// Corr; Dy and y's column read only for Corr).
+// b_col, NB, D (kSpecWords ints).
 constexpr int kSpecWords = 15;
 
 struct Plan {
@@ -797,10 +650,18 @@ struct Plan {
   int runs;
 };
 
-// E's and F's operands from their spec: the dimensions of A, the filter
-// and B.
-cudaError_t plan_groups(const int* spec, int mode, ProductArgs& a) {
-  if (a.nd < 1 || a.nd > kMaxDims) return cudaErrorInvalidValue;
+cudaError_t plan_product(const int* spec, long long W, Plan* p) {
+  const int mode = spec[0], V = spec[1];
+  ProductArgs& a = p->a;
+  a.table = nullptr;
+  a.W = W;
+  a.S = spec[2];
+  a.P = spec[3];
+  a.nd = spec[4];
+  if ((mode != kModeRows && mode != kModeBsi) || (V != 4 && V != 1) ||
+      a.S <= 0 || a.P <= 0 || W <= 0 || a.nd < 1 || a.nd > kMaxDims ||
+      (V == 4 && W % 4 != 0))
+    return cudaErrorInvalidValue;
   long long GA = 1;
   for (int d = 0; d < kMaxDims; ++d) {
     a.n[d] = d < a.nd ? spec[5 + d] : 1;
@@ -829,56 +690,6 @@ cudaError_t plan_groups(const int* spec, int mode, ProductArgs& a) {
   } else if (a.b_col < 0 || a.b_col + a.NB > a.P) {
     return cudaErrorInvalidValue;
   }
-  return cudaSuccess;
-}
-
-// H's operands from its spec: the classes K of one field or two, as both
-// the groups and B's outputs.
-cudaError_t plan_moments(const int* spec, ProductArgs& a) {
-  a.nf = spec[4];
-  a.D = spec[5];
-  a.Dy = a.nf == 2 ? spec[6] : 0;
-  a.b_col = spec[8];
-  a.y_col = a.nf == 2 ? spec[9] : 0;
-  a.filt_col = spec[11];
-  if ((a.nf != 1 && a.nf != 2) || a.D < 1 || a.D > kMaxMomentsDepth ||
-      a.b_col < 0 || a.b_col + a.D + 2 > a.P || a.filt_col < -1 ||
-      a.filt_col >= a.P)
-    return cudaErrorInvalidValue;
-  if (a.nf == 2 && (a.Dy < 1 || a.Dy > kMaxMomentsDepth || a.y_col < 0 ||
-                    a.y_col + a.Dy + 2 > a.P))
-    return cudaErrorInvalidValue;
-  a.nd = 2;   // a group's word: a plane AND a side
-  for (int d = 0; d < kMaxDims; ++d) {
-    a.n[d] = 1;
-    a.col0[d] = 0;
-    a.stride[d] = 1;
-  }
-  a.GA = a.NB = 2 * a.D + 1 + (a.nf == 2 ? 2 * a.Dy + 1 : 0);
-  return cudaSuccess;
-}
-
-cudaError_t plan_product(const int* spec, long long W, Plan* p) {
-  const int mode = spec[0], V = spec[1];
-  ProductArgs& a = p->a;
-  a.table = nullptr;
-  a.W = W;
-  a.S = spec[2];
-  a.P = spec[3];
-  a.nd = spec[4];
-  a.nf = a.Dy = a.y_col = 0;
-  if ((mode != kModeRows && mode != kModeBsi && mode != kModeMoments) ||
-      (V != 4 && V != 1) || a.S <= 0 || a.P <= 0 || W <= 0 ||
-      (V == 4 && W % 4 != 0))
-    return cudaErrorInvalidValue;
-  if (mode == kModeMoments) {
-    const cudaError_t e = plan_moments(spec, a);
-    if (e != cudaSuccess) return e;
-  } else {
-    const cudaError_t e = plan_groups(spec, mode, a);
-    if (e != cudaSuccess) return e;
-  }
-  const long long GA = a.GA;
   // the region: MT in {1, 2, 4}, NT in {1, 4}
   a.MT = GA <= 16 ? 1 : GA <= 32 ? 2 : 4;
   a.NT = a.NB <= 8 ? 1 : 4;
@@ -890,21 +701,14 @@ cudaError_t plan_product(const int* spec, long long W, Plan* p) {
   p->runs = (int)runs;
   // staged rows a tile, at most, over the regions
   int staged = 0;
-  if (mode == kModeMoments) {
-    staged = (a.filt_col >= 0) + a.D + 2 + (a.nf == 2 ? a.Dy + 2 : 0) + 1;
-  } else {
-    for (int d = 0; d < a.nd; ++d) {
-      const int span = (rows_a - 1) / a.stride[d] + 2;
-      staged += span < a.n[d] ? span : a.n[d];
-    }
-    staged += (a.filt_col >= 0) + (mode == kModeRows ? cols_b : a.D + 2) + 1;
+  for (int d = 0; d < a.nd; ++d) {
+    const int span = (rows_a - 1) / a.stride[d] + 2;
+    staged += span < a.n[d] ? span : a.n[d];
   }
+  staged += (a.filt_col >= 0) + (mode == kModeRows ? cols_b : a.D + 2) + 1;
   if (staged > kStageMax) return cudaErrorInvalidValue;
-  // a buffer's rows: the staged ones and the formed ones (F: the two
-  // sides; H: present and two sides a field)
-  a.stage_rows = staged + (mode == kModeBsi       ? 2
-                           : mode == kModeMoments ? 1 + 2 * a.nf
-                                                  : 0);
+  // a buffer's rows: the staged ones and, for F, the two sides
+  a.stage_rows = staged + (mode == kModeBsi ? 2 : 0);
   // chunk words: the most that fit the shared-memory budget
   const int region = rows_a * cols_b;
   const int red = kWarps * region * 4;   // the end-of-run reduction
@@ -965,12 +769,6 @@ int fb_group_limits(int* max_depth, int* spec_words) {
   return 0;
 }
 
-// The deepest field kernel H takes.
-int fb_moments_limits(int* max_depth) {
-  *max_depth = kMaxMomentsDepth;
-  return 0;
-}
-
 // Slot words (int64) and tickets (uint32) that a launch of `spec` needs,
 // and its chunk words and output regions.
 int fb_group_product_slots(const int* spec, long long W, long long* n_slots,
@@ -985,9 +783,9 @@ int fb_group_product_slots(const int* spec, long long W, long long* n_slots,
   return (int)e;
 }
 
-// Kernel E (spec mode 0), F (mode 1) or H (mode 2).  table: (S, P) uint64
-// row addresses on the device, 0 for an absent row; every nonzero address
-// 16-byte aligned when spec's vec is 4.  out: (GA, NB) int64 (H: (K, K)).  slots:
+// Kernel E (spec mode 0) or F (mode 1).  table: (S, P) uint64 row
+// addresses on the device, 0 for an absent row; every nonzero address
+// 16-byte aligned when spec's vec is 4.  out: (GA, NB) int64.  slots:
 // n_slots int64 of scratch, at least fb_group_product_slots' count, no
 // zeroing.  tickets: n_tickets uint32, at least its count, 0 before the
 // launch and 0 again after it.

@@ -57,13 +57,15 @@ bytes (the header note of the source).  The plain versions are
 ``pair_counts_plain`` and ``*_sharded_plain`` below and
 ``sum_groups_plain`` in ops/bsi.py.
 
-A third form of the same product (kernel H, csrc/group_kernels.cu) serves
-SQL's VAR and CORR, again for XLA programs:
+Kernel H' (csrc/moments_kernels.cu) serves SQL's VAR and CORR, again for
+XLA programs:
 
 - ``var_moments`` replaces ``var_moments_stacked`` (bsi.py:782) and
   ``corr_moments`` replaces ``corr_moments_stacked`` (:815): every raw
-  count of a Var or a Corr in one launch, the product of one or two BSI
-  groups' sign classes with themselves, formed on chip under the filter.
+  count of a Var or a Corr in one launch, a tensor-core product of classes
+  of one or two BSI groups formed on chip under the filter (plane & P,
+  plane & sign & P, P, sign & P, with P = exists [& exists] [& filter]),
+  each count a cell or a difference of cells (``moments_layout``).
 ``var_moments_sharded`` and ``corr_moments_sharded`` read per-shard
 groups in place.  The plain versions are ``var_moments_plain`` and
 ``corr_moments_plain`` in ops/bsi.py.
@@ -102,6 +104,7 @@ import torch
 SOURCE = "bitmap_kernels.cu"
 BSI_SOURCE = "bsi_kernels.cu"
 GROUP_SOURCE = "group_kernels.cu"
+MOMENTS_SOURCE = "moments_kernels.cu"
 DECODE_SOURCE = "decode_kernels.cu"
 
 # Program limits and opcodes; must match csrc/bitmap_kernels.cu.
@@ -964,7 +967,7 @@ def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
     """Kernels E and F's library, built on first use (with extra nvcc
     `flags` if any)."""
     from featurebase_tpu_torch.ops import build
-    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH, MAX_MOMENTS_DEPTH
+    from featurebase_tpu_torch.ops.bsi import MAX_DEPTH
     lib = build.load(GROUP_SOURCE, flags)
     if not getattr(lib, "_fb_typed", False):
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -975,25 +978,20 @@ def _group_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
         lib.fb_popc_rate.argtypes = [vp, i32, i32, vp]
         lib.fb_tc_rate.argtypes = [vp, i32, i32, i32, vp]
         lib.fb_group_limits.argtypes = [pi32, pi32]
-        lib.fb_moments_limits.argtypes = [pi32]
         for fn in (lib.fb_group_product_slots, lib.fb_group_product,
-                   lib.fb_popc_rate, lib.fb_tc_rate, lib.fb_group_limits,
-                   lib.fb_moments_limits):
+                   lib.fb_popc_rate, lib.fb_tc_rate, lib.fb_group_limits):
             fn.restype = i32
-        depth, spec, mdepth = i32(), i32(), i32()
+        depth, spec = i32(), i32()
         lib.fb_group_limits(ctypes.byref(depth), ctypes.byref(spec))
-        lib.fb_moments_limits(ctypes.byref(mdepth))
-        if depth.value != MAX_DEPTH or spec.value != _SPEC_WORDS or \
-                mdepth.value != MAX_MOMENTS_DEPTH:
+        if depth.value != MAX_DEPTH or spec.value != _SPEC_WORDS:
             raise RuntimeError("kernel limits differ from cuda_kernels.py")
         lib._fb_typed = True
     return lib
 
 
 # The group product's modes (csrc/group_kernels.cu): kernel E multiplies A
-# by rows, kernel F by a BSI group's classes, kernel H one or two groups'
-# classes by themselves.
-MODE_ROWS, MODE_BSI, MODE_MOMENTS = 0, 1, 2
+# by rows, kernel F by a BSI group's classes.
+MODE_ROWS, MODE_BSI = 0, 1
 _SPEC_WORDS = 15
 
 # kernels E and F's tickets per (device, stream), one an output region: zero
@@ -1102,33 +1100,21 @@ def _product(mode: int, dims: List[np.ndarray], filt: Optional[np.ndarray],
         return out
     cols = [*dims, *([] if filt is None else [filt]), b]
     table = np.ascontiguousarray(np.concatenate(cols, axis=1)[live])
+    S, P = table.shape
+    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
     col0 = np.cumsum([0] + [d.shape[1] for d in dims])
-    spec = [mode, 0, 0, 0, len(dims)] \
+    spec = [mode, vec, S, P, len(dims)] \
         + [d.shape[1] for d in dims] + [1] * (3 - len(dims)) \
         + [int(c) for c in col0[:len(dims)]] + [0] * (3 - len(dims)) \
         + [-1 if filt is None else int(col0[-1]),
            int(col0[-1]) + (filt is not None), NB, D]
-    _run_product(pair_counts if mode == MODE_ROWS else bsi_sum_groups,
-                 spec, table, W, out)
-    return out
-
-
-def _run_product(kernel, spec: List[int], table: np.ndarray, W: int,
-                 out: torch.Tensor) -> None:
-    """Launch the group product of `spec` (its vec, S and P filled in here)
-    over the (S, P) uint64 address `table` into `out`, and count the launch
-    on `kernel`."""
-    S, P = table.shape
-    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
-    spec[1:4] = [vec, S, P]
     spec_c = (ctypes.c_int * _SPEC_WORDS)(*spec)
     lib = _group_lib()
-    dev = out.device
     n, runs, cw = ctypes.c_longlong(), ctypes.c_int(), ctypes.c_int()
     with torch.cuda.device(dev):
         _check(lib.fb_group_product_slots(spec_c, W, ctypes.byref(n),
                                           ctypes.byref(runs),
-                                          ctypes.byref(cw)), kernel.__name__)
+                                          ctypes.byref(cw)), "group product")
         host = torch.from_numpy(table.view(np.int64)).pin_memory()
         dev_table = host.to(dev, non_blocking=True)
         slots = torch.empty(n.value, dtype=torch.int64, device=dev)
@@ -1138,8 +1124,10 @@ def _run_product(kernel, spec: List[int], table: np.ndarray, W: int,
                                   out.data_ptr(), slots.data_ptr(),
                                   slots.numel(), tickets.data_ptr(),
                                   tickets.numel(), stream)
+    kernel = pair_counts if mode == MODE_ROWS else bsi_sum_groups
     _check(rc, kernel.__name__)
     kernel.launches += 1
+    return out
 
 
 def _all_cpu(tensors: List[torch.Tensor]) -> bool:
@@ -1375,7 +1363,97 @@ def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
 bsi_sum_groups.launches = 0
 
 
-# -- kernel H: the moments of Var and Corr (csrc/group_kernels.cu) -----------
+# -- kernel H': the moments of Var and Corr (csrc/moments_kernels.cu) --------
+
+_MOMENTS_SPEC_WORDS = 9
+
+
+def _moments_lib(flags: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The library of kernel H', built on first use (with extra nvcc
+    `flags` if any)."""
+    from featurebase_tpu_torch.ops import build
+    from featurebase_tpu_torch.ops.bsi import MAX_MOMENTS_DEPTH
+    lib = build.load(MOMENTS_SOURCE, flags)
+    if not getattr(lib, "_fb_typed", False):
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        pi64, pi32 = ctypes.POINTER(i64), ctypes.POINTER(i32)
+        lib.fb_moments_limits.argtypes = [pi32, pi32]
+        lib.fb_moments_plan.argtypes = [pi32, i64, pi64]
+        lib.fb_moments.argtypes = [pi32, i64, vp, vp, i64, vp]
+        for fn in (lib.fb_moments_limits, lib.fb_moments_plan,
+                   lib.fb_moments):
+            fn.restype = i32
+        depth, spec = i32(), i32()
+        lib.fb_moments_limits(ctypes.byref(depth), ctypes.byref(spec))
+        if depth.value != MAX_MOMENTS_DEPTH or \
+                spec.value != _MOMENTS_SPEC_WORDS:
+            raise RuntimeError("kernel limits differ from cuda_kernels.py")
+        lib._fb_typed = True
+    return lib
+
+
+def moments_layout(depths: Sequence[int]) -> Dict[str, int]:
+    """Where each class of the basis of kernel H' lies in its list L
+    (csrc/moments_kernels.cu): the first class of each run and the output's
+    rows R and columns C, whose column c is class c0 + c.  Var (one depth
+    D): X_0.. at 0, P at D, Sx at D + 1.  Corr (Dx, Dy): Xs_0.. at 0; X_0..
+    at c0 = 16 ceil(Dx / 16), then Y_0.., P and Sx; Sy at 16 (ceil(Dx / 16)
+    + ceil((Dx + Dy + 2) / 16)) and Ys_0.. after it."""
+    if len(depths) == 1:
+        D = depths[0]
+        return dict(X=0, P=D, Sx=D + 1, c0=0, R=D + 1, C=D + 2)
+    Dx, Dy = depths
+    gx, gm = -(-Dx // 16), -(-(Dx + Dy + 2) // 16)
+    c0 = 16 * gx
+    P, Sy = c0 + Dx + Dy, 16 * (gx + gm)
+    return dict(Xs=0, X=c0, Y=c0 + Dx, P=P, Sx=P + 1, Sy=Sy, Ys=Sy + 1,
+                c0=c0, R=P + 1, C=Sy + 1 + Dy - c0)
+
+
+def _moments_spec(table: np.ndarray, W: int, depths: Sequence[int],
+                  filtered: bool, cw: int = 0, stages: int = 0) -> List[int]:
+    """The launch spec of kernel H' over an (S, P) address table: the
+    filter's column first if `filtered`, then each group's D + 2 planes;
+    cw and stages 0 leave the chunk words and the ring depth to the
+    planner."""
+    S, P = table.shape
+    vec = 4 if W % 4 == 0 and not (table % np.uint64(16)).any() else 1
+    return [vec, S, P, len(depths), depths[0],
+            depths[1] if len(depths) == 2 else 0, int(filtered), cw, stages]
+
+
+def moments_plan(spec: List[int], W: int) -> Dict[str, int]:
+    """What the planner of kernel H' makes of a launch spec on the current
+    device: the output's shape, form, chunk words, ring stages, staged rows
+    a tile, resident blocks an SM, grid, shared bytes a block and the bytes
+    the launch stages."""
+    info = (ctypes.c_longlong * 10)()
+    _check(_moments_lib().fb_moments_plan(
+        (ctypes.c_int * _MOMENTS_SPEC_WORDS)(*spec), W, info), "moments plan")
+    return dict(zip(("R", "C", "form", "chunk_words", "stages", "staged_rows",
+                     "blocks_per_sm", "grid", "smem_bytes", "staged_bytes"),
+                    info))
+
+
+def _run_moments(kernel, spec: List[int], table: np.ndarray, W: int,
+                 out: torch.Tensor) -> None:
+    """Launch kernel H' of `spec` over the (S, P) uint64 address `table`
+    into the zeroed `out`, and count the launch on `kernel`."""
+    dev = out.device
+    with torch.cuda.device(dev):
+        plan = moments_plan(spec, W)
+        if (plan["R"], plan["C"]) != tuple(out.shape):
+            raise RuntimeError(f"kernel H' plans a {plan['R']} x {plan['C']} "
+                               f"output, the layout {tuple(out.shape)}")
+        host = torch.from_numpy(table.view(np.int64)).pin_memory()
+        dev_table = host.to(dev, non_blocking=True)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _moments_lib().fb_moments(
+            (ctypes.c_int * _MOMENTS_SPEC_WORDS)(*spec), W,
+            dev_table.data_ptr(), out.data_ptr(), out.numel(), stream)
+    _check(rc, kernel.__name__)
+    kernel.launches += 1
+
 
 def _moments_group(g: torch.Tensor, what: str) -> Tuple[int, int, int]:
     """(S, D, W) of a stacked (S, D + 2, W) int32 group, 1 <= D <= 31."""
@@ -1397,14 +1475,14 @@ def _moments_filter(filt: torch.Tensor, S: int, W: int) -> None:
 def _moments_launch(kernel, groups: List[np.ndarray],
                     faddrs: Optional[np.ndarray], depths: List[int], W: int,
                     dev: torch.device) -> torch.Tensor:
-    """One launch of kernel H over address tables: one or two groups'
+    """One launch of kernel H' over address tables: one or two groups'
     (S, D + 2) plane addresses and the filter's (S, 1), or None for no
-    filter (0: absent) -> the (K, K) int64 product of the K = sum(2D + 1)
-    classes.  Shards whose exists planes or filter rows are absent add
-    nothing and are left out.  The caller holds the tensors the addresses
-    point into until this returns, when the launch is enqueued."""
-    K = sum(2 * d + 1 for d in depths)
-    out = torch.zeros((K, K), dtype=torch.int64, device=dev)
+    filter (0: absent) -> the (R, C) int64 product of moments_layout.
+    Shards whose exists planes or filter rows are absent add nothing and
+    are left out.  The caller holds the tensors the addresses point into
+    until this returns, when the launch is enqueued."""
+    lay = moments_layout(depths)
+    out = torch.zeros((lay["R"], lay["C"]), dtype=torch.int64, device=dev)
     live = np.ones(groups[0].shape[0], dtype=bool)
     for g in groups:
         live &= g[:, 0] != 0
@@ -1414,32 +1492,44 @@ def _moments_launch(kernel, groups: List[np.ndarray],
         return out
     table = np.ascontiguousarray(np.concatenate(
         ([] if faddrs is None else [faddrs]) + groups, axis=1)[live])
-    x0 = 0 if faddrs is None else 1
-    spec = [MODE_MOMENTS, 0, 0, 0, len(groups), depths[0], depths[-1], 0,
-            x0, x0 + depths[0] + 2, 0, -1 if faddrs is None else 0, 0, 0, 0]
-    _run_product(kernel, spec, table, W, out)
+    _run_moments(kernel, _moments_spec(table, W, depths, faddrs is not None),
+                 table, W, out)
     return out
 
 
 def _var_parts(m: torch.Tensor, D: int):
-    """var_moments_plain's (cnt, p, n, sq) from kernel H's Var product."""
-    e = 2 * D
-    return m[e, e], m[:D, e], m[D:e, e], m[:D, :D] + m[D:e, D:e]
+    """var_moments_plain's (cnt, p, n, sq) from the Var product of kernel H':
+    cnt = P.P, n = X.Sx, p = X.P - X.Sx, sq = X.X."""
+    X, P, Sx = slice(0, D), D, D + 1
+    n = m[X, Sx]
+    return m[P, P], m[X, P] - n, n, m[X, X]
 
 
 def _corr_parts(m: torch.Tensor, Dx: int, Dy: int):
-    """corr_moments_plain's eleven outputs from kernel H's Corr product."""
-    ex, y0 = 2 * Dx, 2 * Dx + 1
-    ey = y0 + 2 * Dy
-    xp, xn = slice(0, Dx), slice(Dx, ex)
-    yp, yn = slice(y0, y0 + Dy), slice(y0 + Dy, ey)
-    return (m[ex, ex], m[xp, ex], m[xn, ex], m[yp, ey], m[yn, ey],
-            m[xp, xp] + m[xn, xn], m[yp, yp] + m[yn, yn],
-            m[xp, yp], m[xp, yn], m[xn, yp], m[xn, yn])
+    """corr_moments_plain's eleven outputs from the Corr product of kernel H':
+    cnt = P.P; xn = X.Sx, xp = X.P - xn, and y's alike; sqx = X.X, sqy =
+    Y.Y; with T = X.Y, A = Xs.Y, B = X.Ys and C = Xs.Ys the sign classes
+    pp = T - A - B + C, pm = B - C, mp = A - C, mm = C."""
+    lay = moments_layout([Dx, Dy])
+    c0 = lay["c0"]
+
+    def rows(k: str, n: int) -> slice:
+        return slice(lay[k], lay[k] + n)
+
+    def cols(k: str, n: int) -> slice:
+        return slice(lay[k] - c0, lay[k] - c0 + n)
+    P, Sx, Sy = lay["P"], lay["Sx"] - c0, lay["Sy"] - c0
+    X, Y, Xs = rows("X", Dx), rows("Y", Dy), rows("Xs", Dx)
+    xn, yn = m[X, Sx], m[Y, Sy]
+    T, A = m[X, cols("Y", Dy)], m[Xs, cols("Y", Dy)]
+    B, C = m[X, cols("Ys", Dy)], m[Xs, cols("Ys", Dy)]
+    return (m[P, P - c0], m[X, P - c0] - xn, xn, m[Y, P - c0] - yn, yn,
+            m[X, cols("X", Dx)], m[Y, cols("Y", Dy)], T - A - B + C, B - C,
+            A - C, C)
 
 
 def var_moments(group: torch.Tensor, filt: torch.Tensor):
-    """Kernel H, Var form: an (S, D + 2, W) int32 group (1 <= D <= 31)
+    """Kernel H', Var form: an (S, D + 2, W) int32 group (1 <= D <= 31)
     under an (S, W) int32 filter -> (cnt, p (D,), n (D,), sq (D, D)) int64
     on the group's device, as var_moments_plain (ops/bsi.py) gives them.
     One launch, its table pointing into the stacked group (views with a
@@ -1460,7 +1550,7 @@ var_moments.launches = 0
 
 
 def corr_moments(gx: torch.Tensor, gy: torch.Tensor, filt: torch.Tensor):
-    """Kernel H, Corr form: two (S, D + 2, W) int32 groups (depths 1 to 31,
+    """Kernel H', Corr form: two (S, D + 2, W) int32 groups (depths 1 to 31,
     each its own) under an (S, W) int32 filter -> corr_moments_plain's
     eleven int64 outputs on the groups' device.  One launch."""
     S, Dx, W = _moments_group(gx, "x group")
@@ -1522,7 +1612,7 @@ def _moments_sharded_plain(parsed, filt, W: int, dev, plain):
 
 
 def var_moments_sharded(groups, filt=None):
-    """Kernel H, Var form, over every shard in one launch, the planes read
+    """Kernel H', Var form, over every shard in one launch, the planes read
     in place: groups as bsi_sum_planes_sharded takes them (depth 1 to 31),
     filt (S, W) words, per-shard (W,) words (None for a shard without a
     filter row) or None (no filter) -> var_moments' outputs over every
@@ -1541,7 +1631,7 @@ def var_moments_sharded(groups, filt=None):
 
 
 def corr_moments_sharded(gx, gy, filt=None):
-    """Kernel H, Corr form, over every shard in one launch: gx and gy the
+    """Kernel H', Corr form, over every shard in one launch: gx and gy the
     two fields' per-shard groups, filt as var_moments_sharded takes it ->
     corr_moments' outputs over every shard.  Counts as a corr_moments
     launch."""

@@ -1,16 +1,18 @@
-"""Var and Corr: kernel H's plain versions and the executor against the
-JAX package.
+"""Var and Corr: kernel H' (its plain versions, its host side) and the
+executor against the JAX package.
 
 The plain versions (ops/bsi.py ``var_moments_plain``,
 ``corr_moments_plain``) are held against the JAX programs
 ``var_moments_stacked`` and ``corr_moments_stacked`` (run by JAX on the
 CPU) on the same seed-made words: random filters, planes that do not lie
 under exists, absent planes and sign-set columns; exact equality.  The
-wrappers' host side (the address table and spec of one kernel-H launch, and
-the slicing of its (K, K) product into the programs' outputs) is held
-against the plain versions through an emulation of the kernel's class
-product.  Then Var and Corr through both executors on Holders built with
-the JAX package and loaded into the port: the acceptance dataset of
+wrappers' host side (the address table and spec of one kernel-H' launch,
+and the reading of its (R, C) product into the programs' outputs, by
+inclusion-exclusion) is held against the plain versions, and at depths 31
+x 31 against numpy bit by bit, through an emulation of the kernel's
+product over the basis csrc/moments_kernels.cu documents.  Then Var and
+Corr through both executors on Holders built with the JAX package and
+loaded into the port: the acceptance dataset of
 tests/test_acceptance_pql.py (TestVarCorrPQL), filters the plan compiler
 refuses (the float64 host route), depths 31, 32 and 43, a keyed index and
 Options(shards=); answers equal with ``==``, as both packages do the same
@@ -127,35 +129,50 @@ def test_corr_plain_at_depth_31_matches_numpy():
 
 # -- the wrappers -------------------------------------------------------------
 
+def basis(x, y, f, Dx: int, Dy: int):
+    """The class list L of kernel H' as csrc/moments_kernels.cu lays it
+    out, for one shard's planes x (Dx + 2 rows), y (Dy + 2, or None for
+    Var) and filter f: with P = exists_x [& exists_y] & f, Var's L is
+    X_i = x_i & P, P, Sx = sx & P; Corr's is Xs_i = x_i & sx & P padded
+    with zeros to 16 ceil(Dx / 16) classes, then X_i, Y_j, P, Sx padded to
+    16 ceil((Dx + Dy + 2) / 16), then Sy = sy & P and Ys_j = y_j & sy & P.
+    -> (L as a (K, W) tensor, rows R, first column class c0)."""
+    P = x[0] & f
+    if y is None:
+        L = [x[2 + i] & P for i in range(Dx)] + [P, x[1] & P]
+        return torch.stack(L), Dx + 1, 0
+    P = P & y[0]
+    psx, psy, zero = P & x[1], P & y[1], torch.zeros_like(P)
+    gx, gm = -(-Dx // 16), -(-(Dx + Dy + 2) // 16)
+    L = [x[2 + i] & psx for i in range(Dx)] + [zero] * (16 * gx - Dx)
+    mid = [x[2 + i] & P for i in range(Dx)] \
+        + [y[2 + j] & P for j in range(Dy)] + [P, x[1] & P]
+    L += mid + [zero] * (16 * gm - len(mid))
+    L += [psy] + [y[2 + j] & psy for j in range(Dy)]
+    return torch.stack(L), 16 * gx + Dx + Dy + 1, 16 * gx
+
+
 def emulated_product(rows: dict):
-    """A stand-in for the kernel-H launch (cuda_kernels._run_product) that
-    reads the address table through `rows` (address -> row tensor) and
-    forms the product as csrc/group_kernels.cu documents it: classes plane
-    & present & ~sign, plane & present & sign and present, for x and then
-    for y, with present = exists_x [& exists_y] [& filter]."""
+    """A stand-in for the kernel-H' launch (cuda_kernels._run_moments) that
+    reads the address table through `rows` (address -> row tensor), checks
+    the spec, and adds out[r, c] = |L[r] & L[c0 + c]| over the table's
+    shards (`basis`)."""
     def run(kernel, spec, table, W_, out):
-        assert spec[0] == ck.MODE_MOMENTS
-        nf, Dx, Dy, x0, y0, fcol = spec[4], spec[5], spec[6], spec[8], \
-            spec[9], spec[11]
+        vec, S, P, nf, Dx, Dy, hasf, cw, stages = spec
+        assert (S, P) == table.shape and nf in (1, 2) and (cw, stages) == \
+            (0, 0) and P == hasf + Dx + 2 + (Dy + 2 if nf == 2 else 0)
+        assert vec == (4 if W_ % 4 == 0 and not (table % 16).any() else 1)
 
         def row(a):
             return rows[int(a)] if a else torch.zeros(W_, dtype=torch.int32)
         for trow in table:
-            x = [row(a) for a in trow[x0:x0 + Dx + 2]]
-            pres = x[0] & (row(trow[fcol]) if fcol >= 0 else -1)
-            fields = [(x, Dx)]
-            if nf == 2:
-                y = [row(a) for a in trow[y0:y0 + Dy + 2]]
-                pres = pres & y[0]
-                fields.append((y, Dy))
-            cls = []
-            for g, D in fields:
-                cls += [g[2 + i] & pres & ~g[1] for i in range(D)]
-                cls += [g[2 + i] & pres & g[1] for i in range(D)]
-                cls.append(pres)
-            for i, a in enumerate(cls):
-                for j, b in enumerate(cls):
-                    out[i, j] += int(ck.popcount_words(a & b).sum())
+            f = row(trow[0]) if hasf else torch.full((W_,), -1,
+                                                     dtype=torch.int32)
+            x = [row(a) for a in trow[hasf:hasf + Dx + 2]]
+            y = [row(a) for a in trow[hasf + Dx + 2:]] if nf == 2 else None
+            L, R, c0 = basis(x, y, f, Dx, Dy if nf == 2 else 0)
+            assert out.shape == (R, L.shape[0] - c0)
+            out += ck.popcount_words(L[:R, None] & L[None, c0:]).sum(-1)
         kernel.launches += 1
     return run
 
@@ -177,7 +194,7 @@ def test_launch_tables_and_parts_match_plain(monkeypatch, Dx, Dy):
     rng = np.random.default_rng(7 * Dx + Dy)
     gx, gy = t(group(rng, 3, Dx)), t(group(rng, 3, Dy, absent=(2,)))
     f = t(words(rng, (3, W), 0.6))
-    monkeypatch.setattr(ck, "_run_product",
+    monkeypatch.setattr(ck, "_run_moments",
                         emulated_product(address_book(gx, gy, f)))
     ck.reset_launches()
     m = ck._moments_launch(ck.var_moments, [ck._stacked_addrs(gx)],
@@ -246,13 +263,92 @@ def test_sharded_wrappers_match_plain(monkeypatch, filter_as, launch):
     xs, ys = gathered(mx, Dx + 2), gathered(my, Dy + 2)
     if launch:
         tensors = [x[0] for x in mx + my if x is not None] + [f]
-        monkeypatch.setattr(ck, "_run_product",
+        monkeypatch.setattr(ck, "_run_moments",
                             emulated_product(address_book(*tensors)))
         monkeypatch.setattr(ck, "_all_cpu", lambda ts: False)
     got_v = ck.var_moments_sharded(mx, filt)
     got_c = ck.corr_moments_sharded(mx, my, filt)
     assert ints(got_v) == ints(bsi.var_moments_plain(xs, dense))
     assert ints(got_c) == ints(bsi.corr_moments_plain(xs, ys, dense))
+
+
+def signed_group(rng, S: int, D: int) -> np.ndarray:
+    """group() with a plane absent (all zero) and about a tenth of the
+    columns sign-set zeros: sign and exists set, every magnitude plane
+    clear."""
+    g = group(rng, S, D, absent=(2 + D // 2,))
+    zeros = words(rng, (S, W), 0.1)
+    g[:, 0] |= zeros
+    g[:, 1] |= zeros
+    g[:, 2:] &= ~zeros[:, None]
+    return g
+
+
+BASIS_CASES = [(1,), (5,), (14,), (31,), (1, 1), (5, 3), (14, 12), (1, 31),
+               (31, 31)]
+
+
+@pytest.mark.parametrize("filt_kind", ["random", "zero"])
+@pytest.mark.parametrize("depths", BASIS_CASES,
+                         ids=["x".join(map(str, d)) for d in BASIS_CASES])
+def test_basis_through_emulated_launch(monkeypatch, depths, filt_kind):
+    """The basis of kernel H' and the reading of its product (_var_parts,
+    _corr_parts) against the plain versions, exactly: Var at depths 1, 5,
+    14 and 31 and Corr up to 31 x 31, with sign-set zeros, planes outside
+    exists, an absent plane, and a random or all-zero filter."""
+    rng = np.random.default_rng(sum(depths) * 7 + len(filt_kind))
+    gs = [t(signed_group(rng, 3, D)) for D in depths]
+    f = t(words(rng, (3, W), 0.6) if filt_kind == "random"
+          else np.zeros((3, W), dtype=np.uint32))
+    monkeypatch.setattr(ck, "_run_moments",
+                        emulated_product(address_book(*gs, f)))
+    kernel = ck.var_moments if len(depths) == 1 else ck.corr_moments
+    m = ck._moments_launch(kernel, [ck._stacked_addrs(g) for g in gs],
+                           ck._filter_addrs(f, 3, W), list(depths), W,
+                           f.device)
+    lay = ck.moments_layout(depths)
+    assert tuple(m.shape) == (lay["R"], lay["C"])
+    if len(depths) == 1:
+        got, want = ck._var_parts(m, *depths), bsi.var_moments_plain(*gs, f)
+    else:
+        got, want = ck._corr_parts(m, *depths), \
+            bsi.corr_moments_plain(*gs, f)
+    assert ints(got) == ints(want)
+
+
+def test_corr_basis_at_depth_31_matches_numpy(monkeypatch):
+    """The inclusion-exclusion of the Corr basis of kernel H' at Dx = Dy = 31
+    against the definition, bit by bit with numpy."""
+    rng = np.random.default_rng(131)
+    gx, gy = signed_group(rng, 2, 31), signed_group(rng, 2, 31)
+    f = words(rng, (2, W), 0.8)
+    tx, ty, tf = t(gx), t(gy), t(f)
+    monkeypatch.setattr(ck, "_run_moments",
+                        emulated_product(address_book(tx, ty, tf)))
+    m = ck._moments_launch(ck.corr_moments, [ck._stacked_addrs(tx),
+                                             ck._stacked_addrs(ty)],
+                           ck._filter_addrs(tf, 2, W), [31, 31], W,
+                           tx.device)
+    X, Y, F = bits_of(gx), bits_of(gy), bits_of(f)
+    pres = X[:, 0] & Y[:, 0] & F
+    sx, sy = X[:, 1], Y[:, 1]
+
+    def count(b):
+        return int(b.sum())
+    want = [count(pres),
+            [count(X[:, 2 + i] & pres & ~sx) for i in range(31)],
+            [count(X[:, 2 + i] & pres & sx) for i in range(31)],
+            [count(Y[:, 2 + j] & pres & ~sy) for j in range(31)],
+            [count(Y[:, 2 + j] & pres & sy) for j in range(31)],
+            [[count(X[:, 2 + i] & X[:, 2 + j] & pres) for j in range(31)]
+             for i in range(31)],
+            [[count(Y[:, 2 + i] & Y[:, 2 + j] & pres) for j in range(31)]
+             for i in range(31)]]
+    for mx in (~sx, sx):
+        for my in (~sy, sy):
+            want.append([[count(X[:, 2 + i] & Y[:, 2 + j] & pres & mx & my)
+                          for j in range(31)] for i in range(31)])
+    assert ints(ck._corr_parts(m, 31, 31)) == want
 
 
 def test_wrappers_validate_inputs():
