@@ -115,7 +115,22 @@ Phases, one status line each; any failure raises and exits nonzero:
      the reads again, each equal to the CPU executor and to a numpy model
      of the writes, at the default budget and again under half the
      resident bytes; the p50 of a Set, Store and Delete and the first
-     read after the writes beside the cached p50;
+     read after the writes beside the cached p50; then the api phase
+     (api_phase), through featurebase_tpu_torch.server.api.API on the
+     card: the whole mix through API.query, launch counters set to 0 just
+     before and read just after (every kernel must run), each answer equal
+     to an Executor's over the written table, and the API's host overhead
+     beside the Executor in turns; Apply(Intersect(Row(f=1), Row(g=2)),
+     "v * 2 + u") over about 2.5 M records and its five reduces against
+     numpy, with one kernel-A launch and one G''' launch a field, and the
+     reduces' p50 and busy share; Arrow over 100,000 dataframe rows and
+     ExternalLookup over a sqlite3 table against numpy; a 16-shard table
+     with a data directory: imports, PQL writes, checkpoint, more writes,
+     and a second API over the directory answering as the first (save,
+     load and replay seconds); last, g deleted and created again on the
+     warm API, its copies' residency bytes released and its new Count and
+     TopN equal to numpy (`--only api` runs the table and this phase
+     alone);
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -1949,16 +1964,18 @@ def index_of(q: str):
     return "bench", q[len(PER_SHARD):] if q.startswith(PER_SHARD) else q
 
 
-def execute(executor, q: str):
-    """The result of a QUERIES entry; a PER_SHARD one runs with both GroupBy
-    caps of `executor` at 0, so that it takes the per-shard level-wise
-    loop."""
+def execute(executor, q: str, run=None):
+    """The result of a QUERIES entry, through `executor` or through
+    `run(index, pql)` over it (the API's query); a PER_SHARD one runs with
+    both GroupBy caps of `executor` at 0, so that it takes the per-shard
+    level-wise loop."""
+    run = run or (lambda index, pql: executor.execute(index, pql)[0])
     if not q.startswith(PER_SHARD):
-        return executor.execute(*index_of(q))[0]
+        return run(*index_of(q))
     executor.GROUPBY_ONESHOT_MAX_COUNTS = 0
     executor.GROUPBY_ONESHOT_MAX_MASK_BYTES = 0
     try:
-        return executor.execute(*index_of(q))[0]
+        return run(*index_of(q))
     finally:
         del executor.GROUPBY_ONESHOT_MAX_COUNTS
         del executor.GROUPBY_ONESHOT_MAX_MASK_BYTES
@@ -2247,6 +2264,29 @@ def tune_phase(timer: Timer, big, small, copy_bps: float, and_time: dict):
     return launches, times["harness"], read_ceiling
 
 
+def mix_of(gen, n_shards: int) -> tuple:
+    """(the QUERIES of an n_shards table, with a record of shard 5 for
+    {col5} and the Sort cursor for {after}; col5; the records by v
+    descending; after).  The entries over shards 0-63 need 64 shards."""
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    cols = gen["cols"]
+    col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
+    # the second page of Sort(All(), field=v, sort-desc=true, limit=5,
+    # offset=3) starts after its last record
+    desc = np.lexsort((cols, -gen["v"]))
+    after = f"[{int(gen['v'][desc[7]])}, {int(cols[desc[7]])}]"
+    queries = [q.replace("{col5}", str(col5)).replace("{after}", after)
+               for q in QUERIES if "shards=" not in q or n_shards > 63]
+    return queries, col5, desc, after
+
+
+def api_alone(n_shards: int, reps: int) -> None:
+    """The api phase by itself (--only api): the table, unwritten, then
+    api_phase."""
+    holder, gen = build_table(n_shards)
+    api_phase(holder, WriteModel(gen), mix_of(gen, n_shards)[0], reps)
+
+
 def slice_phase(n_shards: int, reps: int) -> dict:
     """Phase 5: the main path at full size, through Executor(holder)."""
     from featurebase_tpu_torch.executor.executor import Executor
@@ -2261,17 +2301,9 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         bit_depth=idx.field("v").bit_depth,
         u_bit_depth=idx.field("u").bit_depth, build_s=build_s,
         u_import_s=gen["u_import_s"])
-    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
-    cols = gen["cols"]
-    col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
-    # the second page of Sort(All(), field=v, sort-desc=true, limit=5,
-    # offset=3) starts after its last record
-    desc = np.lexsort((cols, -gen["v"]))
-    after = f"[{int(gen['v'][desc[7]])}, {int(cols[desc[7]])}]"
-    def sub(q: str) -> str:
-        return q.replace("{col5}", str(col5)).replace("{after}", after)
-    queries = [sub(q) for q in QUERIES if "shards=" not in q or n_shards > 63]
-    decode_queries = [sub(q) for q in DECODE_QUERIES]
+    queries, col5, desc, after = mix_of(gen, n_shards)
+    decode_queries = [q.replace("{col5}", str(col5)).replace("{after}", after)
+                      for q in DECODE_QUERIES]
     rank_cache = idx.field("f")._topn_cache
 
     def run(executor, q):
@@ -2479,7 +2511,8 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                 if q in per})
     residency_phase(holder, queries, answers, run, resident["bytes"] // 2,
                     decode_queries)
-    writes_phase(holder, gen, resident["bytes"] // 2)
+    model = writes_phase(holder, gen, resident["bytes"] // 2)
+    api_phase(holder, model, queries, reps)
     return launches
 
 
@@ -2781,7 +2814,7 @@ def write_round(gpu, model: WriteModel, rng, rnd: int) -> dict:
     return times
 
 
-def writes_phase(holder, gen, budget: int) -> dict:
+def writes_phase(holder, gen, budget: int) -> "WriteModel":
     """Phase 5c, after every read phase: PQL writes on the bench and keyed
     indexes, and the reads of WRITE_READS before and after them.  Round 1
     at the default residency budget: the reads first fill every device
@@ -2791,7 +2824,7 @@ def writes_phase(holder, gen, budget: int) -> dict:
     and to the numpy model of the writes; the first read after the writes
     timed beside the p50 of five more (the gap is the caches' refresh).
     Round 2 the same under `budget` bytes, with a fresh executor and new
-    writes."""
+    writes.  Returns the model of the written table."""
     from featurebase_tpu_torch.executor.executor import Executor
     from featurebase_tpu_torch.storage import residency
     model = WriteModel(gen)
@@ -2858,8 +2891,304 @@ def writes_phase(holder, gen, budget: int) -> dict:
         if missed:
             raise AssertionError(f"round {rnd}: the writes left {missed} "
                                  "unchanged")
-    return out
+    return model
 
+
+# the queries whose host overhead the api phase measures, through the API
+# beside the Executor
+API_OVERHEAD = ["Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=5)",
+                "Sum(field=v)", "GroupBy(Rows(f), Rows(g))", "Var(field=v)"]
+# the Apply of the api phase: about 2.5 M of the 80 M records
+APPLY_FILTER = "Intersect(Row(f=1), Row(g=2))"
+APPLY_PROGRAM = "v * 2 + u"
+APPLY_REDUCES = ("sum", "mean", "count", "min", "max")
+API_SHARDS = 16   # the durability check's index (a cut: see api_durability)
+
+
+def api_query(api, q: str):
+    """A QUERIES entry through API.query (execute() over the API's
+    executor)."""
+    return execute(api.executor, q, lambda index, pql: api.query(index,
+                                                                 pql)[0])
+
+
+def apply_oracle(model: "WriteModel") -> tuple:
+    """numpy's Apply(APPLY_FILTER, APPLY_PROGRAM) over the written table:
+    (values with None where u is absent, the reduces)."""
+    m = model.alive & model.F[:, 1] & model.G[:, 2]
+    x = 2 * model.v[m] + model.u[m].astype(np.int64)
+    has = model.u_has[m]
+    vals = [int(a) if h else None for a, h in zip(x.tolist(), has.tolist())]
+    nums = x[has]
+    red = {"sum": int(nums.sum()), "count": int(m.sum()),
+           "mean": float(nums.sum()) / nums.size,
+           "min": int(nums.min()), "max": int(nums.max())}
+    return vals, red
+
+
+def api_phase(holder, model: "WriteModel", queries, reps: int) -> dict:
+    """Phase 5d, after the writes: the port's API front end
+    (featurebase_tpu_torch.server.api) over the bench holder on the card.
+    (1) Every query of the mix through API.query, the launch counters set
+    to 0 just before and read just after (every kernel must run), each
+    answer equal to an Executor's over the same (written) holder; the p50
+    of API_OVERHEAD through both, in turns.  (2) Apply(APPLY_FILTER,
+    APPLY_PROGRAM) and its reduces against numpy (apply_oracle): one
+    kernel-A launch for the filter and one G''' launch a field and
+    residency batch; the reduces' p50 and busy share under the profiler.
+    (3) Arrow over about 100,000 dataframe rows of four shards, and
+    ExternalLookup over a sqlite3 table, against numpy.  (4) Durability:
+    api_durability.  (5) Last use of the bench index: g deleted and
+    created again with new rows, its copies' residency bytes released, and
+    Count and TopN on g equal to numpy."""
+    import sqlite3
+
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.storage import residency
+    from featurebase_tpu_torch.storage.lookup import SQLiteLookup
+    t_phase = time.perf_counter()
+    residency.residency().set_budget(0)
+    mgr = residency.reset()
+    api, gpu = API(holder=holder), Executor(holder)
+    rank_cache = holder.index("bench").field("f")._topn_cache
+    got = {}
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    for q in queries:
+        rank_cache.clear()
+        got[q] = canon(api_query(api, q))
+    torch.cuda.synchronize()
+    api_pass_s = time.perf_counter() - t0
+    launches = ck.launches()
+    if not all(launches.values()):
+        raise AssertionError(f"the mix through the API left a kernel "
+                             f"unlaunched: {launches}")
+    for q in queries:
+        rank_cache.clear()
+        want = canon(execute(gpu, q))
+        if got[q] != want:
+            raise AssertionError(f"{q}: API {got[q]!r:.200} != Executor "
+                                 f"{want!r:.200}")
+
+    def ms(fn) -> float:
+        rank_cache.clear()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    overhead = {}
+    for q in API_OVERHEAD:
+        runs = [(ms(lambda: api.query("bench", q)),
+                 ms(lambda: gpu.execute("bench", q))) for _ in range(reps)]
+        a, e = (float(np.median([r[i] for r in runs])) for i in (0, 1))
+        overhead[q] = dict(api_p50_ms=a, executor_p50_ms=e,
+                           overhead_ms=a - e)
+    say("api_mix", nvidia_smi=card_line(), queries=len(queries),
+        equal_to_executor=True, api_pass_s=api_pass_s,
+        api_pass_launches=launches, overhead=overhead)
+
+    # (2) Apply over the bench index
+    vals, red = apply_oracle(model)
+    idx = holder.index("bench")
+    shard_list = idx.available_shards()
+    batches = sum(
+        sum(1 for b in api.executor._residency_batches(
+            shard_list, [idx.field(f).bsi_view()]) if any(
+                idx.field(f).bsi_view().fragment(s) is not None for s in b))
+        for f in ("v", "u"))
+    ck.reset_launches()
+    t0 = time.perf_counter()
+    (out,) = api.query("bench", f'Apply({APPLY_FILTER}, "{APPLY_PROGRAM}")')
+    apply_ms = (time.perf_counter() - t0) * 1e3
+    apply_launches = ck.launches()
+    if out != vals:
+        raise AssertionError(f"Apply: {len(out)} values != numpy's "
+                             f"{len(vals)} (or they differ)")
+    want_l = {"plan_eval": 1, "bsi_decode_gather": batches}
+    if {k: apply_launches[k] for k in want_l} != want_l or any(
+            n for k, n in apply_launches.items() if k not in want_l):
+        raise AssertionError(f"Apply launched {apply_launches}, not "
+                             f"{want_l}")
+    red_q = [f'Apply({APPLY_FILTER}, "{APPLY_PROGRAM}", "{r}")'
+             for r in APPLY_REDUCES]
+    for r, q in zip(APPLY_REDUCES, red_q):
+        (g,) = api.query("bench", q)
+        if g != [red[r]]:
+            raise AssertionError(f"{q}: {g} != numpy {red[r]}")
+
+    def timed(q) -> float:
+        return ms(lambda: api.query(*index_of(q)))
+
+    def p50(q) -> float:
+        """Median of `reps` runs; of 5 past 200 ms (as slice_phase's)."""
+        first = timed(q)
+        n = reps if first < 200 else 5
+        return float(np.median([first] + [timed(q) for _ in range(n - 1)]))
+    latency = {q: p50(q) for q in red_q}
+    prof = query_profile(red_q, timed, latency, phase="api_apply_profile")
+    say("api_apply", nvidia_smi=card_line(), records=len(vals),
+        nonnull=sum(v is not None for v in vals),
+        equal_to_numpy=True, list_ms=apply_ms, launches=apply_launches,
+        reduces=red, p50_ms=latency,
+        busy_share={q: prof[q]["busy_share"] for q in red_q})
+
+    # (3) Arrow and ExternalLookup
+    rng = np.random.default_rng(43)
+    cols = model.cols
+    df_ids = []
+    for s in range(4):
+        ids = cols[(cols >> 20) == s][:25_000]
+        api.dataframe_ingest("bench", s, columns={
+            "_id": ids, "price": ids % 1000 / 4.0, "qty": ids % 97})
+        df_ids.append(ids)
+    df_ids = np.concatenate(df_ids)
+    f1 = set(cols[model.alive & model.F[:, 1]].tolist())
+    want_ids = [int(i) for i in df_ids if int(i) in f1]
+    t0 = time.perf_counter()
+    (arrow,) = api.query("bench", "Arrow(Row(f=1))")
+    arrow_ms = (time.perf_counter() - t0) * 1e3
+    if (arrow["columns"]["_id"] != want_ids
+            or arrow["columns"]["qty"] != [i % 97 for i in want_ids]
+            or arrow["columns"]["price"] != [i % 1000 / 4.0
+                                             for i in want_ids]):
+        raise AssertionError("Arrow(Row(f=1)) differs from numpy")
+    db = SQLiteLookup(":memory:")
+    near = model.alive & (model.v >= 40) & (model.v <= 45)
+    conn = db._conn()
+    conn.execute("CREATE TABLE ext (id INTEGER PRIMARY KEY, v INTEGER)")
+    conn.executemany("INSERT INTO ext VALUES (?, ?)",
+                     zip(cols[near].tolist(), model.v[near].tolist()))
+    conn.commit()
+    holder.lookup_db = db
+    t0 = time.perf_counter()
+    (tbl,) = api.query("bench", 'ExternalLookup(Row(v == 42), query="SELECT '
+                                'id, v * 10 FROM ext WHERE id IN $1 ORDER '
+                                'BY id")')
+    lookup_ms = (time.perf_counter() - t0) * 1e3
+    want42 = cols[model.alive & (model.v == 42)].tolist()
+    if [(c.column, c.rows) for c in tbl.columns] != \
+            [(c, [420]) for c in want42]:
+        raise AssertionError("ExternalLookup(Row(v == 42)) differs from "
+                             "numpy")
+    holder.lookup_db = None
+    say("api_arrow_lookup", nvidia_smi=card_line(),
+        dataframe_rows=int(df_ids.size), arrow_rows=len(want_ids),
+        arrow_ms=arrow_ms, lookup_rows=len(want42), lookup_ms=lookup_ms,
+        equal_to_numpy=True, sqlite=sqlite3.sqlite_version)
+
+    # (4) durability, on its own 16-shard index
+    api_durability(rng)
+
+    # (5) delete and recreate g on the warm API: the bench holder's last use
+    for q in ("Count(Row(g=2))", "TopN(g)", "GroupBy(Rows(f), Rows(g))"):
+        api.query("bench", q)
+    # g's device copies: its fragments' mirrors and the stacked entries
+    # both executors gathered from them
+    gfrags = [fr for v in idx.field("g").views.values()
+              for fr in v.fragments.values()]
+    ids = {id(fr) for fr in gfrags}
+    gkeys = [k for k in (fr._residency_key() for fr in gfrags)
+             if k in mgr._entries] + \
+        api.executor.plan_executor.built_from(ids) + \
+        gpu.plan_executor.built_from(ids)
+    held = sum(mgr._entries[k][0] for k in gkeys)
+    before = mgr.bytes
+    t0 = time.perf_counter()
+    api.delete_field("bench", "g")
+    delete_ms = (time.perf_counter() - t0) * 1e3
+    after = mgr.bytes
+    if before - after != held or any(k in mgr._entries for k in gkeys):
+        raise AssertionError(f"delete_field(g) released {before - after} "
+                             f"bytes of the {held} its copies held")
+    api.create_field("bench", "g")
+    pick = np.flatnonzero(model.alive)[::8]
+    new_g = rng.integers(0, 6, pick.size)
+    api.import_bits("bench", "g", new_g, cols[pick])
+    counts = np.bincount(new_g, minlength=6)
+    (n2,) = api.query("bench", "Count(Row(g=2))")
+    (top,) = api.query("bench", "TopN(g)")
+    want_top = sorted(((r, int(c)) for r, c in enumerate(counts) if c),
+                      key=lambda rc: (-rc[1], rc[0]))
+    if n2 != int(counts[2]) or [(p.id, p.count) for p in top.pairs] != \
+            want_top:
+        raise AssertionError(f"after recreating g: Count {n2}, TopN "
+                             f"{[(p.id, p.count) for p in top.pairs]} != "
+                             f"numpy {int(counts[2])}, {want_top}")
+    say("api_recreate", nvidia_smi=card_line(), g_copies=len(gkeys),
+        released_bytes=before - after, held_bytes=held,
+        delete_ms=delete_ms, count_g2=n2, topn_g=want_top,
+        equal_to_numpy=True, phase_s=time.perf_counter() - t_phase)
+    return launches
+
+
+def api_durability(rng) -> dict:
+    """An API with a data directory over a 16-shard index built as the
+    bench table is (a cut from the bench's 128: np.savez_compressed of 128
+    shards would take tens of seconds): the table handed to the API,
+    imports and PQL writes through it, checkpoint (the save), more writes
+    (the WAL), then a second API over the directory (the snapshot's load
+    and the WAL's replay) must answer DURABLE_READS as the first did."""
+    import shutil
+    import tempfile
+
+    from featurebase_tpu_torch.server.api import API
+
+    class TimedAPI(API):
+        def _replay_wal(self):
+            t0 = time.perf_counter()
+            super()._replay_wal()
+            self.replay_s = time.perf_counter() - t0
+    scratch = tempfile.mkdtemp(prefix="api-durability-",
+                               dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        holder, gen = build_table(API_SHARDS, seed=7)
+        d = os.path.join(scratch, "node")
+        api = API(holder=holder, data_dir=d)
+        cols = gen["cols"]
+        api.create_field("bench", "h")
+        api.import_bits("bench", "h", rng.integers(0, 3, 10_000), cols[:10_000])
+        api.import_values("bench", "v", cols[-500:], rng.integers(0, 100, 500))
+        for c in cols[rng.choice(cols.size, 200, replace=False)]:
+            api.query("bench", f"Set({int(c)}, f=9) Set({int(c)}, v=4242)")
+        t0 = time.perf_counter()
+        api.checkpoint()
+        save_s = time.perf_counter() - t0
+        snap_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(os.path.join(d, "snapshot"))
+                         for f in fs)
+        api.query("bench", "Delete(Row(v == 4242))")
+        api.query("bench", "ClearRow(f=3) Store(Row(g=1), f=3)")
+        api.import_bits("bench", "h", [5] * 100, cols[:100])
+        api.query("keyed", 'Set("late", kf="omega")')
+        want = {q: canon(api_query(api, q)) for q in DURABLE_READS}
+        t0 = time.perf_counter()
+        again = TimedAPI(data_dir=d)
+        open_s = time.perf_counter() - t0
+        got = {q: canon(api_query(again, q)) for q in DURABLE_READS}
+        if got != want or again.wal_replay_errors:
+            bad = [q for q in DURABLE_READS if got[q] != want[q]]
+            raise AssertionError(f"the reopened API differs on {bad} "
+                                 f"({again.wal_replay_errors} replay errors)")
+        with open(os.path.join(d, "wal.jsonl")) as fh:
+            wal_entries = sum(1 for _ in fh)
+        say("api_durability", nvidia_smi=card_line(), shards=API_SHARDS,
+            reduced=dict(shards=f"{API_SHARDS} of 128"),
+            records=int(cols.size), snapshot_bytes=snap_bytes,
+            save_s=save_s, open_s=open_s, replay_s=again.replay_s,
+            load_s=open_s - again.replay_s, wal_entries=wal_entries,
+            reads=len(DURABLE_READS), equal_after_restart=True)
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
+DURABLE_READS = [
+    "Count(All())", "Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=5)",
+    "Count(Row(f=9))", "Count(Row(f=3))", "Sum(field=v)", "Max(field=v)",
+    "GroupBy(Rows(f), Rows(g))", "Rows(h)", "Count(Row(h=5))",
+    "Var(field=v)", "Distinct(Row(h=1), field=g)",
+    "keyed:Extract(All(), Rows(kf), Rows(n))", "limits:Count(Row(w > 5))"]
 
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
 # the forms of kernel H' are moments_kernel<fields, ...>.
@@ -2867,7 +3196,8 @@ KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
                   "corr_moments": "moments_kernel<2,"}
 
 
-def query_profile(queries, timed, latency) -> dict:
+def query_profile(queries, timed, latency,
+                  phase: str = "query_profile") -> dict:
     """The query mix under one torch.profiler window, each query under a
     record_function label: a warm-up pass, then the measured pass.  Device
     work belongs to a query through the profiler's launch correlation (the
@@ -2922,7 +3252,7 @@ def query_profile(queries, timed, latency) -> dict:
         span_total += span_us
     missed = {q: r["launches"] for q, r in per.items()
               if r["kernels_seen"] != r["launches"]}
-    say("query_profile", queries=per, pass_span_ms=span_total / 1e3,
+    say(phase, queries=per, pass_span_ms=span_total / 1e3,
         pass_device_ms=dev_total / 1e3, pass_busy_share=dev_total / span_total,
         launches_not_linked_by_profiler=missed)
     return per
@@ -2935,6 +3265,9 @@ def main() -> int:
     ap.add_argument("--log", help="also write every status line to this "
                     "file (the end of standard output may be all a remote "
                     "runner keeps)")
+    ap.add_argument("--only", choices=["api"], help="run one phase by "
+                    "itself after the card's line: the table, then the api "
+                    "phase (its kernels build at first use)")
     args = ap.parse_args()
     if args.log:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)),
@@ -2953,6 +3286,10 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         max_sm_clock_mhz=max_sm_clock_hz() / 1e6, numpy=np.__version__,
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
+    if args.only == "api":
+        api_alone(args.shards, args.reps)
+        print(card)
+        return 0
     t0 = time.perf_counter()
     sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.MOMENTS_SOURCE,
                ck.DECODE_SOURCE, tk.SOURCE)

@@ -7,9 +7,10 @@ Not, All, Shift, ConstRow, Rows, UnionRows, Limit), Count, TopN/TopK,
 Sum, Min/Max, MinRow/MaxRow, Rows, GroupBy, Distinct (also under Count, as
 a bitmap operand and as GroupBy's aggregate=Count(Distinct(...))),
 Percentile, Sort, Extract, IncludesColumn, FieldValue, Var, Corr,
-Options(shards=) and the writes Set, Clear, ClearRow, Store and Delete.
-Every other family (Apply, Arrow, ExternalLookup) raises
-NotImplementedError.
+Options(shards=), the writes Set, Clear, ClearRow, Store and Delete,
+Apply, Arrow and ExternalLookup: every call family of the JAX package's
+executor.  ``enforce_memory_limit`` holds a query to the API's
+max-query-memory.
 
 Calls the plan compiler accepts run over stacked (S, W) shard tiles; the
 rest (Row(f=null), Rows, UnionRows or Limit as an operand) run through the
@@ -34,7 +35,9 @@ kernel G''' (``bsi_decode_gather_sharded``, one launch over every shard's
 matched columns), and Percentile's bisection counts from kernel I
 (``percentile_counts``), each one launch a residency batch; a field deeper
 than 31 planes decodes on the host in int64 (Field.values_dense_host), and
-its Percentile bisects over kernel-A Counts.  Var and Corr under a filter
+its Percentile bisects over kernel-A Counts.  Apply's columnar route
+takes Extract's: one kernel-A plan for its filter and one kernel-G''' launch
+a BSI field and residency batch.  Var and Corr under a filter
 the plan compiler takes run kernel H (``var_moments``, ``corr_moments``)
 over the stacked groups, one launch a query; otherwise, or past depth 31,
 they sum in float64 on the host, as the reference does.
@@ -42,7 +45,10 @@ they sum in float64 on the host, as the reference does.
 Writes change the host masters (model/fragment.py) and run under the
 index's mutate gate, not a snapshot pin; every device cache follows them
 by fragment generation (the plan executor's leaves and decodes, the rank
-cache) or by dirty slots (the fragment mirrors).
+cache) or by dirty slots (the fragment mirrors).  A fragment's generations
+start at a base no other fragment shares, so a field or index deleted and
+created again never meets the old one's cache entries; the delete itself
+drops them (Index.delete_field, Holder.delete_index).
 
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
@@ -64,6 +70,7 @@ from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
                                                  PlanError, PlanExecutor)
 from featurebase_tpu_torch.executor.qcontext import check_interrupt
 from featurebase_tpu_torch.executor.results import (ExtractedTable,
+                                                    ExtractedTableColumn,
                                                     ExtractedTableField,
                                                     FieldRow, GroupCount,
                                                     Pair, PairField,
@@ -83,6 +90,7 @@ from featurebase_tpu_torch.ops import decode
 from featurebase_tpu_torch.parallel.agg import finalize_sum
 from featurebase_tpu_torch.pql.ast import WRITE_CALLS, Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
+from featurebase_tpu_torch.utils.tracing import TRACER
 
 
 class ExecError(Exception):
@@ -92,9 +100,6 @@ class ExecError(Exception):
 class FieldNotFound(ExecError):
     pass
 
-
-# call families of featurebase_tpu's executor that this package does not run
-_NOT_PORTED = {"Apply", "Arrow", "ExternalLookup"}
 
 # a shard's decode (kernel G''): 4 bytes a column, 32 rows of W words, held
 # against the residency budget beside the mirrors a launch reads
@@ -114,10 +119,6 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _not_ported(family: str):
-    return NotImplementedError(f"{family} is not ported yet")
 
 
 def _time_views(f: Field, call: Call) -> List[str]:
@@ -339,7 +340,14 @@ class Executor:
 
     def _execute_call(self, index: Index, call: Call,
                       shards: Optional[List[int]]):
+        """One call, as a span of a profiled query (utils/tracing.py: a
+        no-op unless the API profiles the query)."""
         check_interrupt()
+        with TRACER.start_span(f"executor.execute{call.name}"):
+            return self._execute_call_inner(index, call, shards)
+
+    def _execute_call_inner(self, index: Index, call: Call,
+                            shards: Optional[List[int]]):
         name = call.name
         if name == "Options":
             # Options(call, shards=[...]) restricts execution to the listed
@@ -397,8 +405,12 @@ class Executor:
             return self._execute_var(index, call, shards)
         if name == "Corr":
             return self._execute_corr(index, call, shards)
-        if name in _NOT_PORTED:
-            raise _not_ported(name)
+        if name == "Apply":
+            return self._execute_apply(index, call, shards)
+        if name == "Arrow":
+            return self._execute_arrow(index, call, shards)
+        if name == "ExternalLookup":
+            return self._execute_external_lookup(index, call, shards)
         return self._execute_bitmap_call(index, call, shards)
 
     def _shards(self, index: Index, shards: Optional[List[int]]
@@ -2107,28 +2119,8 @@ class Executor:
                    for f in flds]
         col_ids: list = []
         field_values: List[list] = [[] for _ in flds]
-        shard_list = sorted(self._shards(index, shards))
-        filt_rows = None
-        ef = index.existence_field()
-        if filt_call.name == "All" and not filt_call.args and \
-                ef is not None and index.options.track_existence:
-            v0 = ef.view(VIEW_STANDARD)
-            filt_rows = {s: (fr.host_row(0) if (fr := v0 and v0.fragment(s))
-                             is not None else
-                             np.zeros(WORDS_PER_ROW, dtype=np.uint32))
-                         for s in shard_list}
-        elif shard_list and filt_call.name != "All":
-            stacked = self._mesh_filter(index, filt_call, shard_list)
-            if stacked is not None:
-                arr = host_words(stacked)
-                filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
-        shard_cols = []
-        for shard in shard_list:
-            words = filt_rows[shard] if filt_rows is not None else \
-                host_words(self._bitmap_call_shard(index, filt_call, shard))
-            cols = bw.words_to_cols(words).astype(np.int64)
-            if cols.size:
-                shard_cols.append((shard, cols))
+        shard_cols = self._filter_columns(
+            index, filt_call, sorted(self._shards(index, shards)))
         on_device = self._bsi_column_values(flds, shard_cols)
         for shard, cols in shard_cols:
             for fi, f in enumerate(flds):
@@ -2154,6 +2146,35 @@ class Executor:
                     for v in vals]
         return ExtractedTable(tfields, col_ids=col_ids,
                               field_values=field_values)
+
+    def _filter_columns(self, index: Index, filt_call: Call,
+                        shard_list: List[int]) -> List[tuple]:
+        """(shard, matched columns within the shard, int64 ascending) of
+        each shard of `shard_list` (in its order) that the filter matches:
+        from the host existence rows for All(), else from one stacked plan
+        (kernel A) fetched once, else from the interpreter a shard."""
+        filt_rows = None
+        ef = index.existence_field()
+        if filt_call.name == "All" and not filt_call.args and \
+                ef is not None and index.options.track_existence:
+            v0 = ef.view(VIEW_STANDARD)
+            filt_rows = {s: (fr.host_row(0) if (fr := v0 and v0.fragment(s))
+                             is not None else
+                             np.zeros(WORDS_PER_ROW, dtype=np.uint32))
+                         for s in shard_list}
+        elif shard_list and filt_call.name != "All":
+            stacked = self._mesh_filter(index, filt_call, shard_list)
+            if stacked is not None:
+                arr = host_words(stacked)
+                filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
+        shard_cols = []
+        for shard in shard_list:
+            words = filt_rows[shard] if filt_rows is not None else \
+                host_words(self._bitmap_call_shard(index, filt_call, shard))
+            cols = bw.words_to_cols(words).astype(np.int64)
+            if cols.size:
+                shard_cols.append((shard, cols))
+        return shard_cols
 
     def _bsi_column_values(self, flds: List[Field], shard_cols
                            ) -> Dict[int, Dict[int, tuple]]:
@@ -2254,6 +2275,316 @@ class Executor:
             vals = vals.astype(bool)
         return vals, ~bits.any(axis=0)
 
+
+    # ----------------------------------------------------- Apply / Arrow
+
+    def _execute_apply(self, index: Index, call: Call,
+                       shards: Optional[List[int]]) -> List[Any]:
+        """Apply(filter?, "program"[, "reduce"]) (reference apply.go:121
+        executeApply, an ivy program a shard and IvyReduce; JAX
+        executor.py:527): a SQL expression over the values of the fields
+        it names, a value a matched record, or one reduce (sum, mean,
+        count, min, max).  The columnar route (_apply_vectorized) runs
+        where every field it reads is a BSI, bool or unkeyed mutex field;
+        else each record is evaluated on its own over Extract's table."""
+        prog = call.args.get("_ivy")
+        if not prog:
+            raise ExecError("Apply() requires a program string")
+        from featurebase_tpu_torch.sql.ops import eval_expr
+        from featurebase_tpu_torch.sql.parser import Lexer, SQLError, _expr
+        from featurebase_tpu_torch.sql.vector import referenced_columns
+        try:
+            expr = _expr(Lexer(prog))
+        except SQLError as e:
+            raise ExecError(f"Apply program: {e}")
+        filt_call = call.children[0] if call.children else Call("All")
+        # only the fields the program reads are gathered
+        refs = referenced_columns(expr)
+        fields = [f.name for f in index.public_fields() if f.name in refs]
+        reduce = call.args.get("_ivyReduce")
+        vec = self._apply_vectorized(index, expr, filt_call, fields, refs,
+                                     shards, reduce)
+        if vec is not None:
+            return vec
+        ext = Call("Extract", children=[filt_call] +
+                   [Call("Rows", {"_field": fn}) for fn in fields])
+        tbl = self._execute_extract(index, ext, shards)
+        values: List[Any] = []
+        for colrec in tbl.columns:
+            env = {"_id": colrec.column}
+            for fi, f in enumerate(tbl.fields):
+                env[f.name] = colrec.rows[fi]
+            try:
+                values.append(eval_expr(expr, env))
+            except Exception as e:  # noqa: BLE001
+                raise ExecError(f"Apply program: {e}")
+        if reduce:
+            return [self._apply_reduce(reduce, values)]
+        return values
+
+    def _apply_vectorized(self, index: Index, expr, filt_call: Call, fields,
+                          refs, shards, reduce) -> Optional[List[Any]]:
+        """Apply over whole numpy columns (sql/vector.py), or None for the
+        per-record route (set, time or keyed fields, or a construct the
+        columnar evaluator does not take).  The filter's matched columns
+        come from one stacked plan (kernel A; the interpreter a shard where
+        the compiler refuses it), each BSI field's values up to depth 31
+        from one kernel-G''' launch a residency batch over every shard's
+        mirror, deeper ones from the host decode; records in the JAX
+        package's order, shard by shard, columns ascending."""
+        from featurebase_tpu_torch.sql.vector import (VecFallback,
+                                                      VecRuntimeError,
+                                                      eval_vec, reduce_vec)
+        flds = [self._field_or_err(index, fn) for fn in fields]
+        names = {f.name for f in flds}
+        if any(r != "_id" and r not in names for r in refs):
+            return None  # unknown column: the per-record route raises
+        for f in flds:
+            t = f.options.type
+            if not (f.is_bsi() or t == TYPE_BOOL or
+                    (t == TYPE_MUTEX and not f.options.keys)):
+                return None
+        shard_cols = self._filter_columns(index, filt_call,
+                                          self._shards(index, shards))
+        on_device = self._bsi_column_values(flds, shard_cols)
+        n = sum(cols.size for _, cols in shard_cols)
+        ids = np.concatenate([cols + shard * SHARD_WIDTH
+                              for shard, cols in shard_cols]) \
+            if shard_cols else np.zeros(0, dtype=np.int64)
+        env = {"_id": (ids, np.zeros(n, dtype=bool))}
+        for fi, f in enumerate(flds):
+            parts = []
+            for shard, cols in shard_cols:
+                if fi in on_device:
+                    parts.append(on_device[fi].get(shard) or (
+                        np.zeros(cols.size, np.int64),
+                        np.ones(cols.size, dtype=bool)))
+                else:
+                    parts.append(self._field_shard_columns(f, shard, cols))
+            env[f.name] = (np.concatenate([p[0] for p in parts]),
+                           np.concatenate([p[1] for p in parts])) \
+                if parts else (np.zeros(0, dtype=np.int64),
+                               np.zeros(0, dtype=bool))
+        try:
+            vals, null = eval_vec(expr, env, n)
+        except VecFallback:
+            return None
+        except VecRuntimeError as e:
+            raise ExecError(f"Apply program: {e}")
+        if reduce:
+            try:
+                return [reduce_vec(reduce, vals, null)]
+            except VecRuntimeError as e:
+                raise ExecError(str(e))
+        out = vals.tolist()
+        if null.any():
+            out = [None if m else v for v, m in zip(out, null.tolist())]
+        return out
+
+    @staticmethod
+    def _apply_reduce(kind: str, values: List[Any]):
+        nums = [v for v in values if isinstance(v, (int, float))
+                and not isinstance(v, bool)]
+        kind = kind.strip().lower()
+        if kind == "count":
+            return len(values)
+        if kind == "sum":
+            return sum(nums)
+        if kind == "mean":
+            return sum(nums) / len(nums) if nums else None
+        if kind == "min":
+            return min(nums) if nums else None
+        if kind == "max":
+            return max(nums) if nums else None
+        raise ExecError(f"Apply reduce must be sum|mean|count|min|max, "
+                        f"got {kind!r}")
+
+    def _execute_arrow(self, index: Index, call: Call,
+                       shards: Optional[List[int]]) -> Dict[str, Any]:
+        """Arrow(filter?) (reference arrow.go:36 executeArrow, 366
+        executeArrowShard; JAX executor.py:722): the index's dataframe
+        side-store, each shard's rows whose _id the filter matches.  The
+        filter is one stacked plan over the shards that hold a dataframe
+        (_filter_columns)."""
+        if index._dataframe is None:
+            raise ExecError("index has no dataframe data")
+        filt_call = call.children[0] if call.children else None
+        names = index.dataframe.column_names()
+        out: Dict[str, list] = {n: [] for n in names}
+        frames = [(s, df) for s in self._shards(index, shards)
+                  if (df := index.dataframe.shard(s)) is not None]
+        matched = None
+        if filt_call is not None:
+            matched = dict(self._filter_columns(index, filt_call,
+                                                [s for s, _ in frames]))
+        for shard, df in frames:
+            ids = None
+            if matched is not None:
+                ids = matched.get(shard, np.zeros(0, dtype=np.int64)) + \
+                    shard * SHARD_WIDTH
+            cols = df.filtered(ids)
+            n = len(cols.get("_id", []))
+            for name in names:
+                v = cols.get(name)
+                out[name].extend(
+                    [x.item() if hasattr(x, "item") else x for x in v]
+                    if v is not None else [None] * n)
+        return {"headers": names, "columns": out}
+
+    def _execute_external_lookup(self, index: Index, call: Call,
+                                 shards: Optional[List[int]]):
+        """ExternalLookup(bitmap, query="...", write=bool) (reference
+        executor.go:4357; JAX executor.py:2210): the bitmap's columns (its
+        keys on a keyed index) bound as the $1 array of a SQL statement on
+        the holder's lookup database (storage/lookup.py); a read comes back
+        as an ExtractedTable whose first SQL column is the record."""
+        db = getattr(self.holder, "lookup_db", None)
+        if db is None:
+            raise ExecError("external DB connection is not configured")
+        query = call.args.get("query")
+        if not isinstance(query, str):
+            raise ExecError("missing query")
+        if len(call.children) != 1:
+            raise ExecError("ExternalLookup takes exactly one lookup input")
+        write = bool(call.args.get("write", False))
+        row = self._execute_call(index, call.children[0], shards)
+        row = self._translate_result(index, call.children[0], row)
+        if not isinstance(row, Row):
+            raise ExecError("lookup input must be a bitmap call")
+        if getattr(row, "keys", None):
+            arg: list = list(row.keys)
+        else:
+            arg = [int(c) for c in row.columns()]
+        if not arg:
+            return ExtractedTable([], [])
+        if write:
+            db.execute(query, arg)
+            return ExtractedTable([], [])
+        header, rows = db.query(query, arg)
+        fields = [ExtractedTableField(n, t) for n, t in header[1:]]
+        columns = []
+        for r in rows:
+            if r[0] is None:
+                raise ExecError("missing primary key in lookup result")
+            columns.append(ExtractedTableColumn(r[0], list(r[1:])))
+        return ExtractedTable(fields, columns)
+
+    # ------------------------------------------- query memory accounting
+
+    def enforce_memory_limit(self, index_name: str, parsed, shards,
+                             limit: int):
+        """Reject a query whose device working set would pass `limit`
+        bytes (reference server/config.go:153 MaxQueryMemory; JAX
+        executor.py:298): the stacked tiles a call must hold (bitmap
+        leaves, BSI planes, candidate row tiles) and Extract's and Sort's
+        host results, the JAX package's estimate."""
+        index = self.holder.index(index_name)
+        if index is None:
+            return
+        S = max(len(self._shards(index, shards)), 1)
+        for call in parsed.calls:
+            est = self._estimate_call_memory(index, call, S)
+            if est > limit:
+                raise ExecError(
+                    f"query needs ~{est} bytes of device memory, over "
+                    f"max-query-memory={limit}")
+
+    def _estimate_call_memory(self, index: Index, call: Call, S: int) -> int:
+        row_bytes = WORDS_PER_ROW * 4
+        name = call.name
+
+        def field_rows(fname) -> int:
+            # candidate-row tiles stack the union of row ids across shards
+            f = index.field(fname)
+            v = f.view(VIEW_STANDARD) if f is not None else None
+            if v is None:
+                return 0
+            union: set = set()
+            for fr in v.fragments.values():
+                union.update(fr.slot_rows())
+            return len(union)
+
+        def field_planes(fname) -> int:
+            f = index.field(fname)
+            return (max(f.bit_depth, 1) + 2) if f is not None else 0
+
+        total = 0
+        if name in ("Row", "Range"):
+            fld, val = call.field_arg()
+            f = index.field(fld) if fld else None
+            if f is not None and (f.is_bsi() or isinstance(val, Condition)):
+                total += field_planes(fld) * S * row_bytes
+            else:
+                total += S * row_bytes
+        elif name in ("TopN", "TopK", "Distinct", "Rows"):
+            fld = call.args.get("_field") or call.args.get("field")
+            f = index.field(fld) if fld else None
+            if f is not None and f.is_bsi():
+                total += field_planes(fld) * S * row_bytes
+            else:
+                total += field_rows(fld) * S * row_bytes
+        elif name == "GroupBy":
+            for rc in call.children:
+                if rc.name == "Rows":
+                    fld = rc.args.get("_field") or rc.args.get("field")
+                    total += field_rows(fld) * S * row_bytes
+            agg = call.args.get("aggregate")
+            if isinstance(agg, Call):
+                afld = agg.args.get("_field") or agg.args.get("field")
+                if afld:
+                    total += field_planes(afld) * S * row_bytes
+        elif name in ("Sum", "Min", "Max", "Sort", "Percentile"):
+            fld = call.args.get("_field") or call.args.get("field")
+            if fld:
+                total += field_planes(fld) * S * row_bytes
+            if name == "Sort" and call.args.get("limit") is None:
+                # an unlimited Sort holds every present (column, value)
+                # pair on the host (reference executor.go:6665)
+                total += self._existing_columns_estimate(index) * 32
+        elif name == "Extract":
+            for rc in call.children[1:]:
+                fld = rc.args.get("_field") or rc.args.get("field")
+                f = index.field(fld) if fld else None
+                if f is None:
+                    continue
+                if f.is_bsi():
+                    total += field_planes(fld) * S * row_bytes
+                else:
+                    total += field_rows(fld) * S * row_bytes
+            # host result rows: bounded by a Limit() filter, else every
+            # existing column
+            rows_est = self._existing_columns_estimate(index)
+            if call.children:
+                first = call.children[0]
+                if first.name == "Limit" and first.args.get("limit") \
+                        is not None:
+                    rows_est = min(rows_est, int(first.args["limit"]))
+            total += rows_est * 16 * max(len(call.children) - 1, 1)
+        skip_children = set()
+        if name in ("GroupBy", "Extract"):
+            skip_children = {id(c) for c in call.children
+                             if c.name == "Rows"}
+        for ch in call.children:
+            if id(ch) not in skip_children:
+                total += self._estimate_call_memory(index, ch, S)
+        for k, v in call.args.items():
+            if isinstance(v, Call) and not (name == "GroupBy"
+                                            and k == "aggregate"):
+                total += self._estimate_call_memory(index, v, S)
+        return total
+
+    @staticmethod
+    def _existing_columns_estimate(index: Index) -> int:
+        """Columns that exist in the index, from the existence field's host
+        words; every shard full without existence tracking."""
+        ef = index.existence_field()
+        if ef is None:
+            return max(len(index.available_shards()), 1) * SHARD_WIDTH
+        v = ef.view(VIEW_STANDARD)
+        if v is None:
+            return 0
+        return sum(int(np.bitwise_count(frag.host_row(0)).sum())
+                   for frag in list(v.fragments.values()))
 
 def _extract_type(f: Field) -> str:
     """Extract's column type of a field (reference executeExtract)."""

@@ -21,10 +21,13 @@ as a leaf too, ops/lowering.py) and runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
 per-shard counts for Count.  ``stacked_vals`` caches a field's decoded
 values (kernel G'', ``bsi_decode``) the same way, for Distinct, Percentile
-and Sort.
+and Sort.  Each entry remembers the fragments it was gathered from: a
+deleted field, view or index drops the entries built from its fragments in
+every live plan executor (``drop_fragment_copies``).
 """
 from __future__ import annotations
 
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -280,6 +283,18 @@ def lower_ir(ir, leaves: List[torch.Tensor], params: List[np.ndarray],
 # Plan execution
 # ---------------------------------------------------------------------------
 
+# Every live plan executor: a deleted field, view or index drops the
+# stacked entries built from its fragments in each (drop_fragment_copies).
+_EXECUTORS: "weakref.WeakSet[PlanExecutor]" = weakref.WeakSet()
+
+
+def drop_fragment_copies(frag_ids) -> None:
+    """Drop every plan executor's cached entries built from any of the
+    fragments with these ids, with their residency bytes."""
+    for pe in list(_EXECUTORS):
+        pe.drop_built_from(frag_ids)
+
+
 class PlanExecutor:
     """Gathers stacked leaves into generation-keyed device caches and runs
     lowered plans with kernel A."""
@@ -288,6 +303,34 @@ class PlanExecutor:
         self.holder = holder
         self.device = device
         self._leaf_cache: Dict[tuple, Tuple[tuple, torch.Tensor]] = {}
+        # the ids of the fragments each cached entry was gathered from
+        self._leaf_frags: Dict[tuple, frozenset] = {}
+        _EXECUTORS.add(self)
+
+    def _publish(self, key, gen, arr: torch.Tensor, frags):
+        """Cache an entry and register its bytes with the residency LRU."""
+        from featurebase_tpu_torch.storage.residency import residency
+        self._leaf_cache[key] = (gen, arr)
+        self._leaf_frags[key] = frozenset(id(fr) for fr in frags
+                                          if fr is not None)
+
+        def evict():
+            self._leaf_cache.pop(key, None)
+            self._leaf_frags.pop(key, None)
+        residency().add(("leaf", id(self), key), arr.numel() * 4, evict)
+
+    def built_from(self, frag_ids) -> List[tuple]:
+        """Residency keys of the cached entries gathered from any of these
+        fragments."""
+        return [("leaf", id(self), k) for k, ids in
+                list(self._leaf_frags.items()) if not ids.isdisjoint(frag_ids)]
+
+    def drop_built_from(self, frag_ids) -> None:
+        from featurebase_tpu_torch.storage.residency import residency
+        for rkey in self.built_from(frag_ids):
+            residency().remove(rkey)
+            self._leaf_cache.pop(rkey[2], None)
+            self._leaf_frags.pop(rkey[2], None)
 
     # -- leaf gathering -----------------------------------------------------
 
@@ -394,15 +437,12 @@ class PlanExecutor:
         from featurebase_tpu_torch.storage.residency import residency
         if self._pin_diverged(frags):
             return self._put_lazy(shape, fill_shard)
-        rkey = ("leaf", id(self), key)
         hit = self._leaf_cache.get(key)
         if hit is not None and hit[0] == gen:
-            residency().touch(rkey)
+            residency().touch(("leaf", id(self), key))
             return hit[1]
         arr = self._put_lazy(shape, fill_shard)
-        self._leaf_cache[key] = (gen, arr)
-        residency().add(rkey, int(np.prod(shape)) * 4,
-                        lambda: self._leaf_cache.pop(key, None))
+        self._publish(key, gen, arr, frags)
         return arr
 
     def stacked_field_rows(self, index: Index, fname: str,
@@ -454,11 +494,8 @@ class PlanExecutor:
             residency().touch(rkey)
             return hit[1]
         arr = ck.bsi_decode(self.stacked_bsi(index, fname, depth, shards))
-        if diverged:
-            return arr
-        self._leaf_cache[key] = (gen, arr)
-        residency().add(rkey, arr.numel() * 4,
-                        lambda: self._leaf_cache.pop(key, None))
+        if not diverged:
+            self._publish(key, gen, arr, frags)
         return arr
 
     def stacked_full(self, index: Index, shards: List[int]) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Field: a typed column of the data model (host masters and write API).
 
 Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
-uses: options, value encoding and decoding, views, point writes (a bit or
-a value, set or cleared) and bulk writes, the TopN rank cache, the
+uses: options and their schema document, value encoding and decoding,
+views (deleted with their device copies, and by the TTL), point writes (a
+bit or a value, set or cleared) and bulk writes, the TopN rank cache, the
 per-shard BSI group on the fragment mirror, and one column's value or a
 shard's values decoded on the host.  The JAX package's placement gate
 (``_writable``/``note_shard``, the multi-process mesh) is not part of the
@@ -91,6 +92,16 @@ class FieldOptions:
         self.no_standard_view = no_standard_view
         self.foreign_index = foreign_index
 
+    def to_json(self):
+        return {
+            "type": self.type, "keys": self.keys,
+            "cacheType": self.cache_type, "cacheSize": self.cache_size,
+            "min": self.min, "max": self.max, "scale": self.scale,
+            "timeUnit": self.time_unit, "timeQuantum": self.time_quantum,
+            "ttl": self.ttl, "noStandardView": self.no_standard_view,
+            "foreignIndex": self.foreign_index,
+        }
+
     @classmethod
     def from_json(cls, d: dict) -> "FieldOptions":
         return cls(type=d.get("type", TYPE_SET), keys=d.get("keys", False),
@@ -144,6 +155,10 @@ class Field:
         mag = max(abs(int(o.min) - base), abs(int(o.max) - base))
         return max(1, mag.bit_length())
 
+    def time_quantum(self) -> str:
+        return self.options.time_quantum \
+            if self.options.type == TYPE_TIME else ""
+
     # -- value encoding (field-level units -> stored BSI int) ---------------
 
     def encode_value(self, v) -> int:
@@ -194,6 +209,28 @@ class Field:
         for v in self.views.values():
             shards.update(v.available_shards())
         return sorted(shards)
+
+    def release_device(self, view: Optional[str] = None) -> None:
+        """Drop every device copy of the field (of one of its views): the
+        fragments' mirrors and every plan executor's stacked entries
+        gathered from them, with their residency bytes, and the rank
+        cache's entries over it."""
+        from featurebase_tpu_torch.executor.plan import drop_fragment_copies
+        frags = [fr for vn, v in list(self.views.items())
+                 if view in (None, vn) for fr in list(v.fragments.values())]
+        for frag in frags:
+            frag.release_device()
+        drop_fragment_copies({id(fr) for fr in frags})
+        for key in list(self._topn_cache):
+            if view is None or view in key[1]:
+                self._topn_cache.pop(key, None)
+
+    def delete_view(self, name: str):
+        with self._lock:
+            if name not in self.views:
+                return
+            self.release_device(name)
+            self.views.pop(name, None)
 
     # -- bit-level writes (set/mutex/bool/time) -----------------------------
 
@@ -384,17 +421,22 @@ class Field:
                                    np.uint64(1)).astype(np.uint32))
         return delta
 
-    def import_values(self, cols: np.ndarray, values):
+    def import_values(self, cols: np.ndarray, values, clear: bool = False):
         """Bulk BSI import (reference fragment.importValue:1947): one
         word-index scatter builds a (depth+2, W) delta tile per shard, which
         lands in the fragment in one locked OR after the imported columns
-        are cleared."""
+        are cleared.  With `clear`, each column's value is removed (the
+        values are range-checked all the same, as the JAX package does)."""
         cols = np.asarray(cols, dtype=np.int64)
         encoded = self.encode_values_vec(values)
         o = self.options
         if encoded.size and (o.min is not None or o.max is not None):
             self._check_value_range(int(encoded.min()))
             self._check_value_range(int(encoded.max()))
+        if clear:
+            for c in cols:
+                self.clear_value(int(c))
+            return
         stored = encoded - self.base
         mags = np.abs(stored)
         depth = max(self.bit_depth,
@@ -482,3 +524,26 @@ class Field:
             return []
         return views_by_time_range(VIEW_STANDARD, lo, hi,
                                    self.options.time_quantum)
+
+    def remove_expired_views(self, now: Optional[datetime] = None
+                             ) -> List[str]:
+        """Delete the time-quantum views whose period ended more than `ttl`
+        seconds before `now` (reference server.go:920 ViewsRemoval), with
+        their device copies; returns the removed view names."""
+        from featurebase_tpu_torch.model.timequantum import view_time_range
+        if self.options.type != TYPE_TIME or self.options.ttl <= 0:
+            return []
+        now = now or datetime.utcnow()
+        removed = []
+        for vn in list(self.views):
+            rng = view_time_range(vn)
+            if rng is None:
+                continue
+            if (now - rng[1]).total_seconds() > self.options.ttl:
+                self.delete_view(vn)
+                removed.append(vn)
+        return removed
+
+    def to_info(self):
+        return {"name": self.name, "options": self.options.to_json(),
+                "views": sorted(self.views)}

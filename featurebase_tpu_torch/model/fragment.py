@@ -13,6 +13,7 @@ words (see core/consts.py).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from contextlib import contextmanager
 from typing import Dict, List, Optional
@@ -23,6 +24,19 @@ import torch
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 
 _INIT_CAP = 4
+
+# Each fragment's seqlock generation starts at its own base, drawn from one
+# process-wide counter, so no two fragments ever show the same generation.
+# The device caches key their entries by (name, generation) tuples: a field
+# deleted and created again under the same name, with the same number of
+# writes, must not meet the old field's entries.  2^32 writes to one
+# fragment stay below the next base.
+_GENERATION_BASES = itertools.count(1)
+_GENERATION_SPAN = 1 << 32
+
+
+def _fresh_generation() -> int:
+    return next(_GENERATION_BASES) * _GENERATION_SPAN
 
 
 def _canonical(device) -> torch.device:
@@ -64,8 +78,9 @@ class Fragment:
         self._dirty: set = set()    # slots needing upload
         self._all_dirty = True
         # Seqlock generation: odd while host words mutate, even otherwise
-        # (both transitions under self._lock).
-        self.generation = 0
+        # (both transitions under self._lock); it starts at a base no other
+        # fragment shares.
+        self.generation = _fresh_generation()
         # MVCC overlay: row -> [(even-gen tag, words copy)] ascending
         self._overlay: Dict[int, list] = {}
 
@@ -337,6 +352,14 @@ class Fragment:
         self._dev_rows = -1
         self._all_dirty = True
 
+    def release_device(self):
+        """Drop the device mirror and its residency bytes (the fragment's
+        field, view or index was deleted)."""
+        from featurebase_tpu_torch.storage.residency import residency
+        with self._lock:
+            residency().remove(self._residency_key())
+            self._evict_device()
+
     def _flush_to_device(self, device: torch.device) -> torch.Tensor:
         """Bring the mirror up to date on `device`; the caller holds
         self._lock.  A full upload when slots were added, the mirror was
@@ -446,7 +469,31 @@ class Fragment:
         mask = torch.as_tensor(present, device=device)[:, None]
         return torch.where(mask, gathered, 0), present
 
+    # -- anti-entropy -------------------------------------------------------
+
+    def checksum(self) -> int:
+        """CRC32 over (row ids, words), the per-fragment checksum of the
+        JAX package's snapshots and resync (reference holder.go:1303);
+        cached by generation."""
+        import zlib
+        with self._lock:
+            cached = getattr(self, "_cksum", None)
+            if cached is not None and cached[0] == self.generation:
+                return cached[1]
+            n = self.num_rows
+            crc = zlib.crc32(
+                np.array(self._row_of_slot[:n], dtype=np.int64).tobytes())
+            crc = zlib.crc32(np.ascontiguousarray(self._words[:n]).tobytes(),
+                             crc)
+            self._cksum = (self.generation, crc)
+            return crc
+
     # -- persistence --------------------------------------------------------
+
+    def to_npz_dict(self) -> dict:
+        n = self.num_rows
+        return {"rows": np.array(self._row_of_slot[:n], dtype=np.int64),
+                "words": self._words[:n]}
 
     @classmethod
     def from_npz_dict(cls, index, field, view, shard, d) -> "Fragment":

@@ -1,8 +1,10 @@
 """Index (table) and Holder (root registry).
 
-Own copy of featurebase_tpu/model/index.py trimmed to the port's slice
-(reference index.go:27 Index, holder.go:58 Holder): fields, translate
-stores, existence tracking, the writers' gate and schema apply.
+Own copy of featurebase_tpu/model/index.py (reference index.go:27 Index,
+holder.go:58 Holder): fields, translate stores, existence tracking, the
+writers' gate, the dataframe side-store, the schema documents and the SQL
+catalogue (views, databases, functions) a snapshot keeps.  Deleting a
+field or an index also drops every device copy of it (Field.release_device).
 """
 from __future__ import annotations
 
@@ -25,6 +27,9 @@ class IndexOptions:
         self.keys = keys
         self.track_existence = track_existence
 
+    def to_json(self):
+        return {"keys": self.keys, "trackExistence": self.track_existence}
+
     @classmethod
     def from_json(cls, d: dict) -> "IndexOptions":
         return cls(keys=d.get("keys", False),
@@ -42,10 +47,20 @@ class Index:
         self.fields: Dict[str, Field] = {}
         self.translate_store = IndexTranslateStore(name)
         self.field_translate_stores: Dict[str, FieldTranslateStore] = {}
+        # per-shard columnar side-store (reference index.go:111 `_dataframe`
+        # dirs), made at first use
+        self._dataframe = None
         if self.options.track_existence:
             self.fields[EXISTENCE_FIELD] = Field(
                 name, EXISTENCE_FIELD,
                 FieldOptions(type=TYPE_SET, cache_type="none"))
+
+    @property
+    def dataframe(self):
+        if self._dataframe is None:
+            from featurebase_tpu_torch.model.dataframe import DataframeStore
+            self._dataframe = DataframeStore()
+        return self._dataframe
 
     # -- fields --------------------------------------------------------------
 
@@ -66,8 +81,20 @@ class Index:
     def field(self, name: str) -> Optional[Field]:
         return self.fields.get(name)
 
+    def delete_field(self, name: str):
+        """Remove a field, its row keys and every device copy of it."""
+        with self._lock:
+            f = self.fields.pop(name, None)
+            self.field_translate_stores.pop(name, None)
+        if f is not None:
+            f.release_device()
+
     def existence_field(self) -> Optional[Field]:
         return self.fields.get(EXISTENCE_FIELD)
+
+    def public_fields(self) -> List[Field]:
+        """Every field but the existence field, in declaration order."""
+        return [f for n, f in self.fields.items() if n != EXISTENCE_FIELD]
 
     # -- existence maintenance (reference: fragment importExistenceColumns) --
 
@@ -97,6 +124,10 @@ class Index:
                 for shard, frag in list(v.fragments.items()):
                     yield (fname, vname, shard), frag
 
+    def to_info(self):
+        return {"name": self.name, "options": self.options.to_json(),
+                "fields": [f.to_info() for f in self.public_fields()]}
+
 
 class Holder:
     """Root object owning all indexes (reference holder.go:58)."""
@@ -105,6 +136,15 @@ class Holder:
         self.path = path
         self._lock = threading.RLock()
         self.indexes: Dict[str, Index] = {}
+        # SQL views: name -> SELECT text; databases: name -> options;
+        # functions: name -> definition (reference sql3 CREATE VIEW,
+        # DATABASE, FUNCTION), kept by snapshots and the WAL
+        self.sql_views: Dict[str, str] = {}
+        self.sql_databases: Dict[str, dict] = {}
+        self.sql_functions: Dict[str, dict] = {}
+        # ExternalLookup()'s database adapter (storage/lookup.py; reference
+        # holder.lookupDB, executor.go:4358)
+        self.lookup_db = None
 
     def create_index(self, name: str, options: Optional[IndexOptions] = None,
                      if_not_exists: bool = False) -> Index:
@@ -119,6 +159,17 @@ class Holder:
 
     def index(self, name: str) -> Optional[Index]:
         return self.indexes.get(name)
+
+    def delete_index(self, name: str):
+        """Remove an index and every device copy of it."""
+        with self._lock:
+            idx = self.indexes.pop(name, None)
+        if idx is not None:
+            for f in list(idx.fields.values()):
+                f.release_device()
+
+    def schema(self):
+        return [idx.to_info() for _, idx in sorted(self.indexes.items())]
 
     def apply_schema(self, schema: list):
         """Create indexes/fields from a schema document (reference

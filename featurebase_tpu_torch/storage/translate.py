@@ -179,6 +179,21 @@ class IndexTranslateStore:
                 out.append(found)
             return out
 
+    def apply_entries(self, entries: Dict[str, int]):
+        """Install key -> id pairs verbatim (a WAL replay's "keys" entry)."""
+        keys = list(entries)
+        with self._lock:
+            for k, part in zip(keys, self._parts_for_keys(keys,
+                                                          create=True)):
+                id_ = int(entries[k])
+                part.key_to_id[k] = id_
+                part.id_to_key[id_] = k
+                part.max_id = max(part.max_id, id_)
+
+    def to_json(self):
+        return {str(p): {"keys": part.key_to_id, "max_id": part.max_id}
+                for p, part in self.partitions.items()}
+
     @classmethod
     def from_json(cls, index: str, d: dict) -> "IndexTranslateStore":
         st = cls(index)
@@ -232,6 +247,16 @@ class FieldTranslateStore:
                         .replace("_", ".") + "$")
         with self._lock:
             return [id_ for k, id_ in self.key_to_id.items() if rx.match(k)]
+
+    def apply_entries(self, entries: Dict[str, int]):
+        with self._lock:
+            for k, id_ in entries.items():
+                self.key_to_id[k] = int(id_)
+                self.id_to_key[int(id_)] = k
+                self.max_id = max(self.max_id, int(id_))
+
+    def to_json(self):
+        return {"keys": self.key_to_id, "max_id": self.max_id}
 
     @classmethod
     def from_json(cls, index: str, field: str, d: dict) -> "FieldTranslateStore":
