@@ -130,7 +130,19 @@ Phases, one status line each; any failure raises and exits nonzero:
      load and replay seconds); last, g deleted and created again on the
      warm API, its copies' residency bytes released and its new Count and
      TopN equal to numpy (`--only api` runs the table and this phase
-     alone);
+     alone); then the sql phase (sql_phase), through
+     featurebase_tpu_torch.sql.engine.execute_sql on the card: each
+     statement of the pushdown mix (SQL_PUSHDOWN: COUNT under bitmap and
+     BSI filters, SUM and AVG, MIN and MAX, PERCENTILE, VAR, CORR, both
+     GROUP BY forms, COUNT(DISTINCT), SELECT DISTINCT, a scan and a scan
+     with a residual filter) equal to its PQL counterpart through
+     API.query and launching the same kernels (counters set to 0 around
+     each), the numpy-held ones equal to the model; an INSERT of 1,000
+     records and two DELETEs through SQL, and the numpy-held statements
+     again (first read beside the cached p50); the dialect corpus
+     (SQL_DIALECT) on the card and on the CPU, answers and error statuses
+     equal; SQL's p50 beside its counterpart's, and a profiled pass
+     (`--only sql` runs the table and this phase alone);
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -2513,6 +2525,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                     decode_queries)
     model = writes_phase(holder, gen, resident["bytes"] // 2)
     api_phase(holder, model, queries, reps)
+    sql_phase(holder, model, reps)
     return launches
 
 
@@ -3106,6 +3119,9 @@ def api_phase(holder, model: "WriteModel", queries, reps: int) -> dict:
     pick = np.flatnonzero(model.alive)[::8]
     new_g = rng.integers(0, 6, pick.size)
     api.import_bits("bench", "g", new_g, cols[pick])
+    # the model follows: g's rows are new (the sql phase reads them)
+    model.G = np.zeros((model.cols.size, 6), dtype=bool)
+    model.G[pick, new_g] = True
     counts = np.bincount(new_g, minlength=6)
     (n2,) = api.query("bench", "Count(Row(g=2))")
     (top,) = api.query("bench", "TopN(g)")
@@ -3190,6 +3206,405 @@ DURABLE_READS = [
     "Var(field=v)", "Distinct(Row(h=1), field=g)",
     "keyed:Extract(All(), Rows(kf), Rows(n))", "limits:Count(Row(w > 5))"]
 
+# -- the sql phase ----------------------------------------------------------
+
+def _scalar(r) -> list:
+    return [[r[0]]]
+
+
+def _vals(r) -> list:
+    return [[x.val for x in r]]
+
+
+def _sum_avg(r) -> list:
+    s, a = r
+    return [[s.val, a.val / a.count if a.count else None]]
+
+
+# The pushdown mix of the sql phase: (statement, its PQL counterpart (the
+# calls the planner lowers it to), the counterpart's results reshaped as the
+# statement's rows, the kernels it is meant to launch).  The SUM/AVG, MIN/MAX
+# pairs lower to one call an aggregate; a scan's Extract takes the columns it
+# reads in name order; the last statement's residual runs on the host.
+SQL_PUSHDOWN = [
+    ("SELECT COUNT(*) FROM bench WHERE f = 1 AND g = 2",
+     "Count(Intersect(Row(f=1), Row(g=2)))", _scalar,
+     ("plan_eval",)),
+    ("SELECT COUNT(*) FROM bench WHERE v > 5000", "Count(Row(v > 5000))",
+     _scalar, ("plan_eval",)),
+    ("SELECT COUNT(*) FROM bench WHERE v BETWEEN 100 AND 200",
+     "Count(Row(v >< [100, 200]))", _scalar, ("plan_eval",)),
+    ("SELECT SUM(v), AVG(v) FROM bench WHERE f = 3",
+     "Sum(Row(f=3), field=v) Sum(Row(f=3), field=v)", _sum_avg,
+     ("bsi_sum_planes",)),
+    ("SELECT MIN(v), MAX(v) FROM bench WHERE g = 2",
+     "Min(Row(g=2), field=v) Max(Row(g=2), field=v)",
+     _vals, ("bsi_min_max",)),
+    ("SELECT PERCENTILE(v, 50) FROM bench", "Percentile(field=v, nth=50)",
+     _vals, ("percentile_counts",)),
+    ("SELECT VAR(v) FROM bench", "Var(field=v)", _scalar,
+     ("var_moments",)),
+    ("SELECT CORR(v, u) FROM bench WHERE g = 2",
+     "Corr(field=v, field2=u, filter=Row(g=2))", _scalar,
+     ("corr_moments",)),
+    ("SELECT f, g, COUNT(*) FROM bench GROUP BY f, g",
+     "GroupBy(Rows(f), Rows(g))",
+     lambda r: [[gc.group[0].row_id, gc.group[1].row_id, gc.count]
+                for gc in r[0]], ("pair_counts",)),
+    ("SELECT g, SUM(v) FROM bench GROUP BY g",
+     "GroupBy(Rows(g), aggregate=Sum(field=v))",
+     lambda r: [[gc.group[0].row_id, gc.agg] for gc in r[0]],
+     ("bsi_sum_groups",)),
+    ("SELECT COUNT(DISTINCT v) FROM bench", "Count(Distinct(field=v))",
+     _scalar, ("bsi_decode",)),
+    ("SELECT DISTINCT g FROM bench", "Distinct(field=g)",
+     lambda r: [[int(c)] for c in r[0].columns()], ("row_counts",)),
+    ("SELECT _id, v, u FROM bench WHERE v = 42",
+     "Extract(Row(v == 42), Rows(u), Rows(v))",
+     lambda r: [[c.column, c.rows[1], c.rows[0]] for c in r[0].columns],
+     ("plan_eval", "bsi_decode_gather")),
+    ("SELECT _id, v, u FROM bench WHERE v = 42 AND u + 1 > 10",
+     "Extract(Row(v == 42), Rows(u), Rows(v))",
+     lambda r: [[c.column, c.rows[1], c.rows[0]] for c in r[0].columns
+                if c.rows[0] is not None and c.rows[0] + 1 > 10],
+     ("plan_eval", "bsi_decode_gather")),
+]
+# the statements the sql phase times through execute_sql and API.query
+SQL_TIMED = [SQL_PUSHDOWN[i] for i in (0, 3, 6, 8, 9, 12)]
+
+
+def sql_oracle(model: "WriteModel") -> dict:
+    """numpy's answers, as SQL rows, to the statements of SQL_PUSHDOWN it
+    holds: the counts, SUM and AVG, MIN and MAX, and both GROUP BYs.  The
+    GROUP BYs count through one bincount of each record's f and g rows
+    packed into a code (at 80 M records a mask a pair takes seconds)."""
+    F, G, v, alive = model.F, model.G, model.v, model.alive
+    f3, g2 = F[:, 3], G[:, 2]
+    s3, n3 = int(v[f3].sum()), int(f3.sum())
+    nf, ng = F.shape[1], G.shape[1]
+    if nf > 16 or ng > 8:
+        raise AssertionError("f's rows must pack into 16 bits, g's into 8")
+
+    def code(bits):   # a record's rows as the bits of one integer
+        w = (1 << np.arange(bits.shape[1])).astype(np.uint16)
+        return bits.view(np.uint8).astype(np.uint16) @ w
+    fcode, gcode = code(F).astype(np.int64), code(G)
+    n = np.bincount(fcode << 8 | gcode)
+    used = np.flatnonzero(n)
+    fr, gr = (used >> 8)[:, None], (used & 255)[:, None]
+    pairs = ((fr >> np.arange(nf) & 1)[:, :, None] &
+             (gr >> np.arange(ng) & 1)[:, None, :])
+    count = np.einsum("k,kfg->fg", n[used], pairs)
+    has_c = (np.arange(256)[:, None] >> np.arange(ng) & 1).astype(bool)
+    g_n = np.bincount(gcode, minlength=256) @ has_c
+    g_sum = np.bincount(gcode, weights=v, minlength=256) @ has_c
+    q = [s[0] for s in SQL_PUSHDOWN]
+    return {
+        q[0]: [[int((F[:, 1] & g2).sum())]],
+        q[1]: [[int((alive & (v > 5000)).sum())]],
+        q[2]: [[int((alive & (v >= 100) & (v <= 200)).sum())]],
+        q[3]: [[s3, s3 / n3 if n3 else None]],
+        q[4]: [[int(v[g2].min()), int(v[g2].max())]],
+        q[8]: [[r, c, int(count[r, c])] for r in range(nf)
+               for c in range(ng) if count[r, c]],
+        q[9]: [[c, int(g_sum[c])] for c in range(ng) if g_n[c]],
+    }
+
+
+def sql_writes(model: "WriteModel", rng, n_shards: int, n: int) -> list:
+    """The sql phase's writes, as statements, and the model after them: an
+    INSERT of n records over every shard (half of them new ids, half live
+    records, whose f and g gain a row and whose v and u are replaced; u
+    NULL on one in ten, which leaves it as it was), a DELETE of n // 20
+    ids (half of them inserted ones) and a DELETE under a pushable filter."""
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    old = rng.choice(np.flatnonzero(model.alive), n // 2, replace=False)
+    # new ids: a shard each in turn, drawn until none is taken (a set of
+    # the 80 M taken ids would cost seconds; the table's ids are sorted)
+    have = model.cols if np.all(model.cols[1:] > model.cols[:-1]) \
+        else np.sort(model.cols)
+    new = []
+    while len(new) < n - n // 2:
+        c = len(new) % n_shards * SHARD_WIDTH + int(rng.integers(
+            SHARD_WIDTH))
+        at = int(np.searchsorted(have, c))
+        if (at == have.size or have[at] != c) and c not in new:
+            new.append(c)
+    k, m = len(new), model.cols.size
+    model.cols = np.concatenate([model.cols, np.array(new, np.int64)])
+    model.F = np.concatenate([model.F, np.zeros((k, model.F.shape[1]),
+                                                bool)])
+    model.G = np.concatenate([model.G, np.zeros((k, model.G.shape[1]),
+                                                bool)])
+    model.v = np.concatenate([model.v, np.zeros(k, np.int64)])
+    model.u = np.concatenate([model.u, np.zeros(k, model.u.dtype)])
+    model.u_has = np.concatenate([model.u_has, np.zeros(k, bool)])
+    model.alive = np.concatenate([model.alive, np.zeros(k, bool)])
+    rows = np.concatenate([old, np.arange(m, m + k)])
+    tuples = []
+    for i in rows:
+        f, g = int(rng.integers(8)), int(rng.integers(model.G.shape[1]))
+        v, u = int(rng.integers(-1000, 10001)), int(rng.integers(-500, 4001))
+        u_null = rng.random() < 0.1
+        model.F[i, f] = model.G[i, g] = model.alive[i] = True
+        model.v[i] = v
+        if not u_null:
+            model.u[i], model.u_has[i] = u, True
+        tuples.append(f"({int(model.cols[i])}, {f}, {g}, {v}, "
+                      f"{'NULL' if u_null else u})")
+    gone = np.concatenate([rng.choice(old, n // 40, replace=False),
+                           rng.choice(np.arange(m, m + k), n // 40,
+                                      replace=False)])
+    filt = model.alive & (model.v >= 4000) & (model.v <= 4010) & \
+        model.F[:, 2]
+    for dead in (gone, np.flatnonzero(filt)):
+        model.F[dead] = model.G[dead] = False
+        model.u_has[dead] = model.alive[dead] = False
+    return ["INSERT INTO bench (_id, f, g, v, u) VALUES " + ", ".join(tuples),
+            "DELETE FROM bench WHERE _id IN (" + ", ".join(
+                str(int(model.cols[i])) for i in gone) + ")",
+            "DELETE FROM bench WHERE v BETWEEN 4000 AND 4010 AND f = 2"]
+
+
+# The dialect at small size, drawn from the acceptance corpora
+# (tests/test_acceptance_sql*.py, tests/test_sql*.py): each statement after
+# those before it; {tmp} is a directory of each API's own.
+SQL_DIALECT = [
+    "CREATE TABLE dt (_id ID, i INT MIN -100 MAX 1000, d DECIMAL(2), "
+    "b BOOL, s STRING, ss STRINGSET, x ID, xs IDSET, ts TIMESTAMP, "
+    "tq STRINGSET TIMEQUANTUM 'YMD')",
+    "CREATE TABLE kt (_id STRING, grp STRING, score INT MIN 0 MAX 100)",
+    "INSERT INTO dt (_id, i, d, b, s, ss, x, xs, ts, tq) VALUES "
+    "(1, 10, 1.50, true, 'alpha', ['p', 'q'], 7, [1, 2], "
+    "'2023-01-15T10:30:00Z', ['e']), "
+    "(2, -5, 2.25, false, 'beta', ['q'], 8, [2], '2024-02-29T12:00:00Z', "
+    "['f']), "
+    "(3, 300, 0.75, true, 'gamma', ['r'], 7, [3], '2022-12-31T23:59:59Z', "
+    "['e']), "
+    "(1048577, 42, NULL, NULL, 'delta', NULL, NULL, [1], NULL, NULL)",
+    "INSERT INTO kt (_id, grp, score) VALUES ('u1', 'a', 10), "
+    "('u2', 'a', 20), ('u3', 'b', 30)",
+    "REPLACE INTO kt (_id, grp, score) VALUES ('u2', 'b', 25)",
+    "SELECT * FROM dt",
+    "SELECT _id, i, d FROM dt WHERE i > 0 ORDER BY i DESC",
+    "SELECT COUNT(*), SUM(i), AVG(i), MIN(d), MAX(d) FROM dt",
+    "SELECT PERCENTILE(i, 50), VAR(i), COUNT(DISTINCT i) FROM dt",
+    "SELECT b, COUNT(*) FROM dt GROUP BY b",
+    "SELECT s, SUM(i) FROM dt GROUP BY s HAVING SUM(i) > 0 ORDER BY s",
+    "SELECT x, COUNT(*) FROM dt GROUP BY x ORDER BY x",
+    "SELECT DISTINCT x FROM dt",
+    "SELECT _id FROM dt WHERE ss = 'q'",
+    "SELECT _id FROM dt WHERE SETCONTAINS(xs, 2)",
+    "SELECT _id FROM dt WHERE s LIKE '%a' AND i IN (10, 42)",
+    "SELECT _id FROM dt WHERE d BETWEEN 1.0 AND 3.0",
+    "SELECT _id FROM dt WHERE ts > '2023-01-01T00:00:00Z'",
+    "SELECT _id FROM dt WHERE i IS NULL OR d IS NULL",
+    "SELECT kt._id, dt.s FROM kt INNER JOIN dt ON kt.score = dt.i",
+    "SELECT a._id, b._id FROM dt a LEFT JOIN dt b ON a.x = b.i "
+    "ORDER BY a._id",
+    "SELECT _id FROM dt WHERE i IN (SELECT score FROM kt)",
+    "SELECT _id FROM dt WHERE i > (SELECT MIN(score) FROM kt)",
+    "SELECT COUNT(*) FROM (SELECT _id FROM dt WHERE i > 0) q",
+    "CREATE VIEW pos AS SELECT _id, i FROM dt WHERE i > 0",
+    "SELECT * FROM pos ORDER BY i LIMIT 2 OFFSET 1",
+    "SELECT grp, COUNT(*), SUM(score) FROM kt GROUP BY grp",
+    "SELECT UPPER(s), LEN(s), SUBSTRING(s, 1, 2), REVERSE(s), s || '!' "
+    "FROM dt ORDER BY _id",
+    "SELECT DATETIMEPART('yy', ts), DATEADD('d', 1, ts) FROM dt "
+    "WHERE ts IS NOT NULL ORDER BY _id",
+    "SELECT CAST(i AS STRING), CAST(d AS INT), CAST(b AS INT), "
+    "CAST('12' AS INT) FROM dt ORDER BY _id",
+    "SELECT CASE WHEN i > 100 THEN 'big' ELSE 'small' END, "
+    "COALESCE(d, 0) FROM dt ORDER BY _id",
+    "SHOW TABLES",
+    "SHOW COLUMNS FROM dt",
+    "SHOW CREATE TABLE dt",
+    "SHOW VIEWS",
+    "SELECT name, column_count, shard_count FROM fb_table_info",
+    "SELECT name, shard_width FROM fb_database_info",
+    "SELECT * FROM fb_table_columns",
+    "COPY dt TO '{tmp}/dt.csv'",
+    "COPY dt2 FROM '{tmp}/dt.csv'",
+    "SELECT * FROM dt2",
+    "CREATE TABLE bk (_id ID, n INT MIN 0 MAX 100, s STRING)",
+    "BULK INSERT INTO bk (_id, n, s) MAP (0 ID, 1 INT, 2 STRING) "
+    "FROM x'1,10,a\n2,20,b\n3,30,a' WITH FORMAT 'CSV' INPUT 'STREAM'",
+    "SELECT s, SUM(n) FROM bk GROUP BY s",
+    "DELETE FROM dt WHERE s = 'beta'",
+    "SELECT _id FROM dt",
+    "SELECT * FROM missing_table",
+    "SELEKT 1",
+    "SELECT sql, status FROM fb_exec_requests WHERE status = 'error'",
+]
+
+
+def sql_plain(rows) -> bool:
+    """Every cell a plain int, float, str, bool or None, or a list of
+    those (what the HTTP server turns into JSON)."""
+    def ok(v):
+        return type(v) in (int, float, str, bool, type(None)) or \
+            type(v) is list and all(ok(x) for x in v)
+    return all(ok(v) for row in rows for v in row)
+
+
+def sql_dialect(tmp: str) -> dict:
+    """SQL_DIALECT on a fresh API on the card and on a fresh
+    API(device="cpu"): every answer and every error status equal, and the
+    two COPY files equal."""
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.sql.engine import execute_sql
+    out = {}
+    for name, api in (("cuda", API()), ("cpu", API(device="cpu"))):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        got = []
+        for sql in SQL_DIALECT:
+            try:
+                r = execute_sql(api, sql.replace("{tmp}", d))
+                if not sql_plain(r["data"]):
+                    raise AssertionError(f"{name}: {sql}: a cell is not "
+                                         "plain")
+                json.dumps(r)
+                got.append((r["schema"], r["data"]))
+            except AssertionError:
+                raise
+            except Exception as e:   # APIError: compared by status
+                got.append((type(e).__name__, getattr(e, "status", None)))
+        with open(os.path.join(d, "dt.csv"), "rb") as fh:
+            out[name] = (got, fh.read())
+    for sql, a, b in zip(SQL_DIALECT, out["cuda"][0], out["cpu"][0]):
+        if a != b:
+            raise AssertionError(f"{sql}: cuda {a!r:.300} != cpu {b!r:.300}")
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError("COPY dt TO: the files differ")
+    return dict(statements=len(SQL_DIALECT),
+                errors=sum(1 for g in out["cuda"][0] if isinstance(g[0], str)))
+
+
+def sql_phase(holder, model: "WriteModel", reps: int) -> None:
+    """Phase 5e: SQL (featurebase_tpu_torch.sql.engine.execute_sql) over
+    the bench holder on the card.  (1) Each statement of SQL_PUSHDOWN
+    beside its PQL counterpart through API.query, each on a fresh API (so
+    both start from the same caches), the launch counters set to 0 just
+    before each and read just after: equal answers, the same kernels
+    launched, among them the kernels it is meant to; the numpy-held ones
+    (sql_oracle) equal to the model.  (2) SQL writes (sql_writes: 1,000
+    records inserted, two DELETEs), then the numpy-held statements again,
+    the first read after the writes beside the cached p50.  (3) The
+    dialect on the card and on the CPU (sql_dialect).  (4) The p50 of
+    SQL_TIMED through execute_sql and of their counterparts through
+    API.query, in turns (the difference is SQL's host cost: parse, plan,
+    shaping); then SQL_PUSHDOWN under the profiler."""
+    import shutil
+    import tempfile
+
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.sql.engine import execute_sql
+    from featurebase_tpu_torch.storage import residency
+    t_phase = time.perf_counter()
+    residency.residency().set_budget(0)
+    residency.reset()
+
+    def timed(fn) -> tuple:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def launched(fn) -> tuple:
+        ck.reset_launches()
+        out, ms = timed(fn)
+        return out, ck.launches(), ms
+
+    # (1) each statement beside its counterpart
+    want = sql_oracle(model)
+    per = {}
+    for sql, pql, shape, meant in SQL_PUSHDOWN:
+        got, l_sql, ms_sql = launched(
+            lambda: execute_sql(API(holder=holder), sql)["data"])
+        res, l_pql, ms_pql = launched(
+            lambda: API(holder=holder).query("bench", pql))
+        if shape(res) != got:
+            raise AssertionError(f"{sql}: {got!r:.300} != {pql} "
+                                 f"{shape(res)!r:.300}")
+        if not sql_plain(got):
+            raise AssertionError(f"{sql}: a cell is not plain")
+        json.dumps(got)
+        k_sql = sorted(k for k, n in l_sql.items() if n)
+        k_pql = sorted(k for k, n in l_pql.items() if n)
+        if k_sql != k_pql or not set(meant) <= set(k_sql):
+            raise AssertionError(f"{sql} launched {l_sql}; {pql} "
+                                 f"{l_pql}; meant {meant}")
+        if sql in want and got != want[sql]:
+            raise AssertionError(f"{sql}: {got!r:.300} != numpy "
+                                 f"{want[sql]!r:.300}")
+        per[sql] = dict(rows=len(got), kernels=k_sql,
+                        sql_launches={k: l_sql[k] for k in k_sql},
+                        pql_launches={k: l_pql[k] for k in k_pql},
+                        cold_sql_ms=ms_sql, cold_pql_ms=ms_pql)
+    say("sql_pushdown", nvidia_smi=card_line(), statements=per,
+        equal_to_pql=True, equal_to_numpy=sorted(want))
+
+    # (2) writes through SQL on a warm API, then the numpy-held reads
+    api = API(holder=holder)
+    for sql in want:
+        execute_sql(api, sql)
+    writes = sql_writes(model, np.random.default_rng(47),
+                        len(holder.index("bench").available_shards()), 1000)
+    write_ms = [timed(lambda: execute_sql(api, s))[1] for s in writes]
+    want = sql_oracle(model)
+    first, cached = {}, {}
+    for sql, rows_want in want.items():
+        got, first[sql] = timed(lambda: execute_sql(api, sql)["data"])
+        if got != rows_want:
+            raise AssertionError(f"{sql} after the writes: {got!r:.300} "
+                                 f"!= numpy {rows_want!r:.300}")
+        cached[sql] = float(np.median([timed(
+            lambda: execute_sql(api, sql))[1] for _ in range(5)]))
+    say("sql_writes", nvidia_smi=card_line(),
+        insert_ms=write_ms[0], delete_ids_ms=write_ms[1],
+        delete_filter_ms=write_ms[2], records=int(model.alive.sum()),
+        first_read_ms=first, cached_p50_ms=cached, equal_to_numpy=True)
+
+    # (3) the dialect, on the card and on the CPU
+    tmp = tempfile.mkdtemp(prefix="sql-dialect-",
+                           dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        dialect = sql_dialect(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say("sql_dialect", cuda_equal_to_cpu=True, **dialect)
+
+    # (4) SQL's host cost, and a profiled pass
+    p50 = {}
+    for sql, pql, _, _ in SQL_TIMED:
+        runs = [(timed(lambda: execute_sql(api, sql))[1],
+                 timed(lambda: api.query("bench", pql))[1])
+                for _ in range(reps)]
+        s, q = (float(np.median([r[i] for r in runs])) for i in (0, 1))
+        p50[sql] = dict(sql_p50_ms=s, pql_p50_ms=q, sql_host_ms=s - q,
+                        pql=pql)
+    say("sql_p50", nvidia_smi=card_line(), reps=reps, statements=p50)
+    queries = [s[0] for s in SQL_PUSHDOWN]
+
+    def run_ms(sql) -> float:
+        return timed(lambda: execute_sql(api, sql))[1]
+    latency = {q: float(np.median([run_ms(q) for _ in range(3)]))
+               for q in queries}
+    query_profile(queries, run_ms, latency, phase="sql_profile")
+    residency.residency().set_budget(0)
+    residency.reset()
+    say("sql_phase", seconds=time.perf_counter() - t_phase)
+
+
+def sql_alone(n_shards: int, reps: int) -> None:
+    """The sql phase by itself (--only sql): the table, unwritten, then
+    sql_phase."""
+    holder, gen = build_table(n_shards)
+    sql_phase(holder, WriteModel(gen), reps)
+
+
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
 # the forms of kernel H' are moments_kernel<fields, ...>.
 KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
@@ -3265,9 +3680,9 @@ def main() -> int:
     ap.add_argument("--log", help="also write every status line to this "
                     "file (the end of standard output may be all a remote "
                     "runner keeps)")
-    ap.add_argument("--only", choices=["api"], help="run one phase by "
-                    "itself after the card's line: the table, then the api "
-                    "phase (its kernels build at first use)")
+    ap.add_argument("--only", choices=["api", "sql"], help="run one phase "
+                    "by itself after the card's line: the table, then the "
+                    "api or the sql phase (its kernels build at first use)")
     args = ap.parse_args()
     if args.log:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)),
@@ -3286,8 +3701,9 @@ def main() -> int:
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
         max_sm_clock_mhz=max_sm_clock_hz() / 1e6, numpy=np.__version__,
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
-    if args.only == "api":
-        api_alone(args.shards, args.reps)
+    if args.only:
+        {"api": api_alone, "sql": sql_alone}[args.only](args.shards,
+                                                         args.reps)
         print(card)
         return 0
     t0 = time.perf_counter()

@@ -1,18 +1,26 @@
-"""SQL expression evaluation over one record's values (reference:
-sql3/planner expression evaluation).  ``eval_expr`` evaluates an expression
-against an env dict mapping bare and alias-qualified column names to
-values; Apply's per-record route runs it.
+"""SQL plan operators — a volcano-style operator tree over materialized row
+batches (reference: sql3/planner/op*.go 40+ operator files; we keep the same
+operator decomposition — PQLTableScan, Filter, NestedLoops, GroupBy,
+Projection, OrderBy, Top, Distinct, SystemTable — with batch-at-a-time
+execution since the heavy lifting already happened on-device in the PQL
+layer).
 
-Own copy of the expression half of featurebase_tpu/sql/ops.py; the plan
-operators come with the SQL planner (ROADMAP.md queue 1 item 10)."""
+Each operator's run() returns (schema, rows): schema is a list of
+(name, type) pairs; rows are Python lists.  Expression evaluation happens
+against an env dict mapping both bare and alias-qualified column names to
+values.
+
+Own copy of featurebase_tpu/sql/ops.py.
+"""
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
-from featurebase_tpu_torch.sql.ast import (AGGREGATES, Between, BinOp, Case, Col,
-                                     Expr, Func, InList, InSelect, IsNull,
-                                     Like, Lit, Star, UnOp)
+from featurebase_tpu_torch.sql.ast import (AGGREGATES, Between, BinOp,
+                                           Case, Col, Expr, Func, InList,
+                                           InSelect, IsNull, Like, Lit, Star,
+                                           UnOp)
 from featurebase_tpu_torch.sql.functions import call_function
 
 
@@ -223,3 +231,372 @@ def repr_expr(e: Expr) -> str:
     if isinstance(e, Like):
         return f"{repr_expr(e.expr)} like {e.pattern!r}"
     return type(e).__name__
+
+
+# -- operators ------------------------------------------------------------------
+
+Schema = List[Tuple[str, str]]
+Rows = List[list]
+
+
+class PlanOp:
+    def run(self) -> Tuple[Schema, Rows]:
+        raise NotImplementedError
+
+    def name(self) -> str:
+        return type(self).__name__
+
+    def children(self) -> List["PlanOp"]:
+        return []
+
+    def plan_json(self) -> dict:
+        """Plan graph for /sql-exec-graph parity (reference:
+        http_handler.go:538)."""
+        return {"op": self.name(),
+                "children": [c.plan_json() for c in self.children()]}
+
+
+class PlanOpStatic(PlanOp):
+    """Literal rows (SELECT without FROM; system responses)."""
+
+    def __init__(self, schema: Schema, rows: Rows):
+        self.schema = schema
+        self.rows = rows
+
+    def run(self):
+        return self.schema, self.rows
+
+
+class PlanOpFilter(PlanOp):
+    def __init__(self, child: PlanOp, pred: Expr):
+        self.child = child
+        self.pred = pred
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        out = []
+        for row in rows:
+            env = make_env(schema, row)
+            if _truthy(eval_expr(self.pred, env)):
+                out.append(row)
+        return schema, out
+
+
+class PlanOpNestedLoops(PlanOp):
+    """Inner / left join (reference: sql3/planner/opnestedloops.go).  Uses a
+    hash table on equality keys when the ON clause is a conjunction of
+    equality comparisons; degrades to full nested loops otherwise."""
+
+    def __init__(self, left: PlanOp, right: PlanOp, kind: str,
+                 on: Optional[Expr]):
+        self.left = left
+        self.right = right
+        self.kind = kind
+        self.on = on
+
+    def children(self):
+        return [self.left, self.right]
+
+    def run(self):
+        ls, lrows = self.left.run()
+        rs, rrows = self.right.run()
+        schema = ls + rs
+        out: Rows = []
+        null_right = [None] * len(rs)
+        for lrow in lrows:
+            matched = False
+            for rrow in rrows:
+                row = lrow + rrow
+                if self.on is None or _truthy(
+                        eval_expr(self.on, make_env(schema, row))):
+                    out.append(row)
+                    matched = True
+            if not matched and self.kind == "left":
+                out.append(lrow + null_right)
+        return schema, out
+
+
+class PlanOpDistinct(PlanOp):
+    def __init__(self, child: PlanOp):
+        self.child = child
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        seen = set()
+        out = []
+        for r in rows:
+            k = tuple(tuple(v) if isinstance(v, list) else v for v in r)
+            if k not in seen:
+                seen.add(k)
+                out.append(r)
+        return schema, out
+
+
+class PlanOpOrderBy(PlanOp):
+    def __init__(self, child: PlanOp, keys: List[Tuple[Callable, bool]]):
+        """keys: list of (key_fn(schema,row) -> value, desc)."""
+        self.child = child
+        self.keys = keys
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        for key_fn, desc in reversed(self.keys):
+            rows.sort(key=lambda r: _sort_key(key_fn(schema, r)),
+                      reverse=desc)
+        return schema, rows
+
+
+def _sort_key(v):
+    # None sorts first ascending (reference: SQL NULLS FIRST asc)
+    if v is None:
+        return (0, 0)
+    if isinstance(v, bool):
+        return (1, int(v))
+    if isinstance(v, (int, float)):
+        return (1, v)
+    if isinstance(v, list):
+        return (3, tuple(str(x) for x in v))
+    return (2, str(v))
+
+
+class PlanOpTop(PlanOp):
+    def __init__(self, child: PlanOp, limit: Optional[int], offset: int = 0):
+        self.child = child
+        self.limit = limit
+        self.offset = offset
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        if self.offset:
+            rows = rows[self.offset:]
+        if self.limit is not None:
+            rows = rows[: self.limit]
+        return schema, rows
+
+
+class PlanOpProjection(PlanOp):
+    def __init__(self, child: PlanOp, items: List[Tuple[str, str, Expr]]):
+        """items: (out_name, out_type, expr)."""
+        self.child = child
+        self.items = items
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        out_schema = [(n, t) for n, t, _ in self.items]
+        out = []
+        for row in rows:
+            env = make_env(schema, row)
+            out.append([eval_expr(e, env) for _, _, e in self.items])
+        return out_schema, out
+
+
+def make_env(schema: Schema, row: list) -> Dict[str, Any]:
+    env: Dict[str, Any] = {}
+    for (name, _), v in zip(schema, row):
+        env[name] = v
+    # bare-name fallback for qualified columns: first (leftmost) wins, the
+    # lax mode common engines use for unambiguous-enough references
+    for (name, _), v in zip(schema, row):
+        if "." in name:
+            env.setdefault(name.split(".", 1)[1], v)
+    return env
+
+
+class PlanOpGroupBy(PlanOp):
+    """Hash aggregation (general path; the PQL-pushdown fast path is a
+    separate operator built by the planner — reference: planoptimizer.go:661
+    GroupBy->PQLGroupBy when eligible)."""
+
+    def __init__(self, child: PlanOp, group_exprs: List[Expr],
+                 aggs: List[Func]):
+        self.child = child
+        self.group_exprs = group_exprs
+        self.aggs = aggs
+
+    def children(self):
+        return [self.child]
+
+    def run(self):
+        schema, rows = self.child.run()
+        groups: Dict[tuple, dict] = {}
+        order: List[tuple] = []
+        for row in rows:
+            env = make_env(schema, row)
+            key = tuple(_hashable(eval_expr(g, env))
+                        for g in self.group_exprs)
+            st = groups.get(key)
+            if st is None:
+                st = {"env": env,
+                      "acc": [AggAcc(a) for a in self.aggs]}
+                groups[key] = st
+                order.append(key)
+            for acc in st["acc"]:
+                acc.add(env)
+        out_schema = [(repr_expr(g), "") for g in self.group_exprs] + \
+            [(agg_slot_name(a), "") for a in self.aggs]
+        out_rows = []
+        for key in sorted(order, key=lambda k: tuple(_sort_key(x)
+                                                     for x in k)):
+            st = groups[key]
+            out_rows.append(list(key) + [acc.result() for acc in st["acc"]])
+        return out_schema, out_rows
+
+
+def _hashable(v):
+    return tuple(v) if isinstance(v, list) else v
+
+
+class AggAcc:
+    """One aggregate accumulator (reference: sql3/planner/expressionagg.go)."""
+
+    def __init__(self, f: Func):
+        self.f = f
+        self.kind = f.name
+        self.distinct = f.distinct
+        self.seen = set() if f.distinct else None
+        self.count = 0
+        self.sum = 0
+        self.min = None
+        self.max = None
+        self.values: List[Any] = []
+        # corr accumulators (reference: aggregateCorr sums,
+        # expressionagg.go:1027-1035)
+        self.sum_y = 0.0
+        self.sum_xy = 0.0
+        self.sq_x = 0.0
+        self.sq_y = 0.0
+
+    def add(self, env):
+        if self.kind == "corr":
+            if len(self.f.args) != 2:
+                raise SQLRuntimeError("corr() takes two arguments")
+            x = eval_expr(self.f.args[0], env)
+            y = eval_expr(self.f.args[1], env)
+            if x is None or y is None:
+                return
+            x, y = float(x), float(y)
+            self.count += 1
+            self.sum += x
+            self.sum_y += y
+            self.sum_xy += x * y
+            self.sq_x += x * x
+            self.sq_y += y * y
+            return
+        arg = self.f.args[0] if self.f.args else Star()
+        if isinstance(arg, Star):
+            v = 1
+        else:
+            v = eval_expr(arg, env)
+        if v is None or (isinstance(v, list) and not v):
+            return
+        if self.distinct:
+            k = _hashable(v)
+            if k in self.seen:
+                return
+            self.seen.add(k)
+        self.count += 1
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            self.sum += v
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+            if self.kind in ("percentile", "var", "corr"):
+                self.values.append(v)
+        elif self.kind in ("min", "max"):
+            self.min = v if self.min is None else min(self.min, v)
+            self.max = v if self.max is None else max(self.max, v)
+
+    def result(self):
+        if self.kind == "count":
+            return self.count
+        if self.kind == "sum":
+            return self.sum if self.count else None
+        if self.kind == "avg":
+            return self.sum / self.count if self.count else None
+        if self.kind == "min":
+            return self.min
+        if self.kind == "max":
+            return self.max
+        if self.kind == "percentile":
+            if not self.values:
+                return None
+            nth = float(eval_expr(self.f.args[1], {})) \
+                if len(self.f.args) > 1 else 50.0
+            return _pql_percentile(self.values, nth)
+        if self.kind == "var":
+            # population variance, 6dp (reference expressionagg.go:1183:
+            # variance/n, decimal scale 6)
+            if self.count == 0:
+                return None
+            mean = self.sum / self.count
+            return round(sum((x - mean) ** 2
+                             for x in self.values) / self.count, 6)
+        if self.kind == "corr":
+            n = self.count
+            if n == 0:
+                return None
+            num = n * self.sum_xy - self.sum * self.sum_y
+            den2 = (n * self.sq_x - self.sum * self.sum) * \
+                (n * self.sq_y - self.sum_y * self.sum_y)
+            if den2 <= 0:
+                return None  # zero variance: the reference yields NaN
+            import math
+            return round(num / math.sqrt(den2), 6)
+        raise SQLRuntimeError(f"unknown aggregate {self.kind}")
+
+
+def _pql_percentile(values, nth: float):
+    """Reference Percentile bisection over a value list (executor.go:1310)
+    — the same math as the engine's fused device program, so volcano
+    residual paths agree with PQL pushdown.  Integer values bisect
+    exactly (Go-truncating pivot arithmetic, executor.go:1497-1500);
+    float (decimal) values bisect in 1e-2-scaled integer space, matching
+    the engine's stored-unit arithmetic for DECIMAL(2)."""
+    scale = 1
+    if any(isinstance(v, float) and not float(v).is_integer()
+           for v in values):
+        scale = 100
+    vs = [round(v * scale) for v in values]
+    total = len(vs)
+    num0, den0 = float(nth).as_integer_ratio()
+    d100 = den0 * 100
+    desired_less = total * num0 // d100
+    desired_greater = total * (d100 - num0) // d100
+    mn, mx = min(vs), max(vs)
+    if desired_greater != 0 and desired_less == 0:
+        return mn / scale if scale > 1 else mn
+    if desired_greater == 0:
+        return mx / scale if scale > 1 else mx
+
+    def tdiv(a, b):
+        return -(-a // b) if (a < 0) != (b < 0) else a // b
+
+    lo, hi = mn, mx
+    possible = lo
+    while lo < hi:
+        possible = (tdiv(lo, 2) + tdiv(hi, 2)
+                    + tdiv(tdiv(lo, 2) * -2 + lo + tdiv(hi, 2) * -2 + hi, 2))
+        left = sum(1 for v in vs if v < possible)
+        if left > desired_less:
+            hi = possible - 1
+            continue
+        right = sum(1 for v in vs if v > possible)
+        if right > desired_greater:
+            lo = possible + 1
+            continue
+        break
+    return possible / scale if scale > 1 else possible

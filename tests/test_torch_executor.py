@@ -242,6 +242,10 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "import featurebase_tpu_torch.sql.ops\n"
         "import featurebase_tpu_torch.sql.parser\n"
         "import featurebase_tpu_torch.sql.vector\n"
+        "import featurebase_tpu_torch.sql.planner\n"
+        "import featurebase_tpu_torch.sql.engine\n"
+        "import featurebase_tpu_torch.sql.system_tables\n"
+        "import featurebase_tpu_torch.ingest.batch\n"
         "import featurebase_tpu_torch.utils.logger\n"
         "import featurebase_tpu_torch.utils.metrics\n"
         "import featurebase_tpu_torch.utils.monitor\n"
@@ -256,6 +260,9 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "api.create_index('i'); api.create_field('i', 'v', {'type': 'int'})\n"
         "api.import_values('i', 'v', [1, 2], [3, 4])\n"
         "assert api.query('i', 'Apply(All(), \"v + 1\", \"sum\")') == [[9]]\n"
+        "out = featurebase_tpu_torch.sql.engine.execute_sql(\n"
+        "    api, 'SELECT SUM(v), COUNT(*) FROM i WHERE v > 3')\n"
+        "assert out['data'] == [[4, 1]], out\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'featurebase_tpu' or m.startswith('featurebase_tpu.')]\n"
         "print(bad)\n"
