@@ -50,12 +50,26 @@ start at a base no other fragment shares, so a field or index deleted and
 created again never meets the old one's cache entries; the delete itself
 drops them (Index.delete_field, Holder.delete_index).
 
+On a mesh (``Executor(holder, mesh=...)``, parallel/mesh.py) the stacked
+entries are Sharded over the members, each member's kernel runs on its own
+block of shards, and every family merges the members' partials once
+(parallel/agg.py): Count, Sum, TopN, GroupBy, Rows and set-field Distinct
+through the agg programs (kernels A, B', C', E', F'); Min/Max, Percentile,
+Var/Corr, BSI Distinct, Sort and Extract with a launch a member of the
+kernel they use (D', I', H', G'' and G''') and an exact host merge (the
+families the JAX package runs through GSPMD).  Where the filter does not
+plan, a family takes its per-shard route on the executor's device, the
+mesh's first local member, as the JAX package does.  Results that need
+every member's block (bitmap rows, Extract) raise on a mesh that spans
+processes.
+
 Device rule: ``Executor(holder)`` runs on CUDA and raises when CUDA is
 unavailable; the CPU runs only when the caller asks for it with
-``device="cpu"`` (the tests do).
+``device="cpu"`` (the tests do), or with a mesh of CPU members.
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Any, Dict, List, Optional, Union
@@ -87,6 +101,7 @@ from featurebase_tpu_torch.ops import bitwise as bw
 from featurebase_tpu_torch.ops import bsi as bsiops
 from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.ops import decode
+from featurebase_tpu_torch.parallel import agg
 from featurebase_tpu_torch.parallel.agg import finalize_sum
 from featurebase_tpu_torch.pql.ast import WRITE_CALLS, Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
@@ -136,17 +151,28 @@ def _time_views(f: Field, call: Call) -> List[str]:
 
 
 def _fetch(parts: List[torch.Tensor]) -> List[np.ndarray]:
-    """Host copies of device tensors in one transfer (the per-shard loops
-    fetch once, after the loop)."""
-    if not parts:
-        return []
-    flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts])
-    host = flat.cpu().numpy()
-    out, at = [], 0
-    for p in parts:
-        out.append(host[at:at + p.numel()].reshape(p.shape))
-        at += p.numel()
+    """Host copies of device tensors in one transfer a device (the
+    per-shard loops fetch once, after the loop; a mesh's members may sit on
+    several cards)."""
+    out: List[Optional[np.ndarray]] = [None] * len(parts)
+    by_dev: Dict[torch.device, List[int]] = {}
+    for i, p in enumerate(parts):
+        by_dev.setdefault(p.device, []).append(i)
+    for idx in by_dev.values():
+        host = torch.cat([parts[i].reshape(-1).to(torch.int64)
+                          for i in idx]).cpu().numpy()
+        at = 0
+        for i in idx:
+            n = parts[i].numel()
+            out[i] = host[at:at + n].reshape(parts[i].shape)
+            at += n
     return out
+
+
+def _members(fn, *arrs) -> list:
+    """fn over the same local block of each Sharded array, a member at a
+    time (one launch a member)."""
+    return [fn(*blocks) for blocks in zip(*(a.blocks for a in arrs))]
 
 
 class Executor:
@@ -159,10 +185,16 @@ class Executor:
     GROUPBY_ONESHOT_MAX_COUNTS = 1 << 16
     GROUPBY_ONESHOT_MAX_MASK_BYTES = 64 << 20
 
-    def __init__(self, holder: Holder, device=None):
+    def __init__(self, holder: Holder, device=None, mesh=None):
         self.holder = holder
+        if mesh is not None and device is None:
+            device = mesh.local_devices[0]
         self.device = resolve_device(device)
-        self.plan_executor = PlanExecutor(holder, self.device)
+        self.plan_executor = PlanExecutor(holder, self.device, mesh=mesh)
+
+    @property
+    def mesh(self):
+        return self.plan_executor.mesh
 
     # ------------------------------------------------------------------ API
 
@@ -488,6 +520,9 @@ class Executor:
         plan = self._try_compile(index, call)
         if plan is not None and shard_list:
             stacked = self.plan_executor.run_bitmap(index, plan, shard_list)
+            if self.mesh is not None:
+                segs = stacked.rows(self.device)
+                return Row({s: segs[s] for s in shard_list})
             return Row({s: stacked[i] for i, s in enumerate(shard_list)})
         return Row({s: self._bitmap_call_shard(index, call, s)
                     for s in shard_list})
@@ -495,9 +530,9 @@ class Executor:
     def _mesh_filter(self, index: Index, filt_call: Optional[Call],
                      shards: List[int]) -> Optional[torch.Tensor]:
         """Stacked (S, W) filter words (the JAX package's mesh-aggregate
-        filter, here on one device): all ones with no filter, else the
-        plan-compiled filter in word mode; None when the filter is not
-        plannable (the caller goes per shard)."""
+        filter; on a mesh Sharded (S_pad, W), padding rows zero): all ones
+        with no filter, else the plan-compiled filter in word mode; None
+        when the filter is not plannable (the caller goes per shard)."""
         pe = self.plan_executor
         if filt_call is None:
             return pe.stacked_full(index, shards)
@@ -719,6 +754,11 @@ class Executor:
         if filt_call is None and isinstance(call.args.get("filter"), Call):
             filt_call = call.args["filter"]  # TopK's named filter arg
         view_names = _time_views(f, call)
+        if self.mesh is not None:
+            res = self._topn_mesh(index, f, fld, n, filt_call, view_names,
+                                  self._shards(index, shards))
+            if res is not None:
+                return res
 
         # unfiltered TopN serves per-shard counts from the field's rank
         # cache when fragment generations match (reference: cache.go:25)
@@ -743,6 +783,35 @@ class Executor:
             self._topn_count_shards(index, f, names, filt_call, missing,
                                     miss_gens, use_cache, counts)
         pairs = [Pair(id=rid, count=c) for rid, c in counts.items()]
+        pairs.sort(key=lambda p: (-p.count, p.id))
+        if n:
+            pairs = pairs[: int(n)]
+        return PairsField(pairs, fld)
+
+    def _topn_mesh(self, index: Index, f: Field, fld: str, n, filt_call,
+                   view_names: List[str], shard_list: List[int]
+                   ) -> Optional[PairsField]:
+        """Mesh TopN (JAX executor.py:1639): every candidate row counted
+        against the filter over every shard, kernel B' on each member's
+        block and one merge (replaces the coordinator's Pairs.Add merge,
+        executor.go:2831), with no rank cache.  None when the filter does
+        not plan."""
+        if not shard_list:
+            return PairsField([], fld)
+        filt = self._mesh_filter(index, filt_call, shard_list)
+        if filt is None:
+            return None
+        row_ids = sorted({int(r) for vn in view_names for s in shard_list
+                          if (vv := f.view(vn)) is not None
+                          and (fr := vv.fragment(s)) is not None
+                          for r in fr.row_ids()}
+                         | f.meta_rows(view_names))
+        if not row_ids:
+            return PairsField([], fld)
+        tiles = self.plan_executor.stacked_field_rows(
+            index, fld, tuple(view_names), tuple(row_ids), shard_list)
+        pc = agg.row_counts(self.mesh, tiles, filt).cpu().numpy()
+        pairs = [Pair(id=r, count=int(c)) for r, c in zip(row_ids, pc) if c]
         pairs.sort(key=lambda p: (-p.count, p.id))
         if n:
             pairs = pairs[: int(n)]
@@ -887,7 +956,11 @@ class Executor:
         if filt is not None:
             group = self.plan_executor.stacked_bsi(
                 index, f.name, max(f.bit_depth, 1), shard_list)
-            parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
+            if self.mesh is not None:
+                pp, nn, cnt = agg.sum_planes(self.mesh, group, filt)
+                parts = torch.cat([pp, nn, cnt.reshape(1)]).cpu().numpy()
+            else:
+                parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
         else:
             per_batch = [ck.bsi_sum_planes_sharded(g, fws) for _, g, fws in
                          self._shard_group_batches(index, f, filt_call,
@@ -919,7 +992,9 @@ class Executor:
         if filt is not None:
             group = self.plan_executor.stacked_bsi(
                 index, f.name, max(f.bit_depth, 1), shard_list)
-            parts = ck.bsi_min_max(group, filt, is_min).cpu().numpy()
+            parts = (agg.min_max_parts(self.mesh, group, filt, is_min)
+                     if self.mesh is not None else
+                     ck.bsi_min_max(group, filt, is_min)).cpu().numpy()
             if max(f.bit_depth, 1) <= 31:
                 v, c = bsiops.min_max_stacked_finish(parts, is_min)
                 if c == 0:
@@ -965,8 +1040,12 @@ class Executor:
             if filt_words is not None:
                 bsi = self.plan_executor.stacked_bsi(index, f.name, depth,
                                                      shard_list)
-                cnt, p, n_, sq = _fetch(list(ck.var_moments(bsi,
-                                                            filt_words)))
+                if self.mesh is not None:
+                    out = agg.moments(self.mesh, _members(
+                        ck.var_moments, bsi, filt_words))
+                else:
+                    out = list(ck.var_moments(bsi, filt_words))
+                cnt, p, n_, sq = _fetch(out)
                 return bsiops.finalize_var_moments(cnt, p, n_, sq, f.base)
         n, tot, tot_sq = 0, 0, 0.0
         for shard in shard_list:
@@ -1027,8 +1106,12 @@ class Executor:
                 pe = self.plan_executor
                 bx = pe.stacked_bsi(index, fx.name, dx, shard_list)
                 by = pe.stacked_bsi(index, fy.name, dy, shard_list)
-                (cnt, xp, xn, yp, yn, sqx, sqy, pp, pm, mp, mm) = _fetch(
-                    list(ck.corr_moments(bx, by, filt_words)))
+                if self.mesh is not None:
+                    out = agg.moments(self.mesh, _members(
+                        ck.corr_moments, bx, by, filt_words))
+                else:
+                    out = list(ck.corr_moments(bx, by, filt_words))
+                (cnt, xp, xn, yp, yn, sqx, sqy, pp, pm, mp, mm) = _fetch(out)
                 n = int(cnt)
                 _, _, txx = bsiops.finalize_var_moments(cnt, xp, xn, sqx,
                                                         fx.base)
@@ -1256,7 +1339,9 @@ class Executor:
             if tile_bytes <= self.ROWS_STACKED_MAX_BYTES:
                 tiles = self.plan_executor.stacked_field_rows(
                     index, fld, tuple(names), tuple(cand), shard_list)
-                counts = bw.stacked_row_counts(tiles).cpu().numpy()
+                counts = (agg.row_counts(self.mesh, tiles, None)
+                          if self.mesh is not None else
+                          bw.stacked_row_counts(tiles)).cpu().numpy()
                 rows_sorted = [r for r, c in zip(cand, counts) if c]
                 if limit is not None:
                     rows_sorted = rows_sorted[: int(limit)]
@@ -1315,7 +1400,11 @@ class Executor:
                            for rc in rows_calls]
         groups: Dict[tuple, List[int]] = {}  # key -> [count, agg]
         shard_list = self._shards(index, shards)
-        if not (self._group_by_stacked(index, shard_list, rows_calls,
+        if not ((self.mesh is not None
+                 and self._group_by_mesh(index, shard_list, rows_calls,
+                                         dim_rows_global, filt_call,
+                                         agg_kind, agg_field, groups))
+                or self._group_by_stacked(index, shard_list, rows_calls,
                                        dim_rows_global, filt_call, agg_kind,
                                        agg_field, groups)
                 or self._group_by_launch(index, shard_list, rows_calls,
@@ -1459,6 +1548,112 @@ class Executor:
         self._add_sums(groups, keys,
                        ck.bsi_sum_groups(bsi, masks.contiguous())
                        .cpu().numpy())
+        return True
+
+    def _group_by_mesh(self, index: Index, shard_list: List[int],
+                       rows_calls, dim_rows_global, filt_call, agg_kind,
+                       agg_field, groups) -> bool:
+        """Mesh GroupBy (JAX executor.py:1846): the one-shot product over
+        every shard when it fits the caps, else the level-wise frontier
+        expansion with each level's counts one kernel-E' launch a member
+        and one merge (replaces per-shard goroutines + mergeGroupCounts,
+        executor.go:8617,3728).  Returns False to go per shard (a filter
+        the plan compiler refuses)."""
+        if not shard_list:
+            return True
+        filt = self._mesh_filter(
+            index, filt_call if isinstance(filt_call, Call) else None,
+            shard_list)
+        if filt is None:
+            return False
+        if any(not grows for grows in dim_rows_global):
+            return True   # a dimension without rows: no groups
+        mesh, pe = self.mesh, self.plan_executor
+        dim_tiles = []
+        dim_rows: List[List[int]] = []
+        for rc, grows in zip(rows_calls, dim_rows_global):
+            fname = rc.args.get("_field") or rc.args.get("field")
+            dim_tiles.append(pe.stacked_field_rows(
+                index, fname, (VIEW_STANDARD,), tuple(grows), shard_list))
+            dim_rows.append([int(r) for r in grows])
+        if self._group_by_mesh_one_shot(dim_rows, dim_tiles, filt, agg_kind,
+                                        agg_field, index, shard_list, groups):
+            return True
+        counts = agg.row_counts(mesh, dim_tiles[0], filt).cpu().numpy()
+        keep = np.nonzero(counts)[0]
+        if keep.size == 0:
+            return True
+        prefixes: List[tuple] = [(dim_rows[0][i],) for i in keep]
+        counts = counts[keep]
+        masks = None
+        if len(dim_tiles) > 1 or agg_kind == "Sum":
+            masks = agg.take_rows(mesh, agg.mask_filter(mesh, dim_tiles[0],
+                                                        filt), keep)
+        for lvl in range(1, len(dim_tiles)):
+            pc = agg.pair_counts(mesh, masks, dim_tiles[lvl]).cpu().numpy()
+            fi, rj = np.nonzero(pc)
+            if fi.size == 0:
+                return True
+            counts = pc[fi, rj]
+            prefixes = [prefixes[i] + (dim_rows[lvl][j],)
+                        for i, j in zip(fi, rj)]
+            masks = agg.gather_and(mesh, masks, dim_tiles[lvl], fi, rj)
+        if agg_kind == "Sum" and agg_field is not None:
+            self._add_sums(groups, prefixes, self._mesh_group_sums(
+                index, masks, agg_field, shard_list))
+        else:
+            self._add_counts(groups, prefixes, counts)
+        return True
+
+    def _mesh_group_sums(self, index: Index, masks, agg_field: Field,
+                         shard_list: List[int]) -> np.ndarray:
+        """(G, 2D + 1) kernel-F' counters of each mask over the mesh (the
+        form _add_sums takes)."""
+        bsi = self.plan_executor.stacked_bsi(
+            index, agg_field.name, max(agg_field.bit_depth, 1), shard_list)
+        pp, nn, cnt = agg.group_sums(self.mesh, masks, bsi)
+        return torch.cat([pp, nn, cnt[:, None]], 1).cpu().numpy()
+
+    def _group_by_mesh_one_shot(self, dim_rows, dim_tiles, filt, agg_kind,
+                                agg_field, index: Index, shard_list,
+                                groups) -> bool:
+        """Every combination materialized shard-locally by static index
+        vectors and its counts or sums merged once (JAX executor.py:2085);
+        False when over the caps."""
+        mesh = self.mesh
+        n_combos = int(np.prod([len(rows) for rows in dim_rows]))
+        n_levels = len(dim_tiles)
+        w_bytes = WORDS_PER_ROW * 4   # a combination mask a shard
+
+        def expand_static(masks, lvl):
+            F, R = masks.blocks[0].shape[1], dim_tiles[lvl].blocks[0].shape[1]
+            return agg.gather_and(mesh, masks, dim_tiles[lvl],
+                                  np.repeat(np.arange(F), R),
+                                  np.tile(np.arange(R), F))
+        keys = itertools.product(*dim_rows)
+        if agg_kind != "Sum":
+            prefix = n_combos // len(dim_rows[-1]) if n_levels > 1 else 1
+            if (n_combos > self.GROUPBY_ONESHOT_MAX_COUNTS
+                    or prefix * w_bytes >
+                    self.GROUPBY_ONESHOT_MAX_MASK_BYTES):
+                return False
+            if n_levels == 1:
+                counts = agg.row_counts(mesh, dim_tiles[0], filt)
+            else:
+                masks = agg.mask_filter(mesh, dim_tiles[0], filt)
+                for lvl in range(1, n_levels - 1):
+                    masks = expand_static(masks, lvl)
+                counts = agg.pair_counts(mesh, masks, dim_tiles[-1])
+            self._add_counts(groups, keys, counts.reshape(-1).cpu().numpy())
+            return True
+        if agg_field is None or \
+                n_combos * w_bytes > self.GROUPBY_ONESHOT_MAX_MASK_BYTES:
+            return False
+        masks = agg.mask_filter(mesh, dim_tiles[0], filt)
+        for lvl in range(1, n_levels):
+            masks = expand_static(masks, lvl)
+        self._add_sums(groups, keys, self._mesh_group_sums(
+            index, masks, agg_field, shard_list))
         return True
 
     def _group_by_launch(self, index: Index, shard_list, rows_calls,
@@ -1720,6 +1915,15 @@ class Executor:
 
     # ------------------------------------------------------------ Distinct
 
+    def _gather_host(self, parts: List[np.ndarray]) -> List[np.ndarray]:
+        """Host arrays of every process of a mesh that spans processes, in
+        process order; `parts` itself otherwise."""
+        if self.mesh is None or self.mesh.group is None:
+            return parts
+        from featurebase_tpu_torch.parallel.multihost import \
+            all_gather_object
+        return [a for p in all_gather_object(self.mesh, parts) for a in p]
+
     def _shard_filter(self, index: Index, filt_call: Optional[Call],
                       shard: int) -> torch.Tensor:
         """One shard's (W,) filter words: all ones without a filter."""
@@ -1766,10 +1970,16 @@ class Executor:
         parts: List[np.ndarray] = []
         if filt is not None:
             pe = self.plan_executor
-            exists = pe.stacked_bsi(index, f.name, depth, shard_list)[:, 0]
+            bsi = pe.stacked_bsi(index, f.name, depth, shard_list)
             vals = pe.stacked_vals(index, f.name, depth, shard_list)
-            present = decode.expand_bits(exists & filt).bool()
-            parts = _fetch([torch.unique(vals[present])])
+
+            def uniq(g, v, fw):
+                return torch.unique(v[decode.expand_bits(g[:, 0] & fw).bool()])
+            if self.mesh is None:
+                parts = _fetch([uniq(bsi, vals, filt)])
+            else:   # a union of the members' values
+                parts = self._gather_host(_fetch(_members(uniq, bsi, vals,
+                                                          filt)))
         elif depth <= decode.DEVICE_MAX_DEPTH:
             dev_parts = []
             for _, groups, fws in self._shard_group_batches(
@@ -1810,12 +2020,15 @@ class Executor:
                 return Row.from_columns([])
             tile_bytes = len(row_ids) * len(shard_list) * WORDS_PER_ROW * 4
             filt = self._mesh_filter(index, filt_call, shard_list) \
-                if tile_bytes <= self.ROWS_STACKED_MAX_BYTES else None
+                if tile_bytes <= self.ROWS_STACKED_MAX_BYTES \
+                or self.mesh is not None else None
             if filt is not None:
                 tiles = self.plan_executor.stacked_field_rows(
                     index, f.name, (VIEW_STANDARD,), tuple(row_ids),
                     shard_list)
-                pc = bw.stacked_filtered_row_counts(tiles, filt)
+                pc = agg.row_counts(self.mesh, tiles, filt) \
+                    if self.mesh is not None else \
+                    bw.stacked_filtered_row_counts(tiles, filt)
                 return Row.from_columns(
                     [r for r, c in zip(row_ids, pc.cpu().numpy()) if c])
         # per shard: kernel B over every shard of each residency batch in one
@@ -1908,10 +2121,17 @@ class Executor:
                 index, filt if isinstance(filt, Call) else None, shard_list)
             if filt_words is not None:
                 pe = self.plan_executor
-                exists = pe.stacked_bsi(index, f.name, depth, shard_list)[:, 0]
+                bsi = pe.stacked_bsi(index, f.name, depth, shard_list)
                 vals = pe.stacked_vals(index, f.name, depth, shard_list)
+                counts = None
+                if self.mesh is None:
+                    exists = bsi[:, 0]
+                else:   # each round: kernel I' a member, the bins added
+                    exists = bsi.map(lambda g: g[:, 0])
+                    counts = functools.partial(agg.percentile_counts,
+                                               self.mesh)
                 val, cnt = decode.percentile(vals, exists, filt_words,
-                                             int(f.base), nth)
+                                             int(f.base), nth, counts)
                 if cnt == 0:
                     return None
                 return self._wrap_valcount(f, val, cnt)
@@ -1999,10 +2219,17 @@ class Executor:
         tops, runs = [], []   # (shards, device top-k); (shard, sorted run)
         if filt is not None:
             pe = self.plan_executor
-            tops.append((shard_list, self._sort_top(
-                pe.stacked_vals(index, fld, depth, shard_list),
-                pe.stacked_bsi(index, fld, depth, shard_list)[:, 0] & filt,
-                shard_list, cut, desc, cursor)))
+            vals = pe.stacked_vals(index, fld, depth, shard_list)
+            bsi = pe.stacked_bsi(index, fld, depth, shard_list)
+            if self.mesh is None:
+                tops.append((shard_list, self._sort_top(
+                    vals, bsi[:, 0] & filt, shard_list, cut, desc, cursor)))
+            else:   # each member's top of its block, merged below
+                for k, (v, g, fw) in enumerate(zip(
+                        vals.blocks, bsi.blocks, filt.blocks)):
+                    lay = vals.shards_of(k)
+                    tops.append((lay, self._sort_top(
+                        v, g[:, 0] & fw, lay, cut, desc, cursor)))
         elif depth <= decode.DEVICE_MAX_DEPTH:
             for live, groups, fws in self._shard_group_batches(
                     index, f, filt_call, shard_list, SORT_ROWS):
@@ -2054,6 +2281,9 @@ class Executor:
             if cols.size:
                 cols_parts.append(cols + shard * SHARD_WIDTH)
                 vals_parts.append(v)
+        if self.mesh is not None and filt is not None:
+            cols_parts = self._gather_host(cols_parts)
+            vals_parts = self._gather_host(vals_parts)
         return self._sort_merge(f, cols_parts, vals_parts, desc, offset,
                                 limit)
 
@@ -2067,7 +2297,7 @@ class Executor:
         filt = None
         if cursor is not None:
             col0 = torch.tensor(shards, dtype=torch.int64,
-                                device=self.device) * SHARD_WIDTH
+                                device=vals.device) * SHARD_WIDTH
             av = int(np.clip(cursor[0], -(2**31), 2**31 - 1))
             filt = decode.after_mask_stacked(vals, col0, av, cursor[1], desc)
         return decode.sort_stacked(vals, present, desc, cut, filt)
@@ -2119,9 +2349,10 @@ class Executor:
                    for f in flds]
         col_ids: list = []
         field_values: List[list] = [[] for _ in flds]
-        shard_cols = self._filter_columns(
-            index, filt_call, sorted(self._shards(index, shards)))
-        on_device = self._bsi_column_values(flds, shard_cols)
+        shard_list = sorted(self._shards(index, shards))
+        shard_cols = self._filter_columns(index, filt_call, shard_list)
+        on_device = self._bsi_column_values(index, flds, shard_cols,
+                                            shard_list)
         for shard, cols in shard_cols:
             for fi, f in enumerate(flds):
                 field_values[fi].extend(self._extract_field_values(
@@ -2164,7 +2395,10 @@ class Executor:
                          for s in shard_list}
         elif shard_list and filt_call.name != "All":
             stacked = self._mesh_filter(index, filt_call, shard_list)
-            if stacked is not None:
+            if stacked is not None and self.mesh is not None:
+                filt_rows = {s: host_words(w) for s, w in
+                             stacked.rows(torch.device("cpu")).items()}
+            elif stacked is not None:
                 arr = host_words(stacked)
                 filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
         shard_cols = []
@@ -2176,19 +2410,38 @@ class Executor:
                 shard_cols.append((shard, cols))
         return shard_cols
 
-    def _bsi_column_values(self, flds: List[Field], shard_cols
+    def _bsi_column_values(self, index: Index, flds: List[Field], shard_cols,
+                           shard_list: List[int]
                            ) -> Dict[int, Dict[int, tuple]]:
         """Kernel G''' values of each BSI field up to depth 31 at every
         shard's matched columns (shard_cols: (shard, columns) pairs): one
         launch per field and residency batch over the mirrors of the
         shards with data, one fetch for all -> {field index: {shard:
-        (values, null)}}; a shard without data is left out."""
+        (values, null)}}; a shard without data is left out.  On a mesh,
+        one launch per field and member over the rows of its block of the
+        stacked group (over `shard_list`, the query's shards) that have
+        matched columns."""
         shards = [s for s, _ in shard_cols]
         cols_of = dict(shard_cols)
         launches = []
         for fi, f in enumerate(flds):
             if not f.is_bsi() or \
                     max(f.bit_depth, 1) > decode.DEVICE_MAX_DEPTH:
+                continue
+            if self.mesh is not None:
+                if not shards:
+                    continue
+                bsi = self.plan_executor.stacked_bsi(
+                    index, f.name, max(f.bit_depth, 1), shard_list)
+                bsi.require_whole("Extract")
+                for k, block in enumerate(bsi.blocks):
+                    at = [(i, s) for i, s in enumerate(bsi.shards_of(k))
+                          if s in cols_of]
+                    if at:
+                        launches.append((fi, [s for _, s in at],
+                                         ck.bsi_decode_gather_sharded(
+                                             [block[i] for i, _ in at],
+                                             [cols_of[s] for _, s in at])))
                 continue
             for live, groups, _ in self._shard_group_batches(
                     None, f, None, shards):
@@ -2344,9 +2597,10 @@ class Executor:
             if not (f.is_bsi() or t == TYPE_BOOL or
                     (t == TYPE_MUTEX and not f.options.keys)):
                 return None
-        shard_cols = self._filter_columns(index, filt_call,
-                                          self._shards(index, shards))
-        on_device = self._bsi_column_values(flds, shard_cols)
+        shard_list = self._shards(index, shards)
+        shard_cols = self._filter_columns(index, filt_call, shard_list)
+        on_device = self._bsi_column_values(index, flds, shard_cols,
+                                            shard_list)
         n = sum(cols.size for _, cols in shard_cols)
         ids = np.concatenate([cols + shard * SHARD_WIDTH
                               for shard, cols in shard_cols]) \

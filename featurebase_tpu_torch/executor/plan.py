@@ -24,11 +24,21 @@ values (kernel G'', ``bsi_decode``) the same way, for Distinct, Percentile
 and Sort.  Each entry remembers the fragments it was gathered from: a
 deleted field, view or index drops the entries built from its fragments in
 every live plan executor (``drop_fragment_copies``).
+
+On a mesh (parallel/mesh.py; JAX plan.py:399-471) every stacked entry is a
+``Sharded`` array: the shard list is laid out over the members (padded to
+a whole block per member, or in the owner-placed order of
+parallel/placement.py when a policy is active), each local member's block
+is built from the host masters of its own shards only and uploaded to its
+device, and each block registers its bytes with the residency LRU (one
+budget over every registered byte, as in the JAX package).  A plan runs as
+one kernel-A launch per member on that member's block; a Count merges the
+members' counts (parallel/agg.py).
 """
 from __future__ import annotations
 
 import weakref
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +53,7 @@ from featurebase_tpu_torch.ops import bitwise as bw
 from featurebase_tpu_torch.ops import bsi_traced as bst
 from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.ops import lowering
+from featurebase_tpu_torch.parallel.mesh import Sharded
 from featurebase_tpu_torch.pql.ast import Call, Condition
 
 
@@ -297,33 +308,57 @@ def drop_fragment_copies(frag_ids) -> None:
 
 class PlanExecutor:
     """Gathers stacked leaves into generation-keyed device caches and runs
-    lowered plans with kernel A."""
+    lowered plans with kernel A, over one device or over a mesh (then every
+    stacked entry and every result is Sharded)."""
 
-    def __init__(self, holder, device: torch.device):
+    def __init__(self, holder, device: torch.device, mesh=None):
         self.holder = holder
         self.device = device
-        self._leaf_cache: Dict[tuple, Tuple[tuple, torch.Tensor]] = {}
+        self.mesh = mesh
+        self._leaf_cache: Dict[tuple, Tuple[tuple, Any]] = {}
         # the ids of the fragments each cached entry was gathered from
         self._leaf_frags: Dict[tuple, frozenset] = {}
         _EXECUTORS.add(self)
 
-    def _publish(self, key, gen, arr: torch.Tensor, frags):
-        """Cache an entry and register its bytes with the residency LRU."""
+    def _rkeys(self, key) -> List[tuple]:
+        """Residency keys of an entry: one, or one per local member block."""
+        if self.mesh is None:
+            return [("leaf", id(self), key)]
+        return [("leaf", id(self), key, m) for m in self.mesh.local]
+
+    def _publish(self, key, gen, arr, frags):
+        """Cache an entry and register its bytes (each member block's on a
+        mesh) with the residency LRU; evicting any block drops the entry
+        and the other blocks' registrations."""
         from featurebase_tpu_torch.storage.residency import residency
-        self._leaf_cache[key] = (gen, arr)
+        entry = (gen, arr)
+        self._leaf_cache[key] = entry
         self._leaf_frags[key] = frozenset(id(fr) for fr in frags
                                           if fr is not None)
+        rkeys = self._rkeys(key)
 
         def evict():
-            self._leaf_cache.pop(key, None)
-            self._leaf_frags.pop(key, None)
-        residency().add(("leaf", id(self), key), arr.numel() * 4, evict)
+            if self._leaf_cache.get(key) is entry:
+                self._leaf_cache.pop(key, None)
+                self._leaf_frags.pop(key, None)
+            for rk in rkeys:
+                residency().remove(rk)
+        blocks = arr.blocks if isinstance(arr, Sharded) else [arr]
+        for rk, b in zip(rkeys, blocks):
+            if self._leaf_cache.get(key) is not entry:
+                break    # an earlier block of it was evicted meanwhile
+            residency().add(rk, b.numel() * 4, evict)
+
+    def _touch(self, key) -> None:
+        from featurebase_tpu_torch.storage.residency import residency
+        for rk in self._rkeys(key):
+            residency().touch(rk)
 
     def built_from(self, frag_ids) -> List[tuple]:
         """Residency keys of the cached entries gathered from any of these
         fragments."""
-        return [("leaf", id(self), k) for k, ids in
-                list(self._leaf_frags.items()) if not ids.isdisjoint(frag_ids)]
+        return [rk for k, ids in list(self._leaf_frags.items())
+                if not ids.isdisjoint(frag_ids) for rk in self._rkeys(k)]
 
     def drop_built_from(self, frag_ids) -> None:
         from featurebase_tpu_torch.storage.residency import residency
@@ -331,6 +366,21 @@ class PlanExecutor:
             residency().remove(rkey)
             self._leaf_cache.pop(rkey[2], None)
             self._leaf_frags.pop(rkey[2], None)
+
+    def layout(self, index_name: str, shards: List[int]) -> List[int]:
+        """The shard list in mesh row order: each process's owned shards at
+        its member blocks, padded with -1, when a placement policy is
+        active (parallel/placement.py layout; JAX executor.py:845-857),
+        else the list padded with -1 to a whole block per member
+        (S_pad = S + (-S) % n, JAX plan.py:464-471).  The list itself
+        without a mesh.  A list laid out already comes back unchanged."""
+        if self.mesh is None:
+            return list(shards)
+        real = [int(s) for s in shards if s >= 0]
+        from featurebase_tpu_torch.parallel import placement
+        if placement.active():
+            return placement.layout(index_name, real, self.mesh.size)
+        return self.mesh.layout(real)
 
     # -- leaf gathering -----------------------------------------------------
 
@@ -363,14 +413,14 @@ class PlanExecutor:
             def fill_const(si, out):
                 if rows[si] is not None:
                     out[:] = host_words(rows[si])
-            return self._put_lazy((S, WORDS_PER_ROW), fill_const)
+            return self._put_lazy((S, WORDS_PER_ROW), fill_const, shards)
         if leaf.kind == "full":
             def fill_full(si, out):
                 out[:] = ~np.uint32(0)
             # constant content: cached with an empty generation, so an
             # unfiltered aggregate uploads its all-ones filter once
             return self._cached_stack(("full", tuple(shards)), (), (),
-                                      (S, WORDS_PER_ROW), fill_full)
+                                      (S, WORDS_PER_ROW), fill_full, shards)
         if leaf.kind == "existence":
             ef = index.existence_field()
             if ef is None:
@@ -382,7 +432,8 @@ class PlanExecutor:
                 if frags[si] is not None:
                     out[:] = frags[si].host_row(0)
             return self._cached_stack(("ex", index.name, tuple(shards)), gen,
-                                      frags, (S, WORDS_PER_ROW), fill_ex)
+                                      frags, (S, WORDS_PER_ROW), fill_ex,
+                                      shards)
         if leaf.kind == "row":
             f = index.field(leaf.field)
             frag_sets = [[self._frag(f, vn, s) for vn in leaf.views]
@@ -397,7 +448,7 @@ class PlanExecutor:
             ck_ = ("row", index.name, leaf.field, leaf.views, leaf.row,
                    tuple(shards))
             return self._cached_stack(ck_, gen, flat, (S, WORDS_PER_ROW),
-                                      fill_row)
+                                      fill_row, shards)
         if leaf.kind == "bsi":
             f = index.field(leaf.field)
             frags = [self._frag(f, view_bsi_group(leaf.field), s)
@@ -415,12 +466,16 @@ class PlanExecutor:
                     out[2 + d] = fr.host_row(BSI_OFFSET + d)
             return self._cached_stack(
                 ("bsi", index.name, leaf.field, D, tuple(shards)), gen, frags,
-                (S, D + 2, WORDS_PER_ROW), fill_bsi)
+                (S, D + 2, WORDS_PER_ROW), fill_bsi, shards)
         raise PlanError(f"bad leaf kind {leaf.kind}")
 
-    def _put_lazy(self, shape, fill_shard) -> torch.Tensor:
+    def _put_lazy(self, shape, fill_shard, shards: List[int]):
         """Build a stacked (S, ...) tensor shard by shard in a host buffer
-        (pinned when the device is a GPU) and upload it."""
+        (pinned when the device is a GPU) and upload it; on a mesh, only
+        this process's member blocks of the laid-out list `shards`, each to
+        its member's device (Mesh.put_lazy; JAX plan.py:416)."""
+        if self.mesh is not None:
+            return self.mesh.put_lazy(shape, fill_shard, shards)
         buf = torch.zeros(shape, dtype=torch.int32,
                           pin_memory=self.device.type == "cuda")
         host = buf.numpy().view(np.uint32)
@@ -428,20 +483,18 @@ class PlanExecutor:
             fill_shard(si, host[si])
         return buf.to(self.device, non_blocking=True)
 
-    def _cached_stack(self, key, gen, frags, shape, fill_shard
-                      ) -> torch.Tensor:
+    def _cached_stack(self, key, gen, frags, shape, fill_shard, shards):
         """Generation-keyed stacked-leaf cache whose entries the residency
         LRU manages (evicted under memory pressure, rebuilt from the host
         masters on next use).  A pinned read whose pin has diverged from the
         live fragments gathers uncached and registers nothing."""
-        from featurebase_tpu_torch.storage.residency import residency
         if self._pin_diverged(frags):
-            return self._put_lazy(shape, fill_shard)
+            return self._put_lazy(shape, fill_shard, shards)
         hit = self._leaf_cache.get(key)
         if hit is not None and hit[0] == gen:
-            residency().touch(("leaf", id(self), key))
+            self._touch(key)
             return hit[1]
-        arr = self._put_lazy(shape, fill_shard)
+        arr = self._put_lazy(shape, fill_shard, shards)
         self._publish(key, gen, arr, frags)
         return arr
 
@@ -450,7 +503,8 @@ class PlanExecutor:
                            shards: List[int]) -> torch.Tensor:
         """(S, R, W) stacked tile of the given row ids across shards (views
         OR-ed, absent rows zero).  Backs TopN (reference: each shard's
-        fragment.rows read, executor.go:4077)."""
+        fragment.rows read, executor.go:4077).  Sharded on a mesh."""
+        shards = self.layout(index.name, shards)
         f = index.field(fname)
         frag_sets = [[self._frag(f, vn, s) for vn in views] for s in shards]
         flat = [fr for frs in frag_sets for fr in frs]
@@ -465,14 +519,16 @@ class PlanExecutor:
                         np.bitwise_or(out[ri], fr.host_row(r), out=out[ri])
         return self._cached_stack(
             ("rowset", index.name, fname, views, row_ids, tuple(shards)), gen,
-            flat, (len(shards), len(row_ids), WORDS_PER_ROW), fill_rowset)
+            flat, (len(shards), len(row_ids), WORDS_PER_ROW), fill_rowset,
+            shards)
 
     def stacked_bsi(self, index: Index, fname: str, depth: int,
                     shards: List[int]) -> torch.Tensor:
         """(S, depth + 2, W) stacked BSI group: the same cached leaf that
-        Count's range predicates read."""
+        Count's range predicates read (Sharded on a mesh)."""
         return self._gather_leaf(index, _Leaf("bsi", field=fname,
-                                              depth=depth), shards)
+                                              depth=depth),
+                                 self.layout(index.name, shards))
 
     def stacked_vals(self, index: Index, fname: str, depth: int,
                      shards: List[int]) -> torch.Tensor:
@@ -482,45 +538,66 @@ class PlanExecutor:
         registered with the residency LRU (JAX plan.py:512).  Under a pin
         that has diverged from the live fragments the decode is returned
         without being published."""
-        from featurebase_tpu_torch.storage.residency import residency
+        shards = self.layout(index.name, shards)
         f = index.field(fname)
         frags = [self._frag(f, view_bsi_group(fname), s) for s in shards]
         gen = tuple(fr.generation if fr else -1 for fr in frags)
         key = ("vals", index.name, fname, depth, tuple(shards))
-        rkey = ("leaf", id(self), key)
         diverged = self._pin_diverged(frags)
         hit = self._leaf_cache.get(key)
         if not diverged and hit is not None and hit[0] == gen:
-            residency().touch(rkey)
+            self._touch(key)
             return hit[1]
-        arr = ck.bsi_decode(self.stacked_bsi(index, fname, depth, shards))
+        bsi = self.stacked_bsi(index, fname, depth, shards)
+        arr = bsi.map(ck.bsi_decode) if isinstance(bsi, Sharded) else \
+            ck.bsi_decode(bsi)
         if not diverged:
             self._publish(key, gen, arr, frags)
         return arr
 
-    def stacked_full(self, index: Index, shards: List[int]) -> torch.Tensor:
-        """(S, W) all-ones filter."""
-        return self._gather_leaf(index, _Leaf("full"), shards)
+    def stacked_full(self, index: Index, shards: List[int]):
+        """(S, W) all-ones filter (zero on a mesh's padding rows)."""
+        return self._gather_leaf(index, _Leaf("full"),
+                                 self.layout(index.name, shards))
 
     # -- plan execution -----------------------------------------------------
 
     def _run(self, index: Index, plan: BitmapPlan, shards: List[int],
              want_words: bool, want_counts: bool):
+        """(words, counts) of kernel A over the stacked leaves; on a mesh
+        (a list of them, one launch per local member on its block, and the
+        layout)."""
+        shards = self.layout(index.name, shards)
         leaves = [self._gather_leaf(index, l, shards) for l in plan.leaves]
 
         def words(prog: ck.Program) -> torch.Tensor:
             return ck.plan_eval(prog, want_words=True)[0]
-        prog = lower_ir(plan.ir, leaves, plan.params, len(shards), words)
-        return ck.plan_eval(prog, want_words, want_counts)
+        if self.mesh is None:
+            prog = lower_ir(plan.ir, leaves, plan.params, len(shards), words)
+            return ck.plan_eval(prog, want_words, want_counts)
+        B = len(shards) // self.mesh.size
+        return [ck.plan_eval(lower_ir(plan.ir, [l.blocks[k] for l in leaves],
+                                      plan.params, B, words),
+                             want_words, want_counts)
+                for k in range(len(self.mesh.local))], shards
 
-    def run_bitmap(self, index: Index, plan: BitmapPlan, shards: List[int]
-                   ) -> torch.Tensor:
-        """Stacked (S, W) int32 result words."""
-        words, _ = self._run(index, plan, shards, True, False)
-        return words
+    def run_bitmap(self, index: Index, plan: BitmapPlan, shards: List[int]):
+        """Stacked (S, W) int32 result words; on a mesh the Sharded
+        (S_pad, W) words, padding rows zero (JAX plan.py's run_bitmap and
+        run_words_padded in one)."""
+        if self.mesh is None:
+            words, _ = self._run(index, plan, shards, True, False)
+            return words
+        outs, lay = self._run(index, plan, shards, True, False)
+        return Sharded(self.mesh, lay, [w for w, _ in outs])
 
     def run_count(self, index: Index, plan: BitmapPlan, shards: List[int]
                   ) -> int:
-        """Fused plan + popcount: the result words never reach HBM."""
-        _, counts = self._run(index, plan, shards, False, True)
-        return int(counts.sum())
+        """Fused plan + popcount: the result words never reach HBM.  On a
+        mesh one kernel-A launch per member, then total_count's merge."""
+        if self.mesh is None:
+            _, counts = self._run(index, plan, shards, False, True)
+            return int(counts.sum())
+        from featurebase_tpu_torch.parallel import agg
+        outs, _ = self._run(index, plan, shards, False, True)
+        return int(agg._psum(self.mesh, [c.sum() for _, c in outs]))

@@ -4,10 +4,11 @@ Own copy of featurebase_tpu/model/field.py trimmed to what the port's slice
 uses: options and their schema document, value encoding and decoding,
 views (deleted with their device copies, and by the TTL), point writes (a
 bit or a value, set or cleared) and bulk writes, the TopN rank cache, the
-per-shard BSI group on the fragment mirror, and one column's value or a
-shard's values decoded on the host.  The JAX package's placement gate
-(``_writable``/``note_shard``, the multi-process mesh) is not part of the
-port: every write lands here.  Mirrors
+per-shard BSI group on the fragment mirror, one column's value or a
+shard's values decoded on the host, and the placement gate of a mesh that
+spans processes (``_writable``/``note_shard``, parallel/placement.py): a
+write for a shard this process does not own keeps the shard and row ids
+as metadata and drops the payload.  Mirrors
 reference field.go:73 (Field), field types field.go:42-50 and the
 bsiGroup value encoding (field.go:2394 bsiGroup, 2412 baseValue).
 
@@ -127,6 +128,13 @@ class Field:
         # (reference: cache.go:25 rankCache; exact counts per shard keyed by
         # fragment generation, honoring cache_type/cache_size)
         self._topn_cache: Dict = {}
+        # owner-placed host masters (parallel/placement.py): shards seen in
+        # gated (unowned) writes and row-id metadata per view, so that every
+        # process agrees on the global shard set and candidate row ids
+        # without holding the data (reference: shard metadata lives in etcd
+        # via Sharder, disco/disco.go:113)
+        self._known_shards: set = set()
+        self._meta_rows: Dict[str, set] = {}
         # dynamic bit depth for BSI fields (grows with observed magnitudes)
         self.bit_depth = self._initial_depth() if self.is_bsi() else 0
         # base for value encoding (reference field.go:2412 baseValue)
@@ -205,7 +213,7 @@ class Field:
         return self.create_view_if_not_exists(VIEW_STANDARD)
 
     def available_shards(self) -> List[int]:
-        shards = set()
+        shards = set(self._known_shards)
         for v in self.views.values():
             shards.update(v.available_shards())
         return sorted(shards)
@@ -232,12 +240,61 @@ class Field:
             self.release_device(name)
             self.views.pop(name, None)
 
+    # -- owner placement (a mesh over processes; parallel/placement.py) -----
+
+    def _writable(self, shard: int) -> bool:
+        """False when an ownership policy is active and this process does
+        not own the shard: the caller records metadata and drops the
+        payload (reference: a computer only loads directive-assigned
+        shards, api_directive.go:559)."""
+        from featurebase_tpu_torch.parallel import placement
+        if not placement.active() or placement.owns(self.index, int(shard)):
+            return True
+        self._known_shards.add(int(shard))
+        return False
+
+    def note_shard(self, view_name: str, shard: int, rows) -> None:
+        """Record shard and row-id metadata without data (gated writes)."""
+        self._known_shards.add(int(shard))
+        self._meta_rows.setdefault(view_name, set()).update(
+            int(r) for r in rows)
+
+    def _meta_note(self, view_name: str, rows) -> None:
+        """Row-id metadata for owned writes too, only while a placement
+        policy is active (every process sees the same write stream, so the
+        union agrees globally)."""
+        from featurebase_tpu_torch.parallel import placement
+        if placement.active():
+            self._meta_rows.setdefault(view_name, set()).update(
+                int(r) for r in rows)
+
+    def meta_rows(self, view_names) -> set:
+        """Globally agreed candidate row ids of the views (empty unless an
+        ownership policy is active); may include rows whose bits were since
+        cleared, as Fragment.row_ids may."""
+        from featurebase_tpu_torch.parallel import placement
+        if not placement.active():
+            return set()
+        out: set = set()
+        for vn in view_names:
+            out |= self._meta_rows.get(vn, set())
+        return out
+
     # -- bit-level writes (set/mutex/bool/time) -----------------------------
 
     def set_bit(self, row: int, col: int, timestamp=None) -> bool:
         """Reference field.SetBit field.go:1301."""
         o = self.options
         shard = col >> 20
+        self._meta_note(VIEW_STANDARD, (row,))
+        if not self._writable(shard):
+            vns = [VIEW_STANDARD]
+            if o.type == TYPE_TIME and timestamp is not None:
+                vns += views_by_time(VIEW_STANDARD, parse_time(timestamp),
+                                     o.time_quantum)
+            for vn in vns:
+                self.note_shard(vn, shard, (row,))
+            return False
         if o.type in (TYPE_MUTEX, TYPE_BOOL):
             self._clear_mutex_col(col, keep_row=row)
         if o.type == TYPE_TIME:
@@ -248,6 +305,7 @@ class Field:
                                            o.time_quantum))
             changed = False
             for vn in views:
+                self._meta_note(vn, (row,))
                 frag = self.create_view_if_not_exists(vn) \
                     .create_fragment_if_not_exists(shard)
                 if frag.set_bit(row, col):
@@ -339,8 +397,12 @@ class Field:
         The depth grows to the value's magnitude."""
         stored = self.encode_value(value) - self.base
         self._check_value_range(stored + self.base)
-        frag = self.bsi_view().create_fragment_if_not_exists(col >> 20)
         mag = abs(stored)
+        if not self._writable(col >> 20):
+            self.note_shard(view_bsi_group(self.name), col >> 20, ())
+            self.bit_depth = max(self.bit_depth, mag.bit_length(), 1)
+            return False
+        frag = self.bsi_view().create_fragment_if_not_exists(col >> 20)
         depth = max(self.bit_depth, mag.bit_length(), 1)
         self.bit_depth = depth
         changed = frag.set_bit(BSI_EXISTS_ROW, col)
@@ -377,6 +439,15 @@ class Field:
         o = self.options
         for s, m in _by_shard(cols):
             r, c = rows[m], cols[m] % SHARD_WIDTH
+            self._meta_note(VIEW_STANDARD, np.unique(r))
+            if not self._writable(s):
+                self.note_shard(VIEW_STANDARD, s, np.unique(r))
+                if o.type == TYPE_TIME and timestamps is not None:
+                    for t in np.asarray(timestamps)[m]:
+                        for vn in views_by_time(VIEW_STANDARD, parse_time(t),
+                                                o.time_quantum):
+                            self.note_shard(vn, s, np.unique(r))
+                continue
             frag = self.standard_view().create_fragment_if_not_exists(s)
             if o.type in (TYPE_MUTEX, TYPE_BOOL) and not clear:
                 # clear the imported columns across all rows first
@@ -443,6 +514,9 @@ class Field:
                     int(mags.max()).bit_length() if mags.size else 1, 1)
         self.bit_depth = depth
         for s, m in _by_shard(cols):
+            if not self._writable(s):
+                self.note_shard(view_bsi_group(self.name), s, ())
+                continue
             frag = self.bsi_view().create_fragment_if_not_exists(s)
             delta = self._bsi_delta(cols[m] % SHARD_WIDTH, stored[m],
                                     mags[m].astype(np.uint64), depth)
@@ -497,12 +571,6 @@ class Field:
                            for i in range(depth)])
         vals = decode_values_host(slices, frag.host_row(BSI_SIGN_ROW), depth)
         return vals, expand_bits_host(frag.host_row(BSI_EXISTS_ROW))
-
-    def meta_rows(self, view_names) -> set:
-        """Globally agreed candidate row ids of the views: empty, since the
-        port has no placement policy (the reference returns the empty set
-        unless one is active, featurebase_tpu/model/field.py:248)."""
-        return set()
 
     # -- views for a time range --------------------------------------------
 

@@ -4,7 +4,9 @@ Own copy of featurebase_tpu/server/api.py (reference: api.go:45 API; Query
 :209, CreateIndex :254, CreateField :372, Import :1438, ImportValue :1771,
 schema.go): the entry point of the HTTP and gRPC handlers, ingest and the
 SQL engine.  ``API(...)`` runs its Executor on CUDA unless the caller
-passes ``device="cpu"``, and raises without CUDA.
+passes ``device="cpu"``, and raises without CUDA; ``API(mesh=...)`` runs it
+over a mesh of members (parallel/mesh.py), on the mesh's first local
+member unless `device` names another.
 
 Durability is the JAX package's, in its formats: with ``data_dir`` every
 mutation is appended to a WAL (storage/wal.py) before it is applied,
@@ -13,9 +15,9 @@ log, and ``checkpoint()`` cuts a new snapshot and truncates the log.  A WAL
 or a snapshot written by either package's API loads in the other's.
 
 Not ported yet, and raising NotImplementedError that names its item of
-ROADMAP.md queue 1: the mesh (``mesh=``, item 11) and the cluster
-(``cluster=``, the control plane, key replication, remote queries, shard
-snapshots and restore, resync: item 14); roaring import and export
+ROADMAP.md queue 1: the cluster (``cluster=``, the control plane, key
+replication, remote queries, shard snapshots and restore, resync: item
+14); roaring import and export
 (item 13); WAL entries of those kinds (``roaring``, ``schema_log``,
 ``schema_term``), which a replay counts as failed entries.
 """
@@ -40,7 +42,7 @@ class APIError(Exception):
 
 
 def _not_ported(item: int, what: str):
-    area = {11: "the mesh", 13: "ingest", 14: "the cluster"}[item]
+    area = {13: "ingest", 14: "the cluster"}[item]
     return NotImplementedError(
         f"{what} needs {area}, which featurebase_tpu_torch does not run yet "
         f"(ROADMAP.md queue 1 item {item})")
@@ -69,8 +71,6 @@ class API:
                                                          ErrorMonitor)
         from featurebase_tpu_torch.utils.tracker import (QueryTracker,
                                                          TransactionStore)
-        if mesh is not None:
-            raise _not_ported(11, "API(mesh=)")
         if cluster is not None:
             raise _not_ported(14, "API(cluster=)")
         self.data_dir = data_dir
@@ -94,12 +94,12 @@ class API:
             holder = snap.load(snap_dir, idalloc=self.idalloc) \
                 if os.path.isdir(snap_dir) else (holder or Holder(path))
             self.holder = holder
-            self.executor = Executor(self.holder, device=device)
+            self.executor = Executor(self.holder, device=device, mesh=mesh)
             self.wal = WAL(os.path.join(data_dir, "wal.jsonl"))
             self._replay_wal()
         else:
             self.holder = holder or Holder(path)
-            self.executor = Executor(self.holder, device=device)
+            self.executor = Executor(self.holder, device=device, mesh=mesh)
 
     # -- durability ---------------------------------------------------------
 
@@ -683,21 +683,25 @@ class API:
         return out
 
     def status(self) -> dict:
-        """Node state, indexes, the executor's torch device (with the
-        card's name on CUDA) and the shard width."""
-        dev = self.executor.device
-        name = str(dev)
-        if dev.type == "cuda":
-            import torch
-            name = f"{dev} {torch.cuda.get_device_name(dev)}"
+        """Node state, indexes, the executor's torch device, or on a mesh
+        each of its members in mesh order (with the card's name on CUDA),
+        and the shard width."""
+        mesh = self.executor.mesh
+        devs = mesh.members if mesh is not None else [self.executor.device]
+
+        def name(dev) -> str:
+            if dev.type == "cuda":
+                import torch
+                return f"{dev} {torch.cuda.get_device_name(dev)}"
+            return str(dev)
         return {"state": "NORMAL",
                 "indexes": sorted(self.holder.indexes),
-                "devices": [name],
+                "devices": [name(d) for d in devs],
                 "shardWidth": 1 << 20}
 
 
-# The JAX API's methods that need the cluster, ingest's roaring codec or
-# the mesh: each raises, naming its ROADMAP.md queue 1 item.
+# The JAX API's methods that need the cluster or ingest's roaring codec:
+# each raises, naming its ROADMAP.md queue 1 item.
 def _raising(item: int, name: str):
     def method(self, *args, **kwargs):
         raise _not_ported(item, f"API.{name}")

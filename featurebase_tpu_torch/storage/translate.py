@@ -72,6 +72,19 @@ def shard_to_shard_partition(index: str, shard: int,
     return fnv64a(index.encode() + shard.to_bytes(8, "big")) % partition_n
 
 
+def jump_hash(key: int, n_buckets: int) -> int:
+    """Google jump consistent hash (reference: disco/hasher.go:16): the
+    owner of a partition among n_buckets, moving only 1/n of the keys when
+    a bucket is added."""
+    b, j = -1, 0
+    key &= _MASK64
+    while j < n_buckets:
+        b = j
+        key = (key * 2862933555777941757 + 1) & _MASK64
+        j = int(float(b + 1) * (float(1 << 31) / float((key >> 33) + 1)))
+    return b
+
+
 class TranslatePartition:
     """One key partition's bidirectional map."""
 

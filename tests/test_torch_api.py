@@ -443,15 +443,24 @@ def test_status_and_fragments_info_keys(corpus):
 
 
 def test_device_rule():
-    """API() runs on CUDA and raises without it; mesh= and cluster= name
-    the items of ROADMAP.md that port them."""
+    """API() runs on CUDA and raises without it; API(mesh=) runs over the
+    mesh's members (make_mesh() wants CUDA too); cluster= names the item of
+    ROADMAP.md that ports it."""
+    from featurebase_tpu_torch.parallel.mesh import make_mesh
     if torch.cuda.is_available():
         assert API().executor.device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             API()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        API(device="cpu", mesh=object())
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make_mesh()
+    mapi = API(mesh=make_mesh(devices=["cpu"] * 2))
+    assert mapi.executor.mesh.size == 2
+    assert mapi.status()["devices"] == ["cpu", "cpu"]
+    mapi.create_index("i")
+    mapi.create_field("i", "f")
+    mapi.import_bits("i", "f", [1, 1, 2], [1, 5 << 20, 3])
+    assert mapi.query("i", "Count(Row(f=1))") == [2]
     with pytest.raises(NotImplementedError, match="item 14"):
         API(device="cpu", cluster=object())
     api = API(device="cpu")

@@ -256,6 +256,16 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "import featurebase_tpu_torch.cluster.wire\n"
         "import featurebase_tpu_torch.model.dataframe\n"
         "import featurebase_tpu_torch.ingest.idalloc\n"
+        "import featurebase_tpu_torch.parallel.mesh\n"
+        "import featurebase_tpu_torch.parallel.multihost\n"
+        "import featurebase_tpu_torch.parallel.placement\n"
+        "import featurebase_tpu_torch.parallel.agg\n"
+        "import featurebase_tpu_torch.parallel.dryrun\n"
+        "mesh = featurebase_tpu_torch.parallel.mesh.make_mesh(\n"
+        "    devices=['cpu'])\n"
+        "ex = featurebase_tpu_torch.executor.executor.Executor(\n"
+        "    featurebase_tpu_torch.model.index.Holder(), mesh=mesh)\n"
+        "assert ex.mesh.size == 1 and ex.device.type == 'cpu'\n"
         "api = featurebase_tpu_torch.server.api.API(device='cpu')\n"
         "api.create_index('i'); api.create_field('i', 'v', {'type': 'int'})\n"
         "api.import_values('i', 'v', [1, 2], [3, 4])\n"
