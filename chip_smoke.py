@@ -100,7 +100,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      union, one sharded G'' launch each, and Extract of the
      records with v == 42, one G''' launch over every shard), and every
      answer that no exact oracle holds (Var and Corr are held within a
-     tolerance) equal to a CPU executor's over the same Holder; every
+     tolerance) equal to a CPU executor's over the same table (a worker
+     process, CPUWorker, started before the builds, builds the table again
+     and computes the oracles and the CPU answers on the host's cores
+     while this process drives the card; it is stopped while the kernels
+     are timed, phase 4 and the ablations); every
      kernel's
      launch counter must rise, by
      pass_launches() a pass of the full mix;
@@ -157,7 +161,22 @@ Phases, one status line each; any failure raises and exits nonzero:
      tests/torch_multihost_worker.py through torch.distributed (Gloo on
      one card, NCCL on two), owner-placed, against numpy, both joined
      before the processes check (`--only mesh` runs the table and this
-     phase alone);
+     phase alone); then the server phase (server_phase), through
+     featurebase_tpu_torch.server: the mix over HTTP through the port's
+     client (bitmaps wider than 100,000 columns stay in process), each
+     body equal to the in-process JSON, the launch counters set to 0
+     around the HTTP pass and around the same queries through API.query,
+     equal (the HTTP pass's launches are added to the kernels line);
+     SQL_PUSHDOWN over HTTP and statements and PQL calls over gRPC, unary
+     and streamed, equal to the in-process answers; four HTTP and four
+     gRPC client threads against the serial answers, then a second such
+     pass sampled by utils/profiling.py's wall-clock profiler (the
+     innermost frames of the servers' request threads); the wire layer's p50
+     over API.query; `python -m featurebase_tpu_torch server` as a child
+     process over the api phase's 16-shard directory with token auth (a
+     reader's read, its write refused with 403), joined before the
+     processes check (`--only server` runs the table and this phase
+     alone); a phase_seconds line gives each phase's wall time;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -182,7 +201,10 @@ import json
 import os
 import subprocess
 import sys
+import signal
 import time
+from collections import Counter
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -376,6 +398,16 @@ def pass_launches(S: int, percentile_rounds: int) -> dict:
 
 T0 = time.perf_counter()
 LOG: list = []   # an open file that every status line is copied to (--log)
+# each phase's wall seconds, in the order they ran (lap)
+PHASE_SECONDS: dict = {}
+_LAP = [T0]
+
+
+def lap(name: str) -> None:
+    """Charge the seconds since the previous lap to phase `name`."""
+    now = time.perf_counter()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + now - _LAP[0]
+    _LAP[0] = now
 
 
 def say(phase: str, **kw) -> None:
@@ -2334,12 +2366,143 @@ def mix_of(gen, n_shards: int) -> tuple:
 def api_alone(n_shards: int, reps: int) -> None:
     """The api phase by itself (--only api): the table, unwritten, then
     api_phase."""
+    import shutil
     holder, gen = build_table(n_shards)
-    api_phase(holder, WriteModel(gen), mix_of(gen, n_shards)[0], reps)
+    durable = api_phase(holder, WriteModel(gen), mix_of(gen, n_shards)[0],
+                        reps)
+    shutil.rmtree(durable["scratch"], ignore_errors=True)
 
 
-def slice_phase(n_shards: int, reps: int) -> dict:
-    """Phase 5: the main path at full size, through Executor(holder)."""
+CPU_WORKER_THREADS = 6   # torch threads of the CPU answers' worker
+
+
+def cpu_executor_answers(cpu, queries, rank_cache) -> dict:
+    """{query: (canon answer of the CPU executor `cpu`, seconds)}."""
+    out = {}
+    for q in queries:
+        rank_cache.clear()   # TopN then counts on the plain path
+        t0 = time.perf_counter()
+        out[q] = (canon(execute(cpu, q)), time.perf_counter() - t0)
+    return out
+
+
+def gen_digest(gen) -> str:
+    """A digest of the arrays a table was generated from."""
+    h = hashlib.sha1()
+    for k in ("cols", "f", "g", "v", "u", "u_has"):
+        h.update(np.ascontiguousarray(gen[k]).tobytes())
+    return h.hexdigest()
+
+
+def reference_answers(gen, n_shards: int, cpu, rank_cache) -> dict:
+    """What slice_phase holds the card's answers to: numpy's exact oracles
+    of the mix (mix_oracles) and the Percentile's rounds, numpy's moments
+    (moment_oracles), and the CPU executor `cpu`'s answer to every entry
+    of the mix no exact oracle holds (cpu_executor_answers)."""
+    queries, col5, desc, after = mix_of(gen, n_shards)
+    t0 = time.perf_counter()
+    oracle, rounds = mix_oracles(gen, col5, desc)
+    moments = moment_oracles(gen)
+    oracles_s = time.perf_counter() - t0
+    exact = exact_queries(oracle, col5, after)
+    return dict(oracle=oracle, rounds=rounds, moments=moments,
+                oracles_s=oracles_s, cpu=cpu_executor_answers(
+                    cpu, [q for q in queries if q not in exact], rank_cache))
+
+
+def cpu_answers(n_shards: int, path: str) -> None:
+    """The worker process of CPUWorker (chip_smoke.py --cpu-answers PATH):
+    the table of build_table(n_shards) built afresh, then its
+    reference_answers, pickled to PATH with the table's gen_digest and the
+    seconds of the build.  It touches no CUDA device."""
+    import pickle
+
+    from featurebase_tpu_torch.executor.executor import Executor
+    torch.set_num_threads(CPU_WORKER_THREADS)
+    t0 = time.perf_counter()
+    holder, gen = build_table(n_shards)
+    build_s = time.perf_counter() - t0
+    ref = reference_answers(gen, n_shards, Executor(holder, device="cpu"),
+                            holder.index("bench").field("f")._topn_cache)
+    with open(path + ".tmp", "wb") as fh:
+        pickle.dump((gen_digest(gen), dict(ref, build_s=build_s)), fh)
+    os.replace(path + ".tmp", path)
+
+
+class CPUWorker:
+    """numpy's oracles and the CPU executor's answers to the mix
+    (reference_answers), computed by a worker process (cpu_answers) over
+    its own copy of the table, on the host's cores while this process
+    drives the card: it starts before the kernels' builds, and stops while
+    the kernels are timed (stopped())."""
+
+    def __init__(self, n_shards: int):
+        import tempfile
+        self.stopped_s = 0.0
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-cpu-")
+        self.path = os.path.join(self.dir, "answers.pickle")
+        self.log = open(os.path.join(self.dir, "worker.log"), "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--shards",
+             str(n_shards), "--records-per-shard", str(RECORDS_PER_SHARD),
+             "--cpu-answers", self.path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=self.log, stderr=subprocess.STDOUT)
+
+    @contextmanager
+    def stopped(self):
+        """The worker stopped (SIGSTOP) for the block and continued after,
+        so that what the block times runs on a host without it."""
+        running = self.proc.poll() is None
+        if running:
+            os.kill(self.proc.pid, signal.SIGSTOP)
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if running and self.proc.poll() is None:
+                os.kill(self.proc.pid, signal.SIGCONT)
+            self.stopped_s += time.perf_counter() - t0
+
+    def result(self, gen) -> dict:
+        import pickle
+        t0 = time.perf_counter()
+        try:
+            code = self.proc.wait(timeout=1800)
+        except subprocess.TimeoutExpired:
+            self.close()
+            raise AssertionError("the CPU answers' worker ran past 1800 s")
+        say("cpu_worker", worker_s=time.perf_counter() - self.t0,
+            waited_s=time.perf_counter() - t0, stopped_s=self.stopped_s,
+            exit_code=code)
+        if code != 0 or not os.path.exists(self.path):
+            with open(self.log.name) as fh:
+                raise AssertionError(f"the CPU answers' worker failed "
+                                     f"(exit {code}):\n{fh.read()[-3000:]}")
+        with open(self.path, "rb") as fh:
+            digest, ref = pickle.load(fh)
+        if digest != gen_digest(gen):
+            raise AssertionError("the CPU answers' worker built another "
+                                 "table")
+        say("cpu_worker_parts", build_s=ref["build_s"],
+            oracles_s=ref["oracles_s"],
+            cpu_executor_s=sum(t for _, t in ref["cpu"].values()))
+        return ref
+
+    def close(self) -> None:
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
+    """Phase 5: the main path at full size, through Executor(holder);
+    `cpu_worker` (CPUWorker), when given, holds the CPU executor's answers
+    to the mix."""
     from featurebase_tpu_torch.executor.executor import Executor
     from featurebase_tpu_torch.model.row import Row
     from featurebase_tpu_torch.ops import cuda_kernels as ck
@@ -2348,6 +2511,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
     holder, gen = build_table(n_shards)
     build_s = time.perf_counter() - t0
     idx = holder.index("bench")
+    lap("table")
     say("table", shards=n_shards, records=int(gen["f"].size),
         bit_depth=idx.field("v").bit_depth,
         u_bit_depth=idx.field("u").bit_depth, build_s=build_s,
@@ -2373,87 +2537,42 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                   gpu.plan_executor._leaf_cache.items() if k[0] == "vals"}
     say("main_path", first_pass_s=first_s, launches=launches,
         residency=resident, stacked_vals_bytes=vals_cache)
+    lap("main_path")
     for k, v in launches.items():
         if v == 0:
             raise AssertionError(f"kernel {k} was not launched by the "
                                  "main path")
-    oracle, rounds = decode_oracles(gen, col5, desc)
+    # numpy's oracles, and the CPU executor's answer to every entry no
+    # exact oracle holds: from the worker process (cpu_answers), which
+    # built the same table and computed them while this one drove the
+    # card, or here without it
+    ref = cpu_worker.result(gen) if cpu_worker is not None else \
+        reference_answers(gen, n_shards, Executor(holder, device="cpu"),
+                          rank_cache)
+    oracle, rounds, moments = ref["oracle"], ref["rounds"], ref["moments"]
     want = pass_launches(n_shards, rounds)
     if len(queries) == len(QUERIES) and launches != want:
         raise AssertionError(f"launches in one pass of the mix {launches} "
                              f"!= {want}")
-    f, g, v = gen["f"], gen["g"], gen["v"]
-    at_g1, at_g2 = v[g == 1], v[g == 2]
-    oracle.update({
-        "Count(Intersect(Row(f=1), Row(g=2)))":
-            ("value", int(((f == 1) & (g == 2)).sum())),
-        "Count(Row(v > 5000))": ("value", int((v > 5000).sum())),
-        "Sum(field=v)": ("valcount", (int(v.sum()), int(v.size))),
-        "Min(field=v)": ("valcount", (int(v.min()),
-                                      int((v == v.min()).sum()))),
-        "Max(Row(g=2), field=v)": ("valcount", (
-            int(at_g2.max()), int((at_g2 == at_g2.max()).sum()))),
-        "Min(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
-            int(at_g1.min()), int((at_g1 == at_g1.min()).sum()))),
-        "Max(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
-            int(at_g1.max()), int((at_g1 == at_g1.max()).sum()))),
-    })
-    top = np.bincount(f, minlength=8)
-    order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
-    oracle["TopN(f, n=5)"] = ("pairs", [(r, int(top[r])) for r in order])
-    oracle["Rows(f)"] = ("list", [r for r in range(8) if top[r]])
-    oracle["GroupBy(Rows(f))"] = ("list", [((r,), int(top[r]), 0)
-                                           for r in range(8) if top[r]])
-    # the per-shard GroupBys: a bincount of the (f, g) pairs, and the
-    # pairs' sums of v with np.add.at in int64
-    pair = f * 4 + g
-    n_pair = np.bincount(pair, minlength=32)
-    s_pair = np.zeros(32, dtype=np.int64)
-    np.add.at(s_pair, pair, v.astype(np.int64))
-    by_count = [((k // 4, k % 4), int(n_pair[k]), 0) for k in range(32)
-                if n_pair[k]]
-    by_sum = [((k // 4, k % 4), int(n_pair[k]), int(s_pair[k]))
-              for k in range(32) if n_pair[k]]
-    if [x[:2] for x in by_count] != [x[:2] for x in by_sum]:
-        raise AssertionError("the two GroupBy oracles disagree on counts")
-    oracle["GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
-    oracle["GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))"] = (
-        "list", by_sum)
-    oracle["GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))"] \
-        = ("list", [x for x in by_count if x[1] > 2500000])
-    oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
-    first32 = (gen["cols"] >> 20) < 32
-    s32 = np.zeros(32, dtype=np.int64)
-    np.add.at(s32, pair[first32], v[first32].astype(np.int64))
-    n32 = np.bincount(pair[first32], minlength=32)
-    oracle[PER_SHARD_SUM] = ("list", [((k // 4, k % 4), int(n32[k]),
-                                       int(s32[k])) for k in range(32)
-                                      if n32[k]])
-    top_g1 = np.bincount(f[g == 1], minlength=8)
-    oracle["GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))"] = (
-        "list", [((r,), int(top_g1[r]), 0) for r in range(8) if top_g1[r]])
-    exact = set()
     for q, want in oracle.items():
         q = q.replace("{col5}", str(col5)).replace("{after}", after)
         if q in answers and answers[q] != want:
             raise AssertionError(f"{q}: engine {answers[q]!r:.300} != "
                                  f"oracle {want!r:.300}")
-        exact.add(q)
     # every answer that numpy does not hold exactly (the float moments
-    # included) against a CPU executor's on the same Holder; an answer
+    # included) against a CPU executor's on the same table; an answer
     # equal to its exact numpy oracle is not computed a third time
-    cpu = Executor(holder, device="cpu")
-    cpu_s = {}
-    for q in queries:
-        if q in exact:
-            continue
-        t0 = time.perf_counter()
-        want = run(cpu, q)
-        cpu_s[q] = time.perf_counter() - t0
+    unheld = [q for q in queries
+              if q not in exact_queries(oracle, col5, after)]
+    cpu_answers_of = ref["cpu"]
+    if sorted(cpu_answers_of) != sorted(unheld):
+        raise AssertionError("the CPU executor answered other queries than "
+                             "the exact oracles leave")
+    cpu_s = {q: t for q, (_, t) in cpu_answers_of.items()}
+    for q, (want, _) in cpu_answers_of.items():
         if answers[q] != want:
             raise AssertionError(f"{q}: cuda {answers[q][1]!r:.200} != "
                                  f"cpu {want[1]!r:.200}")
-    moments = moment_oracles(gen)
     for q, (want, tol, rel) in moments.items():
         got = answers.get(q)
         if got is None:
@@ -2481,6 +2600,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                  f"{answers[q]}")
     say("topn_per_shard", equal_to_stacked=topn)
     group_paths(holder, queries, answers, run, reps)
+    lap("answers")
     def timed(q) -> float:
         """One query as a caller runs it, to the synchronised answer (ms)."""
         rank_cache.clear()
@@ -2499,6 +2619,7 @@ def slice_phase(n_shards: int, reps: int) -> dict:
         return float(np.median([first] + [timed(q) for _ in range(n - 1)]))
     latency = {q: p50(q) for q in queries}
     say("latency_p50_ms", **latency)
+    lap("latency")
     per = query_profile(queries, timed, latency)
     # each new query ran the kernels it is meant to run
     meant = {"MinRow(field=f)": ("row_counts",),
@@ -2567,14 +2688,88 @@ def slice_phase(n_shards: int, reps: int) -> dict:
                                      f"{per[q]['launches']}")
     say("query_kernels", meant={q: list(k) for q, k in meant.items()
                                 if q in per})
+    lap("query_profile")
     residency_phase(holder, queries, answers, run, resident["bytes"] // 2,
                     decode_queries)
+    lap("residency")
     model = writes_phase(holder, gen, resident["bytes"] // 2)
-    api_phase(holder, model, queries, reps)
+    lap("writes")
+    durable = api_phase(holder, model, queries, reps)
+    lap("api")
     sql_phase(holder, model, reps)
+    lap("sql")
     for k, v in mesh_phase(holder, min(reps, 5)).items():
         launches[k] += v
+    lap("mesh")
+    for k, v in server_phase(holder, queries, durable, reps).items():
+        launches[k] += v
+    lap("server")
     return launches
+
+
+def mix_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
+    """(numpy's exact answers to the entries of the mix it holds, keyed by
+    query with {col5} and {after} unreplaced where decode_oracles keys
+    them so; the Percentile's rounds)."""
+    oracle, rounds = decode_oracles(gen, col5, desc)
+    f, g, v = gen["f"], gen["g"], gen["v"]
+    at_g1, at_g2 = v[g == 1], v[g == 2]
+    oracle.update({
+        "Count(Intersect(Row(f=1), Row(g=2)))":
+            ("value", int(((f == 1) & (g == 2)).sum())),
+        "Count(Row(v > 5000))": ("value", int((v > 5000).sum())),
+        "Sum(field=v)": ("valcount", (int(v.sum()), int(v.size))),
+        "Min(field=v)": ("valcount", (int(v.min()),
+                                      int((v == v.min()).sum()))),
+        "Max(Row(g=2), field=v)": ("valcount", (
+            int(at_g2.max()), int((at_g2 == at_g2.max()).sum()))),
+        "Min(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
+            int(at_g1.min()), int((at_g1 == at_g1.min()).sum()))),
+        "Max(Union(Row(g=1), Row(f=null)), field=v)": ("valcount", (
+            int(at_g1.max()), int((at_g1 == at_g1.max()).sum()))),
+    })
+    top = np.bincount(f, minlength=8)
+    order = sorted(range(8), key=lambda r: (-top[r], r))[:5]
+    oracle["TopN(f, n=5)"] = ("pairs", [(r, int(top[r])) for r in order])
+    oracle["Rows(f)"] = ("list", [r for r in range(8) if top[r]])
+    oracle["GroupBy(Rows(f))"] = ("list", [((r,), int(top[r]), 0)
+                                           for r in range(8) if top[r]])
+    # the per-shard GroupBys: a bincount of the (f, g) pairs, and the
+    # pairs' sums of v with np.add.at in int64
+    pair = f * 4 + g
+    n_pair = np.bincount(pair, minlength=32)
+    s_pair = np.zeros(32, dtype=np.int64)
+    np.add.at(s_pair, pair, v.astype(np.int64))
+    by_count = [((k // 4, k % 4), int(n_pair[k]), 0) for k in range(32)
+                if n_pair[k]]
+    by_sum = [((k // 4, k % 4), int(n_pair[k]), int(s_pair[k]))
+              for k in range(32) if n_pair[k]]
+    if [x[:2] for x in by_count] != [x[:2] for x in by_sum]:
+        raise AssertionError("the two GroupBy oracles disagree on counts")
+    oracle["GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
+    oracle["GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))"] = (
+        "list", by_sum)
+    oracle["GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))"] \
+        = ("list", [x for x in by_count if x[1] > 2500000])
+    oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
+    first32 = (gen["cols"] >> 20) < 32
+    s32 = np.zeros(32, dtype=np.int64)
+    np.add.at(s32, pair[first32], v[first32].astype(np.int64))
+    n32 = np.bincount(pair[first32], minlength=32)
+    oracle[PER_SHARD_SUM] = ("list", [((k // 4, k % 4), int(n32[k]),
+                                       int(s32[k])) for k in range(32)
+                                      if n32[k]])
+    top_g1 = np.bincount(f[g == 1], minlength=8)
+    oracle["GroupBy(Rows(f), filter=Union(Row(g=1), Row(f=null)))"] = (
+        "list", [((r,), int(top_g1[r]), 0) for r in range(8) if top_g1[r]])
+    return oracle, rounds
+
+
+def exact_queries(oracle: dict, col5: int, after: str) -> set:
+    """The mix's entries an exact oracle holds (the CPU executor is not
+    asked about them)."""
+    return {q.replace("{col5}", str(col5)).replace("{after}", after)
+            for q in oracle}
 
 
 def moment_oracles(gen) -> dict:
@@ -3146,7 +3341,7 @@ def api_phase(holder, model: "WriteModel", queries, reps: int) -> dict:
         equal_to_numpy=True, sqlite=sqlite3.sqlite_version)
 
     # (4) durability, on its own 16-shard index
-    api_durability(rng)
+    durable = api_durability(rng)
 
     # (5) delete and recreate g on the warm API: the bench holder's last use
     for q in ("Count(Row(g=2))", "TopN(g)", "GroupBy(Rows(f), Rows(g))"):
@@ -3190,7 +3385,7 @@ def api_phase(holder, model: "WriteModel", queries, reps: int) -> dict:
         released_bytes=before - after, held_bytes=held,
         delete_ms=delete_ms, count_g2=n2, topn_g=want_top,
         equal_to_numpy=True, phase_s=time.perf_counter() - t_phase)
-    return launches
+    return durable
 
 
 def api_durability(rng) -> dict:
@@ -3199,7 +3394,9 @@ def api_durability(rng) -> dict:
     shards would take tens of seconds): the table handed to the API,
     imports and PQL writes through it, checkpoint (the save), more writes
     (the WAL), then a second API over the directory (the snapshot's load
-    and the WAL's replay) must answer DURABLE_READS as the first did."""
+    and the WAL's replay) must answer DURABLE_READS as the first did.
+    Returns the directory (dir, its scratch parent, shards), which the
+    server phase serves from a child process and then removes."""
     import shutil
     import tempfile
 
@@ -3212,6 +3409,7 @@ def api_durability(rng) -> dict:
             self.replay_s = time.perf_counter() - t0
     scratch = tempfile.mkdtemp(prefix="api-durability-",
                                dir=os.path.dirname(os.path.abspath(__file__)))
+    done = False
     try:
         holder, gen = build_table(API_SHARDS, seed=7)
         d = os.path.join(scratch, "node")
@@ -3249,8 +3447,11 @@ def api_durability(rng) -> dict:
             save_s=save_s, open_s=open_s, replay_s=again.replay_s,
             load_s=open_s - again.replay_s, wal_entries=wal_entries,
             reads=len(DURABLE_READS), equal_after_restart=True)
+        done = True
+        return dict(dir=d, scratch=scratch, shards=API_SHARDS)
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        if not done:
+            shutil.rmtree(scratch, ignore_errors=True)
 
 
 DURABLE_READS = [
@@ -3860,6 +4061,415 @@ def mesh_alone(n_shards: int, reps: int) -> None:
     mesh_phase(holder, min(reps, 5))
 
 
+# -- the server phase -----------------------------------------------------------
+
+# bitmap answers wider than this stay in process (the api phase holds them):
+# tens of megabytes of JSON over HTTP would time json.dumps, not the server
+SERVER_MAX_COLUMNS = 100_000
+# the gRPC calls of the phase: SQL statements of SQL_PUSHDOWN (a COUNT, a
+# two-field GROUP BY, a scan) and PQL calls (a Count, a TopN, a bitmap of
+# 1,000 columns), each unary and streamed
+SERVER_GRPC_SQL = [SQL_PUSHDOWN[i][0] for i in (0, 8, 12)]
+SERVER_GRPC_PQL = ["Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=5)",
+                   "Limit(Row(f=3), limit=1000)"]
+# the read mix of the concurrent pass: every kernel of the path, over HTTP
+# from SERVER_THREADS threads and over gRPC from as many again
+SERVER_READS = [
+    "Count(Intersect(Row(f=1), Row(g=2)))", "Count(Row(0 < v < 100))",
+    "TopN(f, Row(g=2), n=5)", "Sum(Row(f=1), field=v)",
+    "Min(Row(v > 5000), field=v)", "MaxRow(field=f)", "Rows(f)",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    "Distinct(Row(f=1), field=g)", "Percentile(field=v, nth=50)",
+    "Sort(Row(f=1), field=v, limit=10)",
+    "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))",
+    "Distinct(Union(Row(g=1), Row(f=null)), field=v)",
+    "Var(field=v, filter=Row(f=1))", "Corr(field=v, field2=u)",
+    "keyed:Extract(All(), Rows(kf), Rows(n))", "limits:Count(Row(w > 5))"]
+SERVER_THREADS = 4
+# the wire layer's cost: p50 over HTTP beside API.query, in turns
+SERVER_TIMED = ["Count(Intersect(Row(f=1), Row(g=2)))", "Sum(field=v)",
+                "Min(field=v)", "TopN(f, n=5)", "GroupBy(Rows(f), Rows(g))",
+                "Percentile(field=v, nth=50)", "Var(field=v)",
+                "Corr(field=v, field2=u)"]
+SERVER_TIMED_RUNS = 5
+
+
+def jsonable(x):
+    """x as it comes back from JSON (tuples as lists, keys as strings)."""
+    return json.loads(json.dumps(x))
+
+
+def too_wide(results: list) -> bool:
+    """Whether a result list holds a bitmap wider than SERVER_MAX_COLUMNS
+    columns."""
+    from featurebase_tpu_torch.model.row import Row
+    return any(isinstance(r, Row) and r.count() > SERVER_MAX_COLUMNS
+               for r in results)
+
+
+def free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def server_child(durable: dict, card: str, device) -> dict:
+    """`python -m featurebase_tpu_torch server` as a child process on the
+    card over the 16-shard directory api_durability wrote, with token auth
+    (an HS256 secret and a permissions file): its start time to /health,
+    /status naming the card, DURABLE_READS with an admin token equal to an
+    in-process API over the same directory, a reader token that reads and
+    whose write is refused (403), nonzero device and host residency bytes
+    in /metrics.json.  The child serves from `device`'s kind (--cpu for
+    the CPU, where the phase is rehearsed).  It is stopped and joined
+    before this returns."""
+    import urllib.request
+
+    from featurebase_tpu_torch.client import Client, ClientError
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.server.auth import mint_hs256
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    root = os.path.dirname(os.path.abspath(__file__))
+    d, scratch = durable["dir"], durable["scratch"]
+    secret = "chip-smoke-secret"
+    perms = os.path.join(scratch, "perms.json")
+    with open(perms, "w") as fh:
+        json.dump({"user-groups": {"readers": {"bench": "read"}},
+                   "admin": "admins"}, fh)
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    log_path = os.path.join(scratch, "server.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "featurebase_tpu_torch", "server",
+             "--bind", f"127.0.0.1:{port}", "--data-dir", d,
+             "--auth-secret", secret, "--auth-permissions", perms,
+             *(["--cpu"] if device.type == "cpu" else [])],
+            cwd=root, env=env, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"the server exited {proc.returncode}")
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("the server did not answer /health "
+                                     "within 300 s")
+            try:
+                urllib.request.urlopen(url + "/health", timeout=2).read()
+                break
+            except OSError:
+                time.sleep(0.1)
+        start_s = time.perf_counter() - t0
+        admin = Client(url, auth_token=mint_hs256(secret, "ops", ["admins"]))
+        reader = Client(url, auth_token=mint_hs256(secret, "reader",
+                                                   ["readers"]))
+        status = admin.status()
+        name = torch.cuda.get_device_name(0)
+        if not any(name in dev for dev in status["devices"]):
+            raise AssertionError(f"/status does not name {name}: {status}")
+        local = API(data_dir=d)
+        t1 = time.perf_counter()
+        for q in DURABLE_READS:
+            got = admin.query(*index_of(q))
+            want = jsonable(response_to_json(local.query(*index_of(q))))
+            if got != want["results"]:
+                raise AssertionError(f"{q}: the child server {got!r:.200} "
+                                     f"!= in process {want!r:.200}")
+        reads_s = time.perf_counter() - t1
+        want = jsonable(response_to_json(local.query("bench",
+                                                     "Count(All())")))
+        if reader.query("bench", "Count(All())") != want["results"]:
+            raise AssertionError("a reader token's read differs")
+        try:
+            reader.query("bench", "Set(1, f=1)")
+            raise AssertionError("a reader token wrote")
+        except ClientError as e:
+            if e.status != 403:
+                raise AssertionError(f"a reader's write answered {e.status}, "
+                                     "not 403")
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/metrics.json", headers={
+                    "Authorization": f"Bearer {admin.auth_token}"}),
+                timeout=60) as r:
+            metrics = json.loads(r.read())
+        hbm, host = (metrics[k]["bytes"] for k in ("hbm_residency",
+                                                   "host_residency"))
+        if not hbm or not host:
+            raise AssertionError(f"/metrics.json residency bytes: device "
+                                 f"{hbm}, host {host}")
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        with open(log_path) as fh:
+            log_tail = fh.read()[-2000:]
+    return dict(nvidia_smi=card, start_s=start_s, shards=durable["shards"],
+                devices=status["devices"], durable_reads=len(DURABLE_READS),
+                reads_s=reads_s, equal_to_in_process=True,
+                reader_write_status=403, hbm_residency_bytes=hbm,
+                host_residency_bytes=host, exit_code=proc.returncode,
+                log_tail=log_tail[-300:])
+
+
+REQUEST_THREAD_ENTRIES = ("process_request_thread (socketserver.py",
+                          "_unary_response_in_pool (_server.py",
+                          "_stream_response_in_pool (_server.py")
+
+
+def request_thread_profile(collapsed: str, top: int = 12) -> dict:
+    """The samples of the servers' request threads in a collapsed-stack
+    profile (utils/profiling.cpu_profile): their count, the share of them
+    whose innermost frame is in storage/hostmem.py, and the `top` innermost
+    frames with their shares."""
+    inner = Counter()
+    for line in collapsed.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        stack, n = line.rsplit(" ", 1)
+        frames = stack.split(";")
+        if any(f.startswith(REQUEST_THREAD_ENTRIES) for f in frames):
+            inner[frames[-1]] += int(n)
+    total = sum(inner.values())
+    if not total:
+        raise AssertionError("the profile holds no request thread")
+    return dict(request_thread_samples=total,
+                hostmem_share=sum(n for f, n in inner.items()
+                                  if "(hostmem.py:" in f) / total,
+                innermost=[[f, n / total] for f, n in inner.most_common(top)])
+
+
+def server_phase(holder, queries, durable: dict, reps: int) -> dict:
+    """Phase 5g: the server surface (featurebase_tpu_torch.server) on the
+    card, over the bench holder as the earlier phases left it.
+    (1) Server(api) and GRPCServer(api) on API(holder=holder): the mix over
+    POST /index/{i}/query through the port's Client, but for bitmaps wider
+    than SERVER_MAX_COLUMNS columns, after a warm pass in process; each
+    body equal to response_to_json(api.query_full(...)) in process, the
+    launch counters set to 0 around the HTTP pass and around the same
+    queries through API.query, equal.  (2) SQL_PUSHDOWN over POST /sql
+    equal to execute_sql in process; SERVER_GRPC_SQL over QuerySQLUnary
+    and QuerySQL and SERVER_GRPC_PQL over QueryPQLUnary and QueryPQL equal
+    to the reference's table form built in process.  (3) SERVER_THREADS
+    HTTP client threads and as many gRPC ones run SERVER_READS at once,
+    each answer equal to the serial one.  (4) The entry point as a child
+    process (server_child).  (5) The p50 of SERVER_TIMED over HTTP beside
+    API.query, in turns.  Returns the HTTP pass's launches."""
+    import threading
+
+    import grpc
+
+    from featurebase_tpu_torch.client import Client
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.proto import pilosa_pb2 as pb
+    from featurebase_tpu_torch.server import grpc_server as gsrv
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.server.http_server import Server
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    from featurebase_tpu_torch.sql.engine import execute_sql
+    from featurebase_tpu_torch.storage import residency
+    from featurebase_tpu_torch.utils import profiling
+    t_phase = time.perf_counter()
+    card = card_line()
+    residency.residency().set_budget(0)
+    residency.reset()
+    api = API(holder=holder)
+    srv = Server(api=api).start()
+    gs = gsrv.GRPCServer(api=api).start()
+    chan = grpc.insecure_channel(gs.address)
+    calls = gsrv.make_channel_callables(chan)
+    client = Client(srv.url)
+    rank_cache = holder.index("bench").field("f")._topn_cache
+
+    def local(q):
+        rank_cache.clear()
+        return execute(api.executor, q, lambda index, pql: jsonable(
+            response_to_json(api.query_full(index, pql)["results"])
+        )["results"])
+
+    def wire(q):
+        rank_cache.clear()
+        return execute(api.executor, q, lambda index, pql: client.query(
+            index, pql))
+    try:
+        # (1) the mix over HTTP
+        t0 = time.perf_counter()
+        over = []
+        for q in queries:
+            rank_cache.clear()
+            if not too_wide(execute(api.executor, q, lambda index, pql:
+                                    api.query_full(index, pql)["results"])):
+                over.append(q)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        http = {q: wire(q) for q in over}
+        torch.cuda.synchronize()
+        http_s = time.perf_counter() - t0
+        http_launches = ck.launches()
+        ck.reset_launches()
+        t0 = time.perf_counter()
+        inproc = {q: local(q) for q in over}
+        torch.cuda.synchronize()
+        inproc_s = time.perf_counter() - t0
+        inproc_launches = ck.launches()
+        for q in over:
+            if http[q] != inproc[q]:
+                raise AssertionError(f"{q}: HTTP {http[q]!r:.200} != in "
+                                     f"process {inproc[q]!r:.200}")
+        if http_launches != inproc_launches:
+            raise AssertionError(f"the HTTP pass launched {http_launches}, "
+                                 f"API.query {inproc_launches}")
+        silent = [k for k, n in http_launches.items()
+                  if n == 0 and k in MESH_KERNELS]
+        if silent:
+            raise AssertionError(f"the HTTP pass launched no {silent}")
+        say("server_http", nvidia_smi=card, queries=len(over),
+            in_process_only=[q for q in queries if q not in over],
+            equal_to_in_process=True, warm_pass_s=warm_s,
+            http_pass_s=http_s, in_process_pass_s=inproc_s,
+            launches=http_launches, launches_equal=True)
+
+        # (2) SQL over HTTP; SQL and PQL over gRPC
+        for sql, *_ in SQL_PUSHDOWN:
+            got, want = client.sql(sql), jsonable(execute_sql(api, sql))
+            if got != want:
+                raise AssertionError(f"{sql}: HTTP {got!r:.200} != in "
+                                     f"process {want!r:.200}")
+        grpc_checked = []
+        for kind, items, req, rows in (
+                ("SQL", SERVER_GRPC_SQL,
+                 lambda s: pb.QuerySQLRequest(sql=s),
+                 lambda s: gsrv._sql_rows(api, s)),
+                ("PQL", SERVER_GRPC_PQL,
+                 lambda q: pb.QueryPQLRequest(index="bench", pql=q),
+                 lambda q: gsrv._pql_rows(api, "bench", q))):
+            for item in items:
+                rank_cache.clear()
+                unary = calls[f"Query{kind}Unary"](req(item))
+                rank_cache.clear()
+                stream = list(calls[f"Query{kind}"](req(item)))
+                rank_cache.clear()
+                want = list(rows(item))
+                if unary.SerializeToString() != \
+                        gsrv._table(want).SerializeToString() or \
+                        [r.SerializeToString() for r in stream] != \
+                        [r.SerializeToString() for r in want]:
+                    raise AssertionError(f"gRPC {kind} {item}: the reply "
+                                         "differs from the table built in "
+                                         "process")
+                grpc_checked.append((kind, item, len(want)))
+        say("server_sql_grpc", nvidia_smi=card,
+            sql_over_http=len(SQL_PUSHDOWN), grpc=grpc_checked,
+            equal_to_in_process=True)
+
+        # (3) concurrent clients against the serial answers
+        def grpc_read(q):
+            index, pql = index_of(q)
+            return calls["QueryPQLUnary"](pb.QueryPQLRequest(
+                index=index, pql=pql)).SerializeToString()
+        t0 = time.perf_counter()
+        serial_http = {q: client.query(*index_of(q)) for q in SERVER_READS}
+        serial_http_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        serial_grpc = {q: grpc_read(q) for q in SERVER_READS}
+        serial_grpc_s = time.perf_counter() - t0
+        errors = []
+
+        def worker(k):
+            n = len(SERVER_READS)
+            order = SERVER_READS[k % n:] + SERVER_READS[:k % n]
+            try:
+                for q in order:
+                    if k < SERVER_THREADS:
+                        ok = client.query(*index_of(q)) == serial_http[q]
+                    else:
+                        ok = grpc_read(q) == serial_grpc[q]
+                    if not ok:
+                        errors.append((k, q))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append((k, repr(e)))
+
+        def concurrent_pass(during=lambda: None) -> float:
+            """Seconds of one pass of every client thread, `during` run in
+            this thread meanwhile."""
+            threads = [threading.Thread(target=worker, args=(k,))
+                       for k in range(2 * SERVER_THREADS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            during()
+            for t in threads:
+                t.join(timeout=600)
+            seconds = time.perf_counter() - t0
+            if errors or any(t.is_alive() for t in threads):
+                raise AssertionError(f"concurrent answers differ from the "
+                                     f"serial ones: {errors[:5]}")
+            return seconds
+        concurrent_s = concurrent_pass()
+        say("server_concurrent", nvidia_smi=card, reads=len(SERVER_READS),
+            http_threads=SERVER_THREADS, grpc_threads=SERVER_THREADS,
+            serial_http_s=serial_http_s, serial_grpc_s=serial_grpc_s,
+            concurrent_s=concurrent_s, equal_to_serial=True)
+        # the host's profile of a second pass: where the server's request
+        # threads are, sampled (utils/profiling.py, the /debug/pprof/profile
+        # sampler) while the clients run
+        prof = []
+        profiled_s = concurrent_pass(lambda: prof.append(
+            profiling.cpu_profile(concurrent_s * 0.9)))
+        say("server_concurrent_profile", nvidia_smi=card,
+            profiled_pass_s=profiled_s, **request_thread_profile(prof[0]))
+
+        # (5) the wire layer's host cost
+        def ms(fn) -> float:
+            rank_cache.clear()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+        timed = {}
+        for q in SERVER_TIMED:
+            runs = [(ms(lambda: client.query("bench", q)),
+                     ms(lambda: api.query("bench", q)))
+                    for _ in range(SERVER_TIMED_RUNS)]
+            h, a = (float(np.median([r[i] for r in runs])) for i in (0, 1))
+            timed[q] = dict(http_p50_ms=h, api_p50_ms=a, wire_ms=h - a)
+        say("server_wire_ms", nvidia_smi=card, runs=SERVER_TIMED_RUNS,
+            queries=timed)
+    finally:
+        chan.close()
+        gs.stop()
+        srv.stop()
+
+    # (4) the entry point as a child process
+    try:
+        child = server_child(durable, card, api.executor.device)
+    finally:
+        import shutil
+        shutil.rmtree(durable["scratch"], ignore_errors=True)
+    say("server_child", **child)
+    say("server_phase", nvidia_smi=card,
+        seconds=time.perf_counter() - t_phase)
+    return http_launches
+
+
+def server_alone(n_shards: int, reps: int) -> None:
+    """The server phase by itself (--only server): the table, unwritten,
+    the 16-shard durable directory, then server_phase."""
+    holder, gen = build_table(n_shards)
+    durable = api_durability(np.random.default_rng(43))
+    server_phase(holder, mix_of(gen, n_shards)[0], durable, reps)
+
+
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
 # the forms of kernel H' are moments_kernel<fields, ...>.
 KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
@@ -3929,17 +4539,28 @@ def query_profile(queries, timed, latency,
 
 
 def main() -> int:
+    global RECORDS_PER_SHARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--shards", type=int, default=128)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--log", help="also write every status line to this "
                     "file (the end of standard output may be all a remote "
                     "runner keeps)")
-    ap.add_argument("--only", choices=["api", "sql", "mesh"],
+    ap.add_argument("--records-per-shard", type=int,
+                    default=RECORDS_PER_SHARD,
+                    help="records a shard of the bench table")
+    ap.add_argument("--cpu-answers", metavar="PATH",
+                    help="run as CPUWorker's worker process: pickle the CPU "
+                    "executor's answers to the mix to PATH (no card used)")
+    ap.add_argument("--only", choices=["api", "sql", "mesh", "server"],
                     help="run one phase by itself after the card's line: "
-                    "the table, then the api, the sql or the mesh phase "
-                    "(its kernels build at first use)")
+                    "the table, then the api, the sql, the mesh or the "
+                    "server phase (its kernels build at first use)")
     args = ap.parse_args()
+    RECORDS_PER_SHARD = args.records_per_shard
+    if args.cpu_answers:
+        cpu_answers(args.shards, args.cpu_answers)
+        return 0
     if args.log:
         os.makedirs(os.path.dirname(os.path.abspath(args.log)),
                     exist_ok=True)
@@ -3947,10 +4568,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from featurebase_tpu_torch.ops import build
-    from featurebase_tpu_torch.ops import cuda_kernels as ck
-    from featurebase_tpu_torch.ops import tune_kernels as tk
-    from featurebase_tpu_torch.tools import tune_count_kernel as harness
+    import featurebase_tpu_torch  # noqa: F401 — fails at once outside the repo
 
     card = card_line()
     say("card", nvidia_smi=card, torch=torch.__version__,
@@ -3958,10 +4576,24 @@ def main() -> int:
         max_sm_clock_mhz=max_sm_clock_hz() / 1e6, numpy=np.__version__,
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
     if args.only:
-        {"api": api_alone, "sql": sql_alone,
-         "mesh": mesh_alone}[args.only](args.shards, args.reps)
+        {"api": api_alone, "sql": sql_alone, "mesh": mesh_alone,
+         "server": server_alone}[args.only](args.shards, args.reps)
         print(card)
         return 0
+    worker = CPUWorker(args.shards)
+    try:
+        return full_run(args, card, worker)
+    finally:
+        worker.close()
+
+
+def full_run(args, card: str, worker: "CPUWorker") -> int:
+    """Every phase, in order (main without --only)."""
+    from featurebase_tpu_torch.ops import build
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.ops import tune_kernels as tk
+    from featurebase_tpu_torch.tools import tune_count_kernel as harness
+    lap("card")
     t0 = time.perf_counter()
     sources = (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.MOMENTS_SOURCE,
                ck.DECODE_SOURCE, tk.SOURCE)
@@ -3982,6 +4614,7 @@ def main() -> int:
     report = {src: ptxas_report(build.build_log.get(src, ""))
               for src in sources}
     say("build", seconds=time.perf_counter() - t0, ptxas=report)
+    lap("build")
     for src in (ck.SOURCE, ck.BSI_SOURCE, ck.GROUP_SOURCE, ck.MOMENTS_SOURCE,
                 ck.DECODE_SOURCE):
         whole = src in (ck.GROUP_SOURCE, ck.MOMENTS_SOURCE, ck.DECODE_SOURCE)
@@ -4004,23 +4637,27 @@ def main() -> int:
     errs.update(moments_parity(S))
     decode_errs, decode_inputs = decode_parity(S)
     errs.update(decode_errs)
-    timer = Timer(args.reps)
-    times, copy_bps = kernel_times(timer, inputs)
-    rates = tc_rate(args.reps, popc_rate(args.reps))
-    times.update(group_times(timer, rates["bit_products_per_s"], args.reps))
-    moments_plans(S)
-    times.update(moments_times(timer, rates["bit_products_per_s"], args.reps,
-                               S))
-    times.update(decode_times(timer, decode_inputs, args.reps))
-    pct_ablation(decode_inputs, args.reps)
-    del decode_inputs
-    ablation(inputs, args.reps)
-    row_ablation(inputs, args.reps)
-    group_ablation(args.reps)
-    moments_ablation(args.reps, S)
-    small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
-    del inputs
-    launches = slice_phase(args.shards, args.reps)
+    lap("parity")
+    with worker.stopped():   # the kernels timed on an idle host
+        timer = Timer(args.reps)
+        times, copy_bps = kernel_times(timer, inputs)
+        rates = tc_rate(args.reps, popc_rate(args.reps))
+        rate = rates["bit_products_per_s"]
+        times.update(group_times(timer, rate, args.reps))
+        moments_plans(S)
+        times.update(moments_times(timer, rate, args.reps, S))
+        times.update(decode_times(timer, decode_inputs, args.reps))
+        lap("kernel_times")
+        pct_ablation(decode_inputs, args.reps)
+        del decode_inputs
+        ablation(inputs, args.reps)
+        row_ablation(inputs, args.reps)
+        group_ablation(args.reps)
+        moments_ablation(args.reps, S)
+        small = (inputs["a"].reshape(-1), inputs["b"].reshape(-1))
+        del inputs
+        lap("ablations")
+    launches = slice_phase(args.shards, args.reps, worker)
     big = harness.make_inputs(harness.CUDA_BYTES, torch.device("cuda"))
     errs.update(tune_parity({
         "harness": big, "SxW": small,
@@ -4034,6 +4671,7 @@ def main() -> int:
                 bound_ms=times[k]["bound_ms"],
                 read_ceiling_ms=times[k]["bytes"] / read_bps * 1e3)
         for k in ("bsi_sum_planes/d14", "bsi_min_max/d14")})
+    lap("tune")
     left = child_pids()
     say("processes", children_left=left)
     if left:
@@ -4090,6 +4728,9 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": "bytes", "library_ms": None})
+    lap("processes")
+    say("phase_seconds", **PHASE_SECONDS,
+        total=time.perf_counter() - T0)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,6 +49,16 @@ class ValCount:
                             self.timestamp_val)
         return self
 
+    def to_json(self):
+        out: Dict[str, Any] = {"value": self.val, "count": self.count}
+        if self.float_val is not None:
+            out["floatValue"] = self.float_val
+        if self.decimal_val is not None:
+            out["decimalValue"] = self.decimal_val
+        if self.timestamp_val is not None:
+            out["timestampValue"] = self.timestamp_val
+        return out
+
     def __eq__(self, other):
         if isinstance(other, tuple):
             return (self.val, self.count) == other
@@ -69,6 +79,11 @@ class Pair:
         self.key = key
         self.count = count
 
+    def to_json(self):
+        if self.key is not None:
+            return {"key": self.key, "count": self.count}
+        return {"id": self.id, "count": self.count}
+
     def __eq__(self, other):
         if isinstance(other, tuple):
             return (self.id, self.count) == other
@@ -86,6 +101,10 @@ class PairsField:
         self.pairs = pairs
         self.field = field
 
+    def to_json(self):
+        return {"pairs": [p.to_json() for p in self.pairs],
+                "field": self.field}
+
     def __repr__(self):
         return f"PairsField({self.field}, {self.pairs})"
 
@@ -98,6 +117,9 @@ class PairField:
     def __init__(self, pair: Pair, field: str):
         self.pair = pair
         self.field = field
+
+    def to_json(self):
+        return {"pair": self.pair.to_json(), "field": self.field}
 
     def __repr__(self):
         return f"PairField({self.field}, {self.pair})"

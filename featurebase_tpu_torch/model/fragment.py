@@ -5,8 +5,10 @@ numpy words, only rows that exist are materialized), the seqlock generation
 that keys the plan executor's device caches, the MVCC row overlay that
 serves pinned snapshot reads (model/snapshot.py), and the device mirror of
 all rows (``device_tile``), kept in step through dirty-slot tracking and
-registered with the residency LRU (storage/residency.py).  The host spill
-of the JAX package is not part of the port yet.
+registered with the residency LRU (storage/residency.py), and the host
+tier: the host words register with the host-DRAM budget
+(storage/hostmem.py), which may spill them to disk; they reload on their
+next access, with the generation unchanged (a reload is not a write).
 
 Layout per row: SHARD_WIDTH bits as (WORDS_PER_ROW,) uint32 little-endian
 words (see core/consts.py).
@@ -14,7 +16,9 @@ words (see core/consts.py).
 from __future__ import annotations
 
 import itertools
+import os
 import threading
+import weakref
 from contextlib import contextmanager
 from typing import Dict, List, Optional
 
@@ -22,6 +26,7 @@ import numpy as np
 import torch
 
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
+from featurebase_tpu_torch.storage.hostmem import hostmem
 
 _INIT_CAP = 4
 
@@ -37,6 +42,17 @@ _GENERATION_SPAN = 1 << 32
 
 def _fresh_generation() -> int:
     return next(_GENERATION_BASES) * _GENERATION_SPAN
+
+
+def _drop_host_entry(key):
+    hostmem().remove(key)
+
+
+def _unlink_spill(path):
+    try:
+        os.unlink(path)
+    except OSError:
+        pass
 
 
 def _canonical(device) -> torch.device:
@@ -68,7 +84,14 @@ class Fragment:
         self.view = view
         self.shard = shard
         self._lock = threading.RLock()
-        self._words = np.zeros((_INIT_CAP, WORDS_PER_ROW), dtype=np.uint32)
+        # host master: _words_mem may be spilled to disk by the host-DRAM
+        # budget (storage/hostmem.py); the _words property reloads it.
+        # Row metadata (_row_of_slot/_slot_of_row) always stays in memory.
+        self._words_mem: Optional[np.ndarray] = \
+            np.zeros((_INIT_CAP, WORDS_PER_ROW), dtype=np.uint32)
+        self._spill_path: Optional[str] = None
+        self._spill_gen = -1      # generation persisted in the spill file
+        self._finalizer = None
         self._row_of_slot: List[int] = []
         self._slot_of_row: Dict[int, int] = {}
         # device mirror: (rows, W) int32 on self._dev_device, or None
@@ -83,6 +106,8 @@ class Fragment:
         self.generation = _fresh_generation()
         # MVCC overlay: row -> [(even-gen tag, words copy)] ascending
         self._overlay: Dict[int, list] = {}
+        self._hkey = ("host", index, field, view, shard, id(self))
+        self._register_host()
 
     @contextmanager
     def _mutating(self):
@@ -153,6 +178,85 @@ class Fragment:
         return pin.gen_for(self.field, self.view, self.shard) == \
             self.generation
 
+    # -- host-DRAM residency (the RBF page-cache/mmap role) -----------------
+
+    @property
+    def _words(self) -> np.ndarray:
+        w = self._words_mem
+        if w is None:
+            return self._reload_host()
+        hostmem().touch(self._host_key())
+        return w
+
+    @_words.setter
+    def _words(self, v: np.ndarray):
+        self._words_mem = v
+
+    def _host_key(self):
+        return self._hkey
+
+    def _register_host(self):
+        """(Re-)register this fragment's host bytes with the budget
+        manager; may synchronously spill other fragments."""
+        w = self._words_mem
+        if w is None:
+            return
+        ref = weakref.ref(self)
+
+        def offload():
+            f = ref()
+            if f is not None:
+                f._offload_host()
+        hostmem().add(self._host_key(), int(w.nbytes), offload)
+        if self._finalizer is None:
+            # drop the budget's entry when the fragment is collected (a
+            # module-level function: the finalizer must not keep self alive)
+            self._finalizer = weakref.finalize(
+                self, _drop_host_entry, self._host_key())
+
+    def _offload_host(self):
+        """Spill the host words to disk and drop the array (called by the
+        host budget under pressure).  Non-blocking on the fragment lock: a
+        fragment busy writing, or mid-reload and itself evicting others,
+        re-registers and is skipped, since blocking could deadlock two
+        fragments evicting each other.  The device mirror and the
+        generation are left alone."""
+        if not self._lock.acquire(blocking=False):
+            self._register_host()
+            return
+        try:
+            w = self._words_mem
+            if w is None:
+                return
+            n = self.num_rows
+            if self._spill_path is None:
+                import tempfile
+                fd, path = tempfile.mkstemp(suffix=".npy", prefix="frag_",
+                                            dir=hostmem().spill_dir())
+                os.close(fd)
+                self._spill_path = path
+                weakref.finalize(self, _unlink_spill, path)
+            if self._spill_gen != self.generation:
+                np.save(self._spill_path, w[:n], allow_pickle=False)
+                self._spill_gen = self.generation
+            self._words_mem = None
+            hostmem().remove(self._host_key())
+        finally:
+            self._lock.release()
+
+    def _reload_host(self) -> np.ndarray:
+        with self._lock:
+            if self._words_mem is not None:
+                return self._words_mem
+            n = self.num_rows
+            w = np.zeros((max(_INIT_CAP, n), WORDS_PER_ROW), dtype=np.uint32)
+            if self._spill_path is not None and n:
+                w[:n] = np.load(self._spill_path, allow_pickle=False)
+            self._words_mem = w
+            hostmem().note_reload()
+            self._register_host()
+            return w
+
     # -- host-side row management ------------------------------------------
 
     @property
@@ -181,6 +285,7 @@ class Fragment:
             grown[: self._words.shape[0]] = self._words
             self._words = grown
             self._all_dirty = True
+            self._register_host()
         self._row_of_slot.append(row)
         self._slot_of_row[row] = slot
         self._dirty.add(slot)
@@ -505,4 +610,5 @@ class Fragment:
         f._words[:n] = d["words"]
         f._row_of_slot = [int(r) for r in rows]
         f._slot_of_row = {int(r): i for i, r in enumerate(rows)}
+        f._register_host()
         return f

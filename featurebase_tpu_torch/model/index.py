@@ -92,6 +92,26 @@ class Index:
     def existence_field(self) -> Optional[Field]:
         return self.fields.get(EXISTENCE_FIELD)
 
+    def fragment_generations(self, keys=None) -> dict:
+        """Fragment seqlock generations by (field, view, shard): of every
+        fragment, or with `keys` of exactly those, -1 for a fragment that
+        does not exist (JAX index.py:133)."""
+        if keys is not None:
+            gens = {}
+            for key in keys:
+                fname, vname, shard = key
+                f = self.fields.get(fname)
+                v = f.views.get(vname) if f is not None else None
+                frag = v.fragments.get(shard) if v is not None else None
+                gens[key] = -1 if frag is None else frag.generation
+            return gens
+        gens = {}
+        for fname, f in list(self.fields.items()):
+            for vname, v in list(f.views.items()):
+                for shard, frag in list(v.fragments.items()):
+                    gens[(fname, vname, shard)] = frag.generation
+        return gens
+
     def public_fields(self) -> List[Field]:
         """Every field but the existence field, in declaration order."""
         return [f for n, f in self.fields.items() if n != EXISTENCE_FIELD]
@@ -102,7 +122,12 @@ class Index:
         if not self.options.track_existence:
             return
         cols = np.asarray(cols, dtype=np.int64)
-        if cols.size:
+        if cols.size == 1:
+            # a point write (Set) sets one bit: the bulk import's sorts
+            # would give up the GIL, and a writer that gives it up and takes
+            # it back at once starves a reader thread waiting for it
+            self.existence_field().set_bit(0, int(cols[0]))
+        elif cols.size:
             self.existence_field().import_bits(
                 np.zeros(cols.size, dtype=np.int64), cols)
 

@@ -108,6 +108,11 @@ class Row:
             bw.words_to_cols(host[i], base=s * SHARD_WIDTH)
             for i, s in enumerate(sorted(self.segments))])
 
+    def to_json(self):
+        if self.keys is not None:
+            return {"keys": list(self.keys)}
+        return {"columns": self.columns().tolist()}
+
     def __eq__(self, other):
         if not isinstance(other, Row):
             return NotImplemented

@@ -342,10 +342,21 @@ def validate(prog: Program) -> None:
 # ---------------------------------------------------------------------------
 
 def popcount_words(x: torch.Tensor) -> torch.Tensor:
-    """Elementwise popcount of int32 words (SWAR in int32: every shift is
-    masked, so the arithmetic shift reads as the logical one, and the first
-    step wraps as the uint32 it stands for); returns int32 counts, whose
-    sums torch takes in int64."""
+    """Elementwise popcount of int32 words; returns int32 counts, whose
+    sums torch takes in int64.  On the CPU one numpy bitwise_count over the
+    uint32 view: one pass, and one release of the GIL, where popcount_swar
+    takes a dozen torch ops (3.7-5 times slower on the CPU); elsewhere
+    popcount_swar."""
+    if x.device.type == "cpu":
+        words = x.numpy().view(np.uint32)
+        return torch.from_numpy(np.bitwise_count(words).astype(np.int32))
+    return popcount_swar(x)
+
+
+def popcount_swar(x: torch.Tensor) -> torch.Tensor:
+    """popcount_words by SWAR in int32 torch ops: every shift is masked, so
+    the arithmetic shift reads as the logical one, and the first step wraps
+    as the uint32 it stands for."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F

@@ -41,8 +41,9 @@ class APIError(Exception):
         self.status = status
 
 
-def _not_ported(item: int, what: str):
-    area = {13: "ingest", 14: "the cluster"}[item]
+def not_ported(item: int, what: str) -> NotImplementedError:
+    """The error for `what`, which waits for ROADMAP.md queue 1 `item`."""
+    area = {13: "ingest", 14: "the cluster", 15: "DAX"}[item]
     return NotImplementedError(
         f"{what} needs {area}, which featurebase_tpu_torch does not run yet "
         f"(ROADMAP.md queue 1 item {item})")
@@ -72,8 +73,9 @@ class API:
         from featurebase_tpu_torch.utils.tracker import (QueryTracker,
                                                          TransactionStore)
         if cluster is not None:
-            raise _not_ported(14, "API(cluster=)")
+            raise not_ported(14, "API(cluster=)")
         self.data_dir = data_dir
+        self.auth = None        # token authn + group authz (server/auth.py)
         self.idalloc = IDAllocator()
         self.wal = None
         self._replaying = False
@@ -168,7 +170,7 @@ class API:
                                clear=e.get("clear", False),
                                col_keys=e.get("colKeys"))
         elif op == "roaring":
-            raise _not_ported(13, "a roaring WAL entry")
+            raise not_ported(13, "a roaring WAL entry")
         elif op == "pql_ast":
             from featurebase_tpu_torch.cluster.wire import decode_query
             self.executor.execute(e["i"], decode_query(e["q"]))
@@ -200,7 +202,7 @@ class API:
                     idx.dataframe.ingest_parquet(
                         e["shard"], decode_bytes(e["parquet"]))
         elif op in ("schema_log", "schema_term"):
-            raise _not_ported(14, f"a {op} WAL entry")
+            raise not_ported(14, f"a {op} WAL entry")
         else:
             raise ValueError(f"unknown WAL op: {op!r}")
 
@@ -659,9 +661,9 @@ class API:
     def fragments_info(self, index: str) -> list:
         """Per-fragment inspector rows, under the JAX package's keys:
         field, view, shard, rows, seqlock generation, hostBytes (the host
-        master's words), spilled (always False: the port has no host
-        spill), deviceResident (the fragment's device mirror is held),
-        deviceRows (the rows the mirror holds), dirtySlots (slots written
+        master's words, 0 while spilled), spilled (the host budget moved
+        them to disk, storage/hostmem.py), deviceResident (the fragment's
+        device mirror is held), deviceRows (the rows the mirror holds), dirtySlots (slots written
         since the mirror's last upload) and overlayRows (rows with MVCC
         copies kept for snapshot pins)."""
         idx = self._index(index)
@@ -669,12 +671,13 @@ class API:
         for f in idx.fields.values():
             for vname, v in f.views.items():
                 for shard, frag in sorted(v.fragments.items()):
+                    w = frag._words_mem
                     out.append({
                         "field": f.name, "view": vname, "shard": shard,
                         "rows": frag.num_rows,
                         "generation": frag.generation,
-                        "hostBytes": int(frag._words.nbytes),
-                        "spilled": False,
+                        "hostBytes": int(w.nbytes) if w is not None else 0,
+                        "spilled": w is None,
                         "deviceResident": frag._dev is not None,
                         "deviceRows": max(frag._dev_rows, 0),
                         "dirtySlots": len(frag._dirty),
@@ -704,7 +707,7 @@ class API:
 # each raises, naming its ROADMAP.md queue 1 item.
 def _raising(item: int, name: str):
     def method(self, *args, **kwargs):
-        raise _not_ported(item, f"API.{name}")
+        raise not_ported(item, f"API.{name}")
     method.__name__ = name
     method.__doc__ = f"Not ported yet: ROADMAP.md queue 1 item {item}."
     return method

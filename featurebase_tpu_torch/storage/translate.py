@@ -72,6 +72,13 @@ def shard_to_shard_partition(index: str, shard: int,
     return fnv64a(index.encode() + shard.to_bytes(8, "big")) % partition_n
 
 
+def key_to_key_partition(index: str, key: str,
+                         partition_n: int = PARTITION_N) -> int:
+    """The key's partition (reference: disco/snapshot.go KeyToKeyPartition),
+    which `presort` routes records by."""
+    return fnv64a(index.encode() + key.encode()) % partition_n
+
+
 def jump_hash(key: int, n_buckets: int) -> int:
     """Google jump consistent hash (reference: disco/hasher.go:16): the
     owner of a partition among n_buckets, moving only 1/n of the keys when

@@ -1,33 +1,44 @@
-"""Error monitoring and usage diagnostics, kept in process (reference:
-monitor/monitor.go:26 Sentry error monitor; diagnostics.go:29
-diagnosticsCollector).
+"""Error monitoring and usage diagnostics (reference: monitor/monitor.go:26
+Sentry error monitor; diagnostics.go:29 diagnosticsCollector with its
+version check-in).
 
-Own copy of featurebase_tpu/utils/monitor.py without its remote sinks:
-ErrorMonitor keeps captured exceptions and messages in a bounded ring, and
-DiagnosticsCollector assembles the anonymous payload the reference ships
-(version, uptime, schema and shape counts, platform), reporting the torch
-device where the JAX package reports its backend.  Nothing is sent
-anywhere; a server that exposes them is queue 1 item 12 of ROADMAP.md.
+Own copy of featurebase_tpu/utils/monitor.py.  Both sinks are opt-in:
+
+- ErrorMonitor keeps captured exceptions and messages in a bounded ring
+  (served at /internal/errors) and POSTs each event as JSON to `dsn` when
+  one is configured (FEATUREBASE_TPU_SENTRY_DSN), fire and forget.
+- DiagnosticsCollector assembles the anonymous payload the reference ships
+  (version, uptime, schema and shape counts, platform; the torch backend,
+  "cuda" or "cpu", and the device count where the JAX package reports its
+  backend) and checks the version endpoint only when
+  FEATUREBASE_TPU_DIAGNOSTICS_URL is set; otherwise it only exposes the
+  payload at /internal/diagnostics.
 """
 from __future__ import annotations
 
+import json
+import os
 import platform
 import threading
 import time
 import traceback
+import urllib.request
 from collections import deque
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 LEVEL_PANIC, LEVEL_ERROR, LEVEL_WARN, LEVEL_INFO, LEVEL_DEBUG = range(5)
 _LEVEL_NAMES = ["panic", "error", "warn", "info", "debug"]
 
 
 class ErrorMonitor:
-    """Bounded in-process error event ring (reference:
-    monitor.CaptureException/CaptureMessage)."""
+    """Bounded in-process error event ring and optional remote sink
+    (reference: monitor.CaptureException/CaptureMessage)."""
 
-    def __init__(self, version: str = "", ring: int = 200):
+    def __init__(self, version: str = "", dsn: Optional[str] = None,
+                 ring: int = 200):
         self.version = version
+        self.dsn = dsn if dsn is not None else \
+            os.environ.get("FEATUREBASE_TPU_SENTRY_DSN") or None
         self.events: deque = deque(maxlen=ring)
         self._lock = threading.Lock()
 
@@ -54,6 +65,19 @@ class ErrorMonitor:
         event["release"] = self.version
         with self._lock:
             self.events.append(event)
+        if self.dsn:
+            # fire and forget: monitoring must never block or fail a query
+            threading.Thread(target=self._post, args=(event,),
+                             daemon=True).start()
+
+    def _post(self, event: Dict[str, Any]):
+        try:
+            req = urllib.request.Request(
+                self.dsn, data=json.dumps(event).encode(),
+                headers={"Content-Type": "application/json"})
+            urllib.request.urlopen(req, timeout=5).read()
+        except Exception:  # noqa: BLE001 — best effort by design
+            pass
 
     def recent(self, n: int = 50) -> List[dict]:
         with self._lock:
@@ -61,12 +85,17 @@ class ErrorMonitor:
 
 
 class DiagnosticsCollector:
-    """Anonymous usage payload (reference: diagnostics.go:29)."""
+    """Anonymous usage payload and version check-in (reference:
+    diagnostics.go:29; verchk.go).  Remote reporting happens only when a URL
+    is configured."""
 
-    def __init__(self, api, version: str = ""):
+    def __init__(self, api, version: str = "", url: Optional[str] = None):
         self.api = api
         self.version = version
+        self.url = url if url is not None else \
+            os.environ.get("FEATUREBASE_TPU_DIAGNOSTICS_URL") or None
         self.start = time.time()
+        self.last_version_check: Optional[dict] = None
 
     def payload(self) -> dict:
         h = self.api.holder
@@ -88,5 +117,21 @@ class DiagnosticsCollector:
         }
         if dev.type == "cuda":
             import torch
+            out["numDevices"] = torch.cuda.device_count()
             out["deviceName"] = torch.cuda.get_device_name(dev)
         return out
+
+    def check_version(self) -> Optional[dict]:
+        """POST the payload; the endpoint answers with the latest release
+        (reference: versionResponse{Version, Message})."""
+        if not self.url:
+            return None
+        try:
+            req = urllib.request.Request(
+                self.url, data=json.dumps(self.payload()).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                self.last_version_check = json.loads(resp.read() or b"{}")
+        except Exception:  # noqa: BLE001 — diagnostics are best effort
+            return None
+        return self.last_version_check

@@ -261,6 +261,19 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "import featurebase_tpu_torch.parallel.placement\n"
         "import featurebase_tpu_torch.parallel.agg\n"
         "import featurebase_tpu_torch.parallel.dryrun\n"
+        "import featurebase_tpu_torch.server.serialize\n"
+        "import featurebase_tpu_torch.server.auth\n"
+        "import featurebase_tpu_torch.server.console\n"
+        "import featurebase_tpu_torch.server.http_server\n"
+        "import featurebase_tpu_torch.server.grpc_server\n"
+        "import featurebase_tpu_torch.proto.pilosa_pb2\n"
+        "import featurebase_tpu_torch.utils.profiling\n"
+        "import featurebase_tpu_torch.storage.hostmem\n"
+        "import featurebase_tpu_torch.storage.translate\n"
+        "import featurebase_tpu_torch.client\n"
+        "import featurebase_tpu_torch.cli\n"
+        "import featurebase_tpu_torch.fbsql\n"
+        "import featurebase_tpu_torch.__main__\n"
         "mesh = featurebase_tpu_torch.parallel.mesh.make_mesh(\n"
         "    devices=['cpu'])\n"
         "ex = featurebase_tpu_torch.executor.executor.Executor(\n"
@@ -273,6 +286,19 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "out = featurebase_tpu_torch.sql.engine.execute_sql(\n"
         "    api, 'SELECT SUM(v), COUNT(*) FROM i WHERE v > 3')\n"
         "assert out['data'] == [[4, 1]], out\n"
+        "from featurebase_tpu_torch.server.http_server import Server\n"
+        "from featurebase_tpu_torch.server.grpc_server import (\n"
+        "    GRPCServer, make_channel_callables)\n"
+        "from featurebase_tpu_torch.client import Client\n"
+        "from featurebase_tpu_torch.proto import pilosa_pb2 as pb\n"
+        "import grpc\n"
+        "srv, gs = Server(api=api).start(), GRPCServer(api=api).start()\n"
+        "assert Client(srv.url).query('i', 'Sum(field=v)')[0]['value'] == 7\n"
+        "ch = grpc.insecure_channel(gs.address)\n"
+        "t = make_channel_callables(ch)['QueryPQLUnary'](\n"
+        "    pb.QueryPQLRequest(index='i', pql='Count(All())'))\n"
+        "assert t.rows[0].columns[0].uint64_val == 2\n"
+        "ch.close(); gs.stop(); srv.stop()\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'featurebase_tpu' or m.startswith('featurebase_tpu.')]\n"
         "print(bad)\n"

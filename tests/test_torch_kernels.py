@@ -73,6 +73,17 @@ def test_popcount_words_matches_numpy():
                                   np.bitwise_count(x).astype(np.int64))
 
 
+def test_popcount_swar_matches_numpy():
+    """The SWAR that popcount_words takes on the card, held on a CPU tensor
+    (popcount_words itself takes numpy's bitwise_count there)."""
+    rng = np.random.default_rng(6)
+    x = np.concatenate([words(rng, (4096,)),
+                        np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF,
+                                  0x55555555, 0xAAAAAAAA], dtype=np.uint32)])
+    np.testing.assert_array_equal(ck.popcount_swar(t(x)).numpy(),
+                                  np.bitwise_count(x).astype(np.int64))
+
+
 @pytest.mark.parametrize("op,want", [
     (ck.OP_ZERO, lambda a, b: np.zeros_like(a)),
     (ck.OP_ONES, lambda a, b: np.full_like(a, 0xFFFFFFFF)),

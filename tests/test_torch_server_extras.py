@@ -1,0 +1,28 @@
+"""tests/test_server_extras.py on the port, against twins
+(tests/torch_twins.py): atomic-record imports, TLS, the web console, the
+writes cap, the internal info routes and mutex-check, and the presort and
+wal-info commands of the port's cli.  10 of its 11 tests:
+TestRecalculateCaches needs a two-node cluster (ROADMAP.md queue 1 item
+14)."""
+import pytest
+import torch
+
+from torch_twins import assert_no_mismatch, twin_namespace
+
+globals().update(twin_namespace("test_server_extras",
+                                drop=["TestRecalculateCaches"]))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def packages_agree():
+    assert_no_mismatch()
+    yield
+    assert_no_mismatch()

@@ -358,3 +358,19 @@ def test_fragment_row_writes_follow_the_mirror():
     assert frag.has_row(3) and not frag.host_row(3).any()
     frag.merge_row_words(9, words(1), clear=True)   # an absent row: no-op
     assert not frag.has_row(9)
+
+
+@pytest.mark.parametrize("dups", [0, 7])
+def test_bsi_delta_packs_as_the_jax_scatter(dups):
+    """The BSI import's delta tile, ORed over each word's sorted columns,
+    equals the JAX package's word scatter, also with a column given twice
+    (its values' bits ORed) and with the columns out of order."""
+    from featurebase_tpu.model.field import Field as JaxField
+    from featurebase_tpu_torch.model.field import Field
+    rng = np.random.default_rng(31 + dups)
+    c = np.sort(rng.choice(SW, 5000, replace=False)).astype(np.int64)
+    c = rng.permutation(np.concatenate([c, c[:dups]]))
+    v = rng.integers(-5000, 5000, c.size)
+    mg = np.abs(v).astype(np.uint64)
+    want = JaxField._bsi_delta(c, v, mg, 13)
+    assert np.array_equal(Field._bsi_delta(c, v, mg, 13), want)
