@@ -176,7 +176,29 @@ Phases, one status line each; any failure raises and exits nonzero:
      process over the api phase's 16-shard directory with token auth (a
      reader's read, its write refused with 403), joined before the
      processes check (`--only server` runs the table and this phase
-     alone); a phase_seconds line gives each phase's wall time;
+     alone); then the ingest phase (ingest_phase), through
+     featurebase_tpu_torch.ingest, native/ and utils/pool.py, the launch
+     counters set to 0 around it (its reads' launches are added to the
+     kernels line): (a) every view of every field of 16 shards of the
+     bench table exported through the C++ roaring codec and imported
+     shard by shard into a fresh index of a card API, the mix over those
+     shards equal on both, one shard's payloads equal between the C++
+     and the Python codec, codec MB/s; (b) datagen's customer source,
+     2,097,152 records, into a card API and a CPU API, five calls equal
+     to each other and to numpy over generate_batches' arrays; (c)
+     262,144 kitchen-sink records through the in-process Kafka broker,
+     the Ingester into a durable card API, crashed after an import and
+     before its commit and resumed from its directory, every record once
+     and the answers equal to load_index's; (d) one shard's BSI delta of
+     625,000 records (1% of columns twice) built on the card under
+     FEATUREBASE_TPU_DEVICE_INGEST=1 equal to the host OR at depths 14
+     and 31, the host OR at 32; (e) the mix's unplannable-filter queries
+     and its Extracts (on the submitting thread) and its Sort past depth
+     31 (host jobs on the worker pool), each with
+     the pool and with a serial map patched in, in turns; one shard's
+     HTTP /import-roaring and /export round trip (`--only ingest` runs
+     the table and this phase alone); a phase_seconds line gives each
+     phase's wall time;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -2704,6 +2726,9 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
     for k, v in server_phase(holder, queries, durable, reps).items():
         launches[k] += v
     lap("server")
+    for k, v in ingest_phase(holder, queries).items():
+        launches[k] += v
+    lap("ingest")
     return launches
 
 
@@ -4470,6 +4495,439 @@ def server_alone(n_shards: int, reps: int) -> None:
     server_phase(holder, mix_of(gen, n_shards)[0], durable, reps)
 
 
+# -- the ingest phase (featurebase_tpu_torch.ingest, native/, utils/pool.py)
+
+INGEST_SHARDS = 16          # the bench table's shards reloaded through roaring
+DATAGEN_RECORDS = 2_097_152  # two shards of the customer source
+DATAGEN_BATCH = 262_144
+KAFKA_RECORDS = 262_144     # kitchen-sink records through the broker
+KAFKA_BATCH = 65_536
+DELTA_RECORDS = 625_000     # one shard's BSI import, 1% of columns twice
+POOL_REPS = 5
+
+
+def pool_queries(queries) -> list:
+    """The mix's Count, Sum, Min/Max, GroupBy, Distinct and Sort under the
+    filters the plan compiler refuses and the Extracts (per-shard
+    fallbacks on the submitting thread), and the Sort past depth 31,
+    which hands the worker pool its host jobs."""
+    return [q for q in queries
+            if ("Row(f=null)" in q
+                and not q.startswith(("Options(Var", "Options(Corr")))
+            or "Extract(" in q or ("Sort(" in q and "field=w" in q)]
+
+
+def mirrors_on_device(api, index: str) -> int:
+    """The fragment mirrors of `index` held on the API's device (it fails
+    when there is none, or one elsewhere)."""
+    mirrors = [fr._dev_device for f in api.holder.index(index)
+               .fields.values() for v in f.views.values()
+               for fr in v.fragments.values() if fr._dev is not None]
+    if not mirrors or any(d.type != api.executor.device.type
+                          for d in mirrors):
+        raise AssertionError(f"{index}: fragment mirrors on {set(mirrors)}")
+    return len(mirrors)
+
+
+def roaring_reload(api, queries, card) -> dict:
+    """(a) Every view of every field of INGEST_SHARDS shards of the bench
+    index exported through the C++ codec and imported shard by shard into
+    a fresh index; the mix over those shards equal on both; one shard's
+    payloads equal between the C++ and the Python codec; codec MB/s."""
+    from featurebase_tpu_torch.native import roaring
+    src = api.holder.index("bench")
+    shards = list(range(INGEST_SHARDS))
+    api.create_index("reload", src.options.to_json())
+    for f in src.public_fields():
+        api.create_field("reload", f.name, f.options.to_json())
+    views = [(f.name, vname) for f in src.fields.values()
+             for vname in f.views]
+    t0 = time.perf_counter()
+    payloads = {s: {f"{fn}/{vn}": {"data": api.export_roaring(
+        "bench", fn, s, view=vn)} for fn, vn in views} for s in shards}
+    export_s = time.perf_counter() - t0
+    wire = sum(len(p["data"]) for s in shards for p in payloads[s].values())
+    t0 = time.perf_counter()
+    decoded = [roaring.decode(p["data"]) for s in shards
+               for p in payloads[s].values()]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = [roaring.encode(k, w) for k, w in decoded]
+    encode_s = time.perf_counter() - t0
+    dense = sum(w.nbytes for _, w in decoded)
+    if again != [p["data"] for s in shards for p in payloads[s].values()]:
+        raise AssertionError("roaring.encode(decode(x)) != x")
+    for spec, p in payloads[0].items():
+        keys, words = roaring._decode_py(p["data"])
+        k2, w2 = roaring.decode(p["data"])
+        if roaring._encode_py(keys, words) != p["data"] or not (
+                np.array_equal(keys, k2) and np.array_equal(words, w2)):
+            raise AssertionError(f"{spec}: the Python codec differs from "
+                                 "the C++ codec")
+    t0 = time.perf_counter()
+    for s in shards:
+        api.import_roaring_shard("reload", s, payloads[s])
+    import_s = time.perf_counter() - t0
+    del payloads, decoded, again
+    records = int(api.query("reload", "Count(All())")[0])
+    want = int(api.query("bench", "Count(All())", shards=shards)[0])
+    if records != want:
+        raise AssertionError(f"reloaded {records} records of {want}")
+
+    def run(index, q):
+        return canon(execute(api.executor, q, lambda _, pql: api.query(
+            index, pql, shards=shards)[0]))
+    mix = [q for q in queries if index_of(q)[0] == "bench"
+           and "shards=" not in q]
+    for q in mix:
+        a, b = run("bench", q), run("reload", q)
+        if a != b:
+            raise AssertionError(f"{q}: reloaded {b!r:.200} != {a!r:.200}")
+    mirrors = mirrors_on_device(api, "reload")
+    out = dict(shards=INGEST_SHARDS, views=len(views), records=records,
+               queries_equal=len(mix), wire_mb=wire / 1e6,
+               dense_mb=dense / 1e6, export_s=export_s,
+               import_s=import_s, import_records_per_s=records / import_s,
+               decode_mb_per_s=wire / decode_s / 1e6,
+               encode_mb_per_s=wire / encode_s / 1e6,
+               decode_dense_mb_per_s=dense / decode_s / 1e6,
+               mirrors_on_device=mirrors)
+    say("ingest_roaring", nvidia_smi=card, **out)
+    return out
+
+
+def datagen_oracle(schema, lo: int, hi: int, batch: int) -> dict:
+    """numpy's answers to DATAGEN_QUERIES over generate_batches' arrays."""
+    from featurebase_tpu_torch.ingest import datagen
+    parts = [c for _, c in datagen.generate_batches(schema, lo, hi, 0, batch)]
+    c = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+    n = c["age"].size
+    interests = np.zeros((24, n), dtype=bool)
+    for j in range(c["interests"].shape[1]):
+        interests[c["interests"][:, j], np.arange(n)] = True
+    per = interests.sum(1)
+    top = sorted(((int(per[r]), r) for r in range(24) if per[r]),
+                 key=lambda t: (-t[0], t[1]))[:5]
+    on = c["active"] == 1
+    age = c["age"]
+    groups = [((a, b), int(((c["segment"] == a) & (c["region"] == b)).sum()))
+              for a in range(5) for b in range(5)]
+    return {
+        "Count(Row(segment=1))": ("value", int((c["segment"] == 1).sum())),
+        "TopN(interests, n=5)": ("pairs", [(r, k) for k, r in top]),
+        "Sum(Row(active=1), field=spend)":
+            ("valcount", (int(c["spend"][on].sum()), int(on.sum()))),
+        "Min(field=age)": ("valcount", (int(age.min()),
+                                        int((age == age.min()).sum()))),
+        "Max(field=age)": ("valcount", (int(age.max()),
+                                        int((age == age.max()).sum()))),
+        "GroupBy(Rows(segment), Rows(region))":
+            ("list", [(g, k, 0) for g, k in groups if k])}
+
+
+def datagen_load(card) -> dict:
+    """(b) datagen's customer source, DATAGEN_RECORDS records, into a card
+    API and a CPU API: their answers equal, and equal to numpy's."""
+    from featurebase_tpu_torch.ingest import datagen
+    from featurebase_tpu_torch.server.api import API
+    hi = DATAGEN_RECORDS - 1
+    oracle = datagen_oracle(datagen.resolve_source("customer"), 0, hi,
+                            DATAGEN_BATCH)
+    out = {}
+    for where, api in (("cuda", API()), ("cpu", API(device="cpu"))):
+        t0 = time.perf_counter()
+        n = datagen.load_index(api, "cust", "customer", 0, hi, seed=0,
+                               batch_size=DATAGEN_BATCH)
+        load_s = time.perf_counter() - t0
+        if n != DATAGEN_RECORDS or api.available_shards("cust") != [0, 1]:
+            raise AssertionError(f"datagen loaded {n} records")
+        for q, want in oracle.items():
+            got = canon(api.query("cust", q)[0])
+            if got != want:
+                raise AssertionError(f"datagen {where} {q}: {got!r:.200} "
+                                     f"!= numpy {want!r:.200}")
+        out[where] = dict(load_s=load_s, records_per_s=n / load_s)
+        del api
+    say("ingest_datagen", nvidia_smi=card, records=DATAGEN_RECORDS,
+        queries_equal=sorted(oracle), **out)
+    return out
+
+
+KAFKA_QUERIES = ["Count(All())", "TopN(s)", "Count(Row(m=3))",
+                 "Count(Row(b=1))", "Sum(field=i)", "Min(field=i)",
+                 "Max(field=i)", "Sum(field=d)", "Max(field=d)",
+                 "Min(field=ts)", "Count(Row(i > 990))",
+                 "GroupBy(Rows(m), Rows(b))", "Sum(Row(s=3), field=d)",
+                 "MinRow(field=s)", "MaxRow(field=m)",
+                 "Sum(Row(s=null), field=i)"]
+
+
+def kafka_ingest(card) -> dict:
+    """(c) KAFKA_RECORDS kitchen-sink records onto the port's in-process
+    broker (load_kafka), consumed by the Ingester into a durable card API
+    that crashes once after an import and before its commit and resumes
+    from its directory: every record once, the answers equal to
+    load_index of the same records."""
+    import shutil
+    import tempfile
+
+    from featurebase_tpu_torch.ingest import datagen
+    from featurebase_tpu_torch.ingest.idk import Ingester
+    from featurebase_tpu_torch.ingest.kafka_broker import KafkaBroker
+    from featurebase_tpu_torch.ingest.kafka_source import (KafkaClient,
+                                                           KafkaSource)
+    from featurebase_tpu_torch.server.api import API
+    scratch = tempfile.mkdtemp(prefix="ingest-kafka-",
+                               dir=os.path.dirname(os.path.abspath(__file__)))
+    broker = KafkaBroker(num_partitions=1,
+                         offsets_path=os.path.join(scratch, "offsets.json"))
+    broker.start()
+    try:
+        c = KafkaClient("127.0.0.1", broker.port)
+        c.negotiate()
+        t0 = time.perf_counter()
+        n = datagen.load_kafka(c, "ks", "kitchen-sink", 0,
+                               KAFKA_RECORDS - 1, seed=5,
+                               batch_size=KAFKA_BATCH)
+        produce_s = time.perf_counter() - t0
+        c.close()
+        d = os.path.join(scratch, "node")
+        schema = datagen.resolve_source("kitchen-sink")
+        api = API(data_dir=d)
+        datagen.ensure_schema(api, "k", schema)
+        src = KafkaSource(f"127.0.0.1:{broker.port}", "ks", group="chip")
+        ing = Ingester(api, "k", src, batch_size=KAFKA_BATCH)
+
+        class Crash(Exception):
+            pass
+
+        def crash(batch_no):
+            if batch_no == 1:
+                raise Crash()
+        ing._post_import_hook = crash
+        t0 = time.perf_counter()
+        try:
+            ing.run()
+            raise AssertionError("the injected crash did not happen")
+        except Crash:
+            pass
+        committed = src.checkpoint()
+        del api, ing
+        api = API(data_dir=d)         # restart: snapshot, then the WAL
+        src = KafkaSource(f"127.0.0.1:{broker.port}", "ks", group="chip")
+        stats = Ingester(api, "k", src, batch_size=KAFKA_BATCH).run()
+        consume_s = time.perf_counter() - t0
+        if stats["records"] != KAFKA_RECORDS - committed:
+            raise AssertionError(f"the resumed ingester read {stats}")
+        direct = API()
+        datagen.load_index(direct, "k", "kitchen-sink", 0,
+                           KAFKA_RECORDS - 1, seed=5,
+                           batch_size=KAFKA_BATCH)
+        for q in KAFKA_QUERIES:
+            a, b = canon(api.query("k", q)[0]), canon(direct.query("k", q)[0])
+            if a != b:
+                raise AssertionError(f"kafka {q}: {a!r:.200} != load_index "
+                                     f"{b!r:.200}")
+        if api.query("k", "Count(All())")[0] != KAFKA_RECORDS:
+            raise AssertionError("records lost or doubled")
+        mirrors = mirrors_on_device(api, "k")
+    finally:
+        broker.stop()
+        shutil.rmtree(scratch, ignore_errors=True)
+    out = dict(records=n, produce_s=produce_s,
+               produce_records_per_s=n / produce_s, consume_s=consume_s,
+               consume_records_per_s=KAFKA_RECORDS / consume_s,
+               crash_after_batch=1, committed_at_crash=committed,
+               batches=stats["batches"] + 2,
+               queries_equal=KAFKA_QUERIES, mirrors_on_device=mirrors)
+    say("ingest_kafka", nvidia_smi=card, **out)
+    return out
+
+
+def device_delta(card, dev=None) -> dict:
+    """(d) One shard's BSI import delta of DELTA_RECORDS records with 1%
+    of the columns given twice: Field._bsi_delta with
+    FEATUREBASE_TPU_DEVICE_INGEST=1 builds it on the card (the tile's
+    device seen) equal to the host OR at depths 14 and 31, and takes the
+    host OR at depth 32; both timed."""
+    from featurebase_tpu_torch.model.field import Field
+    from featurebase_tpu_torch.ops import bsi as bsiops
+    from featurebase_tpu_torch.server.api import API
+    rng = np.random.default_rng(17)
+    api = API()
+    dev = dev or api.executor.device
+    seen = []
+    real = bsiops.bsi_delta_device
+
+    def spy(cols, mags, neg, depth):
+        tile = real(cols, mags, neg, depth)
+        seen.append(tile.device)
+        return tile
+    bsiops.bsi_delta_device = spy
+    old = os.environ.get("FEATUREBASE_TPU_DEVICE_INGEST")
+    out = {}
+    try:
+        for depth in (14, 31, 32):
+            cols = rng.choice(1 << 20, DELTA_RECORDS, replace=False)
+            cols = np.concatenate([cols, cols[: DELTA_RECORDS // 100]])
+            hi = (1 << depth) - 1
+            vals = rng.integers(-hi, hi + 1, cols.size)
+            mags = np.abs(vals).astype(np.uint64)
+            os.environ.pop("FEATUREBASE_TPU_DEVICE_INGEST", None)
+            t0 = time.perf_counter()
+            host = Field._bsi_delta(cols, vals, mags, depth)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            os.environ["FEATUREBASE_TPU_DEVICE_INGEST"] = "1"
+            del seen[:]
+            runs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = Field._bsi_delta(cols, vals, mags, depth, dev)
+                runs.append((time.perf_counter() - t0) * 1e3)
+            if depth <= 31:
+                if len(seen) != 3 or any(d.type != dev.type for d in seen):
+                    raise AssertionError(f"depth {depth}: delta on {seen}")
+                if not np.array_equal(got, host):
+                    raise AssertionError(f"depth {depth}: the device delta "
+                                         "differs from the host OR")
+                out[f"d{depth}"] = dict(device_ms=float(np.median(runs)),
+                                        host_ms=host_ms,
+                                        tile_device=str(seen[0]))
+            else:
+                if seen:
+                    raise AssertionError("depth 32 did not take the host OR")
+                out["d32"] = dict(host_path=True, ms=float(np.median(runs)),
+                                  host_ms=host_ms)
+        # through a card API: the values land from the device delta
+        api.create_index("dd")
+        api.create_field("dd", "v", {"type": "int"})
+        cols = rng.choice(1 << 20, DELTA_RECORDS, replace=False)
+        vals = rng.integers(-9999, 10000, cols.size)
+        del seen[:]
+        api.import_values("dd", "v", cols, vals)
+        if [d.type for d in seen] != [dev.type]:
+            raise AssertionError(f"the API's import built its delta on "
+                                 f"{seen}")
+        got = canon(api.query("dd", "Sum(field=v)")[0])
+        if got != ("valcount", (int(vals.sum()), int(cols.size))):
+            raise AssertionError(f"device-ingested Sum {got}")
+    finally:
+        bsiops.bsi_delta_device = real
+        if old is None:
+            os.environ.pop("FEATUREBASE_TPU_DEVICE_INGEST", None)
+        else:
+            os.environ["FEATUREBASE_TPU_DEVICE_INGEST"] = old
+    say("ingest_bsi_delta", nvidia_smi=card, records=DELTA_RECORDS,
+        duplicated=DELTA_RECORDS // 100, **out)
+    return out
+
+
+def pool_turns(api, queries, card) -> dict:
+    """(e) The per-shard fallbacks with the worker pool and with a serial
+    map patched into the executor module, in turns: answers equal, p50s."""
+    from featurebase_tpu_torch.executor import executor as exmod
+    pooled = exmod.map_shards
+
+    def serial(fn, items):
+        return [fn(it) for it in items]
+
+    def timed(q):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = canon(execute(api.executor, q,
+                          lambda index, pql: api.query(index, pql)[0]))
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+    out = {}
+    try:
+        for q in pool_queries(queries):
+            ms = {"pool": [], "serial": []}
+            answers = set()
+            for _ in range(POOL_REPS):
+                for mode, fn in (("pool", pooled), ("serial", serial)):
+                    exmod.map_shards = fn
+                    r, t = timed(q)
+                    answers.add(json.dumps(r))
+                    ms[mode].append(t)
+            if len(answers) != 1:
+                raise AssertionError(f"{q}: the pool and the serial map "
+                                     "answer differently")
+            out[q] = {f"{m}_p50_ms": float(np.median(v[1:]))
+                      for m, v in ms.items()}
+    finally:
+        exmod.map_shards = pooled
+    say("ingest_pool", nvidia_smi=card, reps=POOL_REPS - 1, queries=out)
+    return out
+
+
+def roaring_http(api, card) -> dict:
+    """(e) One shard of field f over HTTP: POST its roaring payload to
+    /index/rt/field/f/import-roaring/0, GET /export back: the bytes equal
+    the in-process export, and the counts equal the bench index's."""
+    import urllib.request
+
+    from featurebase_tpu_torch.server.http_server import Server
+    data = api.export_roaring("bench", "f", 0)
+    api.create_index("rt")
+    api.create_field("rt", "f", {"type": "set"})
+    srv = Server(api=api).start()
+    try:
+        req = urllib.request.Request(
+            srv.url + "/index/rt/field/f/import-roaring/0", data=data,
+            method="POST", headers={"Content-Type":
+                                    "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            r.read()
+        with urllib.request.urlopen(
+                srv.url + "/export?index=rt&field=f&shard=0",
+                timeout=120) as r:
+            back = r.read()
+    finally:
+        srv.stop()
+    if back != data or back != api.export_roaring("rt", "f", 0):
+        raise AssertionError("the HTTP roaring round trip changed the bytes")
+    for r in range(8):
+        a = api.query("rt", f"Count(Row(f={r}))")
+        b = api.query("bench", f"Count(Row(f={r}))", shards=[0])
+        if a != b:
+            raise AssertionError(f"row {r}: {a} != {b}")
+    out = dict(bytes=len(data), equal=True)
+    say("ingest_http", nvidia_smi=card, **out)
+    return out
+
+
+def ingest_phase(holder, queries) -> dict:
+    """Phase 5h: ingest on the card (see the module docstring); returns
+    the launches of its reads."""
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.server.api import API
+    t_phase = time.perf_counter()
+    card = card_line()
+    ck.reset_launches()
+    api = API(holder=holder)
+    roaring_reload(api, queries, card)
+    pool_turns(api, queries, card)
+    roaring_http(api, card)
+    api.delete_index("reload")
+    api.delete_index("rt")
+    datagen_load(card)
+    kafka_ingest(card)
+    device_delta(card)
+    launches = ck.launches()
+    say("ingest_phase", nvidia_smi=card, launches=launches,
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def ingest_alone(n_shards: int, reps: int) -> None:
+    """The ingest phase by itself (--only ingest): the table, unwritten,
+    then ingest_phase."""
+    holder, gen = build_table(n_shards)
+    del reps
+    ingest_phase(holder, mix_of(gen, n_shards)[0])
+
+
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
 # the forms of kernel H' are moments_kernel<fields, ...>.
 KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
@@ -4552,10 +5010,12 @@ def main() -> int:
     ap.add_argument("--cpu-answers", metavar="PATH",
                     help="run as CPUWorker's worker process: pickle the CPU "
                     "executor's answers to the mix to PATH (no card used)")
-    ap.add_argument("--only", choices=["api", "sql", "mesh", "server"],
+    ap.add_argument("--only", choices=["api", "sql", "mesh", "server",
+                                       "ingest"],
                     help="run one phase by itself after the card's line: "
-                    "the table, then the api, the sql, the mesh or the "
-                    "server phase (its kernels build at first use)")
+                    "the table, then the api, the sql, the mesh, the "
+                    "server or the ingest phase (its kernels build at "
+                    "first use)")
     args = ap.parse_args()
     RECORDS_PER_SHARD = args.records_per_shard
     if args.cpu_answers:
@@ -4577,7 +5037,8 @@ def main() -> int:
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
     if args.only:
         {"api": api_alone, "sql": sql_alone, "mesh": mesh_alone,
-         "server": server_alone}[args.only](args.shards, args.reps)
+         "server": server_alone, "ingest": ingest_alone}[args.only](
+             args.shards, args.reps)
         print(card)
         return 0
     worker = CPUWorker(args.shards)

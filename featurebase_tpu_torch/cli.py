@@ -15,10 +15,12 @@ mesh over every card (eight CPU members with --cpu), and
 --mesh-coordinator joins a torch.distributed group (NCCL, or Gloo with
 --cpu) with one member a process.  The host tools run as in the JAX
 package: auth-token, keygen, generate-config, wal-info, presort, chksum,
-parquet-info, dataframe-csv-loader.  Subcommands that need what the port
-does not run yet raise NotImplementedError naming their ROADMAP.md queue 1
-item: dax (15), backup, backuptar, restore and restoretar (14), export,
-consume and datagen (13); so does `server --cluster-nodes` (14).
+parquet-info, dataframe-csv-loader, and so do export, datagen and consume
+(consume ingests into an API on CUDA, or on the CPU with --cpu).
+Subcommands that need what the port does not run yet raise
+NotImplementedError naming their ROADMAP.md queue 1 item: dax (15),
+backup, backuptar, restore and restoretar (14); so does `server
+--cluster-nodes` (14).
 
 Config: flags > env (FEATUREBASE_TPU_*) > TOML file (--config), mirroring
 the reference's pflag/env/TOML precedence (reference cmd/root.go:127).
@@ -311,6 +313,8 @@ def main(argv=None):
     kc.add_argument("--sasl-user", default=None,
                     help="SASL/PLAIN username (broker auth)")
     kc.add_argument("--sasl-password", default=None)
+    kc.add_argument("--cpu", action="store_true",
+                    help="ingest into an API on the CPU (default: CUDA)")
     kc.add_argument("--avro-schema", default=None,
                     help="JSON file {schema_id: avro schema} for "
                          "Confluent-framed values")
@@ -358,7 +362,46 @@ def main(argv=None):
 
 
 def cmd_datagen(args):
-    raise not_ported(13, "the datagen command")
+    import json as _json
+
+    from featurebase_tpu_torch.ingest import datagen as dg
+    if not args.source:
+        print("available sources:",
+              ", ".join(sorted(dg.builtin_sources())), "or custom")
+        return 0
+    custom = None
+    if args.custom_config:
+        with open(args.custom_config) as fh:
+            custom = _json.load(fh)
+    if args.target == "kafka":
+        from featurebase_tpu_torch.ingest.kafka_source import KafkaClient
+        c = KafkaClient(args.kafka_host, args.kafka_port)
+        try:
+            c.negotiate()
+            if args.source == "file":
+                n = dg.load_kafka_file(c, args.topic, args.file,
+                                       key_column=args.key_column or None,
+                                       batch_size=args.batch_size)
+            else:
+                n = dg.load_kafka(c, args.topic, args.source,
+                                  args.start_from, args.end_at, args.seed,
+                                  batch_size=args.batch_size,
+                                  custom=custom)
+        finally:
+            c.close()
+        print(f"produced {n} records to {args.topic}")
+        return 0
+    if not args.index:
+        print("datagen: --index required for the index target")
+        return 2
+    from featurebase_tpu_torch.client import Client
+    cl = Client(args.host)  # mirrors the API import/schema surface
+    n = dg.load_index(cl, args.index, args.source, args.start_from,
+                      args.end_at, args.seed, args.batch_size,
+                      custom=custom,
+                      progress=lambda t: print(f"\r{t} records", end=""))
+    print(f"\ngenerated {n} records into {args.index}")
+    return 0
 
 
 def cmd_parquet_info(args):
@@ -437,7 +480,30 @@ def cmd_chksum(args):
 
 
 def cmd_consume(args):
-    raise not_ported(13, "the consume command")
+    """Kafka-protocol consumer -> durable local API on the card (on the
+    CPU with --cpu) (reference: idk molecula-consumer-kafka, idk/cmd)."""
+    import json as _json
+
+    from featurebase_tpu_torch.ingest.idk import Ingester
+    from featurebase_tpu_torch.ingest.kafka_source import (AvroDeserializer,
+                                                           KafkaSource)
+    from featurebase_tpu_torch.server.api import API
+    deser = None
+    if args.avro_schema:
+        with open(args.avro_schema) as fh:
+            reg = {int(k): v for k, v in _json.load(fh).items()}
+        deser = AvroDeserializer(reg)
+    api = API(data_dir=args.data_dir, device="cpu" if args.cpu else None)
+    src = KafkaSource(args.bootstrap, args.topic, group=args.group,
+                      deserializer=deser,
+                      sasl_user=getattr(args, "sasl_user", None),
+                      sasl_password=getattr(args, "sasl_password", None))
+    ing = Ingester(api, args.index, src,
+                   batch_size=args.batch_size,
+                   id_field=None if args.auto_id else args.id_field)
+    stats = ing.run(max_batches=args.max_batches)
+    print(_json.dumps(stats))
+    return 0
 
 
 def cmd_server(args, cfg):
@@ -601,7 +667,16 @@ def cmd_import(args):
 
 
 def cmd_export(args):
-    raise not_ported(13, "the export command (roaring export)")
+    data = _http(args.host, "GET",
+                 f"/export?index={args.index}&field={args.field}"
+                 f"&shard={args.shard}&view={args.view}", raw=True)
+    if args.output == "-":
+        sys.stdout.buffer.write(data)
+    else:
+        with open(args.output, "wb") as fh:
+            fh.write(data)
+        print(f"wrote {len(data)} bytes to {args.output}")
+    return 0
 
 
 def cmd_auth_token(args):

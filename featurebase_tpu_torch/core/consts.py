@@ -15,6 +15,10 @@ WORD_BITS = 32
 # 32-bit words per shard-row of bitmap.
 WORDS_PER_ROW = SHARD_WIDTH // WORD_BITS  # 32768
 
+# 2^16-bit roaring containers per shard-row (reference fragment.go:45
+# shardVsContainerExponent), for the roaring import and export.
+CONTAINERS_PER_ROW = SHARD_WIDTH >> 16  # 16
+
 # BSI row layout within a bsig_ view (reference: fragment.go:62-65):
 # row 0 = exists bit, row 1 = sign bit, rows 2..2+depth = magnitude bit slices.
 BSI_EXISTS_ROW = 0

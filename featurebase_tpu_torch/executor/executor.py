@@ -105,6 +105,7 @@ from featurebase_tpu_torch.parallel import agg
 from featurebase_tpu_torch.parallel.agg import finalize_sum
 from featurebase_tpu_torch.pql.ast import WRITE_CALLS, Call, Condition
 from featurebase_tpu_torch.pql.parser import parse as pql_parse
+from featurebase_tpu_torch.utils.pool import map_shards
 from featurebase_tpu_torch.utils.tracing import TRACER
 
 
@@ -913,7 +914,8 @@ class Executor:
         mirror and the slots of the planes exists, sign and each magnitude
         bit (-1 absent) there, each filter row the interpreter's words of
         the shard, or None without a filter (reference: the map_shards
-        fallbacks, executor.py:1182)."""
+        fallbacks, executor.py:1182); the sharded kernels read a None row
+        as zeros, so Sum and Min/Max hand them _all_ones(fws)."""
         v = f.view(view_bsi_group(f.name))
         if v is None:
             return
@@ -931,6 +933,14 @@ class Executor:
                            self._bitmap_call_shard(index, filt_call, shard))
             if groups:
                 yield live, groups, fws
+
+    def _all_ones(self, fws):
+        """Filter rows for the sharded C' and D' launches: all ones where
+        a shard has no filter call (JAX executor.py:1143 _shard_filter;
+        the launches read a None row as zeros)."""
+        if any(fw is not None for fw in fws):
+            return fws
+        return [self._shard_filter(None, None, 0)] * len(fws)
 
     @staticmethod
     def _wrap_valcount(f: Field, val: int, count: int) -> ValCount:
@@ -962,9 +972,9 @@ class Executor:
             else:
                 parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
         else:
-            per_batch = [ck.bsi_sum_planes_sharded(g, fws) for _, g, fws in
-                         self._shard_group_batches(index, f, filt_call,
-                                                   shard_list)]
+            per_batch = [ck.bsi_sum_planes_sharded(g, self._all_ones(fws))
+                         for _, g, fws in self._shard_group_batches(
+                             index, f, filt_call, shard_list)]
             if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
             parts = torch.stack(per_batch).sum(0).cpu().numpy()
@@ -1001,7 +1011,8 @@ class Executor:
                     return self._wrap_valcount(f, 0, 0)
                 return self._wrap_valcount(f, v + f.base, c)
         else:
-            per_batch = [ck.bsi_min_max_sharded(g, fws, is_min)
+            per_batch = [ck.bsi_min_max_sharded(g, self._all_ones(fws),
+                                                is_min)
                          for _, g, fws in self._shard_group_batches(
                              index, f, filt_call, shard_list)]
             if not per_batch:
@@ -2192,9 +2203,9 @@ class Executor:
         (bsi_decode_sharded) under each shard's interpreted filter; with a
         limit (and a stacked filter), every shard's top offset + limit at
         once (_sort_top), the cursor's mask ANDed into the filter; without
-        one, a sort a shard.  Past depth 31, a sort a shard of its host
-        decode.  Then one fetch and one merge.  `after` keeps only records
-        strictly after the cursor."""
+        one, a sort a shard.  Past depth 31, each shard's host decode and
+        sort on the worker pool.  Then one fetch and one merge.  `after`
+        keeps only records strictly after the cursor."""
         fld = call.args.get("_field") or call.args.get("field")
         f = self._field_or_err(index, fld)
         if not f.is_bsi():
@@ -2242,20 +2253,22 @@ class Executor:
                 present = decode.expand_bits(present).bool()
                 runs += [(shard, decode.sort_shard(vals[i], present[i], desc))
                          for i, shard in enumerate(live)]
-        else:
-            for shard in shard_list:
-                dense = f.values_dense_host(shard)
-                if dense is None:
-                    continue
-                vals_d, exists_b = dense
-                if filt_call is not None:
-                    fw = self._bitmap_call_shard(index, filt_call, shard)
-                    exists_b = exists_b & decode.expand_bits_host(
-                        host_words(fw))
+        else:   # the host decodes and sorts on the pool, the filter here
+            dense = dict(zip(shard_list,
+                             map_shards(f.values_dense_host, shard_list)))
+            live = [s for s in shard_list if dense[s] is not None]
+            fws = dict(zip(live, self._host_shard_words(
+                index, filt_call, live))) if filt_call is not None else {}
+
+            def host_run(shard):
+                vals_d, exists_b = dense[shard]
+                if shard in fws:
+                    exists_b = exists_b & decode.expand_bits_host(fws[shard])
                 cols = np.nonzero(exists_b)[0].astype(np.int64)
                 v = vals_d[cols]
                 order = np.lexsort((cols, -v if desc else v))
-                runs.append((shard, (cols[order], v[order])))
+                return shard, (cols[order], v[order])
+            runs += map_shards(host_run, live)
         dev = [x for _, top in tops for x in top] + \
             [x for _, run in runs for x in run if isinstance(x, torch.Tensor)]
         host = iter(_fetch(dev))
@@ -2383,7 +2396,9 @@ class Executor:
         """(shard, matched columns within the shard, int64 ascending) of
         each shard of `shard_list` (in its order) that the filter matches:
         from the host existence rows for All(), else from one stacked plan
-        (kernel A) fetched once, else from the interpreter a shard."""
+        (kernel A) fetched once, else from the interpreter a shard,
+        fetched once.  On one thread: on the card the worker pool made
+        this 1.02-1.73 times slower (PERF.md §6)."""
         filt_rows = None
         ef = index.existence_field()
         if filt_call.name == "All" and not filt_call.args and \
@@ -2401,14 +2416,20 @@ class Executor:
             elif stacked is not None:
                 arr = host_words(stacked)
                 filt_rows = {s: arr[si] for si, s in enumerate(shard_list)}
-        shard_cols = []
-        for shard in shard_list:
-            words = filt_rows[shard] if filt_rows is not None else \
-                host_words(self._bitmap_call_shard(index, filt_call, shard))
-            cols = bw.words_to_cols(words).astype(np.int64)
-            if cols.size:
-                shard_cols.append((shard, cols))
-        return shard_cols
+        if filt_rows is None:
+            filt_rows = dict(zip(shard_list, self._host_shard_words(
+                index, filt_call, shard_list)))
+
+        shard_cols = [(s, bw.words_to_cols(filt_rows[s]).astype(np.int64))
+                      for s in shard_list]
+        return [(s, c) for s, c in shard_cols if c.size]
+
+    def _host_shard_words(self, index: Index, call: Call, shards
+                          ) -> List[np.ndarray]:
+        """The interpreter's words of `call` for each shard as uint32 host
+        rows: computed on this thread, fetched once."""
+        words = [self._bitmap_call_shard(index, call, s) for s in shards]
+        return [w.astype(np.uint32) for w in _fetch(words)]
 
     def _bsi_column_values(self, index: Index, flds: List[Field], shard_cols,
                            shard_list: List[int]

@@ -19,14 +19,16 @@ group, id_field (default "id"), batch_size, max_batches, and fields
 
 Non-interactive use: pipe statements on stdin (`echo "SELECT 1;" | fbsql`).
 
-Own copy of featurebase_tpu/fbsql.py; it speaks HTTP only.  \\ingest waits
-for the port's Kafka source (ROADMAP.md queue 1 item 13).
+Own copy of featurebase_tpu/fbsql.py; it speaks HTTP only, and \\ingest
+consumes through the port's Kafka source (ingest/kafka_source.py) into the
+server's HTTP import endpoints.
 """
 from __future__ import annotations
 
 import json
 import sys
 import time
+import urllib.error
 import urllib.request
 from typing import List, Optional
 
@@ -84,15 +86,85 @@ def render_table(out: dict) -> str:
     return "\n".join(lines)
 
 
+def _post_json(host: str, path: str, body: dict,
+               ok_statuses=(409,), token: Optional[str] = None
+               ) -> Optional[dict]:
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    req = urllib.request.Request(
+        host + path, data=json.dumps(body).encode(), method="POST",
+        headers=headers)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return json.loads(resp.read() or b"{}")
+    except urllib.error.HTTPError as e:
+        if e.code in ok_statuses:  # already-exists is fine for schema
+            return None
+        raise
+
+
 def kafka_ingest(host: str, cfg: dict,
                  token: Optional[str] = None) -> dict:
-    """Consume a Kafka topic into the connected server (reference: fbsql's
-    kafka ingest configuration, cli/cli.go).  It needs the Kafka source
-    and the IDK kit, which the port does not run yet: it raises
-    NotImplementedError naming ROADMAP.md queue 1 item 13, and the shell
-    prints it as an ERROR line."""
-    from featurebase_tpu_torch.server.api import not_ported
-    raise not_ported(13, "fbsql's \\ingest (a Kafka source)")
+    """Consume a Kafka topic into the connected server over its HTTP
+    import endpoints (the remote counterpart of `featurebase-tpu
+    consume`; reference: fbsql's kafka ingest configuration,
+    cli/cli.go).  Returns {"records": n, "batches": b}."""
+    from featurebase_tpu_torch.ingest.idk import Recordizer
+    from featurebase_tpu_torch.ingest.kafka_source import KafkaSource
+
+    def post(path, body, ok=(409,)):
+        return _post_json(host, path, body, ok_statuses=ok, token=token)
+
+    index = cfg["index"]
+    post(f"/index/{index}", {"options": cfg.get(
+        "index_options", {"trackExistence": True})})
+    fields = cfg.get("fields", {})
+    for name, opts in fields.items():
+        if isinstance(opts, str):
+            opts = {"type": opts}
+        post(f"/index/{index}/field/{name}", {"options": opts})
+    bootstrap = cfg["bootstrap"]
+    src = KafkaSource(bootstrap, cfg["topic"],
+                      group=cfg.get("group", "fbsql"),
+                      sasl_user=cfg.get("sasl_user"),
+                      sasl_password=cfg.get("sasl_password"))
+    rec = Recordizer(id_field=cfg.get("id_field", "id"))
+    batch_size = int(cfg.get("batch_size", 4096))
+    max_batches = cfg.get("max_batches")
+    n_records = n_batches = 0
+    while max_batches is None or n_batches < int(max_batches):
+        records = src.poll(batch_size)
+        if not records:
+            break
+        per_field: dict = {}
+        for raw in records:
+            rid, vals = rec(raw)
+            if rid is None:
+                continue
+            for fname, v in vals.items():
+                if v is None or (fields and fname not in fields):
+                    continue
+                per_field.setdefault(fname, []).append((rid, v))
+        for fname, pairs in per_field.items():
+            cols = [p[0] for p in pairs]
+            vals = [p[1] for p in pairs]
+            if all(isinstance(v, (int, float)) and
+                   not isinstance(v, bool) for v in vals) and \
+                    (fields.get(fname) in ("int", "decimal", "timestamp")
+                     or (isinstance(fields.get(fname), dict) and
+                         fields[fname].get("type") in
+                         ("int", "decimal", "timestamp"))):
+                body = {"columnIDs": cols, "values": vals}
+            else:
+                key = "rowKeys" if any(isinstance(v, str) for v in vals) \
+                    else "rowIDs"
+                body = {key: vals, "columnIDs": cols}
+            post(f"/index/{index}/field/{fname}/import", body, ok=())
+        src.commit()
+        n_records += len(records)
+        n_batches += 1
+    return {"records": n_records, "batches": n_batches}
 
 
 class Shell:

@@ -18,6 +18,7 @@ magnitude bit i (reference fragment.go:62-65).
 """
 from __future__ import annotations
 
+import os
 import threading
 from datetime import datetime
 from typing import Dict, List, Optional
@@ -42,6 +43,18 @@ TYPE_DECIMAL = "decimal"
 TYPE_TIMESTAMP = "timestamp"
 
 BSI_TYPES = (TYPE_INT, TYPE_DECIMAL, TYPE_TIMESTAMP)
+
+# Paranoia mode (reference: roaringparanoia build tag,
+# roaring/roaring_paranoia.go:3 — invariant validation on every mutation).
+# FEATUREBASE_TPU_PARANOIA=1 turns on per-write invariant checks: mutex/bool
+# columns hold at most one row bit; BSI columns with magnitude or sign bits
+# always carry the exists bit.  The JAX package's own variable, read at
+# import as it reads it (featurebase_tpu/model/field.py:37-48).
+PARANOIA = os.environ.get("FEATUREBASE_TPU_PARANOIA", "") not in ("", "0")
+
+
+class ParanoiaError(AssertionError):
+    pass
 
 # cache types (reference field.go:2486 CacheType*)
 CACHE_RANKED = "ranked"
@@ -316,6 +329,8 @@ class Field:
         out = frag.set_bit(row, col)
         if out:
             self._topn_cache_adjust(shard, VIEW_STANDARD, row, +1)
+        if PARANOIA:
+            self._paranoia_column(col)
         return out
 
     def clear_bit(self, row: int, col: int) -> bool:
@@ -415,6 +430,8 @@ class Field:
                 changed |= frag.set_bit(BSI_OFFSET + i, col)
             else:
                 changed |= frag.clear_bit(BSI_OFFSET + i, col)
+        if PARANOIA:
+            self._paranoia_column(col)
         return changed
 
     def clear_value(self, col: int) -> bool:
@@ -477,11 +494,26 @@ class Field:
                         dtype=np.int64)
 
     @staticmethod
-    def _bsi_delta(c, v, mg, depth: int) -> np.ndarray:
-        """(depth+2, W) delta tile for one shard's BSI import: the columns
-        sorted, each plane's bits ORed over each word's columns, so a
-        column given twice ORs its values' bits as the JAX package's
-        scatter does, at a cost that follows the columns."""
+    def _bsi_delta(c, v, mg, depth: int, device=None) -> np.ndarray:
+        """(depth+2, W) delta tile for one shard's BSI import.  On the host
+        by default: the columns sorted, each plane's bits ORed over each
+        word's columns, so a column given twice ORs its values' bits as
+        the JAX package's scatter does, at a cost that follows the
+        columns.  With FEATUREBASE_TPU_DEVICE_INGEST=1 and depth <= 31 (as
+        featurebase_tpu/model/field.py:492-506 reads them) the tile is
+        built on `device` (the API's; the CPU when None) by
+        ops/bsi.py::bsi_delta_device and copied back."""
+        if os.environ.get("FEATUREBASE_TPU_DEVICE_INGEST") == "1" \
+                and depth <= 31:
+            import torch
+
+            from featurebase_tpu_torch.ops.bsi import bsi_delta_device
+            dev = torch.device(device if device is not None else "cpu")
+            tile = bsi_delta_device(
+                torch.from_numpy(np.asarray(c, dtype=np.int64)).to(dev),
+                torch.from_numpy(np.asarray(mg).astype(np.int64)).to(dev),
+                torch.from_numpy(np.asarray(v) < 0).to(dev), depth)
+            return tile.cpu().numpy().view(np.uint32)
         order = np.argsort(c, kind="stable")
         cs = c[order]
         wi = cs >> 5
@@ -500,13 +532,15 @@ class Field:
         delta[:, wi[starts]] = np.bitwise_or.reduceat(planes, starts, axis=1)
         return delta
 
-    def import_values(self, cols: np.ndarray, values, clear: bool = False):
+    def import_values(self, cols: np.ndarray, values, clear: bool = False,
+                      device=None):
         """Bulk BSI import (reference fragment.importValue:1947): one OR
         over the sorted columns builds a (depth+2, W) delta tile per shard
         (_bsi_delta), which lands in the fragment in one locked OR after
         the imported columns are cleared.  With `clear`, each column's
         value is removed (the values are range-checked all the same, as
-        the JAX package does)."""
+        the JAX package does).  `device` is where a device ingest builds
+        its tiles (_bsi_delta)."""
         cols = np.asarray(cols, dtype=np.int64)
         encoded = self.encode_values_vec(values)
         o = self.options
@@ -528,7 +562,7 @@ class Field:
                 continue
             frag = self.bsi_view().create_fragment_if_not_exists(s)
             delta = self._bsi_delta(cols[m] % SHARD_WIDTH, stored[m],
-                                    mags[m].astype(np.uint64), depth)
+                                    mags[m].astype(np.uint64), depth, device)
             frag.clear_columns(delta[0])
             frag.merge_rows_delta(
                 [BSI_EXISTS_ROW, BSI_SIGN_ROW] +
@@ -549,6 +583,36 @@ class Field:
             [BSI_OFFSET + i for i in range(depth)]
         tile, _ = frag.device_rows(rows, device)
         return tile, depth
+
+    def _paranoia_column(self, col: int):
+        """Per-write invariant validation (reference: roaringparanoia
+        checks, roaring/roaring_paranoia.go:3).  Raises ParanoiaError on a
+        broken invariant — only active with FEATUREBASE_TPU_PARANOIA=1."""
+        o = self.options
+        if o.type in (TYPE_MUTEX, TYPE_BOOL):
+            v = self.views.get(VIEW_STANDARD)
+            frag = v.fragment(col >> 20) if v else None
+            if frag is None:
+                return
+            set_rows = [r for r in frag.slot_rows()
+                        if frag.get_bit(int(r), col)]
+            if len(set_rows) > 1:
+                raise ParanoiaError(
+                    f"{o.type} field {self.name}: column {col} has "
+                    f"{len(set_rows)} rows set: {set_rows}")
+        elif self.is_bsi():
+            v = self.views.get(view_bsi_group(self.name))
+            frag = v.fragment(col >> 20) if v else None
+            if frag is None:
+                return
+            exists = frag.get_bit(BSI_EXISTS_ROW, col)
+            has_data = frag.get_bit(BSI_SIGN_ROW, col) or any(
+                frag.get_bit(BSI_OFFSET + i, col)
+                for i in range(max(self.bit_depth, 1)))
+            if has_data and not exists:
+                raise ParanoiaError(
+                    f"BSI field {self.name}: column {col} has magnitude/"
+                    "sign bits without the exists bit")
 
     def value(self, col: int):
         """(value with base, True) of one column, or (0, False) without one

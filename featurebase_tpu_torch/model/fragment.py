@@ -15,6 +15,7 @@ words (see core/consts.py).
 """
 from __future__ import annotations
 
+import functools
 import itertools
 import os
 import threading
@@ -98,6 +99,7 @@ class Fragment:
         self._dev: Optional[torch.Tensor] = None
         self._dev_device: Optional[torch.device] = None
         self._dev_rows = -1         # number of valid slots on the device
+        self._dev_upload = 0        # full uploads so far (_evict_device)
         self._dirty: set = set()    # slots needing upload
         self._all_dirty = True
         # Seqlock generation: odd while host words mutate, even otherwise
@@ -450,9 +452,14 @@ class Fragment:
         return ("frag", self.index, self.field, self.view, self.shard,
                 id(self))
 
-    def _evict_device(self):
+    def _evict_device(self, upload: Optional[int] = None):
         """Drop the device mirror (called by the residency LRU; a query in
-        flight keeps its tensor alive through its local reference)."""
+        flight keeps its tensor alive through its local reference).  The
+        LRU names the full upload it registered: an eviction that reaches
+        a fragment after a newer upload (another thread's, registered under
+        the same key) leaves that one alone."""
+        if upload is not None and upload != self._dev_upload:
+            return
         self._dev = None
         self._dev_rows = -1
         self._all_dirty = True
@@ -480,8 +487,15 @@ class Fragment:
         elif (self._all_dirty or dev is None or dev.shape[0] < n
               or self._dev_device != device):
             dev = _upload(self._words[:n], device)
+            # the mirror is in place before the LRU may evict it
+            self._dev_upload += 1
+            self._dev, self._dev_device, self._dev_rows = dev, device, n
+            self._dirty.clear()
+            self._all_dirty = False
             residency().add(self._residency_key(), n * WORDS_PER_ROW * 4,
-                            self._evict_device)
+                            functools.partial(self._evict_device,
+                                              self._dev_upload))
+            return dev
         elif self._dirty:
             slots = np.array(sorted(self._dirty), dtype=np.int64)
             dev = dev.index_copy(0, torch.as_tensor(slots, device=device),

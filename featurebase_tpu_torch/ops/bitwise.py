@@ -241,14 +241,31 @@ def range_mask(start: int, stop: int, width: int = SHARD_WIDTH) -> np.ndarray:
 
 def words_to_cols(words, base: int = 0) -> np.ndarray:
     """Decode dense uint32 words into a sorted uint64 array of set columns
-    (bit i of word k is column 32 k + i; words are little-endian)."""
+    (bit i of word k is column 32 k + i; words are little-endian), with
+    the C++ ctz decode of native/bitops.cpp (the host analog of
+    roaring.Bitmap.Slice, roaring/roaring.go:573;
+    featurebase_tpu/ops/bitwise.py:289)."""
+    from featurebase_tpu_torch.native import bitops
+    return bitops.words_to_cols(np.asarray(words).view(np.uint32), base)
+
+
+def cols_to_words(cols, width: int = SHARD_WIDTH) -> np.ndarray:
+    """Encode column ids (< width) into a dense uint32 word vector (the
+    C++ scatter of native/bitops.cpp)."""
+    from featurebase_tpu_torch.native import bitops
+    return bitops.cols_to_words(np.asarray(cols, dtype=np.int64),
+                                width // WORD_BITS)
+
+
+def words_to_cols_plain(words, base: int = 0) -> np.ndarray:
+    """numpy version of words_to_cols."""
     flat = np.ascontiguousarray(np.asarray(words).view(np.uint32)).reshape(-1)
     bits = np.unpackbits(flat.view(np.uint8), bitorder="little")
     return np.flatnonzero(bits).astype(np.uint64) + np.uint64(base)
 
 
-def cols_to_words(cols, width: int = SHARD_WIDTH) -> np.ndarray:
-    """Encode column ids (< width) into a dense uint32 word vector."""
+def cols_to_words_plain(cols, width: int = SHARD_WIDTH) -> np.ndarray:
+    """numpy version of cols_to_words (columns must lie in [0, width))."""
     c = np.asarray(cols, dtype=np.int64)
     out = np.zeros(width // WORD_BITS, dtype=np.uint32)
     if c.size == 0:

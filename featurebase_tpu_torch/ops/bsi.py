@@ -32,6 +32,9 @@ values are stored relative to the field's base, as sign and magnitude.
 - ``range_eq`` ... ``range_between`` (bsi.py:114-160): the static-predicate
   comparators of one shard's group, lowered with ops/bsi_traced.py onto
   kernel A at S = 1 in word mode (the per-shard interpreter's BSI rows).
+- ``bsi_delta_device`` (bsi.py:734): one shard's BSI import delta tile
+  built on the records' device from torch ops (a scatter, with no popcount,
+  walk or decode), the device ingest of Field._bsi_delta.
 
 The wrappers ``bsi_sum_planes``, ``bsi_min_max``, ``bsi_sum_groups``,
 ``var_moments`` and ``corr_moments`` in ops/cuda_kernels.py run these on CPU tensors and the kernels on CUDA
@@ -44,6 +47,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 from featurebase_tpu_torch.ops import bsi_traced as bst
 from featurebase_tpu_torch.ops import lowering
 from featurebase_tpu_torch.ops.cuda_kernels import popcount_words
@@ -324,3 +328,49 @@ def range_between(group: torch.Tensor, lo: int, hi: int, depth: int
     """lo <= value <= hi."""
     return _range(group, bst.expr_between, *_pred(lo, depth),
                   *_pred(hi, depth), depth)
+
+
+# ---------------------------------------------------------------------------
+# Device BSI import delta (bsi.py:734 bsi_delta_device)
+# ---------------------------------------------------------------------------
+
+def _word_bits(device) -> torch.Tensor:
+    """(32,) int32 with bit i set in element i (bit 31 as INT32_MIN)."""
+    return torch.tensor([(1 << i) - ((1 << 32) if i == 31 else 0)
+                         for i in range(32)], dtype=torch.int32,
+                        device=device)
+
+
+def bsi_delta_device(cols: torch.Tensor, mags: torch.Tensor,
+                     neg: torch.Tensor, depth: int) -> torch.Tensor:
+    """(depth + 2, W) int32 delta tile of one shard's BSI import, built on
+    the records' device (reference position sort: fragment.go:1614
+    parallelSlices, importPositions:1731): plane 0 exists, plane 1 sign,
+    plane 2 + i magnitude bit i.  `cols` are the columns within the shard,
+    `mags` the magnitudes (depth <= 31), `neg` the sign flags, each (n,).
+
+    The JAX package scatter-maxes each plane's bit into 2^20 bytes; torch
+    has no scatter-OR, so each (plane, column) pair's bit is summed into an
+    int32 cell with an accumulating index_put_ (a column given twice ORs
+    its values' bits: the cell is nonzero when any is set), and the cells
+    pack to words.  The host path (Field._bsi_delta) builds the same
+    tile."""
+    if depth > 31:
+        raise ValueError("bsi_delta_device takes depth <= 31")
+    dev = cols.device
+    n = cols.numel()
+    planes = depth + 2
+    cols = cols.to(torch.int64)
+    bits = torch.empty((planes, n), dtype=torch.int32, device=dev)
+    bits[0] = 1
+    bits[1] = (neg != 0).to(torch.int32)
+    if depth:
+        shifts = torch.arange(depth, dtype=torch.int64, device=dev)
+        bits[2:] = ((mags.to(torch.int64)[None, :] >> shifts[:, None])
+                    & 1).to(torch.int32)
+    at = (torch.arange(planes, dtype=torch.int64, device=dev)[:, None]
+          * SHARD_WIDTH + cols[None, :])
+    cells = torch.zeros(planes * SHARD_WIDTH, dtype=torch.int32, device=dev)
+    cells.index_put_((at.reshape(-1),), bits.reshape(-1), accumulate=True)
+    set_ = (cells.view(planes, WORDS_PER_ROW, 32) > 0).to(torch.int32)
+    return (set_ * _word_bits(dev)).sum(-1, dtype=torch.int32)

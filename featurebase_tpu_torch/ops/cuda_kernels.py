@@ -96,6 +96,7 @@ from __future__ import annotations
 
 import ctypes
 import heapq
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -498,6 +499,16 @@ def _is_cpu(tensors: Sequence[torch.Tensor]) -> bool:
     return False
 
 
+_launch_lock = threading.Lock()
+
+
+def _launched(kernel) -> None:
+    """Count one launch of `kernel` (the worker pool launches kernel A
+    from several threads at once)."""
+    with _launch_lock:
+        kernel.launches += 1
+
+
 # plan_eval's and row_counts' completion ticket per (device, stream): zero
 # between launches, since the last block of each launch resets it; launches
 # on one stream run in order, so they never share it at once.
@@ -572,7 +583,7 @@ def plan_eval(prog: Program, want_words: bool = True,
             partials.numel() if partials is not None else 0,
             ticket.data_ptr() if ticket is not None else None, stream)
     _check(rc, "plan_eval")
-    plan_eval.launches += 1
+    _launched(plan_eval)
     return words, counts
 
 
@@ -638,7 +649,7 @@ def _row_launch(addrs: Optional[np.ndarray], faddrs: Optional[np.ndarray],
             acc.data_ptr() if acc is not None else None,
             ticket.data_ptr() if ticket is not None else None, stream)
     _check(rc, "row_counts")
-    row_counts.launches += 1
+    _launched(row_counts)
     return out
 
 
@@ -826,7 +837,7 @@ def _bsi_launch(kernel, addrs: Optional[np.ndarray],
         rc = lib.fb_bsi_sum_planes(*args, *tail) if which == 0 else \
             lib.fb_bsi_min_max(*args, int(is_min), *tail)
     _check(rc, kernel.__name__)
-    kernel.launches += 1
+    _launched(kernel)
     return out
 
 
@@ -1137,7 +1148,7 @@ def _product(mode: int, dims: List[np.ndarray], filt: Optional[np.ndarray],
                                   tickets.numel(), stream)
     kernel = pair_counts if mode == MODE_ROWS else bsi_sum_groups
     _check(rc, kernel.__name__)
-    kernel.launches += 1
+    _launched(kernel)
     return out
 
 
@@ -1463,7 +1474,7 @@ def _run_moments(kernel, spec: List[int], table: np.ndarray, W: int,
             (ctypes.c_int * _MOMENTS_SPEC_WORDS)(*spec), W,
             dev_table.data_ptr(), out.data_ptr(), out.numel(), stream)
     _check(rc, kernel.__name__)
-    kernel.launches += 1
+    _launched(kernel)
 
 
 def _moments_group(g: torch.Tensor, what: str) -> Tuple[int, int, int]:
@@ -1745,7 +1756,7 @@ def _decode_launch(addrs: Optional[np.ndarray],
             None if affine is None else (ctypes.c_longlong * 3)(*affine),
             S, D, W, vec, out.data_ptr(), stream)
     _check(rc, "bsi_decode")
-    bsi_decode.launches += 1
+    _launched(bsi_decode)
     return out
 
 
@@ -1863,7 +1874,7 @@ def bsi_decode_gather_sharded(groups, cols_per_shard
             buf.data_ptr(), len(tiles), D, at, shard.size,
             at + items.size * 4, vals.data_ptr(), ok.data_ptr(), stream)
     _check(rc, "bsi_decode_gather")
-    bsi_decode_gather.launches += 1
+    _launched(bsi_decode_gather)
     return vals, ok
 
 
@@ -1943,7 +1954,7 @@ def percentile_counts(vals: torch.Tensor, exists: torch.Tensor,
             exists.stride(0), filt.data_ptr(), filt.stride(0), S, W,
             int(base), t_dev.data_ptr(), K, out.data_ptr(), stream)
     _check(rc, "percentile_counts")
-    percentile_counts.launches += 1
+    _launched(percentile_counts)
     return out
 
 

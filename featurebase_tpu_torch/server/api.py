@@ -14,12 +14,15 @@ startup restores the newest snapshot (storage/snapshot.py) and replays the
 log, and ``checkpoint()`` cuts a new snapshot and truncates the log.  A WAL
 or a snapshot written by either package's API loads in the other's.
 
+Roaring import and export (``import_roaring``, ``import_roaring_shard``,
+``export_roaring``) run through the native codec (ingest/roaring_import.py)
+and log ``roaring`` WAL entries in the JAX package's form.
+
 Not ported yet, and raising NotImplementedError that names its item of
 ROADMAP.md queue 1: the cluster (``cluster=``, the control plane, key
 replication, remote queries, shard snapshots and restore, resync: item
-14); roaring import and export
-(item 13); WAL entries of those kinds (``roaring``, ``schema_log``,
-``schema_term``), which a replay counts as failed entries.
+14); WAL entries of that kind (``schema_log``, ``schema_term``), which a
+replay counts as failed entries.
 """
 from __future__ import annotations
 
@@ -43,7 +46,7 @@ class APIError(Exception):
 
 def not_ported(item: int, what: str) -> NotImplementedError:
     """The error for `what`, which waits for ROADMAP.md queue 1 `item`."""
-    area = {13: "ingest", 14: "the cluster", 15: "DAX"}[item]
+    area = {14: "the cluster", 15: "DAX"}[item]
     return NotImplementedError(
         f"{what} needs {area}, which featurebase_tpu_torch does not run yet "
         f"(ROADMAP.md queue 1 item {item})")
@@ -105,8 +108,13 @@ class API:
 
     # -- durability ---------------------------------------------------------
 
+    def _logging(self) -> bool:
+        """Whether _log writes (a bulk import builds its entry only
+        then)."""
+        return self.wal is not None and not self._replaying
+
     def _log(self, entry: dict):
-        if self.wal is not None and not self._replaying:
+        if self._logging():
             self.wal.append(entry)
 
     def _replay_wal(self):
@@ -170,7 +178,19 @@ class API:
                                clear=e.get("clear", False),
                                col_keys=e.get("colKeys"))
         elif op == "roaring":
-            raise not_ported(13, "a roaring WAL entry")
+            from featurebase_tpu_torch.ingest.roaring_import import (
+                import_roaring, import_roaring_shard)
+            idx = self.holder.index(e["i"])
+            view = e.get("view", "standard")
+            if idx is not None and e.get("replace"):
+                import_roaring_shard(idx, e["shard"], {
+                    f"{e['f']}/{view}": {"data": decode_bytes(e["data"]),
+                                         "clear": e.get("clear", False),
+                                         "replace": True}})
+            elif idx is not None:
+                import_roaring(idx, e["f"], e["shard"],
+                               decode_bytes(e["data"]), view=view,
+                               clear=e.get("clear", False))
         elif op == "pql_ast":
             from featurebase_tpu_torch.cluster.wire import decode_query
             self.executor.execute(e["i"], decode_query(e["q"]))
@@ -424,11 +444,11 @@ class API:
             rows = np.array([ids[k] for k in row_keys], dtype=np.int64)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
-        self._log({"op": "bits", "i": index, "f": field,
-                   "rows": [int(r) for r in rows],
-                   "cols": [int(c) for c in cols],
-                   "ts": list(timestamps) if timestamps is not None else None,
-                   "clear": clear})
+        if self._logging():
+            self._log({"op": "bits", "i": index, "f": field,
+                       "rows": rows.tolist(), "cols": cols.tolist(),
+                       "ts": list(timestamps) if timestamps is not None
+                       else None, "clear": clear})
         with idx.mutate_gate.shared():
             f.import_bits(rows, cols, timestamps=timestamps, clear=clear)
             if not clear:
@@ -447,15 +467,72 @@ class API:
             ids = self.create_index_keys(index, list(col_keys))
             cols = np.array([ids[k] for k in col_keys], dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
-        self._log({"op": "vals", "i": index, "f": field,
-                   "cols": [int(c) for c in cols],
-                   "values": [v if not isinstance(v, (np.integer,)) else int(v)
-                              for v in values],
-                   "clear": clear})
+        if self._logging():
+            self._log({"op": "vals", "i": index, "f": field,
+                       "cols": cols.tolist(),
+                       "values": [v if not isinstance(v, (np.integer,))
+                                  else int(v) for v in values],
+                       "clear": clear})
         with idx.mutate_gate.shared():
-            f.import_values(cols, values, clear=clear)
+            f.import_values(cols, values, clear=clear,
+                            device=self.executor.device)
             if not clear:
                 idx.mark_exists(cols)
+
+    # -- roaring import and export (reference api.go:618 ImportRoaring,
+    # 1647 ImportRoaringShard; the /export endpoint) ----------------------
+
+    def import_roaring(self, index: str, field: str, shard: int, data: bytes,
+                       view: str = "standard", clear: bool = False,
+                       forwarded: bool = False):
+        """Merge (or clear) a roaring payload into one fragment, logged
+        first as a ``roaring`` WAL entry.  `forwarded` is the cluster's
+        flag; a single node ignores it."""
+        from featurebase_tpu_torch.ingest.roaring_import import import_roaring
+        from featurebase_tpu_torch.storage.wal import encode_bytes
+        idx = self._index(index)
+        if idx.field(field) is None:
+            raise APIError(f"field not found: {field}", 404)
+        self._log({"op": "roaring", "i": index, "f": field, "shard": shard,
+                   "data": encode_bytes(data), "view": view, "clear": clear})
+        with idx.mutate_gate.shared():
+            import_roaring(idx, field, shard, data, view=view, clear=clear)
+
+    def import_roaring_shard(self, index: str, shard: int, views: dict,
+                             forwarded: bool = False):
+        """Transactional multi-view import for one shard: `views` maps
+        "<field>[/<view>]" to {"data": bytes, "clear": bool, "replace":
+        bool}; one ``roaring`` WAL entry a view, with the view's resolved
+        name ("bsig" is the field's BSI group) and "replace", so that a
+        replay writes what was acknowledged (the JAX package's replay
+        reads neither and merges into the view as named)."""
+        from featurebase_tpu_torch.ingest.roaring_import import \
+            import_roaring_shard
+        from featurebase_tpu_torch.storage.wal import encode_bytes
+        idx = self._index(index)
+        if self.wal is not None and not self._replaying:
+            for spec, payload in views.items():
+                fname = spec.split("/", 1)[0]
+                vname = spec.split("/", 1)[1] if "/" in spec else "standard"
+                if vname == "bsig":
+                    vname = f"bsig_{fname}"
+                self._log({"op": "roaring", "i": index, "f": fname,
+                           "shard": shard,
+                           "data": encode_bytes(payload.get("data", b"")),
+                           "view": vname,
+                           "clear": payload.get("clear", False),
+                           "replace": bool(payload.get("replace", False))})
+        with idx.mutate_gate.shared():
+            import_roaring_shard(idx, shard, views)
+
+    def export_roaring(self, index: str, field: str, shard: int,
+                       view: str = "standard") -> bytes:
+        """One fragment as a reference-compatible roaring payload."""
+        from featurebase_tpu_torch.ingest.roaring_import import export_roaring
+        idx = self._index(index)
+        if idx.field(field) is None:
+            raise APIError(f"field not found: {field}", 404)
+        return export_roaring(idx, field, shard, view=view)
 
     # -- translation --------------------------------------------------------
 
@@ -703,8 +780,8 @@ class API:
                 "shardWidth": 1 << 20}
 
 
-# The JAX API's methods that need the cluster or ingest's roaring codec:
-# each raises, naming its ROADMAP.md queue 1 item.
+# The JAX API's methods that need the cluster: each raises, naming its
+# ROADMAP.md queue 1 item.
 def _raising(item: int, name: str):
     def method(self, *args, **kwargs):
         raise not_ported(item, f"API.{name}")
@@ -713,15 +790,12 @@ def _raising(item: int, name: str):
     return method
 
 
-for _item, _names in (
-        (13, ("import_roaring", "import_roaring_shard", "export_roaring")),
-        (14, ("handle_cluster_message", "cluster_join", "cluster_remove",
+for _name in ("handle_cluster_message", "cluster_join", "cluster_remove",
               "rebalance_pull", "replicate_index_keys",
               "replicate_field_keys", "translate_snapshot",
               "apply_translate_snapshot", "primary_create_index_keys",
               "primary_create_field_keys", "query_remote_local",
               "query_remote", "shard_snapshot_bytes",
               "fragment_snapshot_bytes", "restore_fragment", "restore_shard",
-              "resync_shards", "translate_checksums", "resync_translate"))):
-    for _name in _names:
-        setattr(API, _name, _raising(_item, _name))
+              "resync_shards", "translate_checksums", "resync_translate"):
+    setattr(API, _name, _raising(14, _name))

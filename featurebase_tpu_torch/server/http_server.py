@@ -4,9 +4,8 @@ Own copy of featurebase_tpu/server/http_server.py over the port's API: the
 same routes, statuses and JSON bodies.  The API has no cluster, so the
 routes that read one keep their single-node branches (/shards,
 /internal/nodes, /internal/fragment/nodes, /internal/partition/nodes), and
-the cluster and roaring routes reach API methods that raise
-NotImplementedError naming their ROADMAP.md queue 1 item (13: roaring
-import and export; 14: the cluster's messages, key replication, shard
+the cluster routes reach API methods that raise NotImplementedError naming
+ROADMAP.md queue 1 item 14 (the cluster's messages, key replication, shard
 snapshots and restore, resync, the schema log): each answers as every
 other internal error does, a 500 carrying that message.  ``Server()``
 without an API builds ``API()``, which runs on CUDA; pass

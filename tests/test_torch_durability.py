@@ -200,13 +200,14 @@ GOOD = [{"op": "create_index", "name": "t"},
 
 @pytest.mark.parametrize("bad", [
     {"op": "totally_bogus"},
-    {"op": "roaring", "i": "t", "f": "f", "shard": 0, "data": ""},
+    {"op": "roaring", "i": "t", "f": "gone", "shard": 0, "data": ""},
     {"op": "schema_log", "idx": 1, "term": 1, "sop": {}},
     {"op": "schema_term", "term": 1, "leader": "n0"}])
 def test_replay_counts_entries_it_cannot_apply(tmp_path, bad):
-    """A WAL entry the port cannot apply yet (roaring, schema_log,
-    schema_term) fails inside the replay and is counted like any failed
-    entry; enough of them refuse startup."""
+    """A WAL entry the port cannot apply (a roaring import into a field
+    that does not exist; schema_log and schema_term, which wait for the
+    cluster) fails inside the replay and is counted like any failed entry;
+    enough of them refuse startup."""
     d = str(tmp_path / "one")
     write_wal(d, GOOD + [bad] + GOOD[2:4])
     api = API(data_dir=d, device="cpu")

@@ -1,8 +1,8 @@
 """What the port's server surface leaves to a later item says so: every
-subcommand, route and shell command below raises NotImplementedError
-naming its ROADMAP.md queue 1 item (13 ingest, 14 the cluster, 15 DAX),
-and a route answers it as every other internal error, a 500 carrying the
-message (featurebase_tpu_torch/server/http_server.py)."""
+subcommand and route below raises NotImplementedError naming its
+ROADMAP.md queue 1 item (14 the cluster, 15 DAX), and a route answers it
+as every other internal error, a 500 carrying the message
+(featurebase_tpu_torch/server/http_server.py)."""
 import json
 import urllib.error
 import urllib.request
@@ -10,7 +10,7 @@ import urllib.request
 import pytest
 import torch
 
-from featurebase_tpu_torch import cli, fbsql
+from featurebase_tpu_torch import cli
 from featurebase_tpu_torch.server.api import API
 from featurebase_tpu_torch.server.http_server import Server
 
@@ -34,10 +34,6 @@ CLI = [
     (14, ["restore", "--source", "in.tar"]),
     (14, ["restoretar", "--source", "in.tar"]),
     (14, ["server", "--cpu", "--cluster-nodes", "a=http://127.0.0.1:1"]),
-    (13, ["export", "--index", "i", "--field", "f"]),
-    (13, ["consume", "--bootstrap", "127.0.0.1:1", "--topic", "t",
-          "--index", "i", "--data-dir", "d"]),
-    (13, ["datagen", "--source", "customer", "--index", "i"]),
 ]
 
 ROUTES = [
@@ -57,16 +53,11 @@ ROUTES = [
     (14, "POST", "/internal/restore/i/0", {}),
     (14, "POST", "/index/i/query", {"remote": True, "ast": [],
                                     "shards": [0]}),
-    (13, "POST", "/index/i/field/f/import-roaring/0",
-     {"data": "", "view": "standard"}),
-    (13, "POST", "/index/i/shard/0/import-roaring", {"views": {}}),
-    (13, "GET", "/export?index=i&field=f&shard=0", None),
 ]
 
 CASES = ([pytest.param("cli", item, argv, id="cli-" + argv[0] + (
     "-cluster-nodes" if "--cluster-nodes" in argv else ""))
     for item, argv in CLI]
-    + [pytest.param("fbsql", 13, None, id="fbsql-ingest")]
     + [pytest.param("route", item, (m, p, b), id=f"{m}-{p}")
        for item, m, p, b in ROUTES])
 
@@ -89,20 +80,6 @@ def test_waits_for_its_item(kind, item, what, server, tmp_path, monkeypatch):
         with pytest.raises(NotImplementedError, match=message(item).replace(
                 "(", r"\(").replace(")", r"\)")):
             cli.main(what)
-    elif kind == "fbsql":
-        with pytest.raises(NotImplementedError) as ei:
-            fbsql.kafka_ingest(server.url, {"index": "k", "topic": "t",
-                                            "bootstrap": "127.0.0.1:1"})
-        assert message(item) in str(ei.value)
-        # the shell prints it and goes on
-        import io
-        out = io.StringIO()
-        cfg = tmp_path / "ingest.json"
-        cfg.write_text(json.dumps({"index": "k"}))
-        fbsql.Shell(server.url, out=out).interact(
-            in_stream=io.StringIO(f"\\ingest {cfg}\nSELECT 1;\n"))
-        assert "ERROR" in out.getvalue() and message(item) in out.getvalue()
-        assert "(1 row)" in out.getvalue()
     else:
         method, path, body = what
         req = urllib.request.Request(

@@ -44,10 +44,10 @@ ROADMAP.md's watch-list name):
   would stop each other's;
 - /internal/fragments "generation" (the port's start at a base of their
   own), "deviceResident", "deviceRows" and "dirtySlots" (device mirrors);
-- NOT_PORTED: routes that need the cluster (ROADMAP.md queue 1 item 14) or
-  roaring (item 13), where the port answers 500 with the
-  NotImplementedError naming the item; the proxy checks that answer and
-  returns the JAX one (tests/test_torch_server_limits.py pins them).
+- NOT_PORTED: routes that need the cluster (ROADMAP.md queue 1 item 14),
+  where the port answers 500 with the NotImplementedError naming the item;
+  the proxy checks that answer and returns the JAX one
+  (tests/test_torch_server_limits.py pins them).
 """
 from __future__ import annotations
 
@@ -74,6 +74,8 @@ from featurebase_tpu_torch.server import auth as port_auth
 from featurebase_tpu_torch.server import grpc_server as port_grpc
 from featurebase_tpu_torch.server import http_server as port_http
 from featurebase_tpu_torch.server.api import APIError  # noqa: F401
+from featurebase_tpu_torch.storage.translate import (FieldTranslateStore,
+                                                     IndexTranslateStore)
 from featurebase_tpu_torch.utils.monitor import (DiagnosticsCollector,
                                                  ErrorMonitor)
 from featurebase_tpu_torch.utils.tracker import (QueryTracker,
@@ -84,7 +86,8 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 
 # port objects that come back as Pairs rather than compared values
 PAIRED = (Holder, Index, Field, View, Fragment, ErrorMonitor,
-          DiagnosticsCollector, QueryTracker, TransactionStore, PortExecutor)
+          DiagnosticsCollector, QueryTracker, TransactionStore, PortExecutor,
+          FieldTranslateStore, IndexTranslateStore)
 
 # routes whose port API method raises NotImplementedError for an item
 NOT_PORTED = [
@@ -95,9 +98,6 @@ NOT_PORTED = [
     (r"/internal/translate/(index/[^/]+|field/[^/]+/[^/]+)/replicate", 14),
     (r"/internal/index/[^/]+/shard/\d+/(snapshot|fragment)", 14),
     (r"/internal/restore/[^/]+/\d+", 14),
-    (r"/index/[^/]+/field/[^/]+/import-roaring/\d+", 13),
-    (r"/index/[^/]+/shard/\d+/import-roaring", 13),
-    (r"/export", 13),
 ]
 
 MISMATCHES: list = []
