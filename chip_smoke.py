@@ -109,7 +109,8 @@ Phases, one status line each; any failure raises and exits nonzero:
      launch counter must rise, by
      pass_launches() a pass of the full mix;
      TopN's per-shard branch must give the stacked answers; p50 latency per
-     query; then a pass under torch.profiler, each query labelled: each
+     query (runs_for: 20 runs below 20 ms, 10 to 200 ms, 3 past it);
+     then a pass under torch.profiler, each query labelled: each
      kernel's device time and the device-busy share of each query and
      of the pass, and every launch the profiler could not link; then the
      residency phase: every device cache dropped, and the whole mix again
@@ -197,8 +198,30 @@ Phases, one status line each; any failure raises and exits nonzero:
      31 (host jobs on the worker pool), each with
      the pool and with a serial map patched in, in turns; one shard's
      HTTP /import-roaring and /export round trip (`--only ingest` runs
-     the table and this phase alone); a phase_seconds line gives each
-     phase's wall time;
+     the table and this phase alone); then the cluster phase
+     (cluster_phase), through featurebase_tpu_torch.cluster and
+     featurebase_tpu_torch.testing: (a) three in-process nodes with two
+     replicas, each an API on the card, the bench index loaded through
+     node 0's import_roaring_shard (a call a shard, the holder's roaring
+     export forwarded over HTTP to the owners), CLUSTER_QUERIES through
+     node 0's HTTP equal to the single device's answers, the first pass
+     with each node's legs one at a time under the launch counters (every
+     kernel must rise; the pass's launches, summed over the nodes, are
+     added to the kernels line), SERVER_TIMED's p50 of 20 runs (5 past
+     200 ms) beside the server phase's single-node HTTP p50, the JSON
+     bytes and encode and decode ms of each node's partial of Row(f=3), a
+     keyed
+     index written and read through its key's partition primary, node 2
+     stopped and CLUSTER_FAILOVER answered by the surviving replicas (the
+     first pass after the failover timed), a Set through node 1 read back
+     from both owners of its shard, and the device bytes held; (b) three
+     `python -m featurebase_tpu_torch server --cluster-nodes` processes
+     over 16 shards of the bench index (loaded through node 0's HTTP
+     roaring import), CLI_QUERIES through nodes 0 and 2 equal to the
+     single device's over those shards, then `backup --host` and
+     `restore --host` into a fresh `server` process with the same answers
+     (`--only cluster` runs the table and this phase alone); a
+     phase_seconds line gives each phase's wall time;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
      streams and on smaller ones, with a nonzero and a wrapping acc: exact
@@ -1997,20 +2020,45 @@ def build_table(n_shards: int, seed: int = 0):
     idx.create_field("f")
     idx.create_field("g")
     idx.create_field("v", FieldOptions(type="int", min=-1000, max=10000))
-    idx.field("f").import_bits(f_rows, cols)
-    idx.field("g").import_bits(g_rows, cols)
-    idx.field("v").import_values(cols, vals)
-    t0 = time.perf_counter()
     idx.create_field("u", FieldOptions(type="int", min=-500, max=4000))
-    idx.field("u").import_values(cols[u_has], u[u_has])
-    u_s = time.perf_counter() - t0
-    idx.mark_exists(cols)
+    u_s = []
+
+    def import_u():
+        t0 = time.perf_counter()
+        idx.field("u").import_values(cols[u_has], u[u_has])
+        u_s.append(time.perf_counter() - t0)
+    # each field's import on a thread of its own, as concurrent imports
+    # through the API run (the fields share no fragment)
+    jobs = [lambda: idx.field("f").import_bits(f_rows, cols),
+            lambda: idx.field("g").import_bits(g_rows, cols),
+            lambda: idx.field("v").import_values(cols, vals), import_u,
+            lambda: idx.mark_exists(cols)]
+    run_threads(jobs)
     # the small indexes draw from their own seeds, so their data (and the
     # launches of their queries) do not depend on --shards
     limits = limits_index(holder, np.random.default_rng(seed + 1))
     keyed_index(holder, np.random.default_rng(seed + 2))
     return holder, dict(f=f_rows, g=g_rows, v=vals, u=u, u_has=u_has,
-                        cols=cols, limits=limits, u_import_s=u_s)
+                        cols=cols, limits=limits, u_import_s=u_s[0])
+
+
+def run_threads(jobs) -> None:
+    """Each job on a thread of its own, joined; the first error raised."""
+    import threading
+    errors = []
+
+    def guard(job):
+        try:
+            job()
+        except BaseException as e:   # noqa: BLE001 — raised below
+            errors.append(e)
+    threads = [threading.Thread(target=guard, args=(j,)) for j in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
 
 
 def limits_index(holder, rng) -> dict:
@@ -2131,25 +2179,61 @@ def canon(result):
     return ("value", int(result))
 
 
+SMALL_RANGE = 1 << 24   # integers over a range this wide count by histogram
+
+
+def sorted_unique(x: np.ndarray) -> np.ndarray:
+    """np.unique of integers, by a histogram (one pass) when their range is
+    narrow, as the tables' values are."""
+    if x.size == 0 or int(x.max()) - int(x.min()) > SMALL_RANGE:
+        return np.unique(x)
+    lo = int(x.min())
+    return np.flatnonzero(np.bincount(x.astype(np.int64) - lo)) + lo
+
+
+def first_records(idx: np.ndarray, key: np.ndarray, cols: np.ndarray,
+                  k: int, desc: bool = False) -> np.ndarray:
+    """The k records of `idx` first in the order of (key, column), key
+    descending with `desc`: the head of np.lexsort over the records,
+    sorting only those whose key can be among the first k."""
+    kv = key[idx].astype(np.int64) * (-1 if desc else 1)
+    if idx.size > k:
+        keep = kv <= np.partition(kv, k - 1)[k - 1]
+        idx, kv = idx[keep], kv[keep]
+    return idx[np.lexsort((cols[idx], kv))][:k]
+
+
 def oracle_percentile(x: np.ndarray, nth) -> tuple:
     """Percentile of the based values `x` by the port's bisection
     (ops/decode.py percentile) over counts taken with numpy instead of
     kernel I: ((value, count), rounds of counts).  Its answer checks kernel
-    I's counts; its rounds are the launches of kernel I a query makes."""
+    I's counts; its rounds are the launches of kernel I a query makes.  The
+    counts below a threshold come from a cumulative histogram of `x` (a
+    sorted copy when its range is wide)."""
     from featurebase_tpu_torch.ops import decode
-    xs = np.sort(x.astype(np.int64))
+    x = x.astype(np.int64)
     calls = []
+    if x.size and int(x.max()) - int(x.min()) <= SMALL_RANGE:
+        lo = int(x.min())
+        cum = np.concatenate([[0], np.cumsum(np.bincount(x - lo))])
+
+        def below(t):   # values < t
+            return cum[np.clip(t - lo, 0, cum.size - 1)]
+    else:
+        xs = np.sort(x)
+
+        def below(t):
+            return np.searchsorted(xs, t, side="left")
 
     def counts(vals, exists, filt, base, t):
         calls.append(len(t))
         t = np.asarray(t, dtype=np.int64)
-        lo = np.searchsorted(xs, t, side="left")
-        hi = np.searchsorted(xs, t, side="right")
+        lo_t, hi_t = below(t), below(t + 1)
         bins = np.zeros(2 * t.size + 1, dtype=np.int64)
-        bins[1::2] = hi - lo
-        bins[0::2] = np.diff(np.concatenate([[0], lo, [xs.size]])) - \
-            np.concatenate([[0], hi - lo])
-        ext = [int(xs[0]), int(xs[-1])] if xs.size else \
+        bins[1::2] = hi_t - lo_t
+        bins[0::2] = np.diff(np.concatenate([[0], lo_t, [x.size]])) - \
+            np.concatenate([[0], hi_t - lo_t])
+        ext = [int(x.min()), int(x.max())] if x.size else \
             [(1 << 31) - 1, -(1 << 31)]
         return torch.tensor(bins.tolist() + ext)
     val, cnt = decode.percentile(None, None, None, 0, nth, counts=counts)
@@ -2163,31 +2247,32 @@ def decode_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
     f, g, v, cols = gen["f"], gen["g"], gen["v"], gen["cols"]
 
     def signed(vals):
-        vals = [int(x) for x in np.unique(vals)]
+        vals = [int(x) for x in sorted_unique(vals)]
         return ("signed", (len(vals), digest(vals)))
 
     def row(ids):
-        ids = np.unique(np.asarray(ids)).astype(np.uint64)
+        ids = sorted_unique(np.asarray(ids)).astype(np.uint64)
         return ("row", (int(ids.size), hashlib.sha1(ids.tobytes()).hexdigest(),
                         None))
 
     def sort(order):
         return ("sort", (len(order), digest([[int(c) for c in cols[order]],
                                              [int(x) for x in v[order]]])))
-    asc_f1 = np.flatnonzero(f == 1)[np.lexsort((cols[f == 1], v[f == 1]))]
-    d_f = np.unique(f[g == 2])
-    asc_g1 = np.flatnonzero(g == 1)[np.lexsort((cols[g == 1], v[g == 1]))]
+    asc_f1 = first_records(np.flatnonzero(f == 1), v, cols, 10)
+    d_f = sorted_unique(f[g == 2])
+    asc_g1 = first_records(np.flatnonzero(g == 1), v, cols, 10)
     at5 = np.flatnonzero(cols == col5)[0]
     ext = np.flatnonzero(f == 1)[:1000]
     at42 = np.flatnonzero(v == 42)
     oracle = {
         "Distinct(field=v)": signed(v),
         "Distinct(Row(f=1), field=g)": row(g[f == 1]),
-        "Count(Distinct(field=v))": ("value", int(np.unique(v).size)),
+        "Count(Distinct(field=v))": ("value", int(sorted_unique(v).size)),
         "Count(Intersect(Row(f=1), Distinct(Row(g=2), field=f)))":
             ("value", int(((f == 1) & np.isin(cols, d_f)).sum())),
         "GroupBy(Rows(g), aggregate=Count(Distinct(field=v)))": (
-            "list", [((r,), int((g == r).sum()), int(np.unique(v[g == r]).size))
+            "list", [((r,), int((g == r).sum()),
+                      int(sorted_unique(v[g == r]).size))
                      for r in range(4) if (g == r).any()]),
         "Sort(Row(f=1), field=v, limit=10)": sort(asc_f1[:10]),
         "Sort(All(), field=v, sort-desc=true, limit=5, offset=3)":
@@ -2369,16 +2454,28 @@ def tune_phase(timer: Timer, big, small, copy_bps: float, and_time: dict):
     return launches, times["harness"], read_ceiling
 
 
+def runs_for(first_ms: float, reps: int) -> int:
+    """The runs of a latency p50 whose first run took `first_ms`: `reps`
+    below 20 ms, half as many to 200 ms and 3 past it (the host decodes
+    and the float64 moments, whose spread is small beside their
+    length)."""
+    if first_ms < 20:
+        return reps
+    return max(reps // 2, 1) if first_ms < 200 else 3
+
+
 def mix_of(gen, n_shards: int) -> tuple:
     """(the QUERIES of an n_shards table, with a record of shard 5 for
-    {col5} and the Sort cursor for {after}; col5; the records by v
-    descending; after).  The entries over shards 0-63 need 64 shards."""
+    {col5} and the Sort cursor for {after}; col5; the first 13 records by v
+    descending, then column; after).  The entries over shards 0-63 need 64
+    shards."""
     from featurebase_tpu_torch.core.consts import SHARD_WIDTH
     cols = gen["cols"]
     col5 = int(cols[cols // SHARD_WIDTH == min(5, n_shards - 1)][0])
     # the second page of Sort(All(), field=v, sort-desc=true, limit=5,
     # offset=3) starts after its last record
-    desc = np.lexsort((cols, -gen["v"]))
+    desc = first_records(np.arange(cols.size), gen["v"], cols, 13,
+                         desc=True)
     after = f"[{int(gen['v'][desc[7]])}, {int(cols[desc[7]])}]"
     queries = [q.replace("{col5}", str(col5)).replace("{after}", after)
                for q in QUERIES if "shards=" not in q or n_shards > 63]
@@ -2634,11 +2731,9 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
         return (time.perf_counter() - t0) * 1e3
 
     def p50(q) -> float:
-        """Median of `reps` runs; of 5 for a query slower than 200 ms (the
-        host decodes, whose spread is small beside their length)."""
         first = timed(q)
-        n = reps if first < 200 else 5
-        return float(np.median([first] + [timed(q) for _ in range(n - 1)]))
+        return float(np.median([first] + [timed(q) for _ in range(
+            runs_for(first, reps) - 1)]))
     latency = {q: p50(q) for q in queries}
     say("latency_p50_ms", **latency)
     lap("latency")
@@ -2729,6 +2824,9 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
     for k, v in ingest_phase(holder, queries).items():
         launches[k] += v
     lap("ingest")
+    for k, v in cluster_phase(holder, reps).items():
+        launches[k] += v
+    lap("cluster")
     return launches
 
 
@@ -2760,11 +2858,11 @@ def mix_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
     oracle["GroupBy(Rows(f))"] = ("list", [((r,), int(top[r]), 0)
                                            for r in range(8) if top[r]])
     # the per-shard GroupBys: a bincount of the (f, g) pairs, and the
-    # pairs' sums of v with np.add.at in int64
+    # pairs' sums of v by a weighted bincount (float64 sums of integers
+    # below 2^53: exact)
     pair = f * 4 + g
     n_pair = np.bincount(pair, minlength=32)
-    s_pair = np.zeros(32, dtype=np.int64)
-    np.add.at(s_pair, pair, v.astype(np.int64))
+    s_pair = np.bincount(pair, weights=v, minlength=32).astype(np.int64)
     by_count = [((k // 4, k % 4), int(n_pair[k]), 0) for k in range(32)
                 if n_pair[k]]
     by_sum = [((k // 4, k % 4), int(n_pair[k]), int(s_pair[k]))
@@ -2778,8 +2876,8 @@ def mix_oracles(gen, col5: int, desc: np.ndarray) -> tuple:
         = ("list", [x for x in by_count if x[1] > 2500000])
     oracle[PER_SHARD + "GroupBy(Rows(f), Rows(g))"] = ("list", by_count)
     first32 = (gen["cols"] >> 20) < 32
-    s32 = np.zeros(32, dtype=np.int64)
-    np.add.at(s32, pair[first32], v[first32].astype(np.int64))
+    s32 = np.bincount(pair[first32], weights=v[first32],
+                      minlength=32).astype(np.int64)
     n32 = np.bincount(pair[first32], minlength=32)
     oracle[PER_SHARD_SUM] = ("list", [((k // 4, k % 4), int(n32[k]),
                                        int(s32[k])) for k in range(32)
@@ -2974,17 +3072,37 @@ class WriteModel:
         """The reads of WRITE_READS on the bench index, by numpy: canon
         forms, and (value, tolerance) for Var and Corr."""
         F, G, v, alive = self.F, self.G, self.v, self.alive
-        top = F.sum(0)
         va = v[alive]
-        pairs = [(r, q, F[:, r] & G[:, q]) for r in range(WRITE_ROWS)
-                 for q in range(4)]
-        by_count = [((r, q), int(m.sum()), 0) for r, q, m in pairs
-                    if m.any()]
-        by_sum = [((r, q), int(m.sum()), int(v[m].sum())) for r, q, m in
-                  pairs if m.any()]
+        # each record's g row, 4 if none: G holds one a record in the
+        # writes phase, none once deleted (its row read as the 4 bytes of
+        # a little-endian word); each record's f rows as a bit mask; one
+        # bincount of (g row, mask) and one weighted by v (float64 sums of
+        # integers below 2^53: exact), spread over the masks' rows by a
+        # product with the masks' bits
+        word = G.view(np.uint32).ravel()
+        gi = np.where(word == 0, 4, (word >= 1 << 8).astype(np.int64)
+                      + (word >= 1 << 16) + (word >= 1 << 24))
+        packed = np.packbits(F, axis=1, bitorder="little")
+        mask = packed[:, 0].astype(np.int64) | \
+            (packed[:, 1].astype(np.int64) << 8)
+        key = gi * (1 << WRITE_ROWS) + mask
+        size = 5 << WRITE_ROWS
+        bits = (np.arange(1 << WRITE_ROWS)[:, None]
+                >> np.arange(WRITE_ROWS)) & 1
+        n_c = np.bincount(key, minlength=size).reshape(5, -1) @ bits
+        s_c = (np.bincount(key, weights=v, minlength=size).reshape(5, -1)
+               @ bits)
+        top = n_c.sum(0)
+        by_count, by_sum = [], []
+        for r in range(WRITE_ROWS):
+            for q in range(4):
+                if n_c[q, r]:
+                    by_count.append(((r, q), int(n_c[q, r]), 0))
+                    by_sum.append(((r, q), int(n_c[q, r]),
+                                   int(s_c[q, r])))
         r0 = int(np.flatnonzero(top)[0])
         uv = alive & self.u_has
-        vals = [int(x) for x in np.unique(va)]
+        vals = [int(x) for x in sorted_unique(va)]
         return {
             "Count(Row(f=1))": ("value", int(top[1])),
             "Count(Row(f=9))": ("value", int(top[9])),
@@ -3309,10 +3427,9 @@ def api_phase(holder, model: "WriteModel", queries, reps: int) -> dict:
         return ms(lambda: api.query(*index_of(q)))
 
     def p50(q) -> float:
-        """Median of `reps` runs; of 5 past 200 ms (as slice_phase's)."""
         first = timed(q)
-        n = reps if first < 200 else 5
-        return float(np.median([first] + [timed(q) for _ in range(n - 1)]))
+        return float(np.median([first] + [timed(q) for _ in range(
+            runs_for(first, reps) - 1)]))
     latency = {q: p50(q) for q in red_q}
     prof = query_profile(red_q, timed, latency, phase="api_apply_profile")
     say("api_apply", nvidia_smi=card_line(), records=len(vals),
@@ -4468,6 +4585,7 @@ def server_phase(holder, queries, durable: dict, reps: int) -> dict:
                     for _ in range(SERVER_TIMED_RUNS)]
             h, a = (float(np.median([r[i] for r in runs])) for i in (0, 1))
             timed[q] = dict(http_p50_ms=h, api_p50_ms=a, wire_ms=h - a)
+            SERVER_WIRE[q] = h
         say("server_wire_ms", nvidia_smi=card, runs=SERVER_TIMED_RUNS,
             queries=timed)
     finally:
@@ -4928,16 +5046,546 @@ def ingest_alone(n_shards: int, reps: int) -> None:
     ingest_phase(holder, mix_of(gen, n_shards)[0])
 
 
+# -- the cluster phase ------------------------------------------------------
+
+CLUSTER_NODES = 3
+CLUSTER_REPLICAS = 2
+SERVER_WIRE: dict = {}   # the server phase's HTTP p50 (ms) of SERVER_TIMED
+# the families of the cluster parity tests (tests/torch_cluster_data.py)
+# over the bench index: through node 0's HTTP, each answer equal to the
+# single device's over the same holder
+CLUSTER_QUERIES = [
+    "Count(Intersect(Row(f=1), Row(g=2)))",
+    "Count(Union(Row(f=1), Row(f=2), Row(g=3)))",
+    "Count(Row(v > 5000))",
+    "Row(f=3)",
+    "TopN(f, n=5)",
+    "TopN(f, Row(g=2), n=5)",
+    "TopK(f, k=3)",
+    "Sum(field=v)",
+    "Sum(Row(f=1), field=v)",
+    "Min(field=v)",
+    "Max(Row(g=2), field=v)",
+    "MinRow(field=f)",
+    "MaxRow(field=f)",
+    "Rows(f)",
+    "GroupBy(Rows(f))",
+    "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), Rows(g), aggregate=Sum(field=v))",
+    "GroupBy(Rows(f), Rows(g), having=Condition(count > 2500000))",
+    "GroupBy(Rows(f), Rows(g), limit=5)",
+    "Distinct(Row(f=1), field=g)",
+    "Count(Distinct(field=v))",
+    "Percentile(field=v, nth=50)",
+    "Percentile(field=v, nth=99.9, filter=Row(f=1))",
+    "Sort(Row(f=1), field=v, limit=10)",
+    "Sort(Row(v == 42), field=v)",
+    "Extract(Row(v == 42), Rows(v), Rows(g))",
+    "Extract(Limit(Row(f=1), limit=1000), Rows(f), Rows(g), Rows(v))",
+    "Count(Limit(Row(f=2), limit=5000))",
+    "Var(field=v)",
+    "Var(field=v, filter=Row(f=1))",
+    "Corr(field=v, field2=u)",
+    "IncludesColumn(Row(f=1), column={col5})",
+    "FieldValue(field=v, column={col5})",
+    'Apply(Intersect(Row(f=1), Row(g=2)), "v * 2 + u", "sum")',
+    "Arrow(Row(f=1))",
+]
+# answered again by the surviving replicas after node 2 stops
+CLUSTER_FAILOVER = ["Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=5)",
+                    "Sum(field=v)", "GroupBy(Rows(f), Rows(g))"]
+CLUSTER_WIRE = "Row(f=3)"    # the bitmap result whose partials are measured
+CLUSTER_KEYS = 40            # records of the keyed index ("ckeyed")
+# the CLI deployment: three `server --cluster-nodes` processes over the
+# first CLI_SHARDS shards of the bench index, and one fresh `server` that a
+# backup of them is restored into
+CLI_SHARDS = 16
+CLI_QUERIES = [
+    "Count(Intersect(Row(f=1), Row(g=2)))", "TopN(f, n=5)", "Sum(field=v)",
+    "Min(field=v)", "MaxRow(field=f)", "GroupBy(Rows(f), Rows(g))",
+    "GroupBy(Rows(f), aggregate=Sum(field=v))",
+    "Distinct(Row(f=1), field=g)", "Percentile(field=v, nth=50)",
+    "Sort(Row(f=1), field=v, limit=10)",
+    "Extract(Row(v == 42), Rows(v), Rows(g))", "Var(field=v)",
+    "Corr(field=v, field2=u)",
+]
+CLUSTER_KERNELS = ("plan_eval", "row_counts", "bsi_sum_planes",
+                   "bsi_min_max", "pair_counts", "bsi_sum_groups",
+                   "bsi_decode", "bsi_decode_gather", "percentile_counts",
+                   "var_moments", "corr_moments")
+
+
+def http_json(url: str, method: str, path: str, body=None, timeout=300):
+    import urllib.request
+    req = urllib.request.Request(
+        url + path, method=method,
+        data=json.dumps(body).encode() if body is not None else None)
+    req.add_header("Content-Type", "application/json")
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        payload = resp.read()
+    return json.loads(payload) if payload else {}
+
+
+def bench_views(src) -> list:
+    """(field, view) of every view of the bench index, _exists included."""
+    return [(f.name, vn) for f in src.fields.values() for vn in f.views]
+
+
+def shard_payload(src, views, shard: int) -> dict:
+    """One shard's views as roaring payloads (ingest/roaring_import.py
+    export_roaring, the C++ codec), for import_roaring_shard."""
+    from featurebase_tpu_torch.ingest.roaring_import import export_roaring
+    return {f"{fn}/{vn}": {"data": export_roaring(src, fn, shard, view=vn)}
+            for fn, vn in views}
+
+
+def cli_nodes_start(device, scratch: str) -> dict:
+    """The CLI deployment's processes, started at once: CLUSTER_NODES
+    `python -m featurebase_tpu_torch server --cluster-nodes ...` (replicas
+    CLUSTER_REPLICAS) and one plain `server`, the restore's fresh node;
+    each on `device`'s kind (--cpu on the CPU, where it is rehearsed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    ports = [free_port() for _ in range(CLUSTER_NODES + 1)]
+    urls = [f"http://127.0.0.1:{p}" for p in ports]
+    spec = ",".join(f"node{i}={u}" for i, u in enumerate(urls[:-1]))
+    cpu = ["--cpu"] if device.type == "cpu" else []
+    procs, logs = [], []
+    for i, port in enumerate(ports):
+        argv = [sys.executable, "-m", "featurebase_tpu_torch", "server",
+                "--bind", f"127.0.0.1:{port}", *cpu]
+        if i < CLUSTER_NODES:
+            argv += ["--cluster-nodes", spec, "--name", f"node{i}",
+                     "--replicas", str(CLUSTER_REPLICAS)]
+        logs.append(os.path.join(scratch, f"node{i}.log"))
+        with open(logs[-1], "w") as log:
+            procs.append(subprocess.Popen(argv, cwd=root, env=env,
+                                          stdout=log,
+                                          stderr=subprocess.STDOUT))
+    ch = dict(procs=procs, urls=urls, logs=logs, scratch=scratch,
+              t0=time.perf_counter(), ready_s={})
+
+    def watch():
+        """Each process's seconds to its first /health answer."""
+        import urllib.request
+        for i, (url, proc) in enumerate(zip(urls, procs)):
+            while proc.poll() is None and \
+                    time.perf_counter() - ch["t0"] < 300:
+                try:
+                    urllib.request.urlopen(url + "/health", timeout=2).read()
+                    ch["ready_s"][f"node{i}"] = \
+                        time.perf_counter() - ch["t0"]
+                    break
+                except OSError:
+                    time.sleep(0.1)
+    import threading
+    ch["watch"] = threading.Thread(target=watch, daemon=True)
+    ch["watch"].start()
+    return ch
+
+
+def cli_nodes_stop(ch: dict) -> list:
+    """Stop and join the CLI deployment's processes; their exit codes."""
+    for p in ch["procs"]:
+        if p.poll() is None:
+            p.terminate()
+    codes = []
+    for p in ch["procs"]:
+        try:
+            codes.append(p.wait(timeout=60))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            codes.append(p.wait())
+    return codes
+
+
+def cli_cluster(ch: dict, holder, single, card: str) -> dict:
+    """(b) The CLI deployment (cli_nodes_start's processes): CLI_SHARDS
+    shards of the bench index loaded through node 0's HTTP roaring import
+    (forwarded to their owners), CLI_QUERIES through node 0 and node 2
+    equal to the single device's over those shards; then `backup --host`
+    of node 0 and `restore --host` into the fresh node, whose answers are
+    the same."""
+    import contextlib
+    import io
+
+    from featurebase_tpu_torch import cli
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    urls = ch["urls"]
+    ch["watch"].join(timeout=max(1.0, 300 - (time.perf_counter() - ch["t0"])))
+    for i, (proc, log) in enumerate(zip(ch["procs"], ch["logs"])):
+        if f"node{i}" not in ch["ready_s"]:
+            with open(log) as fh:
+                raise AssertionError(
+                    f"CLI node {i} did not answer /health (exit "
+                    f"{proc.poll()}):\n{fh.read()[-2000:]}")
+    ready_s = ch["ready_s"]
+    src = holder.index("bench")
+    shards = list(range(CLI_SHARDS))
+    node0 = urls[0]
+    t0 = time.perf_counter()
+    http_json(node0, "POST", "/index/cli", {"options": src.options.to_json()})
+    for f in src.public_fields():
+        http_json(node0, "POST", f"/index/cli/field/{f.name}",
+                  {"options": f.options.to_json()})
+    import base64
+    views = bench_views(src)
+    for s in shards:
+        body = {"views": {spec: {"data": base64.b64encode(
+            p["data"]).decode("ascii")} for spec, p in shard_payload(
+                src, views, s).items()}}
+        http_json(node0, "POST", f"/index/cli/shard/{s}/import-roaring",
+                  body)
+    load_s = time.perf_counter() - t0
+    rank_cache = src.field("f")._topn_cache
+
+    def want_of(q):
+        rank_cache.clear()
+        return jsonable(response_to_json(single.execute("bench", q,
+                                                        shards=shards)))
+    want = {q: want_of(q) for q in CLI_QUERIES}
+
+    def check(url, what):
+        t = time.perf_counter()
+        for q in CLI_QUERIES:
+            got = http_json(url, "POST", "/index/cli/query", {"query": q})
+            if got != want[q]:
+                raise AssertionError(f"{what} {q}: {got!r:.200} != the "
+                                     f"single device {want[q]!r:.200}")
+        return time.perf_counter() - t
+    cluster_s = check(node0, "CLI cluster node 0")
+    node2_s = check(urls[2], "CLI cluster node 2")
+    tar = os.path.join(ch["scratch"], "cli-backup.tgz")
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["backup", "--host", node0, "--output", tar])
+    backup_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"backup exited {rc}: {out.getvalue()}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["restore", "--host", urls[-1], "--source", tar])
+    restore_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"restore exited {rc}: {out.getvalue()}")
+    restored_s = check(urls[-1], "the restored node")
+    status = http_json(node0, "GET", "/status")
+    if status.get("state") != "NORMAL" or len(status.get("nodes", [])) \
+            != CLUSTER_NODES:
+        raise AssertionError(f"the CLI cluster's /status: {status}")
+    return dict(nodes=CLUSTER_NODES, replicas=CLUSTER_REPLICAS,
+                shards=CLI_SHARDS, ready_s=ready_s, load_s=load_s,
+                queries=len(CLI_QUERIES), node0_s=cluster_s, node2_s=node2_s,
+                backup_s=backup_s, backup_bytes=os.path.getsize(tar),
+                restore_s=restore_s, restored_s=restored_s,
+                equal_to_single_device=True, devices=status["devices"],
+                cli_output=out.getvalue().strip().splitlines())
+
+
+def cluster_phase(holder, reps: int) -> dict:
+    """Phase 5i: the cluster (featurebase_tpu_torch.cluster) on the card.
+    (a) TestCluster(CLUSTER_NODES, replicas=CLUSTER_REPLICAS), in process,
+    each node an API on the card: the bench index loaded through node 0's
+    API.import_roaring_shard, a call a shard, from the holder's roaring
+    export (the payloads forwarded over HTTP to their owners);
+    CLUSTER_QUERIES through node 0's HTTP, each equal to the single
+    device's answer over the holder, the first pass with each node's legs
+    one at a time under its launch counters (every kernel must rise), then
+    SERVER_TIMED's p50 of `reps` runs (5 past 200 ms) beside the server
+    phase's single-node HTTP p50; the wire cost of CLUSTER_WIRE's
+    partials; a keyed index written and read through its key's partition
+    primary, the key on every node; node 2 stopped and CLUSTER_FAILOVER
+    answered by the surviving replicas (the first pass after the failover
+    timed); a Set through node 1 read back from both owners of its shard;
+    the device bytes held.  (b) The CLI deployment (cli_cluster), whose
+    processes start first.  Returns the first pass's launches, summed
+    over the nodes."""
+    import tempfile
+    import threading
+
+    from featurebase_tpu_torch.cluster.wire import (decode_result,
+                                                    encode_call)
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.pql.parser import parse
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    from featurebase_tpu_torch.storage import residency
+    from featurebase_tpu_torch.testing import TestCluster
+    t_phase = time.perf_counter()
+    card = card_line()
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-cluster-")
+    residency.residency().set_budget(0)
+    residency.reset()
+    single = Executor(holder)
+    ch = cli_nodes_start(single.device, scratch)
+    tc = None
+    try:
+        src = holder.index("bench")
+        shards = src.available_shards()
+        # a record of shard 5, as mix_of's {col5}
+        col5 = int(single.execute("bench", "Limit(All(), limit=1)",
+                                  shards=[min(5, shards[-1])])[0]
+                   .columns()[0])
+        # Arrow where the api phase left the bench index a dataframe
+        queries = [q.replace("{col5}", str(col5)) for q in CLUSTER_QUERIES
+                   if not q.startswith("Arrow") or src.dataframe.shards]
+        rank_cache = src.field("f")._topn_cache
+
+        def one(q):
+            rank_cache.clear()
+            return jsonable(response_to_json(single.execute("bench", q)))
+        t0 = time.perf_counter()
+        want = {q: one(q) for q in queries}
+        single_s = time.perf_counter() - t0
+        tc = TestCluster(CLUSTER_NODES, replicas=CLUSTER_REPLICAS)
+        t0 = time.perf_counter()
+        tc.http(0, "POST", "/index/bench", {"options": src.options.to_json()})
+        for f in src.public_fields():
+            tc.http(0, "POST", f"/index/bench/field/{f.name}",
+                    {"options": f.options.to_json()})
+        views = bench_views(src)
+        wire = export_s = 0.0
+        for s in shards:
+            t1 = time.perf_counter()
+            payload = shard_payload(src, views, s)
+            export_s += time.perf_counter() - t1
+            wire += sum(len(p["data"]) for p in payload.values())
+            tc[0].import_roaring_shard("bench", s, payload)
+        load_s = time.perf_counter() - t0
+        for api in tc.apis:   # the holder's dataframe shards, for Arrow
+            api.holder.index("bench").dataframe.shards.update(
+                src.dataframe.shards)
+        held = {n.id: sum(1 for s in shards if tc[0].cluster.snapshot
+                          .owns_shard(n.id, "bench", s))
+                for n in tc[0].cluster.nodes}
+
+        # the first pass: each node's legs one at a time under the launch
+        # counters, so that each launch is charged to its node
+        per_node = {f"node{i}": Counter() for i in range(CLUSTER_NODES)}
+        lock = threading.Lock()
+
+        def counted(api, name):
+            orig = api.query_remote_local
+
+            def leg(index, query, leg_shards):
+                with lock:
+                    before = ck.launches()
+                    out = orig(index, query, leg_shards)
+                    torch.cuda.synchronize()
+                    after = ck.launches()
+                per_node[name].update({k: after[k] - before[k]
+                                       for k in after})
+                return out
+            return leg
+        for i, api in enumerate(tc.apis):
+            api.query_remote_local = counted(api, f"node{i}")
+        first = {}
+        try:
+            for q in queries:
+                t1 = time.perf_counter()
+                got = tc.query(0, "bench", q)
+                first[q] = (time.perf_counter() - t1) * 1e3
+                if got != want[q]:
+                    raise AssertionError(f"cluster {q}: {got!r:.200} != the "
+                                         f"single device {want[q]!r:.200}")
+        finally:
+            for api in tc.apis:
+                del api.query_remote_local
+        launches = Counter()
+        for c in per_node.values():
+            launches.update(c)
+        missing = [k for k in CLUSTER_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"the cluster's nodes did not launch "
+                                 f"{missing}: {dict(per_node)}")
+        resident_first = residency.residency().stats()
+        for q in CLUSTER_FAILOVER:
+            if tc.query(1, "bench", q) != want[q]:
+                raise AssertionError(f"cluster node 1 {q} differs")
+
+        def timed(q) -> float:
+            t1 = time.perf_counter()
+            tc.query(0, "bench", q)
+            return (time.perf_counter() - t1) * 1e3
+
+        def p50(q) -> float:
+            head = timed(q)
+            n = reps if head < 200 else 5
+            return float(np.median([head] + [timed(q)
+                                             for _ in range(n - 1)]))
+        t0 = time.perf_counter()
+        latency = {q: p50(q) for q in SERVER_TIMED}
+        latency_s = time.perf_counter() - t0
+
+        # the wire cost of a bitmap's partials: each node's partial of
+        # CLUSTER_WIRE over the shards it serves, encoded, its JSON bytes,
+        # and decoded as the coordinator decodes it
+        dx = tc[0].distributed
+        groups = dx._group_shards("bench", shards)
+        call = parse(CLUSTER_WIRE).calls[0]
+        partials = {}
+        for nid, node_shards in sorted(groups.items()):
+            api = tc[int(nid[4:])]
+            t1 = time.perf_counter()
+            enc = api.query_remote("bench", [encode_call(call)], node_shards)
+            enc_ms = (time.perf_counter() - t1) * 1e3
+            body = json.dumps({"partials": enc})
+            t1 = time.perf_counter()
+            row = decode_result(json.loads(body)["partials"][0])
+            dec_ms = (time.perf_counter() - t1) * 1e3
+            partials[nid] = dict(shards=len(node_shards),
+                                 columns=int(row.count()),
+                                 json_mb=len(body) / 1e6, encode_ms=enc_ms,
+                                 decode_ms=dec_ms)
+
+        # a keyed index: a write through its key's partition primary, read
+        # there and held against a single-device API's same writes
+        keyed = keyed_cluster(tc, single.device)
+
+        # failover: node 2 stops; the surviving replicas answer
+        tc.stop_node(2)
+        after = {}
+        for q in CLUSTER_FAILOVER:
+            t1 = time.perf_counter()
+            got = tc.query(0, "bench", q)
+            after[q] = (time.perf_counter() - t1) * 1e3
+            if got != want[q]:
+                raise AssertionError(f"after the failover {q}: {got!r:.200} "
+                                     f"!= {want[q]!r:.200}")
+        after_p50 = {q: float(np.median([timed(q) for _ in range(5)]))
+                     for q in CLUSTER_FAILOVER}
+        resident_failover = residency.residency().stats()
+
+        # a replicated write: a Set through node 1 into a shard of nodes 0
+        # and 1, read back from both owners' own holders
+        snap = tc[0].cluster.snapshot
+        shard = next(s for s in range(1 << 16) if {
+            n.id for n in snap.shard_nodes("bench", s)} == {"node0",
+                                                             "node1"})
+        col = shard * SHARD_WIDTH + 12345
+        if tc.query(1, "bench", f"Set({col}, f=20)") != {"results": [True]}:
+            raise AssertionError("the replicated Set did not change a bit")
+        for n in ("node0", "node1"):
+            got = tc[int(n[4:])].executor.execute(
+                "bench", "Count(Row(f=20))", shards=[shard])
+            if got != [1]:
+                raise AssertionError(f"{n} does not hold the replicated "
+                                     f"write: {got}")
+        out = dict(
+            nodes=CLUSTER_NODES, replicas=CLUSTER_REPLICAS,
+            shards=len(shards), shards_held=held, load_s=load_s,
+            export_s=export_s, payload_mb=wire / 1e6,
+            single_device_s=single_s, queries=len(queries),
+            equal_to_single_device=True, first_pass_ms=first,
+            p50_ms=latency, latency_s=latency_s,
+            server_wire_p50_ms={q: SERVER_WIRE[q] for q in SERVER_TIMED
+                                if q in SERVER_WIRE},
+            launches_by_node={k: dict(v) for k, v in per_node.items()},
+            wire=dict(query=CLUSTER_WIRE, partials=partials),
+            keyed=keyed, failover_first_ms=after,
+            failover_p50_ms=after_p50, replicated_write=dict(
+                shard=shard, column=col, read_back_from=["node0", "node1"]),
+            residency_bytes=dict(first_pass=resident_first["bytes"],
+                                 after_failover=resident_failover["bytes"]))
+        say("cluster_in_process", nvidia_smi=card, **out)
+        tc.close()
+        tc = None
+        cli = cli_cluster(ch, holder, single, card)
+        say("cluster_cli", nvidia_smi=card, **cli)
+    finally:
+        if tc is not None:
+            tc.close()
+        codes = cli_nodes_stop(ch)
+        import shutil
+        shutil.rmtree(scratch, ignore_errors=True)
+    launches = {k: launches[k] for k in ck.launches()}
+    say("cluster_phase", nvidia_smi=card, launches=launches,
+        cli_exit_codes=codes, seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def keyed_cluster(tc, device) -> dict:
+    """The keyed index "ckeyed" (CLUSTER_KEYS records with string keys, a
+    keyed set field kf, an int field n) created and imported through node
+    0, and through a single-device API; a Set of a new record key through
+    the node that is its key partition's primary, then reads through that
+    node equal to the single device's, and the new key's id the same on
+    every node."""
+    from featurebase_tpu_torch.server.api import API
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    rng = np.random.default_rng(7)
+    keys = [f"rec-{i}" for i in range(CLUSTER_KEYS)]
+    colors = [["alpha", "beta", "gamma"][i]
+              for i in rng.integers(0, 3, CLUSTER_KEYS)]
+    vals = [int(x) for x in rng.integers(0, 1000, CLUSTER_KEYS)]
+    ref = API(device=device)
+    schema = [("POST", "/index/ckeyed", {"options": {"keys": True}}),
+              ("POST", "/index/ckeyed/field/kf",
+               {"options": {"type": "set", "keys": True}}),
+              ("POST", "/index/ckeyed/field/n",
+               {"options": {"type": "int", "min": 0, "max": 1000}})]
+    for m, p, b in schema:
+        tc.http(0, m, p, b)
+    ref.create_index("ckeyed", {"keys": True})
+    ref.create_field("ckeyed", "kf", {"type": "set", "keys": True})
+    ref.create_field("ckeyed", "n", {"type": "int", "min": 0, "max": 1000})
+    tc.http(0, "POST", "/index/ckeyed/field/kf/import",
+            {"rowKeys": colors, "columnKeys": keys})
+    tc.http(0, "POST", "/index/ckeyed/field/n/import",
+            {"values": vals, "columnKeys": keys})
+    ref.import_bits("ckeyed", "kf", None, None, row_keys=colors,
+                    col_keys=keys)
+    ref.import_values("ckeyed", "n", None, vals, col_keys=keys)
+    new = "cluster-new-key"
+    primary = tc[0].cluster.snapshot.primary_key_node("ckeyed", new)
+    p = int(primary.id[4:])
+    write = f'Set("{new}", kf="alpha")'
+    got = tc.query(p, "ckeyed", write)
+    want = jsonable(response_to_json(ref.query("ckeyed", write)))
+    if got != want:
+        raise AssertionError(f"keyed {write}: {got} != {want}")
+    reads = ['Row(kf="alpha")', "Count(All())", "Distinct(field=kf)",
+             "Extract(All(), Rows(kf), Rows(n))", "Sort(All(), field=n, "
+             "limit=3)", "TopN(kf, n=2)"]
+    for q in reads:
+        got = tc.query(p, "ckeyed", q)
+        want = jsonable(response_to_json(ref.query("ckeyed", q)))
+        if got != want:
+            raise AssertionError(f"keyed {q} through the primary: "
+                                 f"{got!r:.200} != {want!r:.200}")
+    ids = {f"node{i}": api.holder.index("ckeyed").translate_store
+           .find_keys([new]).get(new) for i, api in enumerate(tc.apis)}
+    if len(set(ids.values())) != 1 or None in ids.values():
+        raise AssertionError(f"the new key's ids on the nodes: {ids}")
+    return dict(records=CLUSTER_KEYS, primary=primary.id, key_ids=ids,
+                reads=len(reads), equal_to_single_device=True)
+
+
+def cluster_alone(n_shards: int, reps: int) -> None:
+    """The cluster phase by itself (--only cluster): the table, unwritten,
+    then cluster_phase."""
+    holder, _ = build_table(n_shards)
+    cluster_phase(holder, reps)
+
+
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
 # the forms of kernel H' are moments_kernel<fields, ...>.
 KERNEL_SYMBOLS = {"var_moments": "moments_kernel<1,",
                   "corr_moments": "moments_kernel<2,"}
 
 
+PROFILE_WARM = 3   # queries run under the profiler before the measured pass
+
+
 def query_profile(queries, timed, latency,
                   phase: str = "query_profile") -> dict:
     """The query mix under one torch.profiler window, each query under a
-    record_function label: a warm-up pass, then the measured pass.  Device
+    record_function label: a warm-up of its first PROFILE_WARM queries
+    (the profiler's own start; the callers' caches are warm from their
+    latency passes), then the measured pass.  Device
     work belongs to a query through the profiler's launch correlation (the
     runtime call under its label), not through device timestamps, which do
     not line up with the host's.  Per query:
@@ -4950,7 +5598,7 @@ def query_profile(queries, timed, latency,
     counted = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for i, q in enumerate(queries):
+        for i, q in enumerate(queries[:PROFILE_WARM]):
             with record_function(f"warm:{i}"):
                 timed(q)
         for i, q in enumerate(queries):
@@ -5011,11 +5659,11 @@ def main() -> int:
                     help="run as CPUWorker's worker process: pickle the CPU "
                     "executor's answers to the mix to PATH (no card used)")
     ap.add_argument("--only", choices=["api", "sql", "mesh", "server",
-                                       "ingest"],
+                                       "ingest", "cluster"],
                     help="run one phase by itself after the card's line: "
                     "the table, then the api, the sql, the mesh, the "
-                    "server or the ingest phase (its kernels build at "
-                    "first use)")
+                    "server, the ingest or the cluster phase (its kernels "
+                    "build at first use)")
     args = ap.parse_args()
     RECORDS_PER_SHARD = args.records_per_shard
     if args.cpu_answers:
@@ -5037,7 +5685,8 @@ def main() -> int:
         host_cpus=os.cpu_count(), torch_threads=torch.get_num_threads())
     if args.only:
         {"api": api_alone, "sql": sql_alone, "mesh": mesh_alone,
-         "server": server_alone, "ingest": ingest_alone}[args.only](
+         "server": server_alone, "ingest": ingest_alone,
+         "cluster": cluster_alone}[args.only](
              args.shards, args.reps)
         print(card)
         return 0

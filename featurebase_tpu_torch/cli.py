@@ -5,6 +5,11 @@ Own copy of featurebase_tpu/cli.py: the same parser, subcommands and flags
 
   python -m featurebase_tpu_torch server [--bind HOST:PORT] [--data-dir DIR]
                                          [--cpu] [--grpc-bind HOST:PORT]
+                                         [--cluster-nodes ID=URL,...]
+  python -m featurebase_tpu_torch backup  --data-dir DIR --output TARFILE
+                                          [--host URL]
+  python -m featurebase_tpu_torch restore --source TARFILE --data-dir DIR
+                                          [--host URL]
   python -m featurebase_tpu_torch import --host URL --index I FILE.csv
   python -m featurebase_tpu_torch query  --host URL --index I 'Count(All())'
   python -m featurebase_tpu_torch sql    --host URL 'SELECT ...'
@@ -13,14 +18,17 @@ Own copy of featurebase_tpu/cli.py: the same parser, subcommands and flags
 --cpu is given (then it serves from the CPU); --mesh builds the port's
 mesh over every card (eight CPU members with --cpu), and
 --mesh-coordinator joins a torch.distributed group (NCCL, or Gloo with
---cpu) with one member a process.  The host tools run as in the JAX
+--cpu) with one member a process.  --cluster-nodes makes the process one
+node of a cluster (--name picks its id, --replicas the replica count), with
+the heartbeat that probes its peers and resyncs it.  `backup` and
+`restore` (and their aliases `backuptar` and `restoretar`) tar a data
+directory, or with --host back up a live cluster over HTTP and restore
+one into a running cluster.  The host tools run as in the JAX
 package: auth-token, keygen, generate-config, wal-info, presort, chksum,
 parquet-info, dataframe-csv-loader, and so do export, datagen and consume
 (consume ingests into an API on CUDA, or on the CPU with --cpu).
-Subcommands that need what the port does not run yet raise
-NotImplementedError naming their ROADMAP.md queue 1 item: dax (15),
-backup, backuptar, restore and restoretar (14); so does `server
---cluster-nodes` (14).
+`dax` needs what the port does not run yet and raises NotImplementedError
+naming its ROADMAP.md queue 1 item (15).
 
 Config: flags > env (FEATUREBASE_TPU_*) > TOML file (--config), mirroring
 the reference's pflag/env/TOML precedence (reference cmd/root.go:127).
@@ -31,6 +39,7 @@ import argparse
 import json
 import os
 import sys
+import tarfile
 
 from featurebase_tpu_torch.server.api import not_ported
 
@@ -513,8 +522,19 @@ def cmd_server(args, cfg):
     from featurebase_tpu_torch.server.api import API
     from featurebase_tpu_torch.server.http_server import Server
     auth_token = cfg.get("auth-token", args.auth_token)
-    if cfg.get("cluster-nodes", args.cluster_nodes):
-        raise not_ported(14, "server --cluster-nodes")
+    cluster = None
+    nodes_spec = cfg.get("cluster-nodes", args.cluster_nodes)
+    if nodes_spec:
+        from featurebase_tpu_torch.cluster.client import InternalClient
+        from featurebase_tpu_torch.cluster.cluster import Cluster
+        nodes = []
+        for item in nodes_spec.split(","):
+            nid, _, uri = item.strip().partition("=")
+            nodes.append({"id": nid, "uri": uri})
+        cluster = Cluster(cfg.get("name", args.name) or nodes[0]["id"],
+                          nodes,
+                          replicas=int(cfg.get("replicas", args.replicas)),
+                          client=InternalClient(auth_token=auth_token))
     lqt = float(cfg.get("long-query-time", args.long_query_time) or 0)
     mqm = int(cfg.get("max-query-memory", args.max_query_memory) or 0)
     qto = float(cfg.get("query-timeout", args.query_timeout) or 0)
@@ -532,7 +552,7 @@ def cmd_server(args, cfg):
     elif cfg.get("mesh", None) or args.mesh:
         from featurebase_tpu_torch.parallel.mesh import make_mesh
         mesh = make_mesh(devices=["cpu"] * 8) if cpu else make_mesh()
-    api = API(data_dir=cfg.get("data-dir", args.data_dir),
+    api = API(data_dir=cfg.get("data-dir", args.data_dir), cluster=cluster,
               mesh=mesh, long_query_time=lqt or None,
               max_query_memory=mqm or None, query_timeout=qto or None,
               query_history_length=int(cfg.get(
@@ -563,6 +583,10 @@ def cmd_server(args, cfg):
     if lookup_dsn:
         from featurebase_tpu_torch.storage.lookup import open_lookup
         api.holder.lookup_db = open_lookup(lookup_dsn)
+    if cluster is not None:
+        # liveness and convergence loop (reference: etcd heartbeats and
+        # holderSyncer); it also makes the first schema and translate pull
+        cluster.start_heartbeat(api)
     vri = float(cfg.get("views-removal-interval",
                         args.views_removal_interval) or 0)
     if vri > 0:
@@ -599,11 +623,105 @@ def cmd_dax(args, cfg):
 
 
 def cmd_backup(args):
-    raise not_ported(14, f"the {args.cmd} command")
+    """Back up a live cluster over HTTP (reference ctl/backup.go:87: schema
+    + per-partition translate data + per-shard snapshots), or tar a local
+    data dir when --host is not given."""
+    if getattr(args, "host", None):
+        return _live_backup(args.host, args.output)
+    data_dir = args.data_dir
+    if not data_dir or not os.path.isdir(data_dir):
+        print(f"no such data dir: {data_dir}", file=sys.stderr)
+        return 1
+    with tarfile.open(args.output, "w:gz") as tf:
+        tf.add(data_dir, arcname=".")
+    print(f"backed up {data_dir} -> {args.output}")
+    return 0
+
+
+def _live_backup(host: str, output: str) -> int:
+    """GET /schema + translate snapshot + every shard's snapshot bundle
+    from the shard's first live owner (reference: ctl/backup.go:342 fetches
+    /internal/index/{i}/shard/{s}/snapshot from a node owning the shard)."""
+    import io
+    schema = _http(host, "GET", "/schema")
+    translate = _http(host, "GET", "/internal/translate/snapshot")
+    with tarfile.open(output, "w:gz") as tf:
+        def put(name, data: bytes):
+            info = tarfile.TarInfo(name)
+            info.size = len(data)
+            tf.addfile(info, io.BytesIO(data))
+        put("schema.json", json.dumps(schema).encode())
+        put("translate.json", json.dumps(translate).encode())
+        idalloc = _http(host, "GET", "/internal/idalloc/data")
+        put("idalloc.json", json.dumps(idalloc).encode())
+        n_shards = 0
+        for idx in schema.get("indexes", []):
+            name = idx["name"]
+            shards = _http(host, "GET",
+                           f"/shards?index={name}&cluster=1")["shards"]
+            for s in shards:
+                data = _http(host, "GET",
+                             f"/internal/index/{name}/shard/{s}/snapshot",
+                             raw=True)
+                put(f"shards/{name}/{s}.npz", data)
+                n_shards += 1
+    print(f"backed up {host} ({n_shards} shards) -> {output}")
+    return 0
 
 
 def cmd_restore(args):
-    raise not_ported(14, f"the {args.cmd} command")
+    if getattr(args, "host", None):
+        return _live_restore(args.host, args.source)
+    if not args.data_dir:
+        print("restore requires --data-dir or --host", file=sys.stderr)
+        return 1
+    os.makedirs(args.data_dir, exist_ok=True)
+    with tarfile.open(args.source, "r:*") as tf:
+        tf.extractall(args.data_dir, filter="data")
+    print(f"restored {args.source} -> {args.data_dir}")
+    return 0
+
+
+def _live_restore(host: str, source: str) -> int:
+    """Recreate schema, translate state, and every shard on a live cluster
+    (reference: ctl/restore.go POST /internal/restore/{index}/{shard}; the
+    receiving node fans the bundle out to all owners of the shard).  The
+    translate stores go to every node (each node keeps them whole; the JAX
+    package's restore gives them to `host` alone)."""
+    with tarfile.open(source, "r:*") as tf:
+        members = {m.name: m for m in tf.getmembers()}
+        schema = json.loads(tf.extractfile(members["schema.json"]).read())
+        for idx in schema.get("indexes", []):
+            _http(host, "POST", f"/index/{idx['name']}",
+                  {"options": idx.get("options", {})})
+            for f in idx.get("fields", []):
+                if f["name"].startswith("_"):
+                    continue
+                _http(host, "POST",
+                      f"/index/{idx['name']}/field/{f['name']}",
+                      {"options": f.get("options", {})})
+        translate = json.loads(
+            tf.extractfile(members["translate.json"]).read())
+        nodes = [n["uri"] for n in _http(host, "GET", "/internal/nodes")
+                 if n.get("uri")] or [host]
+        for uri in nodes:
+            _http(uri, "POST", "/internal/translate/restore",
+                  {"snap": translate})
+        if "idalloc.json" in members:  # absent in older backups
+            _http(host, "POST", "/internal/idalloc/restore",
+                  json.loads(tf.extractfile(
+                      members["idalloc.json"]).read()))
+        n_shards = 0
+        for name, m in members.items():
+            if not name.startswith("shards/"):
+                continue
+            _, index, fname = name.split("/", 2)
+            shard = int(fname.removesuffix(".npz"))
+            _http(host, "POST", f"/internal/restore/{index}/{shard}",
+                  tf.extractfile(m).read())
+            n_shards += 1
+    print(f"restored {source} ({n_shards} shards) -> {host}")
+    return 0
 
 
 def _http(host, method, path, body=None, raw=False):

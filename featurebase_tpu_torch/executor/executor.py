@@ -220,6 +220,11 @@ class Executor:
                 results.append(self._translate_result(index, c, result))
             return results
 
+        return self._gated(index, query, run)
+
+    def _gated(self, index: Index, query, run):
+        """run() under the index's mutate gate, shared with other writers,
+        when the query writes; else under one pinned snapshot."""
         if any(c.name in WRITE_CALLS for c in query.calls):
             # writers run shared: per-fragment locks serialize the
             # mutation, and pinned readers never exclude them (reference:
@@ -233,6 +238,31 @@ class Executor:
                 return run()
         finally:
             snapshot.release(pin)
+
+    def execute_remote(self, index_name: str, query,
+                       shards: Optional[List[int]]) -> List[Any]:
+        """A coordinator-translated call list over an explicit shard subset:
+        the raw, untranslated partials, for the cluster's merge (reference:
+        the remote leg of mapReduce, Remote=true, executor.go:6392).  Gated
+        as execute is.  A call with _byShard answers {"byShard": {shard:
+        partial}}."""
+        index = self.holder.index(index_name)
+        if index is None:
+            raise ExecError(f"index not found: {index_name}")
+        if isinstance(query, str):
+            query = pql_parse(query)
+
+        def one(call):
+            if not call.args.get("_byShard"):
+                return self._execute_call(index, call, shards)
+            # a result whose order is the shards' (Apply's values, Arrow's
+            # rows): one partial a shard, for the coordinator to order
+            c = Call(call.name, {k: v for k, v in call.args.items()
+                                 if k != "_byShard"}, call.children)
+            return {"byShard": {str(s): self._execute_call(index, c, [s])
+                                for s in self._shards(index, shards)}}
+        return self._gated(index, query,
+                           lambda: [one(call) for call in query.calls])
 
     def _validate_call(self, index: Index, call: Call):
         """Unknown field names error regardless of data presence."""
@@ -1082,8 +1112,16 @@ class Executor:
         f = self._field_or_err(index, fld)
         if not f.is_bsi():
             raise ExecError("Var() requires an int-like field")
-        n, tot, tot_sq = self._var_moments(index, f, call.args.get("filter"),
-                                           shards)
+        moments = self._var_moments(index, f, call.args.get("filter"),
+                                    shards)
+        if call.args.get("_moments"):
+            return {"moments": list(moments)}
+        return self.var_of(f, *moments)
+
+    @staticmethod
+    def var_of(f: Field, n, tot, tot_sq):
+        """Var's answer from its moments (a node's, or a cluster's summed
+        over its nodes: cluster/distributed.py)."""
         if n == 0:
             return None
         scale = 10.0 ** f.options.scale
@@ -1096,7 +1134,17 @@ class Executor:
         """Corr(field=a, field2=b[, filter=...]): the Pearson correlation
         over the records where both values exist, to 6 decimal places, or
         None without them or with a zero variance (JAX executor.py:1444;
-        reference sql3 CORR aggregate, expressionagg.go:950-1045)."""
+        reference sql3 CORR aggregate, expressionagg.go:950-1045).  With
+        _moments (a cluster node's leg) the moments (n, Sum x, Sum y,
+        Sum xy, Sum x^2, Sum y^2) instead."""
+        fx, fy = self.corr_fields(index, call)
+        moments = self._corr_moments(index, fx, fy, call.args.get("filter"),
+                                     shards)
+        if call.args.get("_moments"):
+            return {"moments": list(moments)}
+        return self.corr_of(fx, fy, *moments)
+
+    def corr_fields(self, index: Index, call: Call):
         fx_name = call.args.get("_field") or call.args.get("field")
         fy_name = call.args.get("field2") or call.args.get("other")
         if not fx_name or not fy_name:
@@ -1105,7 +1153,14 @@ class Executor:
         fy = self._field_or_err(index, fy_name)
         if not fx.is_bsi() or not fy.is_bsi():
             raise ExecError("Corr() requires int-like fields")
-        filt = call.args.get("filter")
+        return fx, fy
+
+    def _corr_moments(self, index: Index, fx: Field, fy: Field, filt,
+                      shards: Optional[List[int]]) -> tuple:
+        """(n, Sum x, Sum y, Sum xy, Sum x^2, Sum y^2) of the records where
+        both values exist: exact ints from one kernel-H' launch when the
+        filter is plannable and both depths at most 31, else float64 sums
+        on the host."""
         shard_list = self._shards(index, shards)
         dx, dy = max(fx.bit_depth, 1), max(fy.bit_depth, 1)
         n = tx = ty = txy = txx = tyy = 0
@@ -1151,6 +1206,12 @@ class Executor:
                 txy += float((a * b).sum())
                 txx += float((a * a).sum())
                 tyy += float((b * b).sum())
+        return n, tx, ty, txy, txx, tyy
+
+    @staticmethod
+    def corr_of(fx: Field, fy: Field, n, tx, ty, txy, txx, tyy):
+        """Corr's answer from its moments (a node's, or a cluster's summed
+        over its nodes)."""
         if n == 0:
             return None
         sx = 10.0 ** fx.options.scale
@@ -2102,6 +2163,31 @@ class Executor:
 
     # ---------------------------------------------------------- Percentile
 
+    def _percentile_device(self, index: Index, f: Field, filt,
+                           shard_list: List[int]):
+        """(values, exists, filter words, counts) of Percentile's device
+        route, kernel I' over the cached stacked decode: up to depth 31 on
+        an int, decimal or timestamp field whose based values fit int32,
+        under a filter the plan compiler takes; else None."""
+        depth = max(f.bit_depth, 1)
+        if not (shard_list and depth <= decode.DEVICE_MAX_DEPTH
+                and f.options.type in (TYPE_INT, TYPE_DECIMAL,
+                                       TYPE_TIMESTAMP)
+                and abs(f.base) + (1 << depth) < 2**31 - 2):
+            return None
+        filt_words = self._mesh_filter(
+            index, filt if isinstance(filt, Call) else None, shard_list)
+        if filt_words is None:
+            return None
+        pe = self.plan_executor
+        bsi = pe.stacked_bsi(index, f.name, depth, shard_list)
+        vals = pe.stacked_vals(index, f.name, depth, shard_list)
+        if self.mesh is None:
+            return vals, bsi[:, 0], filt_words, None
+        # each round: kernel I' a member, the bins added
+        return (vals, bsi.map(lambda g: g[:, 0]), filt_words,
+                functools.partial(agg.percentile_counts, self.mesh))
+
     def _execute_percentile(self, index: Index, call: Call,
                             shards: Optional[List[int]]
                             ) -> Optional[ValCount]:
@@ -2122,30 +2208,28 @@ class Executor:
         f = self._field_or_err(index, fld)
         filt = call.args.get("filter")
         filt_children = [filt] if isinstance(filt, Call) else []
-        depth = max(f.bit_depth, 1)
         shard_list = self._shards(index, shards)
-        if (shard_list and depth <= decode.DEVICE_MAX_DEPTH
-                and f.options.type in (TYPE_INT, TYPE_DECIMAL,
-                                       TYPE_TIMESTAMP)
-                and abs(f.base) + (1 << depth) < 2**31 - 2):
-            filt_words = self._mesh_filter(
-                index, filt if isinstance(filt, Call) else None, shard_list)
-            if filt_words is not None:
-                pe = self.plan_executor
-                bsi = pe.stacked_bsi(index, f.name, depth, shard_list)
-                vals = pe.stacked_vals(index, f.name, depth, shard_list)
-                counts = None
-                if self.mesh is None:
-                    exists = bsi[:, 0]
-                else:   # each round: kernel I' a member, the bins added
-                    exists = bsi.map(lambda g: g[:, 0])
-                    counts = functools.partial(agg.percentile_counts,
-                                               self.mesh)
-                val, cnt = decode.percentile(vals, exists, filt_words,
-                                             int(f.base), nth, counts)
-                if cnt == 0:
-                    return None
-                return self._wrap_valcount(f, val, cnt)
+        device = self._percentile_device(index, f, filt, shard_list)
+        if "_thresholds" in call.args:
+            # a cluster node's leg: kernel I's bins of these thresholds over
+            # its shards (None without the device route), which the
+            # coordinator adds up for decode.percentile
+            ts = call.args["_thresholds"]
+            if not shard_list:
+                return {"pctCounts": [0] * (2 * len(ts) + 1)
+                        + [(1 << 31) - 1, -(1 << 31)]}
+            if device is None:
+                return {"pctCounts": None}
+            vals, exists, filt_words, counts = device
+            return {"pctCounts": (counts or ck.percentile_counts)(
+                vals, exists, filt_words, int(f.base), ts).cpu().tolist()}
+        if device is not None:
+            vals, exists, filt_words, counts = device
+            val, cnt = decode.percentile(vals, exists, filt_words,
+                                         int(f.base), nth, counts)
+            if cnt == 0:
+                return None
+            return self._wrap_valcount(f, val, cnt)
 
         def count_of(cond: Optional[Condition]) -> int:
             row_call = Call("Row", {fld: cond if cond is not None

@@ -147,6 +147,13 @@ class FieldRow:
             out["rowID"] = self.row_id
         return out
 
+    def sort_key(self):
+        """The element's place in a merged GroupBy (cluster/distributed.py
+        ``_merge_group_counts``)."""
+        return (self.field,
+                self.value if self.value is not None else self.row_id,
+                self.row_key or "")
+
     def __repr__(self):
         v = self.value if self.value is not None else \
             (self.row_key if self.row_key is not None else self.row_id)

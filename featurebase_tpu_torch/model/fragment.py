@@ -590,6 +590,13 @@ class Fragment:
 
     # -- anti-entropy -------------------------------------------------------
 
+    @property
+    def writes_generation(self) -> int:
+        """The generation counted from the fragment's own base: two steps a
+        write, as the JAX package's generations count from 0, so that
+        replicas compare how many writes each has seen."""
+        return self.generation % _GENERATION_SPAN
+
     def checksum(self) -> int:
         """CRC32 over (row ids, words), the per-fragment checksum of the
         JAX package's snapshots and resync (reference holder.go:1303);

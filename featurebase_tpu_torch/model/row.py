@@ -90,9 +90,11 @@ class Row:
         return self.segments.get(shard)
 
     def _host(self) -> np.ndarray:
-        """(n_segments, W) uint32 host words in shard order (one copy)."""
-        return host_words(torch.stack([self.segments[s]
-                                       for s in sorted(self.segments)]))
+        """(n_segments, W) uint32 host words in shard order (one copy).  A
+        cluster's merged row may hold device segments beside a peer's host
+        ones; they stack on the first segment's device."""
+        segs = [self.segments[s] for s in sorted(self.segments)]
+        return host_words(torch.stack([g.to(segs[0].device) for g in segs]))
 
     def count(self) -> int:
         if not self.segments:

@@ -1,13 +1,9 @@
 """HTTP wire layer.
 
 Own copy of featurebase_tpu/server/http_server.py over the port's API: the
-same routes, statuses and JSON bodies.  The API has no cluster, so the
-routes that read one keep their single-node branches (/shards,
-/internal/nodes, /internal/fragment/nodes, /internal/partition/nodes), and
-the cluster routes reach API methods that raise NotImplementedError naming
-ROADMAP.md queue 1 item 14 (the cluster's messages, key replication, shard
-snapshots and restore, resync, the schema log): each answers as every
-other internal error does, a 500 carrying that message.  ``Server()``
+same routes, statuses and JSON bodies, the cluster's internal routes
+included (its messages, joins and leaves, the schema log, key replication,
+shard snapshots and restore, resync, remote queries).  ``Server()``
 without an API builds ``API()``, which runs on CUDA; pass
 ``API(device="cpu")`` to serve from the CPU.
 
@@ -41,7 +37,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from featurebase_tpu_torch.server.api import API, APIError, not_ported
+from featurebase_tpu_torch.server.api import API, APIError
 from featurebase_tpu_torch.server.serialize import response_to_json
 
 
@@ -262,19 +258,21 @@ class Handler(BaseHTTPRequestHandler):
         m = re.fullmatch(r"/index/([^/]+)/field/([^/]+)/import", path)
         if m and method == "POST":
             b = self._json()
+            fwd = self.headers.get("X-Featurebase-Forwarded") == "1"
             if "values" in b:
                 self.api.import_values(
                     m.group(1), m.group(2),
                     cols=b.get("columnIDs", []), values=b["values"],
                     clear=b.get("clear", False),
-                    col_keys=b.get("columnKeys"))
+                    col_keys=b.get("columnKeys"), forwarded=fwd)
             else:
                 self.api.import_bits(
                     m.group(1), m.group(2),
                     rows=b.get("rowIDs", []), cols=b.get("columnIDs", []),
                     timestamps=b.get("timestamps"),
                     clear=b.get("clear", False),
-                    row_keys=b.get("rowKeys"), col_keys=b.get("columnKeys"))
+                    row_keys=b.get("rowKeys"), col_keys=b.get("columnKeys"),
+                    forwarded=fwd)
             return self._send({})
 
         m = re.fullmatch(r"/index/([^/]+)/field/([^/]+)", path)
@@ -330,6 +328,9 @@ class Handler(BaseHTTPRequestHandler):
 
         if path == "/shards" and method == "GET":
             idx = query.get("index", "")
+            if query.get("cluster") and self.api.cluster is not None:
+                return self._send({"shards":
+                                   self.api.cluster.all_shards(self.api, idx)})
             return self._send({"shards": self.api.available_shards(idx)})
 
         if path == "/metrics.json" and method == "GET":
@@ -522,7 +523,11 @@ class Handler(BaseHTTPRequestHandler):
         if path == "/internal/schema/log" and method == "GET":
             # ordered schema-log suffix for follower catch-up
             # (cluster/schemalog.py; reference: etcd watch/get on /schema)
-            raise not_ported(14, "the schema log")
+            frm = int(query.get("from", "0"))
+            log = self.api.schema_log
+            return self._send({"entries": log.suffix(frm),
+                               "applied": log.applied,
+                               "term": log.term})
 
         if path == "/internal/cluster/join" and method == "POST":
             return self._send(self.api.cluster_join(self._json()))
@@ -618,6 +623,9 @@ class Handler(BaseHTTPRequestHandler):
 
         if path == "/internal/nodes" and method == "GET":
             # reference: /internal/nodes (http_handler.go)
+            if self.api.cluster is not None:
+                return self._send(
+                    [n.to_json() for n in self.api.cluster.nodes])
             return self._send([{"id": "local", "uri": "",
                                 "state": "STARTED", "isPrimary": True}])
 
@@ -636,10 +644,19 @@ class Handler(BaseHTTPRequestHandler):
 
         if path == "/internal/fragment/nodes" and method == "GET":
             # reference: /internal/fragment/nodes?index=&shard=
+            idx = query.get("index", "")
+            shard = int(query.get("shard", 0))
+            if self.api.cluster is not None:
+                nodes = self.api.cluster.snapshot.shard_nodes(idx, shard)
+                return self._send([n.to_json() for n in nodes])
             return self._send([{"id": "local", "uri": "",
                                 "state": "STARTED", "isPrimary": True}])
 
         if path == "/internal/partition/nodes" and method == "GET":
+            part = int(query.get("partition", 0))
+            if self.api.cluster is not None:
+                nodes = self.api.cluster.snapshot.partition_nodes(part)
+                return self._send([n.to_json() for n in nodes])
             return self._send([])
 
         m = re.fullmatch(

@@ -17,12 +17,10 @@ Distinct->PQLDistinctScan:753, top pushdown:980):
   Extract()-scanned rows.
 
 All PQL execution goes through api.query(), so SQL runs on the API's
-device (CUDA unless the API was given device="cpu") and its writes are
-WAL-logged.
+device (CUDA unless the API was given device="cpu"), is distributed
+across a cluster, and its writes are WAL-logged.
 
-Own copy of featurebase_tpu/sql/planner.py, single node: VAR and CORR push
-down unconditionally (the JAX planner keeps them off the pushdown path
-under a cluster, ROADMAP.md queue 1 item 14).
+Own copy of featurebase_tpu/sql/planner.py.
 """
 from __future__ import annotations
 
@@ -1335,11 +1333,15 @@ class SelectCompiler:
                 return False
             if a.distinct:
                 return False
+            if a.name == "var" and self.api.cluster is not None:
+                return False  # local fused program only; see corr below
             f = idx.field(a.args[0].name)
             return f is not None and f.is_bsi()
         if a.name == "corr":
-            # fused BSI dot-product program (executor._execute_corr)
-            if len(a.args) != 2 or a.distinct:
+            # fused BSI dot-product program (executor._execute_corr);
+            # local-only — clustered plans aggregate at the coordinator
+            # like the reference (expressionagg.go:950)
+            if len(a.args) != 2 or a.distinct or self.api.cluster is not None:
                 return False
             fs = [idx.field(x.name) if isinstance(x, sa.Col) else None
                   for x in a.args]
@@ -1605,6 +1607,8 @@ class SelectCompiler:
 
     def _id_of(self, idx, v):
         if isinstance(v, str):
+            # cluster replication keeps every node's store complete, so a
+            # local lookup is authoritative on the coordinator too
             return idx.translate_store.find_keys([v]).get(v, -1)
         return int(v)
 

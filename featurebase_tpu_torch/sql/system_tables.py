@@ -2,10 +2,10 @@
 opsystemtable.go — fb_table_info, fb_database_info, fb_views,
 fb_exec_requests, fb_version, fb_cluster_info, fb_cluster_nodes).
 
-Own copy of featurebase_tpu/sql/system_tables.py, single node: the cluster
-tables give the one-node rows (the cluster is ROADMAP.md queue 1 item 14),
-and fb_database_info's platform is the torch device type of the API's
-executor ("cuda" or "cpu") where the JAX package says "tpu"."""
+Own copy of featurebase_tpu/sql/system_tables.py: the cluster tables read
+the API's cluster (the one-node rows without one), and fb_database_info's
+platform is the torch device type of the API's executor ("cuda" or "cpu")
+where the JAX package says "tpu"."""
 from __future__ import annotations
 
 from typing import List, Tuple
@@ -53,9 +53,19 @@ def run_system_table(api, name: str) -> Tuple[List[Tuple[str, str]], list]:
                 sorted(getattr(api.holder, "sql_views", {}).items())]
         return [("name", "string"), ("statement", "string")], rows
     if name == "fb_cluster_info":
+        if api.cluster is not None:
+            snap = api.cluster.snapshot
+            return ([("state", "string"), ("node_count", "int"),
+                     ("replica_count", "int")],
+                    [[snap.state(), len(snap.nodes), snap.replicas]])
         return ([("state", "string"), ("node_count", "int"),
                  ("replica_count", "int")], [["NORMAL", 1, 1]])
     if name == "fb_cluster_nodes":
+        if api.cluster is not None:
+            return ([("id", "string"), ("uri", "string"),
+                     ("state", "string"), ("is_primary", "bool")],
+                    [[n.id, n.uri, n.state, n.is_primary]
+                     for n in api.cluster.nodes])
         return [("id", "string"), ("uri", "string"), ("state", "string"),
                 ("is_primary", "bool")], [["node0", "", "STARTED", True]]
     if name == "fb_exec_requests":
@@ -71,6 +81,11 @@ def run_system_table(api, name: str) -> Tuple[List[Tuple[str, str]], list]:
         return [("name", "string"), ("units", "string"),
                 ("description", "string")], rows
     if name == "fb_database_nodes":
+        if api.cluster is not None:
+            return ([("database", "string"), ("node", "string"),
+                     ("state", "string")],
+                    [["featurebase_tpu", n.id, n.state]
+                     for n in api.cluster.nodes])
         return ([("database", "string"), ("node", "string"),
                  ("state", "string")],
                 [["featurebase_tpu", "node0", "STARTED"]])

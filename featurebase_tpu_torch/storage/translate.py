@@ -92,6 +92,19 @@ def jump_hash(key: int, n_buckets: int) -> int:
     return b
 
 
+def generate_next_partitioned_id(index: str, prev: int, partition_id: int,
+                                 partition_n: int = PARTITION_N) -> int:
+    """The next column id after `prev` whose shard hashes to partition_id
+    (reference: translate.go:103 GenerateNextPartitionedID)."""
+    if partition_id == -1:
+        return prev + 1
+    id_ = prev + 1
+    while shard_to_shard_partition(index, id_ // SHARD_WIDTH, partition_n) \
+            != partition_id:
+        id_ += SHARD_WIDTH
+    return id_
+
+
 class TranslatePartition:
     """One key partition's bidirectional map."""
 
@@ -123,6 +136,24 @@ class TranslatePartition:
                 return id_
             id_ += SHARD_WIDTH
 
+    def create(self, key: str) -> int:
+        """The key's id, assigned on first sight."""
+        id_ = self.key_to_id.get(key)
+        if id_ is not None:
+            return id_
+        id_ = self._next_id()
+        self.max_id = id_
+        self.key_to_id[key] = id_
+        self.id_to_key[id_] = key
+        return id_
+
+
+def _checksum(key_to_id: Dict[str, int]) -> int:
+    ck = 0
+    for k, v in key_to_id.items():
+        ck ^= fnv64a(f"{k}={v}".encode())
+    return ck
+
 
 class IndexTranslateStore:
     """Per-index column-key translation, 256-way partitioned."""
@@ -131,6 +162,14 @@ class IndexTranslateStore:
         self.index = index
         self._lock = threading.RLock()
         self.partitions: Dict[int, TranslatePartition] = {}
+
+    def _part_for_key(self, key: str) -> TranslatePartition:
+        p = key_to_key_partition(self.index, key)
+        part = self.partitions.get(p)
+        if part is None:
+            part = TranslatePartition(self.index, p)
+            self.partitions[p] = part
+        return part
 
     def _parts_for_keys(self, keys: list, create: bool) -> list:
         """Partition objects (or None when absent and not creating) for a
@@ -200,7 +239,9 @@ class IndexTranslateStore:
             return out
 
     def apply_entries(self, entries: Dict[str, int]):
-        """Install key -> id pairs verbatim (a WAL replay's "keys" entry)."""
+        """Install key -> id pairs verbatim: a WAL replay's "keys" entry, or
+        a partition primary's new keys replicated to this node (reference:
+        translate entry streaming, holder.go:1303)."""
         keys = list(entries)
         with self._lock:
             for k, part in zip(keys, self._parts_for_keys(keys,
@@ -209,6 +250,18 @@ class IndexTranslateStore:
                 part.key_to_id[k] = id_
                 part.id_to_key[id_] = k
                 part.max_id = max(part.max_id, id_)
+
+    def checksum(self) -> list:
+        """[entry count, content checksum]: the unit that translate
+        anti-entropy compares (a list, so that a local value and a peer's
+        decoded JSON compare equal)."""
+        with self._lock:
+            n = 0
+            ck = 0
+            for part in self.partitions.values():
+                n += len(part.key_to_id)
+                ck ^= _checksum(part.key_to_id)
+            return [n, ck]
 
     def to_json(self):
         return {str(p): {"keys": part.key_to_id, "max_id": part.max_id}
@@ -274,6 +327,10 @@ class FieldTranslateStore:
                 self.key_to_id[k] = int(id_)
                 self.id_to_key[int(id_)] = k
                 self.max_id = max(self.max_id, int(id_))
+
+    def checksum(self) -> list:
+        with self._lock:
+            return [len(self.key_to_id), _checksum(self.key_to_id)]
 
     def to_json(self):
         return {"keys": self.key_to_id, "max_id": self.max_id}

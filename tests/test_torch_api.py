@@ -444,8 +444,8 @@ def test_status_and_fragments_info_keys(corpus):
 
 def test_device_rule():
     """API() runs on CUDA and raises without it; API(mesh=) runs over the
-    mesh's members (make_mesh() wants CUDA too); cluster= names the item of
-    ROADMAP.md that ports it."""
+    mesh's members (make_mesh() wants CUDA too); API(cluster=) runs the
+    DistributedExecutor on the device it is given."""
     from featurebase_tpu_torch.parallel.mesh import make_mesh
     if torch.cuda.is_available():
         assert API().executor.device.type == "cuda"
@@ -461,11 +461,14 @@ def test_device_rule():
     mapi.create_field("i", "f")
     mapi.import_bits("i", "f", [1, 1, 2], [1, 5 << 20, 3])
     assert mapi.query("i", "Count(Row(f=1))") == [2]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        API(device="cpu", cluster=object())
+    from featurebase_tpu_torch.cluster.cluster import Cluster
+    capi = API(device="cpu", cluster=Cluster(
+        "node0", [{"id": "node0", "uri": "http://127.0.0.1:1"}]))
+    assert capi.distributed is not None
+    assert capi.executor.device.type == "cpu"
+    assert capi.status()["nodeID"] == "node0"
     api = API(device="cpu")
     assert api.executor.device.type == "cpu"
     with pytest.raises(APIError, match="index not found"):
         api.import_roaring("i", "f", 0, b"")   # roaring runs (item 13)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        api.resync_shards()
+    assert api.resync_shards() == 0   # no cluster, nothing to pull

@@ -1,10 +1,8 @@
 """tests/test_auth.py's 16 tests on the port: the token verifier, the group
 authorizer and the route table are the port's (server/auth.py); the HTTP
 enforcement and the gRPC TLS test run on twins (tests/torch_twins.py),
-every request answered by both packages' servers and compared.  One
-difference by nature: POST /internal/resync needs the cluster, so the port
-answers the 500 naming ROADMAP.md queue 1 item 14 (the proxy checks it and
-returns the JAX answer to the JAX test's assert)."""
+every request answered by both packages' servers and compared, POST
+/internal/resync's included."""
 import pytest
 import torch
 

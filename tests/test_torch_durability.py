@@ -201,13 +201,14 @@ GOOD = [{"op": "create_index", "name": "t"},
 @pytest.mark.parametrize("bad", [
     {"op": "totally_bogus"},
     {"op": "roaring", "i": "t", "f": "gone", "shard": 0, "data": ""},
-    {"op": "schema_log", "idx": 1, "term": 1, "sop": {}},
-    {"op": "schema_term", "term": 1, "leader": "n0"}])
+    {"op": "bits", "i": "t", "f": "gone", "rows": [0], "cols": [1]},
+    {"op": "create_field", "i": "gone", "f": "x"}])
 def test_replay_counts_entries_it_cannot_apply(tmp_path, bad):
-    """A WAL entry the port cannot apply (a roaring import into a field
-    that does not exist; schema_log and schema_term, which wait for the
-    cluster) fails inside the replay and is counted like any failed entry;
-    enough of them refuse startup."""
+    """A WAL entry the port cannot apply (an unknown op; an import into a
+    field that does not exist; a field of an index that does not exist)
+    fails inside the replay and is counted like any failed entry; enough
+    of them refuse startup.  (schema_log and schema_term entries apply:
+    tests/test_torch_schema_log.py restarts a whole cluster over them.)"""
     d = str(tmp_path / "one")
     write_wal(d, GOOD + [bad] + GOOD[2:4])
     api = API(data_dir=d, device="cpu")

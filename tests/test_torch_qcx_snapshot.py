@@ -3,12 +3,11 @@ test bodies with featurebase_tpu_torch's Holder, Executor(device="cpu"),
 snapshot pins, parser and ShardedGate): the shared/exclusive gate, pinned
 reads over the MVCC overlay, no torn reads under concurrent writes, writes
 under the shared gate, fragment generations, leaf-granular validation and
-the seqlock.  11 of its 12 tests run as they are; the twelfth,
-test_restore_carries_generation_forward, restores a shard snapshot through
-API.shard_snapshot_bytes and API.restore_shard, which need the cluster
-(ROADMAP.md queue 1 item 14).  Its contract, that a restored fragment never
-shows a generation a reader may already have seen, is held here on the
-port's own restore path: a checkpoint reopened by API(data_dir=...)."""
+the seqlock, and test_restore_carries_generation_forward on the port's
+API.shard_snapshot_bytes and API.restore_shard.  Its contract, that a
+restored fragment never shows a generation a reader may already have
+seen, is held here on the port's other restore path too: a checkpoint
+reopened by API(data_dir=...)."""
 import pytest
 import torch
 
@@ -16,8 +15,11 @@ from featurebase_tpu_torch.server.api import API
 from torch_twins import twin_namespace
 
 globals().update(twin_namespace("test_qcx_snapshot", subs=[
-    ("Executor(holder)", 'Executor(holder, device="cpu")')],
-    drop=["TestLeafGranularValidation.test_restore_carries_generation_forward"]))
+    ("Executor(holder)", 'Executor(holder, device="cpu")'),
+    ("        from featurebase_tpu.server.api import API\n"
+     "        holder, idx, e = make_env()",
+     "        from featurebase_tpu_torch.server.api import API\n"
+     "        holder, idx, e = make_env()")]))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,16 +1,15 @@
 """tests/test_server_extras.py on the port, against twins
 (tests/torch_twins.py): atomic-record imports, TLS, the web console, the
 writes cap, the internal info routes and mutex-check, and the presort and
-wal-info commands of the port's cli.  10 of its 11 tests:
-TestRecalculateCaches needs a two-node cluster (ROADMAP.md queue 1 item
-14)."""
+wal-info commands of the port's cli; TestRecalculateCaches on a two-node
+TestCluster of the port's nodes on the CPU."""
 import pytest
 import torch
 
 from torch_twins import assert_no_mismatch, twin_namespace
 
-globals().update(twin_namespace("test_server_extras",
-                                drop=["TestRecalculateCaches"]))
+globals().update(twin_namespace("test_server_extras", subs=[
+    ("TestCluster(2)", 'TestCluster(2, device="cpu")')]))
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -17,11 +17,11 @@ them, with its fixtures, while the module globals ``API`` and
 ``execute_sql`` of its module are Twin and twin_sql, so that each of its
 asserts runs on the answer both packages gave.  This file runs those of
 tests/test_sql.py, test_sql_extended.py and test_sql_dialect.py, all but
-two that need what the port does not run yet: TestPlanGraph's HTTP route
-(the server, ROADMAP.md queue 1 item 12; plan_graph itself is held here) and
-TestDistributedSQL's three-node cluster (item 14; its statements run here
-on one node).  test_torch_sql_acceptance.py and test_torch_sql_acceptance2.py
-run the acceptance corpora.
+two: TestPlanGraph's HTTP route (the server, ROADMAP.md queue 1 item 12;
+plan_graph itself is held here) and TestDistributedSQL, which runs on a
+three-node cluster of the port's nodes in test_torch_cluster.py (its
+statements run here on one node too).  test_torch_sql_acceptance.py and
+test_torch_sql_acceptance2.py run the acceptance corpora.
 
 Besides: plan_graph's operator trees for the same SELECTs (the pushdown
 decisions, which the CPU cannot show through launch counters), COPY files,

@@ -43,11 +43,12 @@ ROADMAP.md's watch-list name):
   tracemalloc is process-wide, so two packages' windows in one process
   would stop each other's;
 - /internal/fragments "generation" (the port's start at a base of their
-  own), "deviceResident", "deviceRows" and "dirtySlots" (device mirrors);
-- NOT_PORTED: routes that need the cluster (ROADMAP.md queue 1 item 14),
-  where the port answers 500 with the NotImplementedError naming the item;
-  the proxy checks that answer and returns the JAX one
-  (tests/test_torch_server_limits.py pins them).
+  own), "deviceResident", "deviceRows" and "dirtySlots" (device mirrors).
+
+port_namespace(name) runs tests/<name>.py on the port alone, for the tests
+that build their own nodes (the cluster's): no pairs, every import from
+featurebase_tpu_torch, each TestCluster, API and Executor(holder) on the
+CPU.
 """
 from __future__ import annotations
 
@@ -89,25 +90,7 @@ PAIRED = (Holder, Index, Field, View, Fragment, ErrorMonitor,
           DiagnosticsCollector, QueryTracker, TransactionStore, PortExecutor,
           FieldTranslateStore, IndexTranslateStore)
 
-# routes whose port API method raises NotImplementedError for an item
-NOT_PORTED = [
-    (r"/internal/resync", 14),
-    (r"/internal/cluster/(message|join|leave)", 14),
-    (r"/internal/schema/log", 14),
-    (r"/internal/translate/(snapshot|restore|checksums)", 14),
-    (r"/internal/translate/(index/[^/]+|field/[^/]+/[^/]+)/replicate", 14),
-    (r"/internal/index/[^/]+/shard/\d+/(snapshot|fragment)", 14),
-    (r"/internal/restore/[^/]+/\d+", 14),
-]
-
 MISMATCHES: list = []
-
-
-def not_ported_item(path: str):
-    for pat, item in NOT_PORTED:
-        if re.fullmatch(pat, path):
-            return item
-    return None
 
 
 def error_form(e: Exception) -> tuple:
@@ -260,11 +243,6 @@ def normalize(path: str, body):
 def compare(method: str, path: str, j, p):
     """-> (answer to return, mismatch or None) for one request's JAX answer
     j and port answer p, each (status, content type, bytes)."""
-    item = not_ported_item(path)
-    if item is not None:
-        want = f"(ROADMAP.md queue 1 item {item})"
-        ok = p[0] == 500 and want in json.loads(p[2]).get("error", "")
-        return j, None if ok else ("not ported", item, p)
     if j[0] != p[0] or j[1] != p[1]:
         return p, ("status", j[:2], p[:2], j[2][:300], p[2][:300])
     if path.startswith("/debug/pprof/") or path == "/metrics":
@@ -456,20 +434,17 @@ TWINNED = re.compile(
     r"from featurebase_tpu\.server\.(api|http_server|grpc_server) import")
 
 
-def twin_namespace(name: str, subs=(), drop=()) -> dict:
-    """The namespace of tests/<name>.py run on the port: its server-side
-    imports from this module, every other featurebase_tpu import from
-    featurebase_tpu_torch, then each (old, new) of `subs` replaced in the
-    source, and the names in `drop` (tests that wait for a later item)
-    removed."""
-    path = os.path.join(TESTS, f"{name}.py")
-    with open(path) as fh:
-        src = fh.read()
-    for old, new in subs:
-        assert old in src, (name, old)
-        src = src.replace(old, new)
-    src = TWINNED.sub("from torch_twins import", src)
-    src = PORT_IMPORT.sub("featurebase_tpu_torch", src)
+# the constructors a JAX test calls that run on a device in the port: each
+# call gets device="cpu" (port_namespace)
+ON_CPU = [
+    (re.compile(r"\bTestCluster\(([^()]*)\)"), r'TestCluster(\1, device="cpu")'),
+    (re.compile(r"\bAPI\(\)"), 'API(device="cpu")'),
+    (re.compile(r"\bAPI\((?!device=)([^()]+)\)"), r'API(\1, device="cpu")'),
+    (re.compile(r"\bExecutor\(holder\)"), 'Executor(holder, device="cpu")'),
+]
+
+
+def _exec_test(name: str, src: str, path: str, drop) -> dict:
     ns = {"__name__": f"twin_{name}", "__file__": path}
     exec(compile(src, path, "exec"), ns)
     for d in drop:
@@ -479,3 +454,40 @@ def twin_namespace(name: str, subs=(), drop=()) -> dict:
         else:
             del ns[cls]
     return {k: v for k, v in ns.items() if not k.startswith("__")}
+
+
+def _source(name: str, subs) -> tuple:
+    path = os.path.join(TESTS, f"{name}.py")
+    with open(path) as fh:
+        src = fh.read()
+    for old, new in subs:
+        assert old in src, (name, old)
+        src = src.replace(old, new)
+    return src, path
+
+
+def port_namespace(name: str, subs=(), drop=()) -> dict:
+    """The namespace of tests/<name>.py run on the port alone: every
+    featurebase_tpu import from featurebase_tpu_torch (the API, the servers
+    and TestCluster too), each (old, new) of `subs` replaced in the source,
+    and each TestCluster, API and Executor(holder) it builds given
+    device="cpu" (ON_CPU).  The cluster tests run so: a TestCluster's nodes
+    are the port's APIs behind the port's servers, and the JAX test's
+    asserts hold their answers."""
+    src, path = _source(name, subs)
+    src = PORT_IMPORT.sub("featurebase_tpu_torch", src)
+    for rx, repl in ON_CPU:
+        src = rx.sub(repl, src)
+    return _exec_test(name, src, path, drop)
+
+
+def twin_namespace(name: str, subs=(), drop=()) -> dict:
+    """The namespace of tests/<name>.py run on the port: its server-side
+    imports from this module, every other featurebase_tpu import from
+    featurebase_tpu_torch, then each (old, new) of `subs` replaced in the
+    source, and the names in `drop` (tests that wait for a later item)
+    removed."""
+    src, path = _source(name, subs)
+    src = TWINNED.sub("from torch_twins import", src)
+    src = PORT_IMPORT.sub("featurebase_tpu_torch", src)
+    return _exec_test(name, src, path, drop)
