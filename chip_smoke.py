@@ -98,9 +98,11 @@ Phases, one status line each; any failure raises and exits nonzero:
      the two per-shard GroupBys (count, and Sum of v) and the decode
      family (decode_oracles: Distinct and Sort under the unplannable
      union, one sharded G'' launch each, and Extract of the
-     records with v == 42, one G''' launch over every shard), and every
-     answer that no exact oracle holds (Var and Corr are held within a
-     tolerance) equal to a CPU executor's over the same table (a worker
+     records with v == 42, one G''' launch over every shard), Var and
+     Corr on kernel H''s route exactly (numpy's integer moments finished
+     by the executor's own Executor.var_of and corr_of) and every one
+     within a tolerance of numpy's float64, and every answer that no exact
+     oracle holds equal to a CPU executor's over the same table (a worker
      process, CPUWorker, started before the builds, builds the table again
      and computes the oracles and the CPU answers on the host's cores
      while this process drives the card; it is stopped while the kernels
@@ -119,9 +121,10 @@ Phases, one status line each; any failure raises and exits nonzero:
      within the budget after each query; then the writes phase, after
      every read: PQL Set, Clear, ClearRow, Store and Delete on the bench
      and keyed indexes after reads that filled every device cache, then
-     the reads again, each equal to a numpy model of the writes, and each
-     that the model holds within a tolerance or not at all equal to the
-     CPU executor, at the default budget and again under half the
+     the reads again, each equal to a numpy model of the writes (Var and
+     Corr exactly, from numpy's integer moments), and each that the model
+     does not hold equal to the CPU executor, at the default budget and
+     again under half the
      resident bytes; the p50 of a Set, Store and Delete and the first
      read after the writes beside the cached p50; then the api phase
      (api_phase), through featurebase_tpu_torch.server.api.API on the
@@ -220,7 +223,26 @@ Phases, one status line each; any failure raises and exits nonzero:
      roaring import), CLI_QUERIES through nodes 0 and 2 equal to the
      single device's over those shards, then `backup --host` and
      `restore --host` into a fresh `server` process with the same answers
-     (`--only cluster` runs the table and this phase alone); a
+     (`--only cluster` runs the table and this phase alone); then the dax
+     phase (dax_phase), through featurebase_tpu_torch.dax: (a) a
+     DaxService of two computers, each an API on the card, over a
+     temporary directory; (b) the bench index loaded through the queryer's
+     import_roaring_shard, a call a shard, from the cluster phase's
+     payloads; (c) the cluster phase's queries through the queryer's HTTP
+     equal to the single device's, the first pass's launches charged to
+     each computer (every kernel must rise; they are added to the kernels
+     line); (d) SERVER_TIMED's p50 beside the cluster's and the single
+     node's; (e) /dax/snapshot on every computer, timed, with its MB; (f)
+     computer 1 stopped and the time until the poller has moved its shards
+     and CLUSTER_FAILOVER answers as before (the time to recover); (g) a
+     computer added, the time until it holds its share with the answers
+     unchanged, no mirror left on computer 0 of the shards it gave up; (i)
+     `python -m featurebase_tpu_torch dax` as a child over 16 shards, a
+     few CLI_QUERIES equal to the single device's, and (h) a PQL Set and a
+     roaring replace import through its queryer, both read back after the
+     child is stopped by a service started cold over its directory; (j)
+     the device bytes held (`--only dax` runs the table and this phase
+     alone); a
      phase_seconds line gives each phase's wall time;
   6. the count-and tuning kernels (csrc/tune_count.cu) against their plain
      versions on the card at every launch shape, on the harness's 256 MB
@@ -498,14 +520,17 @@ class Timer:
     launch a 128 MB write evicts the 50 MB L2, so inputs come from HBM, and
     a spin kernel keeps the card busy while the host records the start
     event and enqueues the call, so host time in the wrapper is not
-    counted."""
+    counted.  A run first warms up, untimed; SLOW_PLAIN's first run is one
+    of its three (a plain version over 128 shards takes 0.06-3 s a run)."""
 
-    def __init__(self, reps: int):
+    def __init__(self, reps: int, warm: bool = True):
         self.reps = reps
+        self.warm = warm
         self.flush = torch.empty(32 << 20, dtype=torch.int32, device="cuda")
 
     def __call__(self, fn) -> float:
-        fn()
+        if self.warm:
+            fn()
         times = []
         for _ in range(self.reps):
             self.flush.zero_()
@@ -518,6 +543,11 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
+
+
+def slow_plain_ms(fn) -> float:
+    """A slow plain version's median of 3 runs, the first among them."""
+    return Timer(3, warm=False)(fn)
 
 
 PROFILE_ATTEMPTS = 10   # profiler windows tried before a kernel time fails
@@ -806,8 +836,9 @@ def kernel_times(timer: Timer, inputs) -> dict:
     tile, filt = inputs["tile"], inputs["filt"]
     S, R, W = tile.shape
     out = {}
-    def measure(fn, plain, nbytes):
-        return dict(ms=timer(fn), plain_ms=timer(plain),
+    def measure(fn, plain, nbytes, slow_plain=False):
+        return dict(ms=timer(fn),
+                    plain_ms=(slow_plain_ms if slow_plain else timer)(plain),
                     device_ms=kernel_device_ms(fn, timer.reps), bytes=nbytes,
                     bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                     copy_ceiling_ms=nbytes / copy_bps * 1e3)
@@ -848,7 +879,7 @@ def kernel_times(timer: Timer, inputs) -> dict:
     r = out[f"row_counts/mirrors_s{S}_r{R}"] = measure(
         lambda: ck.row_counts_sharded(mirrors, slots),
         lambda: ck.row_counts_sharded_plain(mirrors, slots),
-        S * R * W * 4 + S * R * 8)
+        S * R * W * 4 + S * R * 8, slow_plain=True)
     r["one_shard_launches_ms"] = timer(
         lambda: [ck.row_counts(m[None]) for m in mirrors])
     for name in ("row_counts/filtered", f"row_counts/s1_r{R}",
@@ -897,13 +928,15 @@ def bsi_times(measure, timer: Timer, group_filter) -> dict:
     nc, nd = nbytes(gs, planes, gw)
     r = out[f"bsi_sum_planes/mirrors_s{gs}_d14"] = measure(
         lambda: ck.bsi_sum_planes_sharded(mirrors, rows),
-        lambda: ck.bsi_sum_planes_sharded_plain(mirrors, rows), nc)
+        lambda: ck.bsi_sum_planes_sharded_plain(mirrors, rows), nc,
+        slow_plain=True)
     r["one_shard_launches_ms"] = timer(
         lambda: [ck.bsi_sum_planes(m[None], f[None])
                  for m, f in zip(mirrors, rows)])
     r = out[f"bsi_min_max/mirrors_s{gs}_d14"] = measure(
         lambda: ck.bsi_min_max_sharded(mirrors, rows, True),
-        lambda: ck.bsi_min_max_sharded_plain(mirrors, rows, True), nd)
+        lambda: ck.bsi_min_max_sharded_plain(mirrors, rows, True), nd,
+        slow_plain=True)
     r["one_shard_launches_ms"] = timer(
         lambda: [ck.bsi_min_max(m[None], f[None], True)
                  for m, f in zip(mirrors, rows)])
@@ -1458,7 +1491,8 @@ def group_times(timer: Timer, rates: dict, reps: int) -> dict:
                  bound_by="bytes" if b_ms >= o_ms else "operations",
                  route="mma", ms=timer(fn),
                  device_ms=kernel_device_ms(fn, reps),
-                 plain_ms=(timer if nbytes < 128 << 20 else Timer(3))(plain))
+                 plain_ms=(timer if nbytes < 128 << 20 else
+                           slow_plain_ms)(plain))
         if per_shard is not None:
             r["per_shard_loop_ms"] = timer(per_shard)
         out[name] = r
@@ -1668,7 +1702,7 @@ def moments_times(timer: Timer, rates: dict, reps: int, S: int) -> dict:
                  bound_ms=max(b_ms, o_ms),
                  bound_by="bytes" if b_ms >= o_ms else "operations",
                  ms=timer(fn), device_ms=kernel_device_ms(fn, reps),
-                 plain_ms=Timer(3)(plain), plan=plan)
+                 plain_ms=slow_plain_ms(plain), plan=plan)
         out[name] = r
         say("kernel_time", kernel=name, **r)
     return out
@@ -1928,7 +1962,7 @@ def decode_times(timer: Timer, inputs, reps: int) -> dict:
         r = dict(bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                  bound_by="bytes", ms=timer(fn),
                  device_ms=kernel_device_ms(fn, reps),
-                 plain_ms=(Timer(3) if slow_plain else timer)(plain))
+                 plain_ms=(slow_plain_ms if slow_plain else timer)(plain))
         out[name] = r
         say("kernel_time", kernel=name, **r)
         return r
@@ -1964,7 +1998,7 @@ def decode_times(timer: Timer, inputs, reps: int) -> dict:
     r = measure(f"bsi_decode_gather/mirrors_s{S}_n1000_d{D}",
                 lambda: ck.bsi_decode_gather_sharded(mirrors, per),
                 lambda: ck.bsi_decode_gather_sharded_plain(mirrors, per),
-                gather_bytes(per))
+                gather_bytes(per), slow_plain=True)
     r["one_shard_launches_ms"] = timer(
         lambda: [ck.bsi_decode_gather(m, c) for m, c in zip(mirrors, per)])
     say("one_shard_launches",
@@ -2509,18 +2543,20 @@ def gen_digest(gen) -> str:
     """A digest of the arrays a table was generated from."""
     h = hashlib.sha1()
     for k in ("cols", "f", "g", "v", "u", "u_has"):
-        h.update(np.ascontiguousarray(gen[k]).tobytes())
+        h.update(np.ascontiguousarray(gen[k]).view(np.uint8))
     return h.hexdigest()
 
 
 def reference_answers(gen, n_shards: int, cpu, rank_cache) -> dict:
     """What slice_phase holds the card's answers to: numpy's exact oracles
-    of the mix (mix_oracles) and the Percentile's rounds, numpy's moments
+    of the mix (mix_oracles, and exact_moments for kernel H''s Var and
+    Corr) and the Percentile's rounds, numpy's moments within a tolerance
     (moment_oracles), and the CPU executor `cpu`'s answer to every entry
     of the mix no exact oracle holds (cpu_executor_answers)."""
     queries, col5, desc, after = mix_of(gen, n_shards)
     t0 = time.perf_counter()
     oracle, rounds = mix_oracles(gen, col5, desc)
+    oracle.update(exact_moments(gen))
     moments = moment_oracles(gen)
     oracles_s = time.perf_counter() - t0
     exact = exact_queries(oracle, col5, after)
@@ -2584,7 +2620,18 @@ class CPUWorker:
                 os.kill(self.proc.pid, signal.SIGCONT)
             self.stopped_s += time.perf_counter() - t0
 
-    def result(self, gen) -> dict:
+    def expect(self, gen) -> None:
+        """The digest of this process's table (gen_digest), which result()
+        holds the worker's to, taken on a thread (hashlib gives up the
+        GIL over large buffers) while this process goes on."""
+        import threading
+        self.digest: dict = {}
+        self.digest_thread = threading.Thread(
+            target=lambda: self.digest.update(value=gen_digest(gen)))
+        self.digest_thread.start()
+
+    def result(self) -> dict:
+        """The worker's answers, once its table's digest equals expect()'s."""
         import pickle
         t0 = time.perf_counter()
         try:
@@ -2601,7 +2648,8 @@ class CPUWorker:
                                      f"(exit {code}):\n{fh.read()[-3000:]}")
         with open(self.path, "rb") as fh:
             digest, ref = pickle.load(fh)
-        if digest != gen_digest(gen):
+        self.digest_thread.join()
+        if digest != self.digest["value"]:
             raise AssertionError("the CPU answers' worker built another "
                                  "table")
         say("cpu_worker_parts", build_s=ref["build_s"],
@@ -2629,6 +2677,8 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
     t0 = time.perf_counter()
     holder, gen = build_table(n_shards)
     build_s = time.perf_counter() - t0
+    if cpu_worker is not None:
+        cpu_worker.expect(gen)
     idx = holder.index("bench")
     lap("table")
     say("table", shards=n_shards, records=int(gen["f"].size),
@@ -2665,7 +2715,7 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
     # exact oracle holds: from the worker process (cpu_answers), which
     # built the same table and computed them while this one drove the
     # card, or here without it
-    ref = cpu_worker.result(gen) if cpu_worker is not None else \
+    ref = cpu_worker.result() if cpu_worker is not None else \
         reference_answers(gen, n_shards, Executor(holder, device="cpu"),
                           rank_cache)
     oracle, rounds, moments = ref["oracle"], ref["rounds"], ref["moments"]
@@ -2824,9 +2874,13 @@ def slice_phase(n_shards: int, reps: int, cpu_worker=None) -> dict:
     for k, v in ingest_phase(holder, queries).items():
         launches[k] += v
     lap("ingest")
-    for k, v in cluster_phase(holder, reps).items():
+    cluster_launches, shared = cluster_phase(holder, reps)
+    for k, v in cluster_launches.items():
         launches[k] += v
     lap("cluster")
+    for k, v in dax_phase(holder, reps, shared).items():
+        launches[k] += v
+    lap("dax")
     return launches
 
 
@@ -2895,6 +2949,17 @@ def exact_queries(oracle: dict, col5: int, after: str) -> set:
             for q in oracle}
 
 
+def var64(x: np.ndarray) -> float:
+    """numpy's float64 Var of `x`."""
+    return float(np.var(x.astype(np.float64)))
+
+
+def corr64(x: np.ndarray, y: np.ndarray) -> float:
+    """numpy's float64 Corr of `x` and `y`."""
+    return float(np.corrcoef(x.astype(np.float64),
+                             y.astype(np.float64))[0, 1])
+
+
 def moment_oracles(gen) -> dict:
     """numpy's answers to MOMENT_QUERIES: query -> (value, tolerance,
     relative).  Absolute 1e-6 (the answers are rounded to 6 places);
@@ -2904,13 +2969,7 @@ def moment_oracles(gen) -> dict:
     f, g, v, u, uh = gen["f"], gen["g"], gen["v"], gen["u"], gen["u_has"]
     lim = gen["limits"]
     first32 = (gen["cols"] >> 20) < 32
-
-    def var(x):
-        return float(np.var(x.astype(np.float64)))
-
-    def corr(x, y):
-        return float(np.corrcoef(x.astype(np.float64),
-                                 y.astype(np.float64))[0, 1])
+    var, corr = var64, corr64
     return {
         "Var(field=v)": (var(v), 1e-6, False),
         "Var(field=v, filter=Row(f=1))": (var(v[f == 1]), 1e-6, False),
@@ -2923,6 +2982,40 @@ def moment_oracles(gen) -> dict:
         "limits:Corr(field=w, field2=a)": (corr(lim["w"], lim["a"]), 1e-6,
                                            False),
     }
+
+
+def exact_moment(x: np.ndarray, y=None):
+    """The engine's answer to a Var of the integer values `x` (a Corr of x
+    and `y`) of a field at scale 0, as the bench table's v and u: numpy's
+    exact integer moments, finished by Executor.var_of (corr_of), which
+    finish kernel H''s exact moments (ops/bsi.py finalize_*_moments)."""
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.model.field import Field, FieldOptions
+    f = Field("bench", "v", FieldOptions(type="int"))
+    x = x.astype(np.int64)
+    if y is None:
+        return Executor.var_of(f, int(x.size), int(x.sum()),
+                               int((x * x).sum()))
+    y = y.astype(np.int64)
+    return Executor.corr_of(f, f, int(x.size), int(x.sum()), int(y.sum()),
+                            int((x * y).sum()), int((x * x).sum()),
+                            int((y * y).sum()))
+
+
+def exact_moments(gen) -> dict:
+    """The engine's exact answers (canon forms, exact_moment) to the mix's
+    Var and Corr on kernel H''s route: the bench table's v and u (depths
+    14 and 12) under plannable filters.  The other entries of
+    MOMENT_QUERIES take the float64 host route, and the CPU executor
+    answers them."""
+    f, g, v, u, uh = gen["f"], gen["g"], gen["v"], gen["u"], gen["u_has"]
+    return {q: ("float", a) for q, a in (
+        ("Var(field=v)", exact_moment(v)),
+        ("Var(field=v, filter=Row(f=1))", exact_moment(v[f == 1])),
+        ("Var(field=v, filter=Row(v > 5000))", exact_moment(v[v > 5000])),
+        ("Corr(field=v, field2=u)", exact_moment(v[uh], u[uh])),
+        ("Corr(field=v, field2=u, filter=Row(g=2))",
+         exact_moment(v[uh & (g == 2)], u[uh & (g == 2)])))}
 
 
 def group_paths(holder, queries, answers, run, reps: int) -> dict:
@@ -3068,30 +3161,38 @@ class WriteModel:
         self.u_has = gen["u_has"].copy()
         self.alive = np.ones(n, dtype=bool)
 
+    def float64(self) -> dict:
+        """numpy's float64 Var and Corr of WRITE_READS, which the card's
+        answers hold within 1e-6 beside oracle()'s exact forms."""
+        uv = self.alive & self.u_has
+        return {"Var(field=v)": var64(self.v[self.alive]),
+                "Corr(field=v, field2=u)": corr64(self.v[uv], self.u[uv])}
+
     def oracle(self) -> dict:
-        """The reads of WRITE_READS on the bench index, by numpy: canon
-        forms, and (value, tolerance) for Var and Corr."""
+        """The reads of WRITE_READS on the bench index, by numpy, in canon
+        forms (Var and Corr exact: exact_moment)."""
         F, G, v, alive = self.F, self.G, self.v, self.alive
         va = v[alive]
-        # each record's g row, 4 if none: G holds one a record in the
-        # writes phase, none once deleted (its row read as the 4 bytes of
-        # a little-endian word); each record's f rows as a bit mask; one
-        # bincount of (g row, mask) and one weighted by v (float64 sums of
-        # integers below 2^53: exact), spread over the masks' rows by a
-        # product with the masks' bits
-        word = G.view(np.uint32).ravel()
-        gi = np.where(word == 0, 4, (word >= 1 << 8).astype(np.int64)
-                      + (word >= 1 << 16) + (word >= 1 << 24))
-        packed = np.packbits(F, axis=1, bitorder="little")
-        mask = packed[:, 0].astype(np.int64) | \
-            (packed[:, 1].astype(np.int64) << 8)
-        key = gi * (1 << WRITE_ROWS) + mask
-        size = 5 << WRITE_ROWS
+        # each record's f rows (bits 0-9) and g row (bits 10-13: G holds
+        # one a record in the writes phase, none once deleted) as one
+        # 16-bit key, its bool bytes gathered 8 at a time by a multiply
+        # (byte i of a little-endian word to bit 56 + i); one bincount of
+        # the keys and one weighted by v (float64 sums of integers below
+        # 2^53: exact), rows g 0-3 and none, spread over the masks' rows by
+        # a product with the masks' bits
+        b = np.zeros((F.shape[0], 16), dtype=np.uint8)
+        b[:, :WRITE_ROWS] = F
+        b[:, WRITE_ROWS:WRITE_ROWS + 4] = G
+        eight = (b.view(np.uint64) * np.uint64(0x0102040810204080)) \
+            >> np.uint64(56)
+        key = (eight[:, 0] | (eight[:, 1] << np.uint64(8))).astype(np.int64)
+        rows = [1, 2, 4, 8, 0]   # the g bits of g rows 0-3, then of none
         bits = (np.arange(1 << WRITE_ROWS)[:, None]
                 >> np.arange(WRITE_ROWS)) & 1
-        n_c = np.bincount(key, minlength=size).reshape(5, -1) @ bits
-        s_c = (np.bincount(key, weights=v, minlength=size).reshape(5, -1)
-               @ bits)
+        n_c = np.bincount(key, minlength=1 << 14).reshape(16, -1)[rows] \
+            @ bits
+        s_c = np.bincount(key, weights=v, minlength=1 << 14).reshape(
+            16, -1)[rows] @ bits
         top = n_c.sum(0)
         by_count, by_sum = [], []
         for r in range(WRITE_ROWS):
@@ -3123,10 +3224,9 @@ class WriteModel:
             "Distinct(field=v)": ("signed", (len(vals), digest(vals))),
             "Percentile(field=v, nth=50)":
                 ("valcount", oracle_percentile(va, 50)[0]),
-            "Var(field=v)": (float(np.var(va.astype(np.float64))), 1e-6),
-            "Corr(field=v, field2=u)": (float(np.corrcoef(
-                v[uv].astype(np.float64),
-                self.u[uv].astype(np.float64))[0, 1]), 1e-6),
+            "Var(field=v)": ("float", exact_moment(va)),
+            "Corr(field=v, field2=u)": ("float", exact_moment(
+                v[uv], self.u[uv])),
         }
 
 
@@ -3219,10 +3319,11 @@ def writes_phase(holder, gen, budget: int) -> "WriteModel":
     at the default residency budget: the reads first fill every device
     cache (the plan executor's leaves and its stacked decode, the rank
     cache, the fragment mirrors), then the writes (write_round), then the
-    reads again: each answer equal to the numpy model of the writes, and
-    each that the model holds within a tolerance or not at all equal to a
-    CPU executor's over the same Holder; the first read after the writes
-    timed beside the p50 of five more (the gap is the caches' refresh).
+    reads again: each answer equal to the numpy model of the writes (Var
+    and Corr exactly, exact_moment), and each that the model does not hold
+    equal to a CPU executor's over the same Holder; the first read after
+    the writes timed beside the p50 of five more (the gap is the caches'
+    refresh).
     Round 2 the same under `budget` bytes, with a fresh executor and new
     writes.  Returns the model of the written table."""
     from featurebase_tpu_torch.executor.executor import Executor
@@ -3246,7 +3347,7 @@ def writes_phase(holder, gen, budget: int) -> "WriteModel":
                                      ._topn_cache),
                       resident=mgr.stats()["bytes"])
         times = write_round(gpu, model, rng, rnd)
-        want = model.oracle()
+        want, want64 = model.oracle(), model.float64()
         first, p50, cpu_s, after = {}, {}, {}, {}
         for q in WRITE_READS:   # the card's reads first: the CPU executor
             # moves the fragment mirrors it reads to the host
@@ -3260,9 +3361,8 @@ def writes_phase(holder, gen, budget: int) -> "WriteModel":
             got = after[q]
             w = want.get(q)
             # a CPU executor's answer for each read that numpy does not
-            # hold exactly (the float moments, the keyed reads)
-            if w is None or (isinstance(w, tuple) and isinstance(w[1],
-                                                                 float)):
+            # hold (the keyed reads)
+            if w is None:
                 t0 = time.perf_counter()
                 c = canon(execute(cpu, q))
                 cpu_s[q] = time.perf_counter() - t0
@@ -3270,13 +3370,12 @@ def writes_phase(holder, gen, budget: int) -> "WriteModel":
                     raise AssertionError(
                         f"{q} after writes (round {rnd}): cuda "
                         f"{got[1]!r:.200} != cpu {c[1]!r:.200}")
-            if isinstance(w, tuple) and isinstance(w[1], float):
-                if got[0] != "float" or abs(got[1] - w[0]) > w[1]:
-                    raise AssertionError(f"{q} after writes: {got} != "
-                                         f"numpy {w[0]} within {w[1]}")
-            elif w is not None and got != w:
+            elif got != w:
                 raise AssertionError(f"{q} after writes: {got!r:.300} != "
                                      f"numpy {w!r:.300}")
+            if q in want64 and abs(got[1] - want64[q]) > 1e-6:
+                raise AssertionError(f"{q} after writes: {got[1]} != numpy "
+                                     f"float64 {want64[q]} within 1e-6")
             if bud is not None and mgr.stats()["bytes"] > bud and \
                     mgr.stats()["entries"] > 1:
                 raise AssertionError(f"{q}: over the budget {bud}: "
@@ -5051,6 +5150,7 @@ def ingest_alone(n_shards: int, reps: int) -> None:
 CLUSTER_NODES = 3
 CLUSTER_REPLICAS = 2
 SERVER_WIRE: dict = {}   # the server phase's HTTP p50 (ms) of SERVER_TIMED
+CLUSTER_P50: dict = {}   # the cluster phase's HTTP p50 (ms) of SERVER_TIMED
 # the families of the cluster parity tests (tests/torch_cluster_data.py)
 # over the bench index: through node 0's HTTP, each answer equal to the
 # single device's over the same holder
@@ -5284,6 +5384,25 @@ def cli_cluster(ch: dict, holder, single, card: str) -> dict:
                 cli_output=out.getvalue().strip().splitlines())
 
 
+def cluster_answers(holder, single) -> tuple:
+    """CLUSTER_QUERIES with a record of shard 5 as {col5} (mix_of's) and
+    Arrow only where the api phase left the bench index a dataframe, and
+    the single device's JSON answer to each."""
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    src = holder.index("bench")
+    shards = src.available_shards()
+    col5 = int(single.execute("bench", "Limit(All(), limit=1)",
+                              shards=[min(5, shards[-1])])[0].columns()[0])
+    queries = [q.replace("{col5}", str(col5)) for q in CLUSTER_QUERIES
+               if not q.startswith("Arrow") or src.dataframe.shards]
+    rank_cache = src.field("f")._topn_cache
+
+    def one(q):
+        rank_cache.clear()
+        return jsonable(response_to_json(single.execute("bench", q)))
+    return queries, {q: one(q) for q in queries}
+
+
 def cluster_phase(holder, reps: int) -> dict:
     """Phase 5i: the cluster (featurebase_tpu_torch.cluster) on the card.
     (a) TestCluster(CLUSTER_NODES, replicas=CLUSTER_REPLICAS), in process,
@@ -5301,7 +5420,9 @@ def cluster_phase(holder, reps: int) -> dict:
     timed); a Set through node 1 read back from both owners of its shard;
     the device bytes held.  (b) The CLI deployment (cli_cluster), whose
     processes start first.  Returns the first pass's launches, summed
-    over the nodes."""
+    over the nodes, and what the dax phase takes from this one: the
+    queries, the single device's answers and each shard's roaring
+    payloads."""
     import tempfile
     import threading
 
@@ -5311,7 +5432,6 @@ def cluster_phase(holder, reps: int) -> dict:
     from featurebase_tpu_torch.executor.executor import Executor
     from featurebase_tpu_torch.ops import cuda_kernels as ck
     from featurebase_tpu_torch.pql.parser import parse
-    from featurebase_tpu_torch.server.serialize import response_to_json
     from featurebase_tpu_torch.storage import residency
     from featurebase_tpu_torch.testing import TestCluster
     t_phase = time.perf_counter()
@@ -5325,20 +5445,8 @@ def cluster_phase(holder, reps: int) -> dict:
     try:
         src = holder.index("bench")
         shards = src.available_shards()
-        # a record of shard 5, as mix_of's {col5}
-        col5 = int(single.execute("bench", "Limit(All(), limit=1)",
-                                  shards=[min(5, shards[-1])])[0]
-                   .columns()[0])
-        # Arrow where the api phase left the bench index a dataframe
-        queries = [q.replace("{col5}", str(col5)) for q in CLUSTER_QUERIES
-                   if not q.startswith("Arrow") or src.dataframe.shards]
-        rank_cache = src.field("f")._topn_cache
-
-        def one(q):
-            rank_cache.clear()
-            return jsonable(response_to_json(single.execute("bench", q)))
         t0 = time.perf_counter()
-        want = {q: one(q) for q in queries}
+        queries, want = cluster_answers(holder, single)
         single_s = time.perf_counter() - t0
         tc = TestCluster(CLUSTER_NODES, replicas=CLUSTER_REPLICAS)
         t0 = time.perf_counter()
@@ -5347,13 +5455,13 @@ def cluster_phase(holder, reps: int) -> dict:
             tc.http(0, "POST", f"/index/bench/field/{f.name}",
                     {"options": f.options.to_json()})
         views = bench_views(src)
-        wire = export_s = 0.0
+        t1 = time.perf_counter()
+        payloads = {s: shard_payload(src, views, s) for s in shards}
+        export_s = time.perf_counter() - t1
+        wire = sum(len(p["data"]) for pl in payloads.values()
+                   for p in pl.values())
         for s in shards:
-            t1 = time.perf_counter()
-            payload = shard_payload(src, views, s)
-            export_s += time.perf_counter() - t1
-            wire += sum(len(p["data"]) for p in payload.values())
-            tc[0].import_roaring_shard("bench", s, payload)
+            tc[0].import_roaring_shard("bench", s, payloads[s])
         load_s = time.perf_counter() - t0
         for api in tc.apis:   # the holder's dataframe shards, for Arrow
             api.holder.index("bench").dataframe.shards.update(
@@ -5419,6 +5527,7 @@ def cluster_phase(holder, reps: int) -> dict:
         t0 = time.perf_counter()
         latency = {q: p50(q) for q in SERVER_TIMED}
         latency_s = time.perf_counter() - t0
+        CLUSTER_P50.update(latency)
 
         # the wire cost of a bitmap's partials: each node's partial of
         # CLUSTER_WIRE over the shards it serves, encoded, its JSON bytes,
@@ -5504,7 +5613,8 @@ def cluster_phase(holder, reps: int) -> dict:
     launches = {k: launches[k] for k in ck.launches()}
     say("cluster_phase", nvidia_smi=card, launches=launches,
         cli_exit_codes=codes, seconds=time.perf_counter() - t_phase)
-    return launches
+    return launches, dict(queries=queries, want=want, payloads=payloads,
+                          single_device_s=single_s)
 
 
 def keyed_cluster(tc, device) -> dict:
@@ -5569,6 +5679,416 @@ def cluster_alone(n_shards: int, reps: int) -> None:
     then cluster_phase."""
     holder, _ = build_table(n_shards)
     cluster_phase(holder, reps)
+
+
+# -- the dax phase ----------------------------------------------------------
+
+DAX_COMPUTERS = 2
+DAX_POLL_S = 0.2    # the controller's poll interval: how soon a stop is seen
+DAX_SHARDS = 16     # the shards of the CLI child, restarted cold after it
+# the child's writes: a PQL Set of a new row, and a roaring import that
+# replaces row f=1 of shard DAX_REPLACED by three columns
+DAX_SET = "Set({col}, f=20)"
+DAX_REPLACED = 5
+DAX_RESTART_READS = ["Sum(field=v)", "Count(Row(f=2))",
+                     "Percentile(field=v, nth=50)", "TopN(g)"]
+DAX_CLI_QUERIES = CLI_QUERIES[:6]
+
+
+def dir_mb(path: str) -> float:
+    """The MB of the files under `path`."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def dax_cli_start(device, scratch: str) -> dict:
+    """`python -m featurebase_tpu_torch dax` as a child process (--cpu on
+    the CPU, where it is rehearsed), over its own data directory, started
+    at once; a thread waits for its queryer's /health."""
+    import threading
+    import urllib.request
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    argv = [sys.executable, "-m", "featurebase_tpu_torch", "dax",
+            "--computers", str(DAX_COMPUTERS), "--data-dir",
+            os.path.join(scratch, "cli"), "--bind", f"127.0.0.1:{port}"]
+    if device.type == "cpu":
+        argv.append("--cpu")
+    log = os.path.join(scratch, "dax-cli.log")
+    with open(log, "w") as fh:
+        proc = subprocess.Popen(argv, cwd=root, env=env, stdout=fh,
+                                stderr=subprocess.STDOUT)
+    ch = dict(proc=proc, url=url, log=log, t0=time.perf_counter())
+
+    def watch():
+        while proc.poll() is None and time.perf_counter() - ch["t0"] < 300:
+            try:
+                urllib.request.urlopen(url + "/health", timeout=2).read()
+                ch["ready_s"] = time.perf_counter() - ch["t0"]
+                return
+            except OSError:
+                time.sleep(0.1)
+    ch["watch"] = threading.Thread(target=watch, daemon=True)
+    ch["watch"].start()
+    return ch
+
+
+def dax_cli(ch: dict, holder, single, payloads: dict) -> dict:
+    """The DAX child (dax_cli_start): DAX_SHARDS shards of the bench index
+    loaded into its index "cli" through its queryer's HTTP roaring import,
+    DAX_CLI_QUERIES equal to the single device's over those shards; then
+    through the same queryer a PQL Set (DAX_SET) and a roaring import
+    that replaces row f=1 of shard DAX_REPLACED by three columns (what
+    dax_restart reads back)."""
+    import base64
+
+    from featurebase_tpu_torch.core.consts import SHARD_WIDTH
+    from featurebase_tpu_torch.ingest.roaring_import import \
+        payload_from_rows
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    ch["watch"].join(timeout=max(1.0, 300 - (time.perf_counter() - ch["t0"])))
+    if "ready_s" not in ch:
+        with open(ch["log"]) as fh:
+            raise AssertionError(f"the dax child did not answer /health "
+                                 f"(exit {ch['proc'].poll()}):\n"
+                                 f"{fh.read()[-2000:]}")
+    with open(ch["log"]) as fh:
+        ready = fh.readline().strip()
+    if not ready.startswith("featurebase_tpu_torch dax: controller="):
+        raise AssertionError(f"the dax child's first line: {ready!r}")
+    src, url = holder.index("bench"), ch["url"]
+    shards = list(range(DAX_SHARDS))
+    t0 = time.perf_counter()
+    http_json(url, "POST", "/index/cli", {"options": src.options.to_json()})
+    for f in src.public_fields():
+        http_json(url, "POST", f"/index/cli/field/{f.name}",
+                  {"options": f.options.to_json()})
+    for s in shards:
+        http_json(url, "POST", f"/index/cli/shard/{s}/import-roaring",
+                  {"views": {spec: {"data": base64.b64encode(
+                      p["data"]).decode("ascii")}
+                      for spec, p in payloads[s].items()}})
+    load_s = time.perf_counter() - t0
+    rank_cache = src.field("f")._topn_cache
+    t0 = time.perf_counter()
+    for q in DAX_CLI_QUERIES:
+        rank_cache.clear()
+        want = jsonable(response_to_json(single.execute("bench", q,
+                                                        shards=shards)))
+        got = http_json(url, "POST", "/index/cli/query", {"query": q})
+        if got != want:
+            raise AssertionError(f"the dax child {q}: {got!r:.200} != the "
+                                 f"single device {want!r:.200}")
+    queries_s = time.perf_counter() - t0
+    write = DAX_SET.format(col=3 * SHARD_WIDTH + 12345)
+    got = http_json(url, "POST", "/index/cli/query", {"query": write})
+    if got != {"results": [True]}:
+        raise AssertionError(f"the DAX Set answered {got}")
+    words = np.zeros(SHARD_WIDTH // 32, dtype=np.uint32)
+    words[0] = 0b1110   # columns 1, 2 and 3 of the shard
+    http_json(url, "POST", f"/index/cli/shard/{DAX_REPLACED}/import-roaring",
+              {"views": {"f/standard": {"data": base64.b64encode(
+                  payload_from_rows({1: words})).decode("ascii"),
+                  "replace": True}}})
+    return dict(ready_s=ch["ready_s"], ready_line=ready, shards=DAX_SHARDS,
+                load_s=load_s, queries=len(DAX_CLI_QUERIES),
+                queries_s=queries_s, equal_to_single_device=True,
+                writes=[write, f"replace f=1 of shard {DAX_REPLACED}"])
+
+
+def dax_phase(holder, reps: int, shared: dict) -> dict:
+    """Phase 5j: DAX (featurebase_tpu_torch.dax) on the card: (a)
+    DaxService(DAX_COMPUTERS), each computer and the queryer an API on
+    the card, its writelogger and snapshotter in a temporary directory;
+    (b) the bench index loaded through the queryer's import_roaring_shard,
+    a call a shard, from the cluster phase's roaring payloads (`shared`),
+    each computer logging its imports; (c) the cluster phase's queries
+    through the queryer's HTTP, each equal to the single device's answer,
+    the first pass with each computer's legs one at a time under the
+    launch counters (every kernel must rise); (d) SERVER_TIMED's p50
+    (runs_for) beside the cluster phase's and the server phase's single
+    node's; (e) /dax/snapshot on every computer, timed, with the MB
+    written; (f) computer 1 stopped: the seconds until the poller has
+    moved its shards to computer 0 and every CLUSTER_FAILOVER answer is
+    equal again (the time to recover); (g) a computer added: the seconds
+    until it holds its share, the answers unchanged, and no device copy
+    left on computer 0 of the shards it gave up; (i) `python -m
+    featurebase_tpu_torch dax` as a child started with the phase
+    (dax_cli), DAX_SHARDS shards through its queryer, and (h) a PQL Set
+    and a roaring replace import through it, read back after the child is
+    stopped by a service started cold over its directory (dax_restart);
+    the child joined before the processes check; (j) the device bytes
+    held.  Returns the first pass's launches, summed over the
+    computers."""
+    import shutil
+    import tempfile
+    import threading
+
+    from featurebase_tpu_torch.dax.service import DaxService
+    from featurebase_tpu_torch.executor.executor import Executor
+    from featurebase_tpu_torch.ops import cuda_kernels as ck
+    from featurebase_tpu_torch.storage import residency
+    t_phase = time.perf_counter()
+    card = card_line()
+    scratch = tempfile.mkdtemp(prefix="chip-smoke-dax-")
+    single = Executor(holder)
+    ch = dax_cli_start(single.device, scratch)
+    svc = None
+    try:
+        src = holder.index("bench")
+        payloads, queries, want = (shared["payloads"], shared["queries"],
+                                   shared["want"])
+        shards = sorted(payloads)
+        data_dir = os.path.join(scratch, "dax")
+        t0 = time.perf_counter()
+        svc = DaxService(DAX_COMPUTERS, data_dir=data_dir,
+                         poll_interval=DAX_POLL_S, device=single.device)
+        start_s = time.perf_counter() - t0
+        url = svc.queryer_server.url
+
+        def ask(q):
+            return http_json(url, "POST", "/index/bench/query", {"query": q})
+        t0 = time.perf_counter()
+        http_json(url, "POST", "/index/bench",
+                  {"options": src.options.to_json()})
+        for f in src.public_fields():
+            http_json(url, "POST", f"/index/bench/field/{f.name}",
+                      {"options": f.options.to_json()})
+        for s in shards:
+            svc.queryer.import_roaring_shard("bench", s, payloads[s])
+        load_s = time.perf_counter() - t0
+        owner = {s: c for c in svc.computers for _, s in c.owned}
+        for s, frame in src.dataframe.shards.items():   # Arrow's rows
+            owner[s].dataframe_ingest("bench", s, columns={
+                k: v.tolist() for k, v in frame.columns.items()})
+        log_mb = dir_mb(os.path.join(data_dir, "writelogger"))
+        held = {c.worker_id: len(c.owned) for c in svc.computers}
+
+        # (c) the first pass: each computer's legs one at a time under the
+        # launch counters, so that each launch is charged to its computer
+        per = {c.worker_id: Counter() for c in svc.computers}
+        lock = threading.Lock()
+
+        def counted(c):
+            orig = c.query_remote_local
+
+            def leg(index, query, leg_shards):
+                with lock:
+                    before = ck.launches()
+                    out = orig(index, query, leg_shards)
+                    torch.cuda.synchronize()
+                    after = ck.launches()
+                per[c.worker_id].update({k: after[k] - before[k]
+                                         for k in after})
+                return out
+            return leg
+        for c in svc.computers:
+            c.query_remote_local = counted(c)
+        first = {}
+        try:
+            for q in queries:
+                t1 = time.perf_counter()
+                got = ask(q)
+                first[q] = (time.perf_counter() - t1) * 1e3
+                if got != want[q]:
+                    raise AssertionError(f"dax {q}: {got!r:.200} != the "
+                                         f"single device {want[q]!r:.200}")
+        finally:
+            for c in svc.computers:
+                del c.query_remote_local
+        launches = Counter()
+        for c in per.values():
+            launches.update(c)
+        missing = [k for k in CLUSTER_KERNELS if not launches[k]]
+        if missing:
+            raise AssertionError(f"the computers did not launch {missing}: "
+                                 f"{dict(per)}")
+        resident_first = residency.residency().stats()["bytes"]
+
+        # (d) p50 through the queryer
+        def timed(q) -> float:
+            t1 = time.perf_counter()
+            ask(q)
+            return (time.perf_counter() - t1) * 1e3
+
+        def p50(q) -> float:
+            head = timed(q)
+            return float(np.median([head] + [timed(q) for _ in range(
+                runs_for(head, reps) - 1)]))
+        latency = {q: p50(q) for q in SERVER_TIMED}
+
+        # (e) every computer's snapshot of its shards
+        snaps = os.path.join(data_dir, "snapshotter")
+        snapshot_s = {}
+        for c, srv in zip(svc.computers, svc.computer_servers):
+            t1 = time.perf_counter()
+            http_json(srv.url, "POST", "/dax/snapshot", {})
+            snapshot_s[c.worker_id] = time.perf_counter() - t1
+        snapshot_mb = dir_mb(snaps)
+        log_after_mb = dir_mb(os.path.join(data_dir, "writelogger"))
+
+        # (f) failover: computer 1 stops; the poller moves its shards to
+        # computer 0, which loads them from the snapshots and the logs
+        everything = {("bench", s) for s in shards}
+        c0 = svc.computers[0]
+        t0 = time.perf_counter()
+        svc.stop_computer(1)
+        while not everything <= c0.owned:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("computer 0 did not take computer 1's "
+                                     "shards in 120 s")
+            time.sleep(0.01)
+        moved_s = time.perf_counter() - t0
+        svc.queryer.cluster.clear_down()
+        for q in CLUSTER_FAILOVER:
+            got = ask(q)
+            if got != want[q]:
+                raise AssertionError(f"dax after the stop {q}: "
+                                     f"{got!r:.200} != {want[q]!r:.200}")
+        recover_s = time.perf_counter() - t0
+        resident_failover = residency.residency().stats()["bytes"]
+
+        # (g) scale-out: a computer joins and takes its share of the shards
+        frags = {s: [fr for f in c0.holder.index("bench").fields.values()
+                     for v in f.views.values()
+                     if (fr := v.fragments.get(s)) is not None]
+                 for s in shards}
+        t0 = time.perf_counter()
+        new = svc.add_computer()
+        while len(new.owned) < len(shards) // 2 or \
+                not everything <= c0.owned | new.owned or \
+                c0.owned & new.owned:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("the new computer did not take its "
+                                     "share in 120 s")
+            time.sleep(0.01)
+        taken_s = time.perf_counter() - t0
+        svc.queryer.cluster.clear_down()
+        for q in CLUSTER_FAILOVER:
+            if ask(q) != want[q]:
+                raise AssertionError(f"dax after the scale-out {q} differs")
+        scale_s = time.perf_counter() - t0
+        gone = [s for _, s in new.owned]
+        kept_mirrors = sum(fr._dev is not None for s in gone
+                           for fr in frags[s])
+        if kept_mirrors:
+            raise AssertionError(f"computer 0 keeps {kept_mirrors} device "
+                                 "mirrors of the shards it gave up")
+        resident_scaled = residency.residency().stats()["bytes"]
+        out = dict(
+            computers=DAX_COMPUTERS, shards=len(shards), shards_held=held,
+            start_s=start_s, load_s=load_s, writelog_mb=log_mb,
+            queries=len(queries), equal_to_single_device=True,
+            first_pass_ms=first, launches_by_computer={
+                k: dict(v) for k, v in per.items()},
+            p50_ms=latency, cluster_p50_ms=dict(CLUSTER_P50),
+            server_wire_p50_ms={q: SERVER_WIRE[q] for q in SERVER_TIMED
+                                if q in SERVER_WIRE},
+            snapshot_s=snapshot_s, snapshot_mb=snapshot_mb,
+            writelog_after_snapshot_mb=log_after_mb,
+            failover=dict(moved_s=moved_s, recover_s=recover_s,
+                          shards_moved=len(shards) - held["computer0"]),
+            scale_out=dict(taken_s=taken_s, equal_s=scale_s,
+                           shards_taken=len(gone), mirrors_left=0),
+            residency_bytes=dict(first_pass=resident_first,
+                                 after_failover=resident_failover,
+                                 after_scale_out=resident_scaled),
+            device_bytes=torch.cuda.memory_allocated()
+            if single.device.type == "cuda" else None)
+        say("dax_in_process", nvidia_smi=card, **out)
+        svc.close()
+        svc = None
+
+        # (i) the child; (h) the writes it took read back after its stop,
+        # by a service started cold over its directory
+        cli = dax_cli(ch, holder, single, payloads)
+        code = dax_cli_stop(ch)
+        if code not in (0, -signal.SIGTERM):
+            raise AssertionError(f"the dax child exited {code}")
+        restart = dax_restart(os.path.join(scratch, "cli"), holder, single)
+        say("dax_durable", nvidia_smi=card, cli=cli, cli_exit_code=code,
+            restart=restart)
+    finally:
+        if svc is not None:
+            svc.close()
+        dax_cli_stop(ch)
+        shutil.rmtree(scratch, ignore_errors=True)
+    launches = {k: launches[k] for k in ck.launches()}
+    say("dax_phase", nvidia_smi=card, launches=launches,
+        seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def dax_cli_stop(ch: dict) -> int:
+    """Stop (SIGTERM) and join the dax child; its exit code."""
+    if ch["proc"].poll() is None:
+        ch["proc"].terminate()
+    try:
+        return ch["proc"].wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        ch["proc"].kill()
+        return ch["proc"].wait()
+
+
+def dax_restart(data_dir: str, holder, single) -> dict:
+    """A DaxService(DAX_COMPUTERS) started cold over the directory the
+    stopped dax child wrote: the seconds until its computers hold the
+    DAX_SHARDS shards; the child's Set and replaced row read back; and
+    DAX_RESTART_READS equal to the single device's over those shards."""
+    from featurebase_tpu_torch.dax.service import DaxService
+    from featurebase_tpu_torch.server.serialize import response_to_json
+    few = list(range(DAX_SHARDS))
+    rank_cache = holder.index("bench").field("f")._topn_cache
+
+    def single_of(q, on):
+        rank_cache.clear()
+        return single.execute("bench", q, shards=on)[0]
+    f1 = single_of("Count(Row(f=1))", [s for s in few
+                                       if s != DAX_REPLACED]) + 3
+    t0 = time.perf_counter()
+    with DaxService(DAX_COMPUTERS, data_dir=data_dir,
+                    poll_interval=DAX_POLL_S, device=single.device) as svc:
+        want = {("cli", s) for s in few}
+        while not want <= set().union(*(c.owned for c in svc.computers)):
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("the restarted service did not load "
+                                     "its shards in 120 s")
+            time.sleep(0.01)
+        restart_s = time.perf_counter() - t0
+        read = {q: svc.queryer.query("cli", q)[0]
+                for q in ("Count(Row(f=20))", "Count(Row(f=1))")}
+        if read != {"Count(Row(f=20))": 1, "Count(Row(f=1))": f1}:
+            raise AssertionError(f"after the restart: {read}, not the Set "
+                                 f"and the replaced row ({f1})")
+        for q in DAX_RESTART_READS:
+            rank_cache.clear()
+            w = jsonable(response_to_json(single.execute("bench", q,
+                                                         shards=few)))
+            got = jsonable(response_to_json(svc.queryer.query("cli", q)))
+            if got != w:
+                raise AssertionError(f"after the restart {q}: {got!r:.200} "
+                                     f"!= {w!r:.200}")
+    return dict(shards=DAX_SHARDS, restart_s=restart_s,
+                writes_read_back=read, reads=len(DAX_RESTART_READS),
+                equal_to_single_device=True)
+
+
+def dax_alone(n_shards: int, reps: int) -> None:
+    """The dax phase by itself (--only dax): the table, unwritten, its
+    roaring payloads and the single device's answers as the cluster phase
+    makes them, then dax_phase."""
+    from featurebase_tpu_torch.executor.executor import Executor
+    holder, _ = build_table(n_shards)
+    src = holder.index("bench")
+    queries, want = cluster_answers(holder, Executor(holder))
+    views = bench_views(src)
+    dax_phase(holder, reps, dict(
+        queries=queries, want=want,
+        payloads={s: shard_payload(src, views, s)
+                  for s in src.available_shards()}))
 
 
 # The device symbol of a wrapper's kernel where it is not `<wrapper>_kernel`:
@@ -5659,11 +6179,11 @@ def main() -> int:
                     help="run as CPUWorker's worker process: pickle the CPU "
                     "executor's answers to the mix to PATH (no card used)")
     ap.add_argument("--only", choices=["api", "sql", "mesh", "server",
-                                       "ingest", "cluster"],
+                                       "ingest", "cluster", "dax"],
                     help="run one phase by itself after the card's line: "
                     "the table, then the api, the sql, the mesh, the "
-                    "server, the ingest or the cluster phase (its kernels "
-                    "build at first use)")
+                    "server, the ingest, the cluster or the dax phase (its "
+                    "kernels build at first use)")
     args = ap.parse_args()
     RECORDS_PER_SHARD = args.records_per_shard
     if args.cpu_answers:
@@ -5686,7 +6206,7 @@ def main() -> int:
     if args.only:
         {"api": api_alone, "sql": sql_alone, "mesh": mesh_alone,
          "server": server_alone, "ingest": ingest_alone,
-         "cluster": cluster_alone}[args.only](
+         "cluster": cluster_alone, "dax": dax_alone}[args.only](
              args.shards, args.reps)
         print(card)
         return 0

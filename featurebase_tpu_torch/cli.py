@@ -13,6 +13,9 @@ Own copy of featurebase_tpu/cli.py: the same parser, subcommands and flags
   python -m featurebase_tpu_torch import --host URL --index I FILE.csv
   python -m featurebase_tpu_torch query  --host URL --index I 'Count(All())'
   python -m featurebase_tpu_torch sql    --host URL 'SELECT ...'
+  python -m featurebase_tpu_torch dax    [--computers N] [--data-dir DIR]
+                                         [--snapshot-interval S]
+                                         [--bind HOST:PORT] [--cpu]
 
 `server` runs the port's API on CUDA, and raises without CUDA unless
 --cpu is given (then it serves from the CPU); --mesh builds the port's
@@ -27,8 +30,10 @@ one into a running cluster.  The host tools run as in the JAX
 package: auth-token, keygen, generate-config, wal-info, presort, chksum,
 parquet-info, dataframe-csv-loader, and so do export, datagen and consume
 (consume ingests into an API on CUDA, or on the CPU with --cpu).
-`dax` needs what the port does not run yet and raises NotImplementedError
-naming its ROADMAP.md queue 1 item (15).
+`dax` runs a DAX deployment in one process (dax/service.py: the
+controller, --computers computers over the shared writelogger and
+snapshotter under --data-dir, and the queryer served on --bind), the
+computers and the queryer on CUDA, or on the CPU with --cpu.
 
 Config: flags > env (FEATUREBASE_TPU_*) > TOML file (--config), mirroring
 the reference's pflag/env/TOML precedence (reference cmd/root.go:127).
@@ -40,8 +45,6 @@ import json
 import os
 import sys
 import tarfile
-
-from featurebase_tpu_torch.server.api import not_ported
 
 
 def _env_default(name: str, default):
@@ -619,7 +622,35 @@ def cmd_server(args, cfg):
 
 
 def cmd_dax(args, cfg):
-    raise not_ported(15, "the dax command")
+    """Reference: `featurebase dax` (cmd/dax.go) — all services in one
+    process via the service manager; the computers and the queryer on the
+    card, or on the CPU with --cpu."""
+    from featurebase_tpu_torch.dax.service import DaxService
+    from featurebase_tpu_torch.server.http_server import Server
+    svc = DaxService(n_computers=int(cfg.get("computers", args.computers)),
+                     data_dir=cfg.get("data-dir", args.data_dir),
+                     snapshot_interval=float(
+                         cfg.get("snapshot-interval",
+                                 args.snapshot_interval)),
+                     device="cpu" if getattr(args, "cpu", False) else None)
+    bind = cfg.get("bind", args.bind)
+    host, _, port = bind.partition(":")
+    try:
+        front = Server(api=svc.queryer, host=host or "127.0.0.1",
+                       port=int(port or 10101))
+    except BaseException:
+        svc.close()
+        raise
+    print(f"featurebase_tpu_torch dax: controller={svc.controller_uri} "
+          f"computers={len(svc.computers)} queryer={front.url}", flush=True)
+    try:
+        front.httpd.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        front.stop()
+        svc.close()
+    return 0
 
 
 def cmd_backup(args):

@@ -2495,6 +2495,7 @@ class Executor:
         elif shard_list and filt_call.name != "All":
             stacked = self._mesh_filter(index, filt_call, shard_list)
             if stacked is not None and self.mesh is not None:
+                stacked.require_whole("Extract")
                 filt_rows = {s: host_words(w) for s, w in
                              stacked.rows(torch.device("cpu")).items()}
             elif stacked is not None:

@@ -182,8 +182,22 @@ class Sharded:
                 f"spans processes)")
 
     def rows(self, device: torch.device) -> Dict[int, torch.Tensor]:
-        """{shard: its row} of every real shard, moved to `device`."""
-        self.require_whole("a per-shard result")
+        """{shard: its row} of every real shard, moved to `device`.  On a
+        mesh that spans processes each process's blocks go through the
+        host to every process (a collective: every process calls it), as
+        the JAX package reads a bitmap result of the whole mesh."""
+        if self.mesh.spans_processes:
+            from featurebase_tpu_torch.parallel.multihost import \
+                all_gather_object
+            local = {}
+            for k, b in enumerate(self.blocks):
+                host = b.cpu().numpy()
+                for i, s in enumerate(self.shards_of(k)):
+                    if s >= 0:
+                        local[s] = host[i]
+            return {s: torch.from_numpy(w).to(device)
+                    for part in all_gather_object(self.mesh, local)
+                    for s, w in part.items()}
         out = {}
         for k, b in enumerate(self.blocks):
             for i, s in enumerate(self.shards_of(k)):

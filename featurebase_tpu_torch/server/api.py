@@ -47,14 +47,6 @@ class APIError(Exception):
         self.status = status
 
 
-def not_ported(item: int, what: str) -> NotImplementedError:
-    """The error for `what`, which waits for ROADMAP.md queue 1 `item`."""
-    area = {15: "DAX"}[item]
-    return NotImplementedError(
-        f"{what} needs {area}, which featurebase_tpu_torch does not run yet "
-        f"(ROADMAP.md queue 1 item {item})")
-
-
 class API:
     """The API of a single node or of one cluster node (see the module
     docstring)."""
@@ -120,13 +112,19 @@ class API:
     # -- durability ---------------------------------------------------------
 
     def _logging(self) -> bool:
-        """Whether _log writes (a bulk import builds its entry only
-        then)."""
+        """Whether _log writes (a write builds its entry only then; a DAX
+        computer, which logs to its writelogger, says so with no WAL)."""
         return self.wal is not None and not self._replaying
 
     def _log(self, entry: dict):
         if self._logging():
             self.wal.append(entry)
+
+    def _log_all(self, entries: List[dict]):
+        """Log the entries of one write in order (a roaring shard import's
+        views)."""
+        for e in entries:
+            self._log(e)
 
     def _replay_wal(self):
         """Replay the WAL, counting (not swallowing) each failed entry: it
@@ -826,7 +824,7 @@ class API:
 
     def _log_write_calls(self, index: str, parsed):
         from featurebase_tpu_torch.pql.ast import WRITE_CALLS
-        if self.wal is not None and any(
+        if self._logging() and any(
                 c.name in WRITE_CALLS for c in parsed.calls):
             from featurebase_tpu_torch.cluster.wire import encode_query
             self._log({"op": "pql_ast", "i": index,
@@ -1015,18 +1013,19 @@ class API:
             if not self._forward_roaring(index, shard, views):
                 return
         idx = self._index(index)
-        if self.wal is not None and not self._replaying:
+        if self._logging():
+            entries = []
             for spec, payload in views.items():
                 fname = spec.split("/", 1)[0]
                 vname = spec.split("/", 1)[1] if "/" in spec else "standard"
                 if vname == "bsig":
                     vname = f"bsig_{fname}"
-                self._log({"op": "roaring", "i": index, "f": fname,
-                           "shard": shard,
-                           "data": encode_bytes(payload.get("data", b"")),
-                           "view": vname,
-                           "clear": payload.get("clear", False),
-                           "replace": bool(payload.get("replace", False))})
+                entries.append({
+                    "op": "roaring", "i": index, "f": fname, "shard": shard,
+                    "data": encode_bytes(payload.get("data", b"")),
+                    "view": vname, "clear": payload.get("clear", False),
+                    "replace": bool(payload.get("replace", False))})
+            self._log_all(entries)
         with idx.mutate_gate.shared():
             import_roaring_shard(idx, shard, views)
 

@@ -228,52 +228,16 @@ def test_cpu_executor_launches_no_kernel(engines):
 
 
 def test_port_imports_neither_jax_nor_featurebase_tpu():
-    """featurebase_tpu is a prefix of featurebase_tpu_torch: match the JAX
-    package's modules exactly, not by prefix."""
+    """Every module of the port (walked by pkgutil, dax/ among them), and
+    the API, SQL, the servers and a DAX service driven on the CPU, import
+    neither JAX nor the JAX package.  featurebase_tpu is a prefix of
+    featurebase_tpu_torch: match the JAX package's modules exactly, not by
+    prefix."""
     code = (
-        "import sys, featurebase_tpu_torch\n"
-        "import featurebase_tpu_torch.executor.executor\n"
-        "import featurebase_tpu_torch.storage.snapshot\n"
-        "import featurebase_tpu_torch.ops.build\n"
-        "import featurebase_tpu_torch.ops.rowscan\n"
-        "import featurebase_tpu_torch.server.api\n"
-        "import featurebase_tpu_torch.sql.ast\n"
-        "import featurebase_tpu_torch.sql.functions\n"
-        "import featurebase_tpu_torch.sql.ops\n"
-        "import featurebase_tpu_torch.sql.parser\n"
-        "import featurebase_tpu_torch.sql.vector\n"
-        "import featurebase_tpu_torch.sql.planner\n"
-        "import featurebase_tpu_torch.sql.engine\n"
-        "import featurebase_tpu_torch.sql.system_tables\n"
-        "import featurebase_tpu_torch.ingest.batch\n"
-        "import featurebase_tpu_torch.utils.logger\n"
-        "import featurebase_tpu_torch.utils.metrics\n"
-        "import featurebase_tpu_torch.utils.monitor\n"
-        "import featurebase_tpu_torch.utils.tracing\n"
-        "import featurebase_tpu_torch.utils.tracker\n"
-        "import featurebase_tpu_torch.storage.wal\n"
-        "import featurebase_tpu_torch.storage.lookup\n"
-        "import featurebase_tpu_torch.cluster.wire\n"
-        "import featurebase_tpu_torch.model.dataframe\n"
-        "import featurebase_tpu_torch.ingest.idalloc\n"
-        "import featurebase_tpu_torch.parallel.mesh\n"
-        "import featurebase_tpu_torch.parallel.multihost\n"
-        "import featurebase_tpu_torch.parallel.placement\n"
-        "import featurebase_tpu_torch.parallel.agg\n"
-        "import featurebase_tpu_torch.parallel.dryrun\n"
-        "import featurebase_tpu_torch.server.serialize\n"
-        "import featurebase_tpu_torch.server.auth\n"
-        "import featurebase_tpu_torch.server.console\n"
-        "import featurebase_tpu_torch.server.http_server\n"
-        "import featurebase_tpu_torch.server.grpc_server\n"
-        "import featurebase_tpu_torch.proto.pilosa_pb2\n"
-        "import featurebase_tpu_torch.utils.profiling\n"
-        "import featurebase_tpu_torch.storage.hostmem\n"
-        "import featurebase_tpu_torch.storage.translate\n"
-        "import featurebase_tpu_torch.client\n"
-        "import featurebase_tpu_torch.cli\n"
-        "import featurebase_tpu_torch.fbsql\n"
-        "import featurebase_tpu_torch.__main__\n"
+        "import importlib, pkgutil, sys, featurebase_tpu_torch\n"
+        "for m in pkgutil.walk_packages(featurebase_tpu_torch.__path__,\n"
+        "                               'featurebase_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
         "mesh = featurebase_tpu_torch.parallel.mesh.make_mesh(\n"
         "    devices=['cpu'])\n"
         "ex = featurebase_tpu_torch.executor.executor.Executor(\n"
@@ -299,6 +263,12 @@ def test_port_imports_neither_jax_nor_featurebase_tpu():
         "    pb.QueryPQLRequest(index='i', pql='Count(All())'))\n"
         "assert t.rows[0].columns[0].uint64_val == 2\n"
         "ch.close(); gs.stop(); srv.stop()\n"
+        "from featurebase_tpu_torch.dax.service import DaxService\n"
+        "with DaxService(n_computers=2, device='cpu') as dax:\n"
+        "    dax.queryer.create_index('d')\n"
+        "    dax.queryer.create_field('d', 'f', {'type': 'set'})\n"
+        "    dax.queryer.import_bits('d', 'f', [1, 1], [3, 1 << 20])\n"
+        "    assert dax.queryer.query('d', 'Count(Row(f=1))') == [2]\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'featurebase_tpu' or m.startswith('featurebase_tpu.')]\n"
         "print(bad)\n"

@@ -13,8 +13,8 @@ others as metadata.  The stacked mesh arrays are laid out so that each
 process's owned shards sit at its member blocks, and every aggregate is
 merged across the processes.  The asserts are the JAX worker's
 (tests/multihost_worker.py) against numpy, and more: Min/Max, Var, BSI
-Distinct and Sort merged across processes, and a bitmap result, which
-needs every member's block, raising.  The port has no host-memory
+Distinct and Sort merged across processes, a bitmap result gathered from
+every process, and Extract refused (as the JAX package refuses it).  The port has no host-memory
 accounting yet, so each process reports its fragments' host word bytes.
 """
 import argparse
@@ -134,13 +134,16 @@ def main():
     assert srt["columns"] == [int(c) for c in cols[order]], srt
     assert srt["values"] == [int(x) for x in vv[order]], srt
 
-    # a bitmap result needs every member's block: it raises
+    # a bitmap result gathers every process's blocks, as the JAX package's
+    # does; Extract refuses, as the JAX package's does
+    (row,) = ex.execute("mh", "Row(f=1)")
+    assert [int(c) for c in row.columns()] == [int(c) for c in cols[fr == 1]]
     try:
-        ex.execute("mh", "Row(f=1)")
+        ex.execute("mh", "Extract(Row(g=2), Rows(f), Rows(v))")
     except RuntimeError as e:
         assert "spans processes" in str(e), e
     else:
-        raise AssertionError("Row(f=1) answered on a mesh over processes")
+        raise AssertionError("Extract answered on a mesh over processes")
     multihost.shutdown()
     print(f"MULTIHOST_OK {pid}", flush=True)
 

@@ -441,6 +441,8 @@ ON_CPU = [
     (re.compile(r"\bAPI\(\)"), 'API(device="cpu")'),
     (re.compile(r"\bAPI\((?!device=)([^()]+)\)"), r'API(\1, device="cpu")'),
     (re.compile(r"\bExecutor\(holder\)"), 'Executor(holder, device="cpu")'),
+    (re.compile(r"\bDaxService\(([^()]*)\)"),
+     r'DaxService(\1, device="cpu")'),
 ]
 
 
@@ -470,8 +472,8 @@ def port_namespace(name: str, subs=(), drop=()) -> dict:
     """The namespace of tests/<name>.py run on the port alone: every
     featurebase_tpu import from featurebase_tpu_torch (the API, the servers
     and TestCluster too), each (old, new) of `subs` replaced in the source,
-    and each TestCluster, API and Executor(holder) it builds given
-    device="cpu" (ON_CPU).  The cluster tests run so: a TestCluster's nodes
+    and each TestCluster, API, Executor(holder) and DaxService it builds
+    given device="cpu" (ON_CPU).  The cluster tests run so: a TestCluster's nodes
     are the port's APIs behind the port's servers, and the JAX test's
     asserts hold their answers."""
     src, path = _source(name, subs)
