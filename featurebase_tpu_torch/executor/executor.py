@@ -81,7 +81,8 @@ from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
                                                BSI_SIGN_ROW, SHARD_WIDTH,
                                                WORDS_PER_ROW)
 from featurebase_tpu_torch.executor.plan import (BitmapPlan, PlanCompiler,
-                                                 PlanError, PlanExecutor)
+                                                 PlanError, PlanExecutor,
+                                                 to_host)
 from featurebase_tpu_torch.executor.qcontext import check_interrupt
 from featurebase_tpu_torch.executor.results import (ExtractedTable,
                                                     ExtractedTableColumn,
@@ -154,14 +155,14 @@ def _time_views(f: Field, call: Call) -> List[str]:
 def _fetch(parts: List[torch.Tensor]) -> List[np.ndarray]:
     """Host copies of device tensors in one transfer a device (the
     per-shard loops fetch once, after the loop; a mesh's members may sit on
-    several cards)."""
+    several cards).  The span device.wait."""
     out: List[Optional[np.ndarray]] = [None] * len(parts)
     by_dev: Dict[torch.device, List[int]] = {}
     for i, p in enumerate(parts):
         by_dev.setdefault(p.device, []).append(i)
     for idx in by_dev.values():
-        host = torch.cat([parts[i].reshape(-1).to(torch.int64)
-                          for i in idx]).cpu().numpy()
+        host = to_host(torch.cat([parts[i].reshape(-1).to(torch.int64)
+                                  for i in idx]))
         at = 0
         for i in idx:
             n = parts[i].numel()
@@ -204,7 +205,9 @@ class Executor:
         """Execute a PQL query string or pql.Query; returns a result per
         top-level call.  A query that writes runs under the index's mutate
         gate, shared with other writers; any other reads one pinned
-        snapshot of the index (model/snapshot.py)."""
+        snapshot of the index (model/snapshot.py).  The span
+        executor.execute: the gate or the pin, and each call's checks and
+        key translations, beside its calls' spans."""
         index = self.holder.index(index_name)
         if index is None:
             raise ExecError(f"index not found: {index_name}")
@@ -220,7 +223,8 @@ class Executor:
                 results.append(self._translate_result(index, c, result))
             return results
 
-        return self._gated(index, query, run)
+        with TRACER.span("executor.execute"):
+            return self._gated(index, query, run)
 
     def _gated(self, index: Index, query, run):
         """run() under the index's mutate gate, shared with other writers,
@@ -403,10 +407,11 @@ class Executor:
 
     def _execute_call(self, index: Index, call: Call,
                       shards: Optional[List[int]]):
-        """One call, as a span of a profiled query (utils/tracing.py: a
-        no-op unless the API profiles the query)."""
+        """One call, as the span executor.execute<Call> (utils/tracing.py:
+        a node of a profiled query's tree, and recorded under the
+        profiler)."""
         check_interrupt()
-        with TRACER.start_span(f"executor.execute{call.name}"):
+        with TRACER.start_span("executor.execute", call.name):
             return self._execute_call_inner(index, call, shards)
 
     def _execute_call_inner(self, index: Index, call: Call,
@@ -484,12 +489,14 @@ class Executor:
     def _try_compile(self, index: Index, call: Call) -> Optional[BitmapPlan]:
         """The stacked plan of a bitmap call, or None when the plan compiler
         refuses it (the per-shard interpreter runs it then).  Distinct
-        operands are computed first and enter as Precomputed rows."""
-        self._precompute_distinct(index, call)
-        try:
-            return PlanCompiler(index).compile(call)
-        except PlanError:
-            return None
+        operands are computed first and enter as Precomputed rows.  The
+        span plan.compile."""
+        with TRACER.span("plan.compile"):
+            self._precompute_distinct(index, call)
+            try:
+                return PlanCompiler(index).compile(call)
+            except PlanError:
+                return None
 
     def _precompute_distinct(self, index: Index, call: Call) -> None:
         """Replace each Distinct of a bitmap tree, in place, by its result
@@ -769,7 +776,7 @@ class Executor:
         if plan is not None:
             return self.plan_executor.run_count(index, plan, shard_list)
         words = [self._bitmap_call_shard(index, child, s) for s in shard_list]
-        return int(bw.popcount(torch.stack(words)))
+        return int(to_host(bw.popcount(torch.stack(words))))
 
     # ------------------------------------------------------- TopN / TopK
 
@@ -813,11 +820,12 @@ class Executor:
         if missing:
             self._topn_count_shards(index, f, names, filt_call, missing,
                                     miss_gens, use_cache, counts)
-        pairs = [Pair(id=rid, count=c) for rid, c in counts.items()]
-        pairs.sort(key=lambda p: (-p.count, p.id))
-        if n:
-            pairs = pairs[: int(n)]
-        return PairsField(pairs, fld)
+        with TRACER.span("agg.finish"):
+            pairs = [Pair(id=rid, count=c) for rid, c in counts.items()]
+            pairs.sort(key=lambda p: (-p.count, p.id))
+            if n:
+                pairs = pairs[: int(n)]
+            return PairsField(pairs, fld)
 
     def _topn_mesh(self, index: Index, f: Field, fld: str, n, filt_call,
                    view_names: List[str], shard_list: List[int]
@@ -841,12 +849,14 @@ class Executor:
             return PairsField([], fld)
         tiles = self.plan_executor.stacked_field_rows(
             index, fld, tuple(view_names), tuple(row_ids), shard_list)
-        pc = agg.row_counts(self.mesh, tiles, filt).cpu().numpy()
-        pairs = [Pair(id=r, count=int(c)) for r, c in zip(row_ids, pc) if c]
-        pairs.sort(key=lambda p: (-p.count, p.id))
-        if n:
-            pairs = pairs[: int(n)]
-        return PairsField(pairs, fld)
+        pc = to_host(agg.row_counts(self.mesh, tiles, filt))
+        with TRACER.span("agg.finish"):
+            pairs = [Pair(id=r, count=int(c))
+                     for r, c in zip(row_ids, pc) if c]
+            pairs.sort(key=lambda p: (-p.count, p.id))
+            if n:
+                pairs = pairs[: int(n)]
+            return PairsField(pairs, fld)
 
     def _topn_count_shards(self, index: Index, f: Field, names, filt_call,
                            missing: List[int], miss_gens: Dict[int, tuple],
@@ -882,9 +892,8 @@ class Executor:
         if stacked:
             tiles = pe.stacked_field_rows(index, f.name, names,
                                           tuple(row_ids), missing)
-            pc = (bw.per_shard_row_counts(tiles) if filt is None
-                  else bw.per_shard_filtered_row_counts(tiles, filt))
-            pc = pc.cpu().numpy()
+            pc = to_host(bw.per_shard_row_counts(tiles) if filt is None
+                         else bw.per_shard_filtered_row_counts(tiles, filt))
             for si, shard in enumerate(missing):
                 add_shard(shard, row_ids, pc[si])
             return
@@ -998,20 +1007,21 @@ class Executor:
                 index, f.name, max(f.bit_depth, 1), shard_list)
             if self.mesh is not None:
                 pp, nn, cnt = agg.sum_planes(self.mesh, group, filt)
-                parts = torch.cat([pp, nn, cnt.reshape(1)]).cpu().numpy()
+                parts = to_host(torch.cat([pp, nn, cnt.reshape(1)]))
             else:
-                parts = ck.bsi_sum_planes(group, filt).cpu().numpy()
+                parts = to_host(ck.bsi_sum_planes(group, filt))
         else:
             per_batch = [ck.bsi_sum_planes_sharded(g, self._all_ones(fws))
                          for _, g, fws in self._shard_group_batches(
                              index, f, filt_call, shard_list)]
             if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
-            parts = torch.stack(per_batch).sum(0).cpu().numpy()
-        D = (parts.size - 1) // 2
-        count = int(parts[2 * D])
-        total = finalize_sum(parts[:D], parts[D:2 * D]) + f.base * count
-        return self._wrap_valcount(f, total, count)
+            parts = to_host(torch.stack(per_batch).sum(0))
+        with TRACER.span("agg.finish"):
+            D = (parts.size - 1) // 2
+            count = int(parts[2 * D])
+            total = finalize_sum(parts[:D], parts[D:2 * D]) + f.base * count
+            return self._wrap_valcount(f, total, count)
 
     def _execute_min_max(self, index: Index, call: Call,
                          shards: Optional[List[int]], is_min: bool
@@ -1032,14 +1042,15 @@ class Executor:
         if filt is not None:
             group = self.plan_executor.stacked_bsi(
                 index, f.name, max(f.bit_depth, 1), shard_list)
-            parts = (agg.min_max_parts(self.mesh, group, filt, is_min)
-                     if self.mesh is not None else
-                     ck.bsi_min_max(group, filt, is_min)).cpu().numpy()
+            parts = to_host(agg.min_max_parts(self.mesh, group, filt, is_min)
+                            if self.mesh is not None else
+                            ck.bsi_min_max(group, filt, is_min))
             if max(f.bit_depth, 1) <= 31:
-                v, c = bsiops.min_max_stacked_finish(parts, is_min)
-                if c == 0:
-                    return self._wrap_valcount(f, 0, 0)
-                return self._wrap_valcount(f, v + f.base, c)
+                with TRACER.span("agg.finish"):
+                    v, c = bsiops.min_max_stacked_finish(parts, is_min)
+                    if c == 0:
+                        return self._wrap_valcount(f, 0, 0)
+                    return self._wrap_valcount(f, v + f.base, c)
         else:
             per_batch = [ck.bsi_min_max_sharded(g, self._all_ones(fws),
                                                 is_min)
@@ -1047,14 +1058,15 @@ class Executor:
                              index, f, filt_call, shard_list)]
             if not per_batch:
                 return self._wrap_valcount(f, 0, 0)
-            parts = torch.cat(per_batch).cpu().numpy()
-        acc = ValCount()
-        for v, c in bsiops.min_max_per_shard(parts, is_min):
-            if c == 0:
-                continue
-            vc = ValCount(v + f.base, c)
-            acc = acc.smaller(vc) if is_min else acc.larger(vc)
-        return self._wrap_valcount(f, acc.val, acc.count)
+            parts = to_host(torch.cat(per_batch))
+        with TRACER.span("agg.finish"):
+            acc = ValCount()
+            for v, c in bsiops.min_max_per_shard(parts, is_min):
+                if c == 0:
+                    continue
+                vc = ValCount(v + f.base, c)
+                acc = acc.smaller(vc) if is_min else acc.larger(vc)
+            return self._wrap_valcount(f, acc.val, acc.count)
 
     # --------------------------------------------------- Var / Corr (SQL)
 
@@ -1411,9 +1423,9 @@ class Executor:
             if tile_bytes <= self.ROWS_STACKED_MAX_BYTES:
                 tiles = self.plan_executor.stacked_field_rows(
                     index, fld, tuple(names), tuple(cand), shard_list)
-                counts = (agg.row_counts(self.mesh, tiles, None)
-                          if self.mesh is not None else
-                          bw.stacked_row_counts(tiles)).cpu().numpy()
+                counts = to_host(agg.row_counts(self.mesh, tiles, None)
+                                 if self.mesh is not None else
+                                 bw.stacked_row_counts(tiles))
                 rows_sorted = [r for r, c in zip(cand, counts) if c]
                 if limit is not None:
                     rows_sorted = rows_sorted[: int(limit)]
@@ -1493,16 +1505,17 @@ class Executor:
 
         # assemble, sort by group key, apply having + limit
         out = []
-        for key, (cnt, agg) in sorted(groups.items()):
-            if cnt == 0:
-                continue
-            group = [FieldRow(field=fields[i], row_id=key[i])
-                     for i in range(len(fields))]
-            gc = GroupCount(group, count=cnt, agg=agg)
-            if agg_field is not None and \
-                    agg_field.options.type == TYPE_DECIMAL:
-                gc.decimal_agg = agg / (10 ** agg_field.options.scale)
-            out.append(gc)
+        with TRACER.span("agg.finish"):
+            for key, (cnt, agg) in sorted(groups.items()):
+                if cnt == 0:
+                    continue
+                group = [FieldRow(field=fields[i], row_id=key[i])
+                         for i in range(len(fields))]
+                gc = GroupCount(group, count=cnt, agg=agg)
+                if agg_field is not None and \
+                        agg_field.options.type == TYPE_DECIMAL:
+                    gc.decimal_agg = agg / (10 ** agg_field.options.scale)
+                out.append(gc)
         if agg_kind == "Count" and agg_call.children and \
                 agg_call.children[0].name == "Distinct":
             # aggregate=Count(Distinct(field=x)): for each group,
@@ -1528,21 +1541,23 @@ class Executor:
 
     @staticmethod
     def _add_counts(groups, keys, counts) -> None:
-        for key, c in zip(keys, counts):
-            if c:
-                g = groups.setdefault(key, [0, 0])
-                g[0] += int(c)
+        with TRACER.span("agg.finish"):
+            for key, c in zip(keys, counts):
+                if c:
+                    g = groups.setdefault(key, [0, 0])
+                    g[0] += int(c)
 
     @staticmethod
     def _add_sums(groups, keys, parts: np.ndarray) -> None:
         """Each group's (sum, count) from kernel F's counters; the count is
         the group's columns with a value (reference sum_groups_host)."""
-        for key, (s, c) in zip(keys, bsiops.finish_groups(parts)):
-            if c == 0:
-                continue
-            g = groups.setdefault(key, [0, 0])
-            g[0] += c
-            g[1] += s
+        with TRACER.span("agg.finish"):
+            for key, (s, c) in zip(keys, bsiops.finish_groups(parts)):
+                if c == 0:
+                    continue
+                g = groups.setdefault(key, [0, 0])
+                g[0] += c
+                g[1] += s
 
     def _add_pending(self, pending: list, groups) -> None:
         """Fold the per-shard loop's results into `groups`: device counts
@@ -1609,7 +1624,7 @@ class Executor:
                 for lvl in range(1, n_levels - 1):
                     masks = bw.stacked_all_pairs_and(masks, dim_tiles[lvl])
                 counts = bw.stacked_pair_counts(masks, dim_tiles[-1])
-            self._add_counts(groups, keys, counts.reshape(-1).cpu().numpy())
+            self._add_counts(groups, keys, to_host(counts.reshape(-1)))
             return True
         masks = dim_tiles[0] if filt is None else \
             bw.stacked_mask_filter(dim_tiles[0], filt)
@@ -1618,8 +1633,7 @@ class Executor:
         bsi = pe.stacked_bsi(index, agg_field.name,
                              max(agg_field.bit_depth, 1), shard_list)
         self._add_sums(groups, keys,
-                       ck.bsi_sum_groups(bsi, masks.contiguous())
-                       .cpu().numpy())
+                       to_host(ck.bsi_sum_groups(bsi, masks.contiguous())))
         return True
 
     def _group_by_mesh(self, index: Index, shard_list: List[int],
@@ -1651,7 +1665,7 @@ class Executor:
         if self._group_by_mesh_one_shot(dim_rows, dim_tiles, filt, agg_kind,
                                         agg_field, index, shard_list, groups):
             return True
-        counts = agg.row_counts(mesh, dim_tiles[0], filt).cpu().numpy()
+        counts = to_host(agg.row_counts(mesh, dim_tiles[0], filt))
         keep = np.nonzero(counts)[0]
         if keep.size == 0:
             return True
@@ -1662,7 +1676,7 @@ class Executor:
             masks = agg.take_rows(mesh, agg.mask_filter(mesh, dim_tiles[0],
                                                         filt), keep)
         for lvl in range(1, len(dim_tiles)):
-            pc = agg.pair_counts(mesh, masks, dim_tiles[lvl]).cpu().numpy()
+            pc = to_host(agg.pair_counts(mesh, masks, dim_tiles[lvl]))
             fi, rj = np.nonzero(pc)
             if fi.size == 0:
                 return True
@@ -1684,7 +1698,7 @@ class Executor:
         bsi = self.plan_executor.stacked_bsi(
             index, agg_field.name, max(agg_field.bit_depth, 1), shard_list)
         pp, nn, cnt = agg.group_sums(self.mesh, masks, bsi)
-        return torch.cat([pp, nn, cnt[:, None]], 1).cpu().numpy()
+        return to_host(torch.cat([pp, nn, cnt[:, None]], 1))
 
     def _group_by_mesh_one_shot(self, dim_rows, dim_tiles, filt, agg_kind,
                                 agg_field, index: Index, shard_list,
@@ -1716,7 +1730,7 @@ class Executor:
                 for lvl in range(1, n_levels - 1):
                     masks = expand_static(masks, lvl)
                 counts = agg.pair_counts(mesh, masks, dim_tiles[-1])
-            self._add_counts(groups, keys, counts.reshape(-1).cpu().numpy())
+            self._add_counts(groups, keys, to_host(counts.reshape(-1)))
             return True
         if agg_field is None or \
                 n_combos * w_bytes > self.GROUPBY_ONESHOT_MAX_MASK_BYTES:
@@ -1767,10 +1781,9 @@ class Executor:
             keys = itertools.product(*[[int(r) for r in rows]
                                        for rows in dim_rows_global])
             if agg_kind == "Sum":
-                self._add_sums(groups, keys, total.cpu().numpy())
+                self._add_sums(groups, keys, to_host(total))
             else:
-                self._add_counts(groups, keys,
-                                 total.reshape(-1).cpu().numpy())
+                self._add_counts(groups, keys, to_host(total.reshape(-1)))
         return True
 
     @staticmethod
@@ -1910,7 +1923,7 @@ class Executor:
         counts = counts0[counts0 != 0]
         for lvl in range(1, len(dim_tiles)):
             tile = dim_tiles[lvl]
-            pc = bw.count_and_pairs(masks, tile).cpu().numpy()  # (F, R)
+            pc = to_host(bw.count_and_pairs(masks, tile))  # (F, R)
             fi, rj = np.nonzero(pc)
             if fi.size == 0:
                 return

@@ -55,6 +55,7 @@ from featurebase_tpu_torch.ops import cuda_kernels as ck
 from featurebase_tpu_torch.ops import lowering
 from featurebase_tpu_torch.parallel.mesh import Sharded
 from featurebase_tpu_torch.pql.ast import Call, Condition
+from featurebase_tpu_torch.utils.tracing import TRACER
 
 
 class PlanError(Exception):
@@ -294,6 +295,13 @@ def lower_ir(ir, leaves: List[torch.Tensor], params: List[np.ndarray],
 # Plan execution
 # ---------------------------------------------------------------------------
 
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A result's host copy: where the query waits for the card (the span
+    device.wait)."""
+    with TRACER.span("device.wait"):
+        return t.cpu().numpy()
+
+
 # Every live plan executor: a deleted field, view or index drops the
 # stacked entries built from its fragments in each (drop_fragment_copies).
 _EXECUTORS: "weakref.WeakSet[PlanExecutor]" = weakref.WeakSet()
@@ -406,6 +414,14 @@ class PlanExecutor:
 
     def _gather_leaf(self, index: Index, leaf: _Leaf, shards: List[int]
                      ) -> torch.Tensor:
+        """A stacked leaf over `shards` (laid out): its fragments looked up,
+        their generations and the cache's answer, or an upload (the span
+        storage.leaf)."""
+        with TRACER.span("storage.leaf"):
+            return self._gather(index, leaf, shards)
+
+    def _gather(self, index: Index, leaf: _Leaf, shards: List[int]
+                ) -> torch.Tensor:
         S = len(shards)
         if leaf.kind == "const":
             rows = [leaf.const_row.segments.get(s) for s in shards]
@@ -473,15 +489,17 @@ class PlanExecutor:
         """Build a stacked (S, ...) tensor shard by shard in a host buffer
         (pinned when the device is a GPU) and upload it; on a mesh, only
         this process's member blocks of the laid-out list `shards`, each to
-        its member's device (Mesh.put_lazy; JAX plan.py:416)."""
-        if self.mesh is not None:
-            return self.mesh.put_lazy(shape, fill_shard, shards)
-        buf = torch.zeros(shape, dtype=torch.int32,
-                          pin_memory=self.device.type == "cuda")
-        host = buf.numpy().view(np.uint32)
-        for si in range(shape[0]):
-            fill_shard(si, host[si])
-        return buf.to(self.device, non_blocking=True)
+        its member's device (Mesh.put_lazy; JAX plan.py:416).  The span
+        storage.upload."""
+        with TRACER.span("storage.upload"):
+            if self.mesh is not None:
+                return self.mesh.put_lazy(shape, fill_shard, shards)
+            buf = torch.zeros(shape, dtype=torch.int32,
+                              pin_memory=self.device.type == "cuda")
+            host = buf.numpy().view(np.uint32)
+            for si in range(shape[0]):
+                fill_shard(si, host[si])
+            return buf.to(self.device, non_blocking=True)
 
     def _cached_stack(self, key, gen, frags, shape, fill_shard, shards):
         """Generation-keyed stacked-leaf cache whose entries the residency
@@ -503,8 +521,14 @@ class PlanExecutor:
                            shards: List[int]) -> torch.Tensor:
         """(S, R, W) stacked tile of the given row ids across shards (views
         OR-ed, absent rows zero).  Backs TopN (reference: each shard's
-        fragment.rows read, executor.go:4077).  Sharded on a mesh."""
-        shards = self.layout(index.name, shards)
+        fragment.rows read, executor.go:4077).  Sharded on a mesh.  The
+        span storage.leaf."""
+        with TRACER.span("storage.leaf"):
+            return self._field_rows(index, fname, views, row_ids,
+                                    self.layout(index.name, shards))
+
+    def _field_rows(self, index: Index, fname: str, views: Tuple[str, ...],
+                    row_ids: Tuple[int, ...], shards: List[int]):
         f = index.field(fname)
         frag_sets = [[self._frag(f, vn, s) for vn in views] for s in shards]
         flat = [fr for frs in frag_sets for fr in frs]
@@ -525,10 +549,12 @@ class PlanExecutor:
     def stacked_bsi(self, index: Index, fname: str, depth: int,
                     shards: List[int]) -> torch.Tensor:
         """(S, depth + 2, W) stacked BSI group: the same cached leaf that
-        Count's range predicates read (Sharded on a mesh)."""
-        return self._gather_leaf(index, _Leaf("bsi", field=fname,
-                                              depth=depth),
-                                 self.layout(index.name, shards))
+        Count's range predicates read (Sharded on a mesh).  The span
+        storage.leaf."""
+        with TRACER.span("storage.leaf"):
+            return self._gather(index, _Leaf("bsi", field=fname,
+                                             depth=depth),
+                                self.layout(index.name, shards))
 
     def stacked_vals(self, index: Index, fname: str, depth: int,
                      shards: List[int]) -> torch.Tensor:
@@ -556,9 +582,11 @@ class PlanExecutor:
         return arr
 
     def stacked_full(self, index: Index, shards: List[int]):
-        """(S, W) all-ones filter (zero on a mesh's padding rows)."""
-        return self._gather_leaf(index, _Leaf("full"),
-                                 self.layout(index.name, shards))
+        """(S, W) all-ones filter (zero on a mesh's padding rows).  The
+        span storage.leaf."""
+        with TRACER.span("storage.leaf"):
+            return self._gather(index, _Leaf("full"),
+                                self.layout(index.name, shards))
 
     # -- plan execution -----------------------------------------------------
 
@@ -572,12 +600,15 @@ class PlanExecutor:
 
         def words(prog: ck.Program) -> torch.Tensor:
             return ck.plan_eval(prog, want_words=True)[0]
+
+        def lower(leaves, S: int) -> ck.Program:
+            with TRACER.span("plan.lower"):
+                return lower_ir(plan.ir, leaves, plan.params, S, words)
         if self.mesh is None:
-            prog = lower_ir(plan.ir, leaves, plan.params, len(shards), words)
-            return ck.plan_eval(prog, want_words, want_counts)
+            return ck.plan_eval(lower(leaves, len(shards)), want_words,
+                                want_counts)
         B = len(shards) // self.mesh.size
-        return [ck.plan_eval(lower_ir(plan.ir, [l.blocks[k] for l in leaves],
-                                      plan.params, B, words),
+        return [ck.plan_eval(lower([l.blocks[k] for l in leaves], B),
                              want_words, want_counts)
                 for k in range(len(self.mesh.local))], shards
 
@@ -597,7 +628,9 @@ class PlanExecutor:
         mesh one kernel-A launch per member, then total_count's merge."""
         if self.mesh is None:
             _, counts = self._run(index, plan, shards, False, True)
-            return int(counts.sum())
+            return int(to_host(counts.sum()))
         from featurebase_tpu_torch.parallel import agg
         outs, _ = self._run(index, plan, shards, False, True)
-        return int(agg._psum(self.mesh, [c.sum() for _, c in outs]))
+        total = agg._psum(self.mesh, [c.sum() for _, c in outs])
+        with TRACER.span("device.wait"):
+            return int(total)

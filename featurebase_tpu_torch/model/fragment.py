@@ -28,6 +28,7 @@ import torch
 
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
 from featurebase_tpu_torch.storage.hostmem import hostmem
+from featurebase_tpu_torch.utils.tracing import TRACER
 
 _INIT_CAP = 4
 
@@ -67,13 +68,15 @@ def _canonical(device) -> torch.device:
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     """(R, W) uint32 host rows -> an int32 copy on `device`, through pinned
-    host memory on a GPU (as PlanExecutor._put_lazy uploads)."""
-    src = torch.from_numpy(np.ascontiguousarray(host).view(np.int32))
-    if device.type != "cuda":
-        return src.clone()
-    buf = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
-    buf.copy_(src)
-    return buf.to(device, non_blocking=True)
+    host memory on a GPU (as PlanExecutor._put_lazy uploads).  The span
+    storage.mirror_upload."""
+    with TRACER.span("storage.mirror_upload"):
+        src = torch.from_numpy(np.ascontiguousarray(host).view(np.int32))
+        if device.type != "cuda":
+            return src.clone()
+        buf = torch.empty(src.shape, dtype=torch.int32, pin_memory=True)
+        buf.copy_(src)
+        return buf.to(device, non_blocking=True)
 
 
 class Fragment:

@@ -90,17 +90,21 @@ ops/decode.py, with the Percentile bisection that drives kernel I.
 Words are ``torch.int32`` tensors holding the uint32 bit patterns.  Each
 wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the kernel or raises.  ``launches`` on each wrapper counts
-kernel launches (never plain calls).
+kernel launches (never plain calls); each wrapper's host side is the span
+``kernel.<launch counter>`` (utils/tracing.py).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import heapq
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from featurebase_tpu_torch.utils.tracing import TRACER
 
 SOURCE = "bitmap_kernels.cu"
 BSI_SOURCE = "bsi_kernels.cu"
@@ -502,6 +506,21 @@ def _is_cpu(tensors: Sequence[torch.Tensor]) -> bool:
 _launch_lock = threading.Lock()
 
 
+def _spanned(kernel: str):
+    """A launch wrapper's whole host side as the span kernel.<kernel>
+    (utils/tracing.py), `kernel` the name of its launch counter: the
+    profiler links the launch to the range around the runtime call."""
+    name = f"kernel.{kernel}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with TRACER.span(name):
+                return fn(*args, **kwargs)
+        return spanned
+    return wrap
+
+
 def _launched(kernel) -> None:
     """Count one launch of `kernel` (the worker pool launches kernel A
     from several threads at once)."""
@@ -543,6 +562,7 @@ def max_tiles(S: int, W: int) -> int:
     return S * -(-W // CHUNK_QUANTUM)
 
 
+@_spanned("plan_eval")
 def plan_eval(prog: Program, want_words: bool = True,
               want_counts: bool = False
               ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
@@ -653,6 +673,7 @@ def _row_launch(addrs: Optional[np.ndarray], faddrs: Optional[np.ndarray],
     return out
 
 
+@_spanned("row_counts")
 def row_counts(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
                ) -> torch.Tensor:
     """(S, R, W) int32 tile [& (S, W) int32 filter] -> (S, R) int64: kernel
@@ -679,6 +700,7 @@ def row_counts(tile: torch.Tensor, filt: Optional[torch.Tensor] = None
 row_counts.launches = 0
 
 
+@_spanned("row_counts")
 def row_counts_sharded(tiles, slots, filt=None) -> torch.Tensor:
     """Kernel B' over every shard in one launch, the rows read in place:
     tiles a list of per-shard (n_s, W) int32 tiles (a fragment's device
@@ -841,6 +863,7 @@ def _bsi_launch(kernel, addrs: Optional[np.ndarray],
     return out
 
 
+@_spanned("bsi_sum_planes")
 def bsi_sum_planes(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """Kernel C': an (S, D + 2, W) int32 group under an (S, W) int32 filter
     -> (2D + 1,) int64: each plane's set bits under the positive columns,
@@ -858,6 +881,7 @@ def bsi_sum_planes(group: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
 bsi_sum_planes.launches = 0
 
 
+@_spanned("bsi_min_max")
 def bsi_min_max(group: torch.Tensor, filt: torch.Tensor, is_min: bool
                 ) -> torch.Tensor:
     """Kernel D': an (S, D + 2, W) int32 group under an (S, W) int32 filter
@@ -947,6 +971,7 @@ def bsi_min_max_sharded_plain(groups, filt, is_min: bool) -> torch.Tensor:
     return out
 
 
+@_spanned("bsi_sum_planes")
 def bsi_sum_planes_sharded(groups, filt) -> torch.Tensor:
     """Kernel C' over every shard in one launch, the planes read in place:
     groups a list of per-shard BSI groups (None for a shard without data,
@@ -969,6 +994,7 @@ def bsi_sum_planes_sharded(groups, filt) -> torch.Tensor:
                        int(live.sum()), D, W, dev)
 
 
+@_spanned("bsi_min_max")
 def bsi_min_max_sharded(groups, filt, is_min: bool) -> torch.Tensor:
     """Kernel D' over every shard in one launch, the planes read in place:
     groups and filt as bsi_sum_planes_sharded takes them -> (S, 4, 2) int64
@@ -1262,6 +1288,7 @@ def _words_per_row(tiles: List[Optional[torch.Tensor]]) -> int:
 
 # -- kernels E and F ---------------------------------------------------------
 
+@_spanned("pair_counts")
 def pair_counts_sharded(mask_tiles, mask_slots, row_tiles, row_slots,
                         filt=None, mid=None) -> torch.Tensor:
     """Kernel E over every shard in one launch, its operands read in place:
@@ -1291,6 +1318,7 @@ def pair_counts_sharded(mask_tiles, mask_slots, row_tiles, row_slots,
     return out
 
 
+@_spanned("bsi_sum_groups")
 def bsi_sum_groups_sharded(bsi_tiles, dims, filt=None) -> torch.Tensor:
     """Kernel F over every shard in one launch: bsi_tiles a list of
     per-shard (D + 2, W) int32 groups (None for a shard without data), dims
@@ -1316,6 +1344,7 @@ def bsi_sum_groups_sharded(bsi_tiles, dims, filt=None) -> torch.Tensor:
     return out
 
 
+@_spanned("pair_counts")
 def pair_counts(masks: torch.Tensor, rows: torch.Tensor,
                 filt: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Kernel E over stacked operands: (S, F, W) int32 masks x (S, R, W)
@@ -1350,6 +1379,7 @@ def pair_counts(masks: torch.Tensor, rows: torch.Tensor,
 pair_counts.launches = 0
 
 
+@_spanned("bsi_sum_groups")
 def bsi_sum_groups(group: torch.Tensor, masks: torch.Tensor) -> torch.Tensor:
     """Kernel F over stacked operands: an (S, D + 2, W) int32 group x
     (S, G, W) int32 masks -> (G, 2D + 1) int64: per mask, kernel C's
@@ -1550,6 +1580,7 @@ def _corr_parts(m: torch.Tensor, Dx: int, Dy: int):
             A - C, C)
 
 
+@_spanned("var_moments")
 def var_moments(group: torch.Tensor, filt: torch.Tensor):
     """Kernel H', Var form: an (S, D + 2, W) int32 group (1 <= D <= 31)
     under an (S, W) int32 filter -> (cnt, p (D,), n (D,), sq (D, D)) int64
@@ -1571,6 +1602,7 @@ def var_moments(group: torch.Tensor, filt: torch.Tensor):
 var_moments.launches = 0
 
 
+@_spanned("corr_moments")
 def corr_moments(gx: torch.Tensor, gy: torch.Tensor, filt: torch.Tensor):
     """Kernel H', Corr form: two (S, D + 2, W) int32 groups (depths 1 to 31,
     each its own) under an (S, W) int32 filter -> corr_moments_plain's
@@ -1633,6 +1665,7 @@ def _moments_sharded_plain(parsed, filt, W: int, dev, plain):
     return tuple(parts)
 
 
+@_spanned("var_moments")
 def var_moments_sharded(groups, filt=None):
     """Kernel H', Var form, over every shard in one launch, the planes read
     in place: groups as bsi_sum_planes_sharded takes them (depth 1 to 31),
@@ -1652,6 +1685,7 @@ def var_moments_sharded(groups, filt=None):
     return _var_parts(m, D)
 
 
+@_spanned("corr_moments")
 def corr_moments_sharded(gx, gy, filt=None):
     """Kernel H', Corr form, over every shard in one launch: gx and gy the
     two fields' per-shard groups, filt as var_moments_sharded takes it ->
@@ -1760,6 +1794,7 @@ def _decode_launch(addrs: Optional[np.ndarray],
     return out
 
 
+@_spanned("bsi_decode")
 def bsi_decode(group: torch.Tensor) -> torch.Tensor:
     """Kernel G'': an (S, D + 2, W) int32 group -> (S, 32 W) int32 values,
     unbased, negated where the sign bit is set; undefined (the decode of
@@ -1777,6 +1812,7 @@ def bsi_decode(group: torch.Tensor) -> torch.Tensor:
 bsi_decode.launches = 0
 
 
+@_spanned("bsi_decode")
 def bsi_decode_sharded(groups) -> torch.Tensor:
     """Kernel G'' over every shard in one launch, the planes read in place:
     groups a list of per-shard BSI groups (None for a shard without data, a
@@ -1828,6 +1864,7 @@ def _host_columns(cols_per_shard, S: int, W: int) -> List[np.ndarray]:
     return out
 
 
+@_spanned("bsi_decode_gather")
 def bsi_decode_gather_sharded(groups, cols_per_shard
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel G''' over every shard in one launch, the planes read in
@@ -1892,6 +1929,7 @@ def bsi_decode_gather_sharded_plain(groups, cols_per_shard
             torch.cat([o for _, o in parts]))
 
 
+@_spanned("bsi_decode_gather")
 def bsi_decode_gather(group: torch.Tensor, cols
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel G''' for one shard: a (D + 2, W) int32 group and (N,) host
@@ -1908,6 +1946,7 @@ def bsi_decode_gather(group: torch.Tensor, cols
 bsi_decode_gather.launches = 0
 
 
+@_spanned("percentile_counts")
 def percentile_counts(vals: torch.Tensor, exists: torch.Tensor,
                       filt: torch.Tensor, base: int, thresholds
                       ) -> torch.Tensor:

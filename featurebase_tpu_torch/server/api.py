@@ -750,7 +750,8 @@ class API:
         Options(profile=true), a profile tree of its calls (reference:
         executor.go:227-236; api.go:209 Query, long-query log api.go:2089);
         held to max_writes_per_request, max_query_memory and
-        query_timeout."""
+        query_timeout.  Its root span ``query`` (utils/tracing.py) times
+        it once, for query_seconds and the tracker's runtime."""
         from featurebase_tpu_torch.executor.qcontext import (QueryCanceled,
                                                              QueryContext,
                                                              QueryTimeout)
@@ -764,10 +765,12 @@ class API:
         node = self.cluster.node_id if self.cluster is not None else ""
         qid = self.tracker.start(index, qtext, node)
         REGISTRY.count("query_total", index=index)
+        root = TRACER.start_query(qid, index=index)
         err: Optional[str] = None
         try:
-            with REGISTRY.timer("query_seconds", index=index):
-                parsed = _parse(pql) if isinstance(pql, str) else pql
+            try:
+                with TRACER.span("query.parse"):
+                    parsed = _parse(pql) if isinstance(pql, str) else pql
                 n_writes = sum(1 for c in parsed.calls
                                if c.name in WRITE_CALLS)
                 if n_writes:
@@ -781,32 +784,31 @@ class API:
                 profile = any(c.name == "Options"
                               and c.args.get("profile") in (True, 1)
                               for c in parsed.calls)
-                pctx = TRACER.start_profile("query", index=index) \
-                    if profile else None
+                if profile:
+                    root.profile()
                 qctx = QueryContext(timeout=self.query_timeout,
                                     cancel_ev=self.tracker.cancel_event(qid))
-                try:
-                    with qctx:
-                        if self.max_query_memory:
-                            self.executor.enforce_memory_limit(
-                                index, parsed, shards,
-                                self.max_query_memory)
-                        if self.distributed is not None:
-                            # the coordinator: the nodes that apply the
-                            # writes log them (query_remote_local)
-                            results = self.distributed.execute(
-                                index, parsed, shards=shards)
-                        else:
-                            self._log_write_calls(index, parsed)
-                            results = self.executor.execute(
-                                index, parsed, shards=shards)
-                finally:
-                    if pctx is not None:
-                        pctx.__exit__()
-                out: Dict[str, Any] = {"results": results}
-                if pctx is not None:
-                    out["profile"] = pctx.profile()
-                return out
+                with qctx:
+                    if self.max_query_memory:
+                        self.executor.enforce_memory_limit(
+                            index, parsed, shards, self.max_query_memory)
+                    if self.distributed is not None:
+                        # the coordinator: the nodes that apply the writes
+                        # log them (query_remote_local)
+                        results = self.distributed.execute(
+                            index, parsed, shards=shards)
+                    else:
+                        self._log_write_calls(index, parsed)
+                        results = self.executor.execute(
+                            index, parsed, shards=shards)
+            finally:
+                root.finish()
+                REGISTRY.observe("query_seconds", root.duration,
+                                 index=index)
+            out: Dict[str, Any] = {"results": results}
+            if profile:
+                out["profile"] = root.to_json()
+            return out
         except ParseError as e:
             err = f"parsing: {e}"
             raise APIError(err, 400)
@@ -820,7 +822,7 @@ class API:
             err = str(e)
             raise APIError(err, 400)
         finally:
-            self.tracker.finish(qid, err)
+            self.tracker.finish(qid, err, runtime=root.duration)
 
     def _log_write_calls(self, index: str, parsed):
         from featurebase_tpu_torch.pql.ast import WRITE_CALLS

@@ -36,9 +36,6 @@ class Registry:
             if len(h) > 10000:
                 del h[: len(h) // 2]
 
-    def timer(self, name: str, **labels):
-        return _Timer(self, name, labels)
-
     def to_json(self) -> dict:
         with self._lock:
             hist = {}
@@ -58,19 +55,6 @@ class Registry:
                 "gauges": dict(self.gauges),
                 "histograms": hist,
             }
-
-
-class _Timer:
-    def __init__(self, reg: Registry, name: str, labels: dict):
-        self.reg, self.name, self.labels = reg, name, labels
-
-    def __enter__(self):
-        self.t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.reg.observe(self.name, time.perf_counter() - self.t0,
-                         **self.labels)
 
 
 def _key(name: str, labels: dict) -> str:

@@ -12,7 +12,8 @@ short words-to-columns jobs were slower than one thread (PERF.md §6).
 Results are returned in submission order, so associative-but-ordered
 merges (ValCount.smaller, Pairs.Add) stay deterministic.  Each job runs in
 its own copy of the submitting thread's contextvars (snapshot pins hold
-across the pool) and, when CUDA is initialised, on the submitting thread's
+across the pool, and a job's spans keep their query's id and parent,
+utils/tracing.py) and, when CUDA is initialised, on the submitting thread's
 current device and on each card's current stream there (torch keeps both
 per thread, and the kernels' per-stream counters assume one stream a
 query).

@@ -49,13 +49,17 @@ class QueryTracker:
             rec = self._active.get(qid)
         return rec["cancel"] if rec is not None else None
 
-    def finish(self, qid: int, error: Optional[str] = None):
+    def finish(self, qid: int, error: Optional[str] = None,
+               runtime: Optional[float] = None):
+        """End query `qid`; `runtime` is its measured seconds (the API
+        passes its query span's), else the time since start()."""
         with self._lock:
             rec = self._active.pop(qid, None)
         if rec is None:
             return
         rec.pop("cancel", None)
-        rec["runtime"] = time.time() - rec["start"]
+        rec["runtime"] = runtime if runtime is not None else \
+            time.time() - rec["start"]
         rec["error"] = error
         with self._lock:
             self._history.appendleft(rec)
