@@ -11,13 +11,15 @@ tree into an IR over stacked shard tiles:
 
 ``PlanExecutor`` gathers the leaves from the fragments' host masters into
 generation-keyed device caches (uploads through pinned host buffers; each
-entry registered with the residency LRU of storage/residency.py), lowers
-the IR to a register program over leaf planes (``lower_ir``: each BSI
-comparator becomes a sign split and OP_BSI walks with its predicate bits
-in the payload, split in two past 32 planes; a Shift subtree is evaluated
-first and enters as a leaf; children are emitted in Sethi-Ullman order, and
-a subtree that does not fit kernel A's limits is evaluated first and enters
-as a leaf too, ops/lowering.py) and runs it with kernel A
+entry registered with the residency LRU of storage/residency.py, and
+served without a walk of the fragments while its field's write clock has
+not moved, model/clock.py), lowers the IR to a register program over leaf
+planes (``lower_ir``: each BSI comparator becomes a sign split and OP_BSI
+walks with its predicate bits in the payload, split in two past 32 planes;
+a Shift subtree is evaluated first and enters as a leaf; children are
+emitted in Sethi-Ullman order, and a subtree that does not fit kernel A's
+limits is evaluated first and enters as a leaf too, ops/lowering.py) and
+runs it with kernel A
 (ops/cuda_kernels.py ``plan_eval``): result words for bitmap calls, fused
 per-shard counts for Count.  ``stacked_vals`` caches a field's decoded
 values (kernel G'', ``bsi_decode``) the same way, for Distinct, Percentile
@@ -38,7 +40,7 @@ members' counts (parallel/agg.py).
 from __future__ import annotations
 
 import weakref
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -302,6 +304,10 @@ def to_host(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
 
 
+def _generations(frags) -> tuple:
+    return tuple(fr.generation if fr is not None else -1 for fr in frags)
+
+
 # Every live plan executor: a deleted field, view or index drops the
 # stacked entries built from its fragments in each (drop_fragment_copies).
 _EXECUTORS: "weakref.WeakSet[PlanExecutor]" = weakref.WeakSet()
@@ -323,7 +329,7 @@ class PlanExecutor:
         self.holder = holder
         self.device = device
         self.mesh = mesh
-        self._leaf_cache: Dict[tuple, Tuple[tuple, Any]] = {}
+        self._leaf_cache: Dict[tuple, list] = {}
         # the ids of the fragments each cached entry was gathered from
         self._leaf_frags: Dict[tuple, frozenset] = {}
         _EXECUTORS.add(self)
@@ -334,12 +340,12 @@ class PlanExecutor:
             return [("leaf", id(self), key)]
         return [("leaf", id(self), key, m) for m in self.mesh.local]
 
-    def _publish(self, key, gen, arr, frags):
-        """Cache an entry and register its bytes (each member block's on a
-        mesh) with the residency LRU; evicting any block drops the entry
-        and the other blocks' registrations."""
+    def _publish(self, key, gen, arr, frags, clock: int):
+        """Cache an entry (_cached) and register its bytes (each member
+        block's on a mesh) with the residency LRU; evicting any block drops
+        the entry and the other blocks' registrations."""
         from featurebase_tpu_torch.storage.residency import residency
-        entry = (gen, arr)
+        entry = [gen, arr, clock]
         self._leaf_cache[key] = entry
         self._leaf_frags[key] = frozenset(id(fr) for fr in frags
                                           if fr is not None)
@@ -406,6 +412,15 @@ class PlanExecutor:
                    for fr in frags)
 
     @staticmethod
+    def _pin_unmoved(index: Index) -> bool:
+        """True when no pin is active or the active pin's capture read
+        `index`'s write clock as it reads now: every fragment of the index
+        is then as pinned, and _pin_diverged is False for any of them."""
+        from featurebase_tpu_torch.model.snapshot import current_pin
+        pin = current_pin()
+        return pin is None or pin.clock == index.clock.value
+
+    @staticmethod
     def _frag(f, view_name, shard):
         if f is None:
             return None
@@ -414,9 +429,8 @@ class PlanExecutor:
 
     def _gather_leaf(self, index: Index, leaf: _Leaf, shards: List[int]
                      ) -> torch.Tensor:
-        """A stacked leaf over `shards` (laid out): its fragments looked up,
-        their generations and the cache's answer, or an upload (the span
-        storage.leaf)."""
+        """A stacked leaf over `shards` (laid out): the cache's answer, or
+        an upload (the span storage.leaf)."""
         with TRACER.span("storage.leaf"):
             return self._gather(index, leaf, shards)
 
@@ -435,54 +449,62 @@ class PlanExecutor:
                 out[:] = ~np.uint32(0)
             # constant content: cached with an empty generation, so an
             # unfiltered aggregate uploads its all-ones filter once
-            return self._cached_stack(("full", tuple(shards)), (), (),
-                                      (S, WORDS_PER_ROW), fill_full, shards)
+            return self._cached_stack(("full", tuple(shards)), index,
+                                      index, lambda: ((), (), fill_full),
+                                      (S, WORDS_PER_ROW), shards)
         if leaf.kind == "existence":
             ef = index.existence_field()
             if ef is None:
                 raise PlanError("no existence field")
-            frags = [self._frag(ef, VIEW_STANDARD, s) for s in shards]
-            gen = tuple(f.generation if f else -1 for f in frags)
 
-            def fill_ex(si, out):
-                if frags[si] is not None:
-                    out[:] = frags[si].host_row(0)
-            return self._cached_stack(("ex", index.name, tuple(shards)), gen,
-                                      frags, (S, WORDS_PER_ROW), fill_ex,
-                                      shards)
+            def walk_ex():
+                frags = [self._frag(ef, VIEW_STANDARD, s) for s in shards]
+
+                def fill_ex(si, out):
+                    if frags[si] is not None:
+                        out[:] = frags[si].host_row(0)
+                return frags, _generations(frags), fill_ex
+            return self._cached_stack(("ex", index.name, tuple(shards)),
+                                      index, ef, walk_ex,
+                                      (S, WORDS_PER_ROW), shards)
         if leaf.kind == "row":
             f = index.field(leaf.field)
-            frag_sets = [[self._frag(f, vn, s) for vn in leaf.views]
-                         for s in shards]
-            flat = [fr for frs in frag_sets for fr in frs]
-            gen = tuple(fr.generation if fr else -1 for fr in flat)
 
-            def fill_row(si, out):
-                for fr in frag_sets[si]:
-                    if fr is not None:
-                        np.bitwise_or(out, fr.host_row(leaf.row), out=out)
+            def walk_row():
+                frag_sets = [[self._frag(f, vn, s) for vn in leaf.views]
+                             for s in shards]
+                flat = [fr for frs in frag_sets for fr in frs]
+
+                def fill_row(si, out):
+                    for fr in frag_sets[si]:
+                        if fr is not None:
+                            np.bitwise_or(out, fr.host_row(leaf.row),
+                                          out=out)
+                return flat, _generations(flat), fill_row
             ck_ = ("row", index.name, leaf.field, leaf.views, leaf.row,
                    tuple(shards))
-            return self._cached_stack(ck_, gen, flat, (S, WORDS_PER_ROW),
-                                      fill_row, shards)
+            return self._cached_stack(ck_, index, f or index, walk_row,
+                                      (S, WORDS_PER_ROW), shards)
         if leaf.kind == "bsi":
             f = index.field(leaf.field)
-            frags = [self._frag(f, view_bsi_group(leaf.field), s)
-                     for s in shards]
-            gen = tuple(fr.generation if fr else -1 for fr in frags)
             D = leaf.depth
 
-            def fill_bsi(si, out):
-                fr = frags[si]
-                if fr is None:
-                    return
-                out[0] = fr.host_row(BSI_EXISTS_ROW)
-                out[1] = fr.host_row(BSI_SIGN_ROW)
-                for d in range(D):
-                    out[2 + d] = fr.host_row(BSI_OFFSET + d)
+            def walk_bsi():
+                frags = [self._frag(f, view_bsi_group(leaf.field), s)
+                         for s in shards]
+
+                def fill_bsi(si, out):
+                    fr = frags[si]
+                    if fr is None:
+                        return
+                    out[0] = fr.host_row(BSI_EXISTS_ROW)
+                    out[1] = fr.host_row(BSI_SIGN_ROW)
+                    for d in range(D):
+                        out[2 + d] = fr.host_row(BSI_OFFSET + d)
+                return frags, _generations(frags), fill_bsi
             return self._cached_stack(
-                ("bsi", index.name, leaf.field, D, tuple(shards)), gen, frags,
-                (S, D + 2, WORDS_PER_ROW), fill_bsi, shards)
+                ("bsi", index.name, leaf.field, D, tuple(shards)), index,
+                f or index, walk_bsi, (S, D + 2, WORDS_PER_ROW), shards)
         raise PlanError(f"bad leaf kind {leaf.kind}")
 
     def _put_lazy(self, shape, fill_shard, shards: List[int]):
@@ -501,20 +523,45 @@ class PlanExecutor:
                 fill_shard(si, host[si])
             return buf.to(self.device, non_blocking=True)
 
-    def _cached_stack(self, key, gen, frags, shape, fill_shard, shards):
-        """Generation-keyed stacked-leaf cache whose entries the residency
-        LRU manages (evicted under memory pressure, rebuilt from the host
-        masters on next use).  A pinned read whose pin has diverged from the
-        live fragments gathers uncached and registers nothing."""
-        if self._pin_diverged(frags):
-            return self._put_lazy(shape, fill_shard, shards)
+    def _cached(self, key, index: Index, owner, walk, build):
+        """The cached entry of `key`, whose content is gathered from
+        fragments under `owner` (a field, or the index): a generation-keyed
+        cache whose entries the residency LRU manages (evicted under memory
+        pressure, rebuilt from the host masters on next use).
+
+        An entry is ``[generations, array, clock]``, the clock being
+        `owner`'s write clock (model/clock.py) as read before the walk that
+        last matched the entry's generations.  While the clock still reads
+        so and no pin has moved (_pin_unmoved), none of those fragments
+        changed and the entry is served with no walk.  Otherwise the walk
+        (counted as storage.leaf_walk): walk() gives the fragments, their
+        generation tuple and the fill of build(fill); a pinned read whose
+        pin has diverged from them is built uncached and registers nothing,
+        matching generations are a hit that takes the new clock reading,
+        and anything else is built and published."""
+        clock = owner.clock.value
         hit = self._leaf_cache.get(key)
-        if hit is not None and hit[0] == gen:
+        if hit is not None and hit[2] == clock and self._pin_unmoved(index):
             self._touch(key)
             return hit[1]
-        arr = self._put_lazy(shape, fill_shard, shards)
-        self._publish(key, gen, arr, frags)
+        TRACER.count("storage.leaf_walk")
+        frags, gen, fill = walk()
+        if self._pin_diverged(frags):
+            return build(fill)
+        hit = self._leaf_cache.get(key)
+        if hit is not None and hit[0] == gen:
+            hit[2] = clock
+            self._touch(key)
+            return hit[1]
+        arr = build(fill)
+        self._publish(key, gen, arr, frags, clock)
         return arr
+
+    def _cached_stack(self, key, index: Index, owner, walk, shape,
+                      shards: List[int]):
+        """_cached, built by _put_lazy of `shape` over `shards`."""
+        return self._cached(key, index, owner, walk,
+                            lambda fill: self._put_lazy(shape, fill, shards))
 
     def stacked_field_rows(self, index: Index, fname: str,
                            views: Tuple[str, ...], row_ids: Tuple[int, ...],
@@ -530,21 +577,25 @@ class PlanExecutor:
     def _field_rows(self, index: Index, fname: str, views: Tuple[str, ...],
                     row_ids: Tuple[int, ...], shards: List[int]):
         f = index.field(fname)
-        frag_sets = [[self._frag(f, vn, s) for vn in views] for s in shards]
-        flat = [fr for frs in frag_sets for fr in frs]
-        gen = tuple(fr.generation if fr else -1 for fr in flat)
 
-        def fill_rowset(si, out):
-            for fr in frag_sets[si]:
-                if fr is None:
-                    continue
-                for ri, r in enumerate(row_ids):
-                    if fr.has_row(r):
-                        np.bitwise_or(out[ri], fr.host_row(r), out=out[ri])
+        def walk():
+            frag_sets = [[self._frag(f, vn, s) for vn in views]
+                         for s in shards]
+            flat = [fr for frs in frag_sets for fr in frs]
+
+            def fill_rowset(si, out):
+                for fr in frag_sets[si]:
+                    if fr is None:
+                        continue
+                    for ri, r in enumerate(row_ids):
+                        if fr.has_row(r):
+                            np.bitwise_or(out[ri], fr.host_row(r),
+                                          out=out[ri])
+            return flat, _generations(flat), fill_rowset
         return self._cached_stack(
-            ("rowset", index.name, fname, views, row_ids, tuple(shards)), gen,
-            flat, (len(shards), len(row_ids), WORDS_PER_ROW), fill_rowset,
-            shards)
+            ("rowset", index.name, fname, views, row_ids, tuple(shards)),
+            index, f or index, walk,
+            (len(shards), len(row_ids), WORDS_PER_ROW), shards)
 
     def stacked_bsi(self, index: Index, fname: str, depth: int,
                     shards: List[int]) -> torch.Tensor:
@@ -563,23 +614,23 @@ class PlanExecutor:
         stacked group, cached by fragment generation beside the leaves and
         registered with the residency LRU (JAX plan.py:512).  Under a pin
         that has diverged from the live fragments the decode is returned
-        without being published."""
-        shards = self.layout(index.name, shards)
-        f = index.field(fname)
-        frags = [self._frag(f, view_bsi_group(fname), s) for s in shards]
-        gen = tuple(fr.generation if fr else -1 for fr in frags)
-        key = ("vals", index.name, fname, depth, tuple(shards))
-        diverged = self._pin_diverged(frags)
-        hit = self._leaf_cache.get(key)
-        if not diverged and hit is not None and hit[0] == gen:
-            self._touch(key)
-            return hit[1]
-        bsi = self.stacked_bsi(index, fname, depth, shards)
-        arr = bsi.map(ck.bsi_decode) if isinstance(bsi, Sharded) else \
-            ck.bsi_decode(bsi)
-        if not diverged:
-            self._publish(key, gen, arr, frags)
-        return arr
+        without being published.  The span storage.leaf."""
+        with TRACER.span("storage.leaf"):
+            shards = self.layout(index.name, shards)
+            f = index.field(fname)
+
+            def walk():
+                frags = [self._frag(f, view_bsi_group(fname), s)
+                         for s in shards]
+                return frags, _generations(frags), None
+
+            def decode(_):
+                bsi = self.stacked_bsi(index, fname, depth, shards)
+                return bsi.map(ck.bsi_decode) if isinstance(bsi, Sharded) \
+                    else ck.bsi_decode(bsi)
+            return self._cached(
+                ("vals", index.name, fname, depth, tuple(shards)), index,
+                f or index, walk, decode)
 
     def stacked_full(self, index: Index, shards: List[int]):
         """(S, W) all-ones filter (zero on a mesh's padding rows).  The

@@ -27,6 +27,7 @@ import numpy as np
 
 from featurebase_tpu_torch.core.consts import (BSI_EXISTS_ROW, BSI_OFFSET,
                                                BSI_SIGN_ROW, SHARD_WIDTH)
+from featurebase_tpu_torch.model.clock import Clock, ClockedDict
 from featurebase_tpu_torch.model.timequantum import (parse_time,
                                                      views_by_time,
                                                      views_by_time_range)
@@ -136,7 +137,8 @@ class Field:
         self.name = name
         self.options = options
         self._lock = threading.RLock()
-        self.views: Dict[str, View] = {}
+        self.clock = Clock()
+        self.views: Dict[str, View] = ClockedDict(self.clock)
         # TopN rank cache: (shard, views) -> (generations, {row: count})
         # (reference: cache.go:25 rankCache; exact counts per shard keyed by
         # fragment generation, honoring cache_type/cache_size)

@@ -2,7 +2,8 @@
 
 Own copy of featurebase_tpu/model/fragment.py: the host master (row-sparse
 numpy words, only rows that exist are materialized), the seqlock generation
-that keys the plan executor's device caches, the MVCC row overlay that
+that keys the plan executor's device caches (each move bumps the write
+clock, model/clock.py), the MVCC row overlay that
 serves pinned snapshot reads (model/snapshot.py), and the device mirror of
 all rows (``device_tile``), kept in step through dirty-slot tracking and
 registered with the residency LRU (storage/residency.py), and the host
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from featurebase_tpu_torch.core.consts import SHARD_WIDTH, WORDS_PER_ROW
+from featurebase_tpu_torch.model.clock import Clock
 from featurebase_tpu_torch.storage.hostmem import hostmem
 from featurebase_tpu_torch.utils.tracing import TRACER
 
@@ -107,12 +109,22 @@ class Fragment:
         self._all_dirty = True
         # Seqlock generation: odd while host words mutate, even otherwise
         # (both transitions under self._lock); it starts at a base no other
-        # fragment shares.
+        # fragment shares.  Each assignment bumps the write clock
+        # (__setattr__), which hangs under the view's once installed.
+        self.clock = Clock()
         self.generation = _fresh_generation()
         # MVCC overlay: row -> [(even-gen tag, words copy)] ascending
         self._overlay: Dict[int, list] = {}
         self._hkey = ("host", index, field, view, shard, id(self))
         self._register_host()
+
+    def __setattr__(self, name, value):
+        # generation stays a plain attribute: the snapshot pin reads it
+        # twice a fragment, every fragment of the index, each query, and a
+        # property would cost about 2.5 times a plain read
+        object.__setattr__(self, name, value)
+        if name == "generation":
+            self.clock.bump()
 
     @contextmanager
     def _mutating(self):

@@ -13,6 +13,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from featurebase_tpu_torch.model.clock import Clock, ClockedDict
 from featurebase_tpu_torch.model.field import TYPE_SET, Field, FieldOptions
 from featurebase_tpu_torch.storage.translate import (FieldTranslateStore,
                                                      IndexTranslateStore)
@@ -44,7 +45,8 @@ class Index:
         # writers hold it shared (utils/rwlock.py); pinned readers never
         # take it
         self.mutate_gate = ShardedGate()
-        self.fields: Dict[str, Field] = {}
+        self.clock = Clock()
+        self.fields: Dict[str, Field] = ClockedDict(self.clock)
         self.translate_store = IndexTranslateStore(name)
         self.field_translate_stores: Dict[str, FieldTranslateStore] = {}
         # per-shard columnar side-store (reference index.go:111 `_dataframe`

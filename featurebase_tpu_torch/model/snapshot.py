@@ -50,7 +50,7 @@ _pins_by_index: Dict[str, Dict[int, "Pin"]] = {}
 class Pin:
     """A registered snapshot of one index's fragment generations."""
 
-    __slots__ = ("pin_id", "index_name", "gens", "complete")
+    __slots__ = ("pin_id", "index_name", "gens", "complete", "clock")
 
     def __init__(self, pin_id: int, index_name: str):
         self.pin_id = pin_id
@@ -63,6 +63,10 @@ class Pin:
         # pin with no entry for its fragment must preserve conservatively
         # (it cannot distinguish "absent at pin" from "not yet captured")
         self.complete = False
+        # the index's write clock (model/clock.py) when it read the same
+        # before and after the capture, else None: while the clock still
+        # reads so, every fragment of the index is as pinned
+        self.clock: Optional[int] = None
 
     def gen_for(self, field: str, view: str, shard: int) -> Optional[int]:
         return self.gens.get((field, view, shard))
@@ -80,6 +84,7 @@ def pin_index(index) -> Pin:
     with _lock:
         _pins_by_index.setdefault(index.name, {})[pin.pin_id] = pin
     try:
+        clock = index.clock.value
         for key, frag in index.iter_fragments():
             while True:
                 g = frag.generation
@@ -103,6 +108,8 @@ def pin_index(index) -> Pin:
                 # close the remaining pre-bump window.
                 if frag.generation == g:
                     break
+        if index.clock.value == clock:
+            pin.clock = clock
         pin.complete = True
     except Exception:
         release(pin)

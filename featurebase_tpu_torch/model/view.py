@@ -9,6 +9,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, List, Optional
 
+from featurebase_tpu_torch.model.clock import Clock, ClockedDict
 from featurebase_tpu_torch.model.fragment import Fragment
 
 VIEW_STANDARD = "standard"
@@ -24,7 +25,8 @@ class View:
         self.field = field
         self.name = name
         self._lock = threading.RLock()
-        self.fragments: Dict[int, Fragment] = {}
+        self.clock = Clock()
+        self.fragments: Dict[int, Fragment] = ClockedDict(self.clock)
 
     def fragment(self, shard: int) -> Optional[Fragment]:
         return self.fragments.get(shard)

@@ -16,12 +16,13 @@ two cases:
   its own thread, which puts it on the device trace's clock, and adds its
   count, wall and self nanoseconds to per-name totals
   (``totals()``, ``reset()``).  Self time is the span's duration less the
-  spans opened under it on its thread.
+  spans opened under it on its thread.  A counter (``count``) adds to the
+  count of its name there alone, with no time and no range.
 
 Otherwise ``span`` and ``start_span`` return one shared no-op after one
-check and allocate nothing.  The root span ``query`` is always timed: its
-duration is the query's one measurement (the API's query_seconds and the
-tracker's runtime).
+check and allocate nothing, and ``count`` returns after the same check.
+The root span ``query`` is always timed: its duration is the query's one
+measurement (the API's query_seconds and the tracker's runtime).
 
 A span's parent is the innermost span open where it starts, kept in a
 context variable, so a job of the worker pool (utils/pool.py runs each in a
@@ -150,6 +151,12 @@ class Tracer:
             return OFF
         return Span(self, name, _CURRENT.get(), True)
 
+    def count(self, name: str) -> None:
+        """Add one to the count of `name` in totals(), with no wall or
+        self time: recorded only under the profiler."""
+        if _profiler._is_profiler_enabled:
+            self._add(name, 0, 0)
+
     def start_span(self, name: str, suffix: str = ""):
         """An executor call's span `name + suffix`: a node of the profile
         tree it opens in, and recorded under the profiler."""
@@ -180,17 +187,20 @@ class Tracer:
             self._trees += n
 
     def _record(self, span: Span) -> None:
+        self._add(span.name, span.ns, span.ns - span._child_ns)
+
+    def _add(self, name: str, wall_ns: int, self_ns: int) -> None:
         with self._lock:
-            t = self._totals.get(span.name)
+            t = self._totals.get(name)
             if t is None:
-                t = self._totals[span.name] = [0, 0, 0]
+                t = self._totals[name] = [0, 0, 0]
             t[0] += 1
-            t[1] += span.ns
-            t[2] += span.ns - span._child_ns
+            t[1] += wall_ns
+            t[2] += self_ns
 
     def totals(self) -> Dict[str, dict]:
-        """{name: {"count", "wall_ns", "self_ns"}} of the spans recorded
-        under the profiler since the last reset()."""
+        """{name: {"count", "wall_ns", "self_ns"}} of the spans and
+        counters recorded under the profiler since the last reset()."""
         with self._lock:
             return {name: {"count": c, "wall_ns": w, "self_ns": s}
                     for name, (c, w, s) in self._totals.items()}

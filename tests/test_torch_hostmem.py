@@ -93,7 +93,7 @@ def test_reload_keeps_generation_mirror_and_leaves(budgets):
     assert frag.generation == gen
     assert frag.device_tile("cpu") is mirror
     assert e.execute("big", "Count(Row(f=3))") == [want]
-    for k, (g, arr) in cached.items():
+    for k, (g, arr, _) in cached.items():
         hit = e.plan_executor._leaf_cache.get(k)
         assert hit is not None and hit[0] == g and hit[1] is arr, k
 

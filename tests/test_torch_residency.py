@@ -148,7 +148,7 @@ def test_leaf_cache_stays_within_budget_across_shard_lists(mgr):
     st = mgr.stats()
     assert st["evictions"] > 0
     cached = sum(int(a.numel()) * 4
-                 for _, a in e.plan_executor._leaf_cache.values())
+                 for _, a, _ in e.plan_executor._leaf_cache.values())
     assert cached <= budget
 
 

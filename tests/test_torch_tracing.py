@@ -10,8 +10,10 @@ path of API.query, on the CPU.
   `query` range; every span carries the query's tracker id and leads to
   its root, and the self times partition `query`.
 - A stacked leaf uploads once, is then served by the cache, and uploads
-  again after a write to one of its fragments; a fragment mirror's upload
-  has a span of its own and is no leaf's miss.
+  again after a write to one of its fragments, its check walking the
+  fragments only then (the counter storage.leaf_walk, which adds a count
+  and no time); a fragment mirror's upload has a span of its own and is no
+  leaf's miss.
 - One measurement, the `query` span's, feeds query_seconds and the
   tracker's runtime."""
 import itertools
@@ -115,12 +117,15 @@ def test_off_records_nothing(port, monkeypatch, kind):
     assert opened == []
 
 
-@pytest.mark.parametrize("opener", ["span", "start_span", "nested"])
+@pytest.mark.parametrize("opener", ["span", "start_span", "nested",
+                                    "count"])
 def test_off_span_is_shared_and_allocates_nothing(opener):
     def once():
         if opener == "span":
             with TRACER.span("storage.leaf"):
                 pass
+        elif opener == "count":
+            TRACER.count("storage.leaf_walk")
         elif opener == "start_span":
             with TRACER.start_span("executor.execute", "Count"):
                 pass
@@ -143,6 +148,22 @@ def test_off_span_is_shared_and_allocates_nothing(opener):
     assert after == before
     assert peak - before < 512     # no allocation a span (2000 of them)
     assert TRACER.totals() == {}
+
+
+def test_count_records_only_under_the_profiler():
+    """A counter adds to its name's count under the profiler, with no wall
+    or self time, and takes nothing from the span it is counted in."""
+    TRACER.count("storage.leaf_walk")
+    assert TRACER.totals() == {}
+    with all_threads():
+        with TRACER.span("storage.leaf"):
+            TRACER.count("storage.leaf_walk")
+            TRACER.count("storage.leaf_walk")
+    t = TRACER.totals()
+    assert t["storage.leaf_walk"] == {"count": 2, "wall_ns": 0,
+                                      "self_ns": 0}
+    assert t["storage.leaf"]["count"] == 1
+    assert t["storage.leaf"]["self_ns"] == t["storage.leaf"]["wall_ns"] > 0
 
 
 def span_names(span):
@@ -250,6 +271,8 @@ def test_upload_once_then_cached(port, write):
         assert uploads("Count(Row(f=1))") == 0
     leaf = TRACER.totals()["storage.leaf"]
     assert leaf["count"] == 4
+    # the miss and the check after the write walk; the hits take the clock
+    assert TRACER.totals()["storage.leaf_walk"]["count"] == 2
 
 
 @pytest.mark.parametrize("pql", ["GroupBy(Rows(f), Rows(g))",
